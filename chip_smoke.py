@@ -5,45 +5,63 @@
 
 Phases (any failure exits non-zero):
 
-  1. build   — compile every CUDA source of the port with nvcc
-               (kernels/_build.py) and print the build time;
-  2. parity  — every kernel, through the wrappers the main path calls,
-               against its plain torch version on the card: each type
-               pair x op, sorted and with the fused gather, at the q6
-               capacities 2^18, 2^20 and 2^24, with short groups and with
-               groups that carry across many tiles;
+  1. build   — compile every CUDA source of the port with nvcc, one
+               process per source, all started together (kernels/_build.py),
+               and print the build time;
+  2. parity  — every kernel, through the wrappers the main paths call,
+               against its plain torch version on the card: segreduce for
+               each type pair x op, sorted and with the fused gather, at
+               capacities 2^18, 2^20 and 2^24; unpack_bits for every width
+               1-32; decode over 4- and 8-byte dictionaries of 2^7, 2^15
+               and 2^20 entries with keep densities 0.25 and 0 and a fully
+               dropped range; decode_str at widths 1, 16, 64 and 256 with
+               empty rows and byte bases clipped at the buffer's end;
   3. entry   — ``entry(device="cuda")`` against pyarrow on the same table;
   4. q6      — the q6 query at TPC-DS SF10 ``store_sales`` scale
-               (28,800,991 rows, 8 partitions) through TpuHashAggregateExec,
-               checked against an independent pyarrow group_by; the kernel
-               launch counts are reset just before this run and read just
-               after it: every kernel must have launched, with no fallback;
-  5. timing  — q6 wall (median of 5 after 1 warm-up) and, per kernel at the
-               shapes and on the inputs q6 gave it, a check against the
-               plain version, its time (CUDA events), its bytes-moved
-               bound, the plain version's time and, as a yardstick only,
-               ``torch.segment_reduce`` (a reduction, not a scan; the port
-               never calls it).
+               (28,800,991 rows, 8 partitions) in memory, through
+               TpuHashAggregateExec, checked against an independent pyarrow
+               group_by, with its wall and sections;
+  5. q6-parquet — the same rows written as 8 Parquet files (the reference
+               bench's dataset) and scanned by the fused Parquet decode
+               with the filter pushed into the scan; cold run, then the
+               median of 5 warm runs with sections, the fused batches and
+               their capacities;
+  6. q6s-parquet — q6's filter grouped by the string key ss_item_id over 4
+               files of 2^20 rows (the string kernel's path, cut for time);
+  7. timing  — per kernel at the shapes and on the inputs the q6 paths
+               gave it (segreduce from both q6 runs, the Parquet one's
+               entries named ``name@q6-parquet``): a check against the
+               plain version, its time (CUDA events, L2 flushed), its bytes
+               bound, the plain version's time and a library call's where
+               one computes the same function.
 
-The line before the last carries the kernel table as JSON, the line before
-it the card's name and power limit; the last line is the result JSON.
-Long output goes to chiprun_out/chip_smoke.log.
+Before each q6 path the kernel launch counts are set to 0, and they are
+read just after it: every kernel of the path must have launched, with no
+fallback.  The line before the last carries the kernel table as JSON, the
+line before it the card's name and power limit; the last line is the
+result JSON.  Long output goes to chiprun_out/chip_smoke.log.
 """
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from functools import partial
 
 try:
     import numpy as np
     import pyarrow as pa
     import pyarrow.compute as pc
+    import pyarrow.parquet as papq
     import torch
     from spark_rapids_tpu_torch.kernels import _build
     from spark_rapids_tpu_torch.kernels import backend as kb
+    from spark_rapids_tpu_torch.kernels import decode as kdec
+    from spark_rapids_tpu_torch.kernels import filter_decode as kfd
     from spark_rapids_tpu_torch.kernels import segreduce as kseg
 except ImportError as e:  # run outside a checkout of the repo
     print(f"chip_smoke: cannot import the port: {e}", file=sys.stderr)
@@ -51,13 +69,26 @@ except ImportError as e:  # run outside a checkout of the repo
 
 Q6_ROWS = 28_800_991
 Q6_PARTS = 8
+Q6S_FILES = 4
+Q6S_ROWS = Q6S_FILES << 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 OUT_DIR = "chiprun_out"
-SOURCES = ["segreduce"]
+SOURCES = ["segreduce", "decode", "filter_decode"]
 REPLACES = {
     "segreduce.seg_scan_sorted": "spark_rapids_tpu/kernels/segreduce.py:278",
     "segreduce.gather_seg_scan": "spark_rapids_tpu/kernels/segreduce.py:286",
+    "decode.unpack_bits": "spark_rapids_tpu/kernels/decode.py:155",
+    "filter_decode.decode": "spark_rapids_tpu/kernels/filter_decode.py:125",
+    "filter_decode.decode_str":
+        "spark_rapids_tpu/kernels/filter_decode.py:178",
 }
+SOURCE_OF = {"segreduce": kseg.SOURCE, "decode": kdec.SOURCE,
+             "filter_decode": kfd.SOURCE}
+SEGREDUCE = ["segreduce.seg_scan_sorted", "segreduce.gather_seg_scan"]
+# the kernels each Parquet q6 path must launch
+Q6P_KERNELS = SEGREDUCE + ["decode.unpack_bits", "filter_decode.decode"]
+Q6S_KERNELS = ["decode.unpack_bits", "filter_decode.decode",
+               "filter_decode.decode_str"]
 
 _log_lines = []
 
@@ -88,10 +119,14 @@ def _write_log() -> None:
 # ---------------------------------------------------------------------------
 
 def phase_build() -> None:
+    """One nvcc per source, all started together."""
+    import concurrent.futures as cf
     t0 = time.perf_counter()
-    for name in SOURCES:
+    with cf.ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        futures = {name: pool.submit(_build.load, name) for name in SOURCES}
+    for name, fut in futures.items():
         try:
-            _build.load(name)
+            fut.result()
         except RuntimeError as e:
             fail(str(e)[-4000:])
         detail(f"--- nvcc {name}.cu ---\n"
@@ -208,6 +243,85 @@ def phase_parity() -> None:
         f"densities)")
 
 
+def _exact(got: torch.Tensor, want: torch.Tensor):
+    """(max_abs_err, bit-for-bit equal) of a kernel's output against its
+    plain version's."""
+    torch.cuda.synchronize()
+    if got.dtype.is_floating_point:
+        bits = torch.int32 if got.element_size() == 4 else torch.int64
+        same = torch.equal(got.view(bits), want.view(bits))
+    else:
+        same = torch.equal(got, want)
+    err = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    return err, same
+
+
+UNPACK_NCAP = 1 << 20
+DECODE_CAP = 1 << 21
+DECODE_DICTS = (1 << 7, 1 << 15, 1 << 20)
+DECODE_TYPES = (torch.int32, torch.float32, torch.int64, torch.float64)
+STR_CAP = 1 << 18
+STR_WIDTHS = (1, 16, 64, 256)
+
+
+def phase_parity_decode() -> None:
+    """unpack_bits, decode and decode_str through their wrappers against
+    their plain versions; integers and bytes must agree exactly, and the
+    float dictionaries' gathers bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n_ok = 0
+
+    def check(tag, got, want):
+        nonlocal n_ok
+        err, ok = _exact(got, want)
+        detail(f"parity {tag}: max_abs_err={err} ok={ok}")
+        if not ok:
+            fail(f"kernel != plain for {tag} (max err {err})")
+        n_ok += 1
+
+    for w in range(1, 33):
+        raw = torch.randint(0, 256, (UNPACK_NCAP * w // 8,), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+        check(f"unpack_bits w={w} ncap={UNPACK_NCAP}",
+              kdec.unpack_bits(raw, w, UNPACK_NCAP),
+              kdec.plain_unpack_bits(raw, w, UNPACK_NCAP))
+    for dlen in DECODE_DICTS:
+        for dtype in DECODE_TYPES:
+            dbuf = (torch.randn(dlen, generator=gen, device="cuda",
+                                dtype=torch.float64) * 1e6).to(dtype)
+            # codes past both ends: the clip applies
+            codes = torch.randint(-2, dlen + 2, (DECODE_CAP,), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            for density in (0.25, 0.0):
+                keep = torch.rand(DECODE_CAP, generator=gen,
+                                  device="cuda") < density
+                keep[1 << 18:(1 << 18) + (1 << 16)] = False
+                check(f"decode {dtype} dict={dlen} cap={DECODE_CAP} "
+                      f"keep={density}",
+                      kfd.decode(dbuf, codes, keep),
+                      kfd.plain_decode(dbuf, codes, keep))
+    dlen = 18_000 * 16
+    dbuf = torch.randint(0, 256, (dlen,), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    for width in STR_WIDTHS:
+        bb = torch.randint(0, dlen, (STR_CAP,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        bb[:1024] = dlen - 3          # rows that reach the end: clipped
+        lw = torch.randint(0, width + 1, (STR_CAP,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        lw[1024:2048] = 0
+        keep = torch.rand(STR_CAP, generator=gen, device="cuda") < 0.5
+        keep[:2048] = True
+        check(f"decode_str width={width} cap={STR_CAP}",
+              kfd.decode_str(dbuf, bb, lw, keep, width),
+              kfd.plain_decode_str(dbuf, bb, lw, keep, width))
+    log(f"parity: {n_ok} unpack_bits/decode/decode_str comparisons through "
+        f"the wrappers agree exactly (w 1-32 at ncap 2^20; dictionaries of "
+        f"2^7, 2^15, 2^20 entries at cap 2^21; widths "
+        f"{', '.join(map(str, STR_WIDTHS))})")
+
+
 # ---------------------------------------------------------------------------
 # 3. entry
 # ---------------------------------------------------------------------------
@@ -237,34 +351,60 @@ def phase_entry() -> None:
 # ---------------------------------------------------------------------------
 
 class ShapeRecorder:
-    """Wraps kernel_seg_scan to keep one copy of the inputs of each
-    distinct call shape (first call of its class) and the number of calls
-    per class.  Counting stays where it is: in the wrapper."""
+    """Wraps the launcher of every kernel to keep one copy of the inputs
+    of each distinct call shape (first call of its class, keyed by kernel
+    name and shape) and the number of calls per class.  Counting stays
+    where it is: in the wrappers."""
+
+    LAUNCHERS = ((kseg, "kernel_seg_scan"), (kdec, "kernel_unpack_bits"),
+                 (kfd, "kernel_decode"), (kfd, "kernel_decode_str"))
 
     def __init__(self):
         self.classes = {}
-        self._orig = kseg.kernel_seg_scan
+        self._orig = [getattr(mod, attr) for mod, attr in self.LAUNCHERS]
+
+    def _keep(self, key, args) -> None:
+        c = self.classes.get(key)
+        if c is None:
+            self.classes[key] = c = {
+                "name": key[0], "calls": 0,
+                "args": tuple(a.clone() if isinstance(a, torch.Tensor)
+                              else a for a in args)}
+        c["calls"] += 1
 
     def __enter__(self):
-        def rec(new, x, op_key, identity, order=None, out_dtype=None,
-                name="segreduce"):
-            key = (name, str(x.dtype), str(out_dtype or x.dtype), op_key,
-                   int(new.shape[0]), int(x.shape[0]))
-            c = self.classes.get(key)
-            if c is None:
-                self.classes[key] = c = {
-                    "calls": 0, "name": name, "op": op_key,
-                    "identity": identity, "out": out_dtype,
-                    "new": new.clone(), "x": x.clone(),
-                    "order": None if order is None else order.clone()}
-            c["calls"] += 1
-            return self._orig(new, x, op_key, identity, order, out_dtype,
-                              name=name)
-        kseg.kernel_seg_scan = rec
+        seg, unpack, decode, decode_str = self._orig
+
+        def rec_seg(new, x, op_key, identity, order=None, out_dtype=None,
+                    name="segreduce"):
+            self._keep((name, str(x.dtype), str(out_dtype or x.dtype),
+                        op_key, int(new.shape[0]), int(x.shape[0])),
+                       (new, x, op_key, identity, order, out_dtype))
+            return seg(new, x, op_key, identity, order, out_dtype,
+                       name=name)
+
+        def rec_unpack(b, w, ncap):
+            self._keep(("decode.unpack_bits", w, ncap), (b, w, ncap))
+            return unpack(b, w, ncap)
+
+        def rec_decode(dbuf, codes, keep):
+            self._keep(("filter_decode.decode", str(dbuf.dtype),
+                        dbuf.shape[0], codes.shape[0]), (dbuf, codes, keep))
+            return decode(dbuf, codes, keep)
+
+        def rec_decode_str(dbuf, bb, lw, keep, width):
+            self._keep(("filter_decode.decode_str", dbuf.shape[0],
+                        bb.shape[0], width), (dbuf, bb, lw, keep, width))
+            return decode_str(dbuf, bb, lw, keep, width)
+
+        for (mod, attr), fn in zip(self.LAUNCHERS, (
+                rec_seg, rec_unpack, rec_decode, rec_decode_str)):
+            setattr(mod, attr, fn)
         return self
 
     def __exit__(self, *a):
-        kseg.kernel_seg_scan = self._orig
+        for (mod, attr), fn in zip(self.LAUNCHERS, self._orig):
+            setattr(mod, attr, fn)
 
 
 def q6_reference(table: pa.Table) -> pa.Table:
@@ -308,7 +448,7 @@ def phase_q6():
     log(f"q6: {out.num_rows} groups match pyarrow (avg max rel {rel:.3g}); "
         f"launches {launches}; fallbacks {fallbacks}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for name in REPLACES:
+    for name in SEGREDUCE:
         if launches.get(name, 0) <= 0:
             fail(f"q6 did not launch {name}")
     if fallbacks:
@@ -344,17 +484,191 @@ def phase_q6():
     return launches, shapes.classes
 
 
+# exec sections timed in Metrics.extra (nanoseconds); the other extras
+# are counts
+TIME_SECTIONS = ("transition.upload", "scan.hostPrepTime", "scan.uploadTime",
+                 "scan.dispatch", "agg.update", "agg.merge")
+
+
 def _sections(plan) -> dict:
-    """Host seconds per exec section of one q6 run: the Arrow -> device
-    upload, the aggregate's update and merge; the rest of the wall is
-    the scan's slicing, finalize and the download."""
+    """Host seconds per exec section of one q6 run: the upload (Arrow ->
+    device in memory; host prep, upload and the fused decode's dispatch
+    for Parquet), the aggregate's update and merge; the rest of the wall
+    is the scan's slicing, finalize and the download."""
     out = {}
 
     def one(node):
         for k, ns in node.metrics.extra.items():
-            out[k] = out.get(k, 0.0) + ns / 1e9
+            if k in TIME_SECTIONS:
+                out[k] = out.get(k, 0.0) + ns / 1e9
     plan.foreach(one)
     return out
+
+
+# ---------------------------------------------------------------------------
+# 5-6. q6 and q6s over Parquet files
+# ---------------------------------------------------------------------------
+
+def _parquet_dir(tag: str) -> str:
+    """A fresh directory under chiprun_out/ for one phase's files; the
+    phase removes it (the files are far larger than what a run may bring
+    back)."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"{tag}-", dir=OUT_DIR)
+
+
+def _check_launches(tag: str, launches, fallbacks, want) -> None:
+    for name in want:
+        if launches.get(name, 0) <= 0:
+            fail(f"{tag} did not launch {name}")
+    if fallbacks:
+        fail(f"{tag} took plain fallbacks: {fallbacks}")
+
+
+def _scan_of(plan):
+    from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+    found = []
+    plan.foreach(lambda n: found.append(n)
+                 if isinstance(n, TpuParquetScanExec) else None)
+    return found[0]
+
+
+def _fmt_sections(sec: dict, wall: float) -> str:
+    rest = wall - sum(sec.values())
+    return ", ".join([f"{k} {v * 1e3:.1f} ms" for k, v in sec.items()] +
+                     [f"rest {rest * 1e3:.1f} ms"])
+
+
+def _timed_run(make_plan):
+    """(output, plan, host-clock s, CUDA-event s) of one run."""
+    from spark_rapids_tpu_torch.entry import collect
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    plan = make_plan()
+    out = collect(plan)
+    end.record()
+    torch.cuda.synchronize()
+    return out, plan, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+
+def phase_q6_parquet():
+    from spark_rapids_tpu_torch.columnar.batch import bucket_rows
+    from spark_rapids_tpu_torch.entry import (q6_parquet_plan,
+                                              write_store_sales)
+    from spark_rapids_tpu_torch.io import parquet_meta as pm
+    from spark_rapids_tpu_torch.io import scan_cache as sc
+    root = _parquet_dir("q6-parquet")
+    try:
+        t0 = time.perf_counter()
+        write_store_sales(root, Q6_ROWS, files=Q6_PARTS)
+        nbytes = sum(os.path.getsize(os.path.join(root, f))
+                     for f in os.listdir(root))
+        ref = q6_reference(papq.read_table(root, columns=[
+            "ss_item_sk", "ss_quantity", "ss_sales_price",
+            "ss_ext_sales_price"]))
+        log(f"q6-parquet: wrote {Q6_ROWS} rows in {Q6_PARTS} files "
+            f"({nbytes / 2**20:.1f} MiB) + pyarrow reference in "
+            f"{time.perf_counter() - t0:.1f} s ({ref.num_rows} groups)")
+        # room for every chunk plan of the run, so warm runs walk nothing
+        sc.configure(True, 8 << 30)
+        sc.clear()
+        torch.cuda.reset_peak_memory_stats()
+        walks0 = pm.walk_count()
+        kb.reset_counts()
+        with ShapeRecorder() as shapes:
+            out, plan, wall, ev = _timed_run(
+                lambda: q6_parquet_plan(root, device="cuda"))
+        launches = dict(kb.launches)
+        fallbacks = dict(kb.fallbacks)
+        walks = pm.walk_count() - walks0
+        rel = check_q6(out, ref)
+        scan = _scan_of(plan)
+        fb_cols = scan.metrics.extra["fallbackColumns"]
+        log(f"q6-parquet: {out.num_rows} groups match pyarrow (avg max rel "
+            f"{rel:.3g}); launches {launches}; fallbacks {fallbacks}; "
+            f"fallbackColumns {fb_cols}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        _check_launches("q6-parquet", launches, fallbacks, Q6P_KERNELS)
+        if fb_cols:
+            fail(f"q6-parquet decoded {fb_cols} columns on the host")
+        groups = scan._fused_groups()
+        caps = {}
+        for srcs, _pv in groups:
+            rows = sum(sc.get_footer(p).metadata.row_group(rg).num_rows
+                       for p, rg in srcs)
+            caps[bucket_rows(rows)] = caps.get(bucket_rows(rows), 0) + 1
+        log(f"q6-parquet fused batches: {len(groups)} "
+            f"({scan.metrics.num_output_batches} emitted), capacities "
+            + ", ".join(f"{n} x 2^{c.bit_length() - 1}"
+                        for c, n in sorted(caps.items())))
+        log(f"q6-parquet cold run (footers, {walks} page walks, plan cache "
+            f"empty): {wall * 1e3:.1f} ms on the host clock, "
+            f"{ev * 1e3:.1f} ms between CUDA events; sections "
+            f"{_fmt_sections(_sections(plan), wall)}")
+        walls, events, sections = [], [], []
+        walks0 = pm.walk_count()
+        for i in range(5):
+            o, plan, wall, ev = _timed_run(
+                lambda: q6_parquet_plan(root, device="cuda"))
+            walls.append(wall)
+            events.append(ev)
+            sections.append(_sections(plan))
+            if i == 0:
+                check_q6(o, ref)
+        if pm.walk_count() != walks0:
+            fail(f"warm q6-parquet runs walked "
+                 f"{pm.walk_count() - walks0} chunks")
+        med_wall = statistics.median(walls)
+        med = {k: statistics.median(s[k] for s in sections)
+               for k in sections[0]}
+        log(f"q6-parquet warm wall: median {med_wall * 1e3:.1f} ms of 5 on "
+            f"the host clock, {statistics.median(events) * 1e3:.1f} ms "
+            f"between CUDA events (host-clock runs ms: "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}); 0 page walks; "
+            f"plan cache {sc.stats()}")
+        log("q6-parquet warm wall by section (host clock, median of 5; the "
+            "aggregate's rung and merge choices read the device, so its "
+            "sections include the device work): "
+            + _fmt_sections(med, med_wall))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, shapes.classes
+
+
+def phase_q6s_parquet():
+    from spark_rapids_tpu_torch.entry import (q6s_parquet_plan,
+                                              write_store_sales)
+    root = _parquet_dir("q6s-parquet")
+    try:
+        write_store_sales(root, Q6S_ROWS, files=Q6S_FILES, item_id=True)
+        t = papq.read_table(root, columns=["ss_item_id", "ss_quantity",
+                                           "ss_sales_price"])
+        f = t.filter(pc.greater(t["ss_sales_price"], 150.0))
+        ref = f.group_by("ss_item_id").aggregate(
+            [("ss_item_id", "count"), ("ss_quantity", "sum")]
+        ).sort_by("ss_item_id")
+        kb.reset_counts()
+        with ShapeRecorder() as shapes:
+            out, _plan, wall, ev = _timed_run(
+                lambda: q6s_parquet_plan(root, device="cuda"))
+        launches = dict(kb.launches)
+        fallbacks = dict(kb.fallbacks)
+        out = out.sort_by("ss_item_id")
+        for got, want in (("ss_item_id", "ss_item_id"),
+                          ("cnt", "ss_item_id_count"),
+                          ("qty", "ss_quantity_sum")):
+            if out[got].to_pylist() != ref[want].to_pylist():
+                fail(f"q6s column {got} differs from pyarrow")
+        log(f"q6s-parquet: {Q6S_ROWS} rows in {Q6S_FILES} files, "
+            f"{out.num_rows} string groups match pyarrow; cold wall "
+            f"{wall * 1e3:.1f} ms ({ev * 1e3:.1f} ms between CUDA events); "
+            f"launches {launches}; fallbacks {fallbacks}")
+        _check_launches("q6s-parquet", launches, fallbacks, Q6S_KERNELS)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, shapes.classes
 
 
 # ---------------------------------------------------------------------------
@@ -390,65 +704,130 @@ def _segments(new: torch.Tensor) -> torch.Tensor:
     return ends - starts
 
 
-def phase_timing(launches, classes):
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    per_kernel = {n: [] for n in REPLACES}
-    for key, c in sorted(classes.items(), key=lambda kv: str(kv[0])):
-        new, x, order = c["new"], c["x"], c["order"]
-        op, ident, out = c["op"], c["identity"], c["out"]
+def _summary(label: str, name: str, rows, launches) -> dict:
+    """One kernel's JSON entry: launch-weighted means over its shapes."""
+    calls = sum(r["calls"] for r in rows)
+
+    def mean(k):
+        have = [r for r in rows if r[k] is not None]
+        if not have:
+            return None
+        w = sum(r["calls"] for r in have)
+        return sum(r[k] * r["calls"] for r in have) / w
+    entry = {
+        "name": label, "route": "cuda",
+        "source": SOURCE_OF[name.split(".")[0]], "replaces": REPLACES[name],
+        "launches": launches.get(name, 0),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"), "bound_by": "bytes",
+        "library_ms": mean("library_ms")}
+    log(f"timing {label}: {calls} calls/query, launch-weighted mean "
+        f"kernel {entry['ms']:.4f} ms vs bound {entry['bound_ms']:.4f} ms")
+    return entry
+
+
+class Case:
+    """One recorded kernel input: ``run`` calls the kernel through its
+    wrapper, ``plain`` its plain version; ``check`` returns (max_abs_err,
+    ok) of the two, bit for bit unless given; ``nbytes`` is what the
+    function must move (each input read once, each output written once,
+    counting what this input's data needs); ``library`` is one torch call
+    computing the same function, or None."""
+
+    def __init__(self, run, plain, nbytes, shape, check=None, library=None):
+        self.run, self.plain = run, plain
+        self.nbytes, self.shape = nbytes, shape
+        self.check = check or (lambda: _exact(run(), plain()))
+        self.library = library
+
+
+def _case(name: str, args) -> Case:
+    if name in SEGREDUCE:
+        new, x, op, ident, order, out = args
         out_t = out or x.dtype
         cap = new.shape[0]
-        err, ok = compare(new, x, op, ident, order, out)
-        if not ok:
-            fail(f"kernel != plain at the q6 shape {key} (max err {err})")
-        ms = _time_device(lambda: wrapper_scan(
-            new, x, op, ident, order, out), flush=flush)
-        plain_ms = _time_device(lambda: kseg.plain_seg_scan(
-            new, x, op, ident, order, out), reps=5, flush=flush)
         gathered = (x if order is None else x[order.long()]).to(out_t)
-        lengths = _segments(new)
         reduce = {"add": "sum", "min": "min", "max": "max"}[op]
-        try:
-            library_ms = _time_device(lambda: torch.segment_reduce(
-                gathered, reduce, lengths=lengths), flush=flush)
-        except (RuntimeError, NotImplementedError):
-            library_ms = None      # no segment_reduce for this dtype
-        isz_in, isz_out = x.element_size(), gathered.element_size()
-        nbytes = cap * ((4 if order is not None else 0) + 1 + isz_in +
-                        isz_out)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        row = {"shape": f"{key[1]}->{key[2]} {op} cap={cap} src={key[5]}",
-               "calls": c["calls"], "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "bytes": nbytes, "max_abs_err": err}
-        per_kernel[c["name"]].append(row)
-        log(f"timing {c['name']} [{row['shape']}] x{c['calls']}/query: "
-            f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_ms / ms:.1%} of roofline), plain {plain_ms:.3f} ms, "
-            f"segment_reduce "
-            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, "
-            f"max_abs_err {err:g}")
-    kernels = []
-    for name, rows in per_kernel.items():
-        calls = sum(r["calls"] for r in rows)
+        return Case(
+            partial(wrapper_scan, new, x, op, ident, order, out),
+            partial(kseg.plain_seg_scan, new, x, op, ident, order, out),
+            cap * ((4 if order is not None else 0) + 1 + x.element_size() +
+                   gathered.element_size()),
+            f"{x.dtype}->{out_t} {op} cap={cap} src={x.shape[0]}",
+            check=partial(compare, new, x, op, ident, order, out),
+            library=partial(torch.segment_reduce, gathered, reduce,
+                            lengths=_segments(new)))
+    if name == "decode.unpack_bits":
+        b, w, ncap = args
+        return Case(partial(kdec.unpack_bits, b, w, ncap),
+                    partial(kdec.plain_unpack_bits, b, w, ncap),
+                    b.shape[0] + 4 * ncap, f"w={w} ncap={ncap}")
+    if name == "filter_decode.decode":
+        # keep bytes; per kept row its code; each dictionary entry at
+        # most once; the output
+        dbuf, codes, keep = args
+        cap, esize, dlen = codes.shape[0], dbuf.element_size(), dbuf.shape[0]
+        kept = int(keep.sum())
+        return Case(partial(kfd.decode, dbuf, codes, keep),
+                    partial(kfd.plain_decode, dbuf, codes, keep),
+                    cap + 4 * kept + min(kept, dlen) * esize + cap * esize,
+                    f"{dbuf.dtype} dict={dlen} cap={cap} kept={kept}")
+    # decode_str: keep bytes; per kept row its byte base and length; each
+    # dictionary byte at most once; the output
+    dbuf, bb, lw, keep, width = args
+    cap, dlen = bb.shape[0], dbuf.shape[0]
+    kept = int(keep.sum())
+    kept_bytes = int(torch.where(keep, lw.clamp(0, width), 0).sum())
+    return Case(partial(kfd.decode_str, dbuf, bb, lw, keep, width),
+                partial(kfd.plain_decode_str, dbuf, bb, lw, keep, width),
+                cap + 8 * kept + min(kept_bytes, dlen) + cap * width,
+                f"dict={dlen} B cap={cap} width={width} kept={kept} "
+                f"kept_bytes={kept_bytes}")
 
-        def mean(k, rs=rows):
-            have = [r for r in rs if r[k] is not None]
-            if not have:
-                return None
-            w = sum(r["calls"] for r in have)
-            return sum(r[k] * r["calls"] for r in have) / w
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": kseg.SOURCE, "replaces": REPLACES[name],
-            "launches": launches.get(name, 0),
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-            "bound_ms": mean("bound_ms"), "bound_by": "bytes",
-            "library_ms": mean("library_ms")})
-        log(f"timing {name}: {calls} calls/query, launch-weighted mean "
-            f"kernel {kernels[-1]['ms']:.4f} ms vs bound "
-            f"{kernels[-1]['bound_ms']:.4f} ms")
+
+def phase_timing(paths):
+    """``paths``: (tag, launches, recorded classes, kernel names) of each
+    q6 run.  Each listed kernel is checked against its plain version and
+    timed at every shape that run gave it; a kernel listed under more than
+    one run is named ``name@tag`` after its first entry.  No single torch
+    call computes the predicated decode functions, so their library_ms is
+    null; segreduce's is ``torch.segment_reduce`` where the dtype has one."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    kernels, seen = [], set()
+    for tag, launches, classes, names in paths:
+        for name in names:
+            rows = []
+            for key, c in sorted(classes.items(), key=lambda kv: str(kv[0])):
+                if c["name"] != name:
+                    continue
+                case = _case(name, c["args"])
+                err, ok = case.check()
+                if not ok:
+                    fail(f"kernel != plain at the {tag} shape {key} "
+                         f"(max err {err})")
+                ms = _time_device(case.run, flush=flush)
+                plain_ms = _time_device(case.plain, reps=5, flush=flush)
+                library_ms = None
+                if case.library is not None:
+                    try:
+                        library_ms = _time_device(case.library, flush=flush)
+                    except (RuntimeError, NotImplementedError):
+                        pass       # no segment_reduce for this dtype
+                bound_ms = case.nbytes / HBM_BYTES_PER_S * 1e3
+                rows.append({"calls": c["calls"], "ms": ms,
+                             "plain_ms": plain_ms, "library_ms": library_ms,
+                             "bound_ms": bound_ms, "max_abs_err": err})
+                lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+                log(f"timing {name} {tag} [{case.shape}] x{c['calls']}/query: "
+                    f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({bound_ms / ms:.1%} of roofline), plain "
+                    f"{plain_ms:.3f} ms, library {lib}, max_abs_err {err:g}")
+            if not rows:
+                fail(f"no recorded call of {name} in {tag}")
+            label = f"{name}@{tag}" if name in seen else name
+            seen.add(name)
+            kernels.append(_summary(label, name, rows, launches))
     return kernels
 
 
@@ -458,19 +837,25 @@ def main() -> int:
               file=sys.stderr)
         return 1
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
-        ["build", "parity", "entry", "q6"]
+        ["build", "parity", "entry", "q6", "q6p", "q6s"]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     phase_build()
     if "parity" in phases:
         phase_parity()
+        phase_parity_decode()
     if "entry" in phases:
         phase_entry()
     kernels = None
-    if "q6" in phases:
-        launches, classes = phase_q6()
-        kernels = phase_timing(launches, classes)
+    if {"q6", "q6p", "q6s"} <= set(phases):
+        q6 = phase_q6()
+        q6p = phase_q6_parquet()
+        q6s = phase_q6s_parquet()
+        kernels = phase_timing([
+            ("q6", *q6, SEGREDUCE),
+            ("q6-parquet", *q6p, Q6P_KERNELS),
+            ("q6s-parquet", *q6s, ["filter_decode.decode_str"])])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -132,7 +132,11 @@ def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 class DeviceBatch:
-    """A batch of device columns with a logical row count."""
+    """A batch of device columns with a logical row count.
+
+    A batch without columns (a scan that reads no column, a count(*))
+    has no tensor to take its device from, so it needs ``device`` or a
+    ``num_rows`` that is a device tensor."""
 
     def __init__(self, names: Sequence[str], columns: Sequence[DeviceColumn],
                  num_rows, device=None):
@@ -148,9 +152,13 @@ class DeviceBatch:
             self.device = self.columns[0].data.device
         else:
             self._capacity = bucket_rows(int(num_rows))
-            self.device = torch.device(device) if device is not None \
-                else (num_rows.device if isinstance(num_rows, torch.Tensor)
-                      else torch.device("cpu"))
+            if device is not None:
+                self.device = torch.device(device)
+            elif isinstance(num_rows, torch.Tensor):
+                self.device = num_rows.device
+            else:
+                raise ValueError("DeviceBatch without columns needs a "
+                                 "device")
 
     @property
     def capacity(self) -> int:
@@ -425,7 +433,7 @@ def concat_batches(batches: Sequence[DeviceBatch],
                 _pad_rows(torch.cat([c.validity[:nb] for c, nb in parts]),
                           cap),
                 None, vbits=vb, nonnull=nn))
-    return DeviceBatch(names, out_cols, total)
+    return DeviceBatch(names, out_cols, total, batches[0].device)
 
 
 def _concat_batches_nosync(batches: Sequence[DeviceBatch],
@@ -487,4 +495,4 @@ def _concat_batches_nosync(batches: Sequence[DeviceBatch],
         out_cols.append(gcol)
     total = sum(torch.as_tensor(b.num_rows, dtype=torch.int64, device=dev)
                 for b in batches)
-    return DeviceBatch(names, out_cols, total)
+    return DeviceBatch(names, out_cols, total, dev)

@@ -1,5 +1,9 @@
 """Carry a batch's state across as numpy arrays.
 
+The second carrier, :func:`fused_arrays_to_torch`, uploads the numpy
+upload set of a fused Parquet plan (``_FusedPlan.arrays`` of either
+package) for the port's device half.
+
 A batch is fully described by its *leaves*: the column names, each
 column's dtype name, data, validity, lengths, elem_validity, ``vbits``
 and ``nonnull`` hints, and the batch's ``num_rows``.  Parity tests read
@@ -69,3 +73,14 @@ def batch_to_numpy(batch: DeviceBatch) -> Dict[str, Any]:
                      "vbits": c.vbits, "nonnull": bool(c.nonnull)}
                     for c in batch.columns],
     }
+
+
+def fused_arrays_to_torch(np_arrays: Dict[str, np.ndarray],
+                          device="cuda") -> Dict[str, torch.Tensor]:
+    """A fused Parquet plan's upload set (``_FusedPlan.arrays``: packed
+    bits, run tables, meta, plain and dictionary buffers, all numpy) as
+    tensors on ``device``, key by key.  On the CPU a writable array is
+    shared, not copied; the decode never writes into its inputs."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(v if v.flags.writeable else v.copy()).to(dev)
+            for k, v in np_arrays.items()}

@@ -77,6 +77,29 @@ KERNEL_ABI_BUCKET_HINTS = conf(
     "Re-bucket DeviceColumn.vbits value-range hints to {16, 32, 56}.",
     bool)
 
+MAX_READER_BATCH_SIZE_ROWS = conf(
+    "spark.rapids.tpu.sql.reader.batchSizeRows", 1 << 21,
+    "Max rows a file reader emits per batch. (reference: RapidsConf.scala:378)",
+    int)
+
+MAX_READER_BATCH_SIZE_BYTES = conf(
+    "spark.rapids.tpu.sql.reader.batchSizeBytes", 2 << 30,
+    "Max bytes a file reader emits per batch.", int)
+
+PARQUET_FUSED_DECODE = conf(
+    "spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled", True,
+    "Decode all columns of all coalesced row groups of a scan batch in "
+    "one fused pass (io/parquet_fused.py).  The port has no per-column "
+    "decode yet: with this off, the Parquet scan raises "
+    "NotImplementedError.", bool)
+
+SCAN_HOST_PREP_THREADS = conf(
+    "spark.rapids.tpu.sql.scan.hostPrep.threads", 4,
+    "Thread-pool size for parallel scan host prep: page-header and RLE "
+    "run-boundary walks across (column, row-group) pairs run "
+    "concurrently instead of sequentially (page reads and codec "
+    "decompression release the GIL). 1 disables the pool.", int)
+
 
 class RapidsTpuConf:
     """Accessor over a settings map."""

@@ -12,20 +12,32 @@
                          count(*), sum(ss_quantity),
                          avg(ss_ext_sales_price)) -> DeviceToHostExec.
 ``gen_store_sales``    — the bench's q6-class fact table, from a seed.
+``write_store_sales(root, n, files)`` — the same table as the bench's
+                         Parquet files (``bench.py:_write_dataset``).
+``q6_parquet_plan(root, ...)`` — q6 over those files: TpuParquetScanExec
+                         (fused decode, the filter pushed into the scan)
+                         -> TpuHashAggregateExec -> DeviceToHostExec.
+``q6s_parquet_plan(root, ...)`` — the same filter grouped by the string
+                         column ``ss_item_id`` (files written with
+                         ``item_id=True``): count(*), sum(ss_quantity).
 
-Both run the segmented-reduction kernel on ``cuda`` (the default, which
-raises without a GPU) and its plain torch version on ``cpu``.
+All of them run the port's kernels on ``cuda`` (the default, which raises
+without a GPU) and their plain torch versions on ``cpu``.
 """
 
 from __future__ import annotations
 
-from typing import List
+import glob
+import os
+from typing import List, Optional
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.parquet as papq
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import from_arrow, resolve_device
+from spark_rapids_tpu_torch.config import RapidsTpuConf
 from spark_rapids_tpu_torch.exec.cpu import CpuScanExec
 from spark_rapids_tpu_torch.exec.tpu_aggregate import (TpuHashAggregateExec,
                                                        finalize_aggregate,
@@ -34,7 +46,8 @@ from spark_rapids_tpu_torch.exec.tpu_aggregate import (TpuHashAggregateExec,
 from spark_rapids_tpu_torch.exec.tpu_basic import (DeviceToHostExec,
                                                    HostToDeviceExec, compact)
 from spark_rapids_tpu_torch.expr import eval_tpu, ir
-from spark_rapids_tpu_torch.plan.logical import Field, Schema
+from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+from spark_rapids_tpu_torch.plan.logical import Field, FileScan, Schema
 
 
 def _example_table(n: int = 1024) -> pa.Table:
@@ -119,6 +132,110 @@ def q6_plan(table: pa.Table, partitions: int = 8, device="cuda",
     agg.fused_condition = _bind(schema, ir.GreaterThan(
         ir.UnresolvedAttribute("ss_sales_price"), ir.Literal(150.0)))
     return DeviceToHostExec(agg)
+
+
+ITEM_ID_LEN = 16
+
+
+def item_ids(item_sk: np.ndarray) -> pa.Array:
+    """TPC-DS ``i_item_id``-style business keys: the item key as 16
+    letters A-P, one per 4-bit digit, least significant first."""
+    keys = np.arange(int(item_sk.max(initial=0)) + 1, dtype=np.int64)
+    digits = (keys[:, None] >> (4 * np.arange(ITEM_ID_LEN))) & 15
+    table = (digits + ord("A")).astype(np.uint8)
+    ids = np.array([r.tobytes().decode("ascii") for r in table],
+                   dtype=object)
+    return pa.array(ids[item_sk], type=pa.string())
+
+
+def write_store_sales(root: str, n: int, files: int = 8, seed: int = 100,
+                      item_id: bool = False) -> List[str]:
+    """Write ``n`` rows of :func:`gen_store_sales` as ``files`` Parquet
+    files under ``root``, file i from seed ``seed + i`` — the reference
+    bench's ``_write_dataset``: dictionary pages on ss_sold_date_sk,
+    ss_item_sk and ss_quantity (and on ss_item_id, the string key of
+    :func:`item_ids`, with ``item_id``).  The remainder of ``n // files``
+    goes to the first files.  Returns the paths."""
+    os.makedirs(root, exist_ok=True)
+    dict_cols = ["ss_sold_date_sk", "ss_item_sk", "ss_quantity"]
+    if item_id:
+        dict_cols.append("ss_item_id")
+    paths = []
+    for i in range(files):
+        rows = n // files + (1 if i < n % files else 0)
+        t = gen_store_sales(rows, seed=seed + i)
+        if item_id:
+            t = t.append_column("ss_item_id", item_ids(
+                t["ss_item_sk"].to_numpy()))
+        path = os.path.join(root, f"part-{i:04d}.parquet")
+        papq.write_table(t, path, use_dictionary=dict_cols)
+        paths.append(path)
+    return paths
+
+
+def _parquet_scan(root: str, columns: List[str], conf: RapidsTpuConf,
+                  device) -> TpuParquetScanExec:
+    from spark_rapids_tpu_torch.io import scan_cache as sc
+    paths = sorted(glob.glob(os.path.join(glob.escape(root), "*.parquet")))
+    if not paths:
+        raise FileNotFoundError(f"no Parquet files under {root}")
+    schema = Schema.from_arrow(sc.get_footer(paths[0]).schema_arrow)
+    return TpuParquetScanExec(
+        FileScan("parquet", paths, schema, {"columns": columns}), conf,
+        device=device)
+
+
+def _filtered_aggregate(scan: TpuParquetScanExec, key: str,
+                        aggregates, out_names: List[str]
+                        ) -> DeviceToHostExec:
+    """``scan`` -> filter ss_sales_price > 150.0 fused into the
+    aggregate and pushed into the scan, as the reference's planner sets
+    both (``_fuse_filters_into_aggregates``, ``_push_scan_filters``)."""
+    schema = scan.schema
+    cond = _bind(schema, ir.GreaterThan(
+        ir.UnresolvedAttribute("ss_sales_price"), ir.Literal(150.0)))
+    k = _bind(schema, ir.UnresolvedAttribute(key))
+    out_schema = Schema([Field(out_names[0], k.dtype)] + [
+        Field(nm, a.dtype) for nm, a in zip(out_names[1:], aggregates)])
+    agg = TpuHashAggregateExec(scan, [k], aggregates, out_schema)
+    agg.fused_condition = cond
+    scan._pushed_filter = cond
+    return DeviceToHostExec(agg)
+
+
+def q6_parquet_plan(root: str, device="cuda",
+                    conf: Optional[RapidsTpuConf] = None
+                    ) -> DeviceToHostExec:
+    """q6 over the Parquet files under ``root`` (:func:`write_store_sales`),
+    scanning the four columns the reference's planner prunes to.  Run it
+    with :func:`collect`."""
+    scan = _parquet_scan(root, ["ss_item_sk", "ss_quantity",
+                                "ss_sales_price", "ss_ext_sales_price"],
+                         conf or RapidsTpuConf(), device)
+    schema = scan.schema
+    aggregates = _resolved([
+        ir.Count(None),
+        ir.Sum(_bind(schema, ir.UnresolvedAttribute("ss_quantity"))),
+        ir.Average(_bind(schema,
+                         ir.UnresolvedAttribute("ss_ext_sales_price")))])
+    return _filtered_aggregate(scan, "ss_item_sk", aggregates, Q6_OUT)
+
+
+Q6S_OUT = ["ss_item_id", "cnt", "qty"]
+
+
+def q6s_parquet_plan(root: str, device="cuda",
+                     conf: Optional[RapidsTpuConf] = None
+                     ) -> DeviceToHostExec:
+    """q6's filter grouped by the string key ``ss_item_id`` — count(*),
+    sum(ss_quantity) — over files written with ``item_id=True``."""
+    scan = _parquet_scan(root, ["ss_item_id", "ss_quantity",
+                                "ss_sales_price"],
+                         conf or RapidsTpuConf(), device)
+    aggregates = _resolved([
+        ir.Count(None),
+        ir.Sum(_bind(scan.schema, ir.UnresolvedAttribute("ss_quantity")))])
+    return _filtered_aggregate(scan, "ss_item_id", aggregates, Q6S_OUT)
 
 
 def collect(plan) -> pa.Table:

@@ -1,0 +1,173 @@
+"""Parquet scan exec whose decode runs on the device.
+
+Ported from ``spark_rapids_tpu/io/device_scan.py``: ``TpuParquetScanExec``
+(:73) with its fused coalescing reader.  Row groups of the scan's files
+group greedily into batches bounded by ``sql.reader.batchSizeRows`` /
+``batchSizeBytes`` (the reference's multi-file coalescing goal); each
+batch is one host prep + upload (io/parquet_fused.prepare_fused) and one
+fused decode on ``device`` (finish_fused).  Hive partition-value columns
+are appended as constant columns.
+
+Not ported yet: the per-column decode (taken by the reference when fused
+decode is off or the plan reads ``input_file_name()``; here it raises
+``NotImplementedError``), the ``ScanPrefetcher`` look-ahead and scan
+sharing (io/scan_share.py).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import config as cfg
+from spark_rapids_tpu_torch import dtypes as dt
+from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
+                                                   _bucket_strlen,
+                                                   resolve_device)
+from spark_rapids_tpu_torch.exec.base import TpuExec, timed
+from spark_rapids_tpu_torch.plan.logical import FileScan, Schema
+
+
+def _const_column(dtype: dt.DType, raw: Optional[str], cap: int,
+                  n_rows: int, device: torch.device) -> DeviceColumn:
+    """Device constant column for one partition value."""
+    row_valid = torch.arange(cap, device=device) < n_rows
+    if raw is None:
+        if dtype.is_string:
+            return DeviceColumn(
+                dtype, torch.zeros((cap, 1), dtype=torch.uint8,
+                                   device=device),
+                torch.zeros(cap, dtype=torch.bool, device=device),
+                torch.zeros(cap, dtype=torch.int32, device=device))
+        return DeviceColumn(
+            dtype, torch.zeros(cap, dtype=dtype.to_torch(), device=device),
+            torch.zeros(cap, dtype=torch.bool, device=device))
+    if dtype.is_string:
+        b = raw.encode("utf-8")
+        row = np.zeros((_bucket_strlen(len(b)),), dtype=np.uint8)
+        row[:len(b)] = np.frombuffer(b, dtype=np.uint8)
+        data = torch.from_numpy(row).to(device).expand(cap, -1)
+        lens = torch.where(row_valid, len(b), 0).to(torch.int32)
+        return DeviceColumn(dtype, data, row_valid, lens)
+    val = np.asarray(raw, dtype=dtype.to_np()) if dtype.to_np().kind != "i" \
+        else np.asarray(int(raw), dtype=dtype.to_np())
+    data = torch.where(row_valid, torch.from_numpy(val).to(device),
+                       torch.zeros((), dtype=dtype.to_torch(),
+                                   device=device))
+    return DeviceColumn(dtype, data, row_valid)
+
+
+class TpuParquetScanExec(TpuExec):
+    """Device-decoding Parquet scan (yields DeviceBatch on ``device``).
+
+    ``_pushed_filter`` is the consumer's condition, bound over this
+    scan's output names, which the planner pushes into the scan (the
+    reference's ``plan/overrides._push_scan_filters``): dictionary
+    columns it does not read then decode only for the rows it keeps."""
+
+    def __init__(self, scan: FileScan, conf, device="cuda"):
+        super().__init__()
+        self.scan = scan
+        self.conf = conf
+        self.device = resolve_device(device)
+        self.columns = scan.options.get("columns")
+        self._schema = scan.schema if not self.columns else Schema(
+            [scan.schema.field(c) for c in self.columns])
+        self.part_fields = dict(scan.options.get("part_fields") or [])
+        # cleared when the plan reads input_file_name() (the reference's
+        # coalescing reader bails out the same way)
+        self.allow_fused = True
+        self._pushed_filter = None
+        self.metrics.extra["fallbackColumns"] = 0
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def execute(self) -> List[Iterator[DeviceBatch]]:
+        if self.allow_fused and self.conf.get(cfg.PARQUET_FUSED_DECODE):
+            return self._execute_fused()
+        raise NotImplementedError("per-column decode: expand_stream")
+
+    def _fused_groups(self):
+        """Greedy grouping of (file, row-group) pairs: same partition
+        values, bounded by reader batchSizeRows/Bytes.  Files open only
+        transiently here (footer metadata, through the scan cache)."""
+        from spark_rapids_tpu_torch.io import scan_cache as sc
+        from spark_rapids_tpu_torch.io.readers import scan_file_indices
+        max_rows = int(self.conf.get(cfg.MAX_READER_BATCH_SIZE_ROWS))
+        max_bytes = int(self.conf.get(cfg.MAX_READER_BATCH_SIZE_BYTES))
+        pv_list = self.scan.options.get("part_values") or []
+        groups = []
+        cur, cur_rows, cur_bytes, cur_pv = [], 0, 0, None
+        for fi in scan_file_indices(self.scan):
+            path = self.scan.paths[fi]
+            pf = sc.open_source(path, metrics=self.metrics)
+            pv = pv_list[fi] if fi < len(pv_list) else {}
+            pv_key = tuple(sorted(pv.items()))
+            md = pf.metadata
+            sizes = [(md.row_group(rg).num_rows,
+                      md.row_group(rg).total_byte_size)
+                     for rg in range(md.num_row_groups)]
+            pf.close()
+            for rg, (rows, nbytes) in enumerate(sizes):
+                if cur and (pv_key != cur_pv or
+                            cur_rows + rows > max_rows or
+                            cur_bytes + nbytes > max_bytes):
+                    groups.append((cur, dict(cur_pv)))
+                    cur, cur_rows, cur_bytes = [], 0, 0
+                cur_pv = pv_key
+                cur.append((path, rg))
+                cur_rows += rows
+                cur_bytes += nbytes
+        if cur:
+            groups.append((cur, dict(cur_pv)))
+        return groups
+
+    def _execute_fused(self) -> List[Iterator[DeviceBatch]]:
+        from spark_rapids_tpu_torch.io import parquet_fused as pqf
+        from spark_rapids_tpu_torch.io import scan_cache as sc
+
+        wanted = [f.name for f in self._schema.fields]
+        part_cols = [c for c in wanted if c in self.part_fields]
+        file_cols = [c for c in wanted if c not in self.part_fields]
+        file_schema = Schema([self._schema.field(c) for c in file_cols])
+        host_threads = max(1, int(self.conf.get(
+            cfg.SCAN_HOST_PREP_THREADS)))
+        # ordinals of the pushed condition index `wanted`
+        pushed = self._pushed_filter
+
+        def group_part(path_rgs, pv) -> Iterator[DeviceBatch]:
+            handles = {p: sc.open_source(p, metrics=self.metrics)
+                       for p in {p for p, _ in path_rgs}}
+            try:
+                prep = pqf.prepare_fused(
+                    [(handles[p], p, rg) for p, rg in path_rgs],
+                    file_schema, columns=file_cols,
+                    host_threads=host_threads, metrics=self.metrics,
+                    pushed_filter=pushed, scan_names=wanted,
+                    device=self.device)
+                with timed(self.metrics, "scan.dispatch"):
+                    batch, fallbacks = pqf.finish_fused(prep)
+            finally:
+                for h in handles.values():
+                    h.close()
+            self.metrics.add_extra("fallbackColumns", len(fallbacks))
+            names = list(batch.names)
+            cols = list(batch.columns)
+            for c in part_cols:
+                names.append(c)
+                cols.append(_const_column(self.part_fields[c], pv.get(c),
+                                          batch.capacity,
+                                          int(batch.num_rows), self.device))
+            order = [names.index(c) for c in wanted]
+            out = DeviceBatch([names[i] for i in order],
+                              [cols[i] for i in order], batch.num_rows,
+                              self.device)
+            self.metrics.add_rows(int(out.num_rows))
+            self.metrics.add_batches()
+            yield out
+
+        return [group_part(srcs, pv) for srcs, pv in self._fused_groups()]

@@ -50,3 +50,18 @@ def record_fallback(family: str, reason: str) -> None:
 def reset_counts() -> None:
     launches.clear()
     fallbacks.clear()
+
+
+def tpu_block(cap: int, base: int) -> int:
+    """The element block the reference's TPU tile planner
+    (``spark_rapids_tpu/kernels/tiling.py::_build``) gives a capacity:
+    ``base`` grown in powers of two toward 128 blocks, at most 2^17
+    elements.  Only the reference's gates read it; no CUDA kernel of the
+    port is tiled by it."""
+    def pow2_ceil(n: int) -> int:
+        return 1 << max(int(n) - 1, 0).bit_length()
+    b = min(pow2_ceil(cap), 1 << 17, max(base, pow2_ceil(max(cap // 128,
+                                                               1))))
+    if cap % b:
+        b = min(cap, base)
+    return b

@@ -1,13 +1,14 @@
 """Logical-plan schema types: ``Field`` and ``Schema``.
 
-Ported from ``spark_rapids_tpu/plan/logical.py`` (only the schema half;
-the logical plan nodes arrive with the planner).
+Ported from ``spark_rapids_tpu/plan/logical.py``: the schema half and
+``FileScan``, the node a Parquet scan exec reads its files and options
+from; the other logical plan nodes arrive with the planner.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import pyarrow as pa
 
@@ -58,3 +59,19 @@ class Schema:
             fields.append(Field(f.name, d if d != dt.NULL else dt.BOOL,
                                 f.nullable))
         return Schema(fields)
+
+
+class FileScan:
+    """Parquet file scan: paths, schema and reader options
+    (``columns``, ``part_values``, ``part_fields``, ``file_subset``)."""
+
+    def __init__(self, fmt: str, paths: Sequence[str], schema: Schema,
+                 options: Optional[dict] = None):
+        self.fmt = fmt
+        self.paths = list(paths)
+        self._schema = schema
+        self.options = dict(options or {})
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema

@@ -331,6 +331,14 @@ def test_concat_matches_reference(device_counts):
     _assert_batches_equal(jout, tout)
 
 
+def test_batch_without_columns_needs_a_device():
+    with pytest.raises(ValueError, match="needs a device"):
+        tbatch.DeviceBatch(["a"], [], 5)
+    b = tbatch.DeviceBatch(["a"], [], 5, device="cpu")
+    assert b.device == torch.device("cpu") and b.capacity == 16
+    assert tbatch.DeviceBatch([], [], torch.tensor(3)).device.type == "cpu"
+
+
 @pytest.mark.parametrize("parts,rows", [(1, 10), (3, 100), (8, 7)])
 def test_cpu_scan_partitions_match_reference(parts, rows):
     t = _table("nonnull_long", 1000)
