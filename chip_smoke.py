@@ -15,7 +15,10 @@ Phases (any failure exits non-zero):
                1-32; decode over 4- and 8-byte dictionaries of 2^7, 2^15
                and 2^20 entries with keep densities 0.25 and 0 and a fully
                dropped range; decode_str at widths 1, 16, 64 and 256 with
-               empty rows and byte bases clipped at the buffer's end;
+               empty rows and byte bases clipped at the buffer's end; the
+               run expansion (expand) for every width 0-32 at capacities
+               2^16, 2^18, 2^20 and 2^22 with int32 and int64 step
+               functions, bit for bit;
   3. entry   — ``entry(device="cuda")`` against pyarrow on the same table;
   4. q6      — the q6 query at TPC-DS SF10 ``store_sales`` scale
                (28,800,991 rows, 8 partitions) in memory, through
@@ -26,20 +29,35 @@ Phases (any failure exits non-zero):
                with the filter pushed into the scan; cold run, then the
                median of 5 warm runs with sections, the fused batches and
                their capacities;
-  6. q6s-parquet — q6's filter grouped by the string key ss_item_id over 4
+  6. q6-perfile — the same files through the scan's PERFILE reader (fused
+               decode off: one batch per row group, decoded column by column
+               through expand_stream); cold run, then 5 warm runs with
+               sections and the host part of the decode.  Its expand and
+               unpack launches and its mixed-width fallbacks must equal the
+               counts predicted from the chunk plans' streams, in every run;
+  7. q6s-parquet — q6's filter grouped by the string key ss_item_id over 4
                files of 2^20 rows (the string kernel's path, cut for time);
-  7. timing  — per kernel at the shapes and on the inputs the q6 paths
-               gave it (segreduce from both q6 runs, the Parquet one's
-               entries named ``name@q6-parquet``): a check against the
-               plain version, its time (CUDA events, L2 flushed), its bytes
-               bound, the plain version's time and a library call's where
-               one computes the same function.
+  8. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
+               a dictionary that overflows into PLAIN pages, a 16-character
+               string dictionary and a list<int32>, through the PERFILE
+               reader, each row group checked against pyarrow;
+  9. timing  — per kernel at the shapes and on the inputs the q6 paths
+               gave it (segreduce from every q6 run; later runs' entries are
+               named ``name@q6-parquet`` and ``name@q6-perfile``): a check
+               against the plain version, its time (CUDA events, L2
+               flushed), its bytes bound, the plain version's time and a
+               library call's where one computes the same function; for the
+               expansion also the whole device half (scatter, cumsum,
+               unpack, expand).
 
 Before each q6 path the kernel launch counts are set to 0, and they are
 read just after it: every kernel of the path must have launched, with no
-fallback.  The line before the last carries the kernel table as JSON, the
-line before it the card's name and power limit; the last line is the
-result JSON.  Long output goes to chiprun_out/chip_smoke.log.
+fallback but the PERFILE path's predicted mixed-width ones.  The line
+before the last carries the kernel table as JSON, the line before it the
+card's name and power limit; the last line is the result JSON.  Long
+output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
+build,parity`` (or any comma-separated subset of build, parity, entry, q6,
+q6p, q6pf, q6s, modes) runs only those phases and prints no kernel table.
 """
 
 import json
@@ -81,6 +99,7 @@ REPLACES = {
     "filter_decode.decode": "spark_rapids_tpu/kernels/filter_decode.py:125",
     "filter_decode.decode_str":
         "spark_rapids_tpu/kernels/filter_decode.py:178",
+    "decode.expand_stream": "spark_rapids_tpu/kernels/decode.py:336",
 }
 SOURCE_OF = {"segreduce": kseg.SOURCE, "decode": kdec.SOURCE,
              "filter_decode": kfd.SOURCE}
@@ -89,6 +108,13 @@ SEGREDUCE = ["segreduce.seg_scan_sorted", "segreduce.gather_seg_scan"]
 Q6P_KERNELS = SEGREDUCE + ["decode.unpack_bits", "filter_decode.decode"]
 Q6S_KERNELS = ["decode.unpack_bits", "filter_decode.decode",
                "filter_decode.decode_str"]
+# the kernels the PERFILE q6 must launch (its dictionary columns are not
+# deferred: the per-column decode ignores the pushed filter)
+Q6PF_KERNELS = ["decode.expand_stream", "decode.unpack_bits"] + SEGREDUCE
+Q6PF_COLUMNS = ["ss_item_sk", "ss_quantity", "ss_sales_price",
+                "ss_ext_sales_price"]
+MODES_FILES = 2
+MODES_ROWS = MODES_FILES << 21
 
 _log_lines = []
 
@@ -316,10 +342,78 @@ def phase_parity_decode() -> None:
         check(f"decode_str width={width} cap={STR_CAP}",
               kfd.decode_str(dbuf, bb, lw, keep, width),
               kfd.plain_decode_str(dbuf, bb, lw, keep, width))
-    log(f"parity: {n_ok} unpack_bits/decode/decode_str comparisons through "
-        f"the wrappers agree exactly (w 1-32 at ncap 2^20; dictionaries of "
-        f"2^7, 2^15, 2^20 entries at cap 2^21; widths "
-        f"{', '.join(map(str, STR_WIDTHS))})")
+    rng = np.random.default_rng(13)
+    for cap in EXPAND_CAPS:
+        for w in range(33):
+            runs, packed = _synthetic_stream(w, cap, rng)
+            mat, pk, ncap = _stream_inputs(runs, packed, w, cap, "cuda")
+            dense = kdec.unpack_bits(pk, w, ncap) if w else \
+                torch.zeros(32, dtype=torch.int32, device="cuda")
+            for step in (torch.int32, torch.int64):
+                if mat.dtype == torch.int64 and step == torch.int32:
+                    continue           # a wide RLE value needs int64 steps
+                a, c = kdec.step_functions(mat.to(step), cap)
+                check(f"expand w={w} cap={cap} steps={step} "
+                      f"runs={len(runs.counts)}",
+                      kdec.expand(dense, a, c),
+                      kdec.plain_expand(dense, a, c))
+    log(f"parity: {n_ok} unpack_bits/decode/decode_str/expand comparisons "
+        f"through the wrappers agree exactly (unpack w 1-32 at ncap 2^20; "
+        f"dictionaries of 2^7, 2^15, 2^20 entries at cap 2^21; widths "
+        f"{', '.join(map(str, STR_WIDTHS))}; expand w 0-32 at caps "
+        f"{', '.join(f'2^{c.bit_length() - 1}' for c in EXPAND_CAPS)}, "
+        f"int32 and int64 steps)")
+
+
+EXPAND_CAPS = (1 << 16, 1 << 18, 1 << 20, 1 << 22)
+
+
+def _synthetic_stream(w: int, cap: int, rng):
+    """A hybrid stream of width w filling most of ``cap``: about 400
+    alternating RLE runs and bit-packed runs over random packed bytes,
+    some trimmed below their 8-value groups as at a page's end; at
+    w = 32 one RLE value of 2^32 - 5 (int64 steps)."""
+    from spark_rapids_tpu_torch.io.device_parquet import RunTable
+    runs = RunTable.empty()
+    bits = 0
+    total = 0
+    target = cap - cap // 16
+    mean = max(target // 400, 8)
+    k = 0
+    while total < target:
+        n = int(rng.integers(1, 2 * mean))
+        if k % 2 == 0:
+            v = (1 << 32) - 5 if w == 32 and k == 2 else \
+                int(rng.integers(0, 1 << w)) if w else 0
+            runs.counts.append(min(n, target - total))
+            runs.is_rle.append(True)
+            runs.values.append(v)
+            runs.bit_bases.append(0)
+        else:
+            groups = -(-n // 8)
+            runs.counts.append(min(groups * 8 - int(rng.integers(0, 8)),
+                                   target - total))
+            runs.is_rle.append(False)
+            runs.values.append(0)
+            runs.bit_bases.append(bits)
+            bits += groups * 8 * w
+        runs.widths.append(w)
+        total += runs.counts[-1]
+        k += 1
+    packed = rng.integers(0, 256, -(-bits // 8), dtype=np.uint8).tobytes()
+    return runs, packed
+
+
+def _stream_inputs(runs, packed, w: int, cap: int, device):
+    """expand_stream's two uploads, as it makes them: the run matrix and
+    the padded packed bytes, with the dense capacity."""
+    from spark_rapids_tpu_torch.columnar.batch import bucket_rows
+    from spark_rapids_tpu_torch.io.device_parquet import _pad_np
+    ncap = bucket_rows(max(kdec._dense_extent(runs, w), 1), 32)
+    mat = kdec._dense_meta(runs, w, bucket_rows(len(runs.counts), 8))
+    pk = _pad_np(np.frombuffer(packed, np.uint8), max(ncap * w // 8, 4))
+    return (torch.from_numpy(mat).to(device),
+            torch.from_numpy(pk.copy()).to(device), ncap)
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +451,8 @@ class ShapeRecorder:
     where it is: in the wrappers."""
 
     LAUNCHERS = ((kseg, "kernel_seg_scan"), (kdec, "kernel_unpack_bits"),
-                 (kfd, "kernel_decode"), (kfd, "kernel_decode_str"))
+                 (kfd, "kernel_decode"), (kfd, "kernel_decode_str"),
+                 (kdec, "expand_device"))
 
     def __init__(self):
         self.classes = {}
@@ -373,7 +468,7 @@ class ShapeRecorder:
         c["calls"] += 1
 
     def __enter__(self):
-        seg, unpack, decode, decode_str = self._orig
+        seg, unpack, decode, decode_str, expand_half = self._orig
 
         def rec_seg(new, x, op_key, identity, order=None, out_dtype=None,
                     name="segreduce"):
@@ -397,8 +492,16 @@ class ShapeRecorder:
                         bb.shape[0], width), (dbuf, bb, lw, keep, width))
             return decode_str(dbuf, bb, lw, keep, width)
 
+        def rec_expand(mat, packed, w, ncap, cap):
+            # the expansion's device half, whose expand launch counts in
+            # kernel_expand: its inputs give the kernel's and the half's
+            self._keep(("decode.expand_stream", w, ncap, cap, mat.shape[0],
+                        str(mat.dtype)), (mat, packed, w, ncap, cap))
+            return expand_half(mat, packed, w, ncap, cap)
+
         for (mod, attr), fn in zip(self.LAUNCHERS, (
-                rec_seg, rec_unpack, rec_decode, rec_decode_str)):
+                rec_seg, rec_unpack, rec_decode, rec_decode_str,
+                rec_expand)):
             setattr(mod, attr, fn)
         return self
 
@@ -487,7 +590,7 @@ def phase_q6():
 # exec sections timed in Metrics.extra (nanoseconds); the other extras
 # are counts
 TIME_SECTIONS = ("transition.upload", "scan.hostPrepTime", "scan.uploadTime",
-                 "scan.dispatch", "agg.update", "agg.merge")
+                 "scan.dispatch", "scan.decode", "agg.update", "agg.merge")
 
 
 def _sections(plan) -> dict:
@@ -553,87 +656,249 @@ def _timed_run(make_plan):
     return out, plan, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
 
 
-def phase_q6_parquet():
+def write_q6_files(root: str) -> pa.Table:
+    """The bench's 8 SF10 files under ``root``; returns the pyarrow q6."""
+    from spark_rapids_tpu_torch.entry import write_store_sales
+    t0 = time.perf_counter()
+    write_store_sales(root, Q6_ROWS, files=Q6_PARTS)
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for f in os.listdir(root))
+    ref = q6_reference(papq.read_table(root, columns=Q6PF_COLUMNS))
+    log(f"q6 files: wrote {Q6_ROWS} rows in {Q6_PARTS} files "
+        f"({nbytes / 2**20:.1f} MiB) + pyarrow reference in "
+        f"{time.perf_counter() - t0:.1f} s ({ref.num_rows} groups)")
+    return ref
+
+
+def phase_q6_parquet(root: str, ref: pa.Table):
     from spark_rapids_tpu_torch.columnar.batch import bucket_rows
-    from spark_rapids_tpu_torch.entry import (q6_parquet_plan,
-                                              write_store_sales)
+    from spark_rapids_tpu_torch.entry import q6_parquet_plan
     from spark_rapids_tpu_torch.io import parquet_meta as pm
     from spark_rapids_tpu_torch.io import scan_cache as sc
-    root = _parquet_dir("q6-parquet")
-    try:
-        t0 = time.perf_counter()
-        write_store_sales(root, Q6_ROWS, files=Q6_PARTS)
-        nbytes = sum(os.path.getsize(os.path.join(root, f))
-                     for f in os.listdir(root))
-        ref = q6_reference(papq.read_table(root, columns=[
-            "ss_item_sk", "ss_quantity", "ss_sales_price",
-            "ss_ext_sales_price"]))
-        log(f"q6-parquet: wrote {Q6_ROWS} rows in {Q6_PARTS} files "
-            f"({nbytes / 2**20:.1f} MiB) + pyarrow reference in "
-            f"{time.perf_counter() - t0:.1f} s ({ref.num_rows} groups)")
-        # room for every chunk plan of the run, so warm runs walk nothing
-        sc.configure(True, 8 << 30)
-        sc.clear()
-        torch.cuda.reset_peak_memory_stats()
-        walks0 = pm.walk_count()
+    # room for every chunk plan of both readers, so warm runs walk nothing
+    sc.configure(True, 8 << 30)
+    sc.clear()
+    torch.cuda.reset_peak_memory_stats()
+    walks0 = pm.walk_count()
+    kb.reset_counts()
+    with ShapeRecorder() as shapes:
+        out, plan, wall, ev = _timed_run(
+            lambda: q6_parquet_plan(root, device="cuda"))
+    launches = dict(kb.launches)
+    fallbacks = dict(kb.fallbacks)
+    walks = pm.walk_count() - walks0
+    rel = check_q6(out, ref)
+    scan = _scan_of(plan)
+    fb_cols = scan.metrics.extra["fallbackColumns"]
+    log(f"q6-parquet: {out.num_rows} groups match pyarrow (avg max rel "
+        f"{rel:.3g}); launches {launches}; fallbacks {fallbacks}; "
+        f"fallbackColumns {fb_cols}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _check_launches("q6-parquet", launches, fallbacks, Q6P_KERNELS)
+    if fb_cols:
+        fail(f"q6-parquet decoded {fb_cols} columns on the host")
+    groups = scan._fused_groups()
+    caps = {}
+    for srcs, _pv in groups:
+        rows = sum(sc.get_footer(p).metadata.row_group(rg).num_rows
+                   for p, rg in srcs)
+        caps[bucket_rows(rows)] = caps.get(bucket_rows(rows), 0) + 1
+    log(f"q6-parquet fused batches: {len(groups)} "
+        f"({scan.metrics.num_output_batches} emitted), capacities "
+        + ", ".join(f"{n} x 2^{c.bit_length() - 1}"
+                    for c, n in sorted(caps.items())))
+    log(f"q6-parquet cold run (footers, {walks} page walks, plan cache "
+        f"empty): {wall * 1e3:.1f} ms on the host clock, "
+        f"{ev * 1e3:.1f} ms between CUDA events; sections "
+        f"{_fmt_sections(_sections(plan), wall)}")
+    walls, events, sections = [], [], []
+    walks0 = pm.walk_count()
+    for i in range(5):
+        o, plan, wall, ev = _timed_run(
+            lambda: q6_parquet_plan(root, device="cuda"))
+        walls.append(wall)
+        events.append(ev)
+        sections.append(_sections(plan))
+        if i == 0:
+            check_q6(o, ref)
+    if pm.walk_count() != walks0:
+        fail(f"warm q6-parquet runs walked "
+             f"{pm.walk_count() - walks0} chunks")
+    med_wall = statistics.median(walls)
+    med = {k: statistics.median(s[k] for s in sections)
+           for k in sections[0]}
+    log(f"q6-parquet warm wall: median {med_wall * 1e3:.1f} ms of 5 on "
+        f"the host clock, {statistics.median(events) * 1e3:.1f} ms "
+        f"between CUDA events (host-clock runs ms: "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}); 0 page walks; "
+        f"plan cache {sc.stats()}")
+    log("q6-parquet warm wall by section (host clock, median of 5; the "
+        "aggregate's rung and merge choices read the device, so its "
+        "sections include the device work): "
+        + _fmt_sections(med, med_wall))
+    return launches, shapes.classes
+
+
+def _perfile_prediction(root: str) -> dict:
+    """The expand launches, unpack launches and mixed-width fallbacks q6
+    through the PERFILE reader must make: one per stream of its chunk
+    plans (served by the plan cache, so nothing is walked), by the
+    stream's bit widths."""
+    from spark_rapids_tpu_torch.io import scan_cache as sc
+    from spark_rapids_tpu_torch.io.device_parquet import leaf_map
+    from spark_rapids_tpu_torch.plan.logical import Schema
+    want = {"expand": 0, "unpack": 0, "mixed": 0, "streams": 0,
+            "row_groups": 0, "widths": {}}
+    for f in sorted(os.listdir(root)):
+        path = os.path.join(root, f)
+        pf = sc.get_footer(path)
+        schema = Schema.from_arrow(pf.schema_arrow)
+        leaf = leaf_map(pf)
+        for rg in range(pf.metadata.num_row_groups):
+            want["row_groups"] += 1
+            for c in Q6PF_COLUMNS:
+                p = sc.get_chunk_plan(sc.handle_key(pf, path), path, rg,
+                                      leaf[c], schema.field(c).dtype, True,
+                                      pf)
+                streams = [("def", p.def_runs)] if p.nullable else []
+                if p.mode != "plain":
+                    streams.append((p.mode, p.val_runs))
+                for kind, runs in streams:
+                    ok, w, _ = kdec.stream_width(runs)
+                    want["streams"] += 1
+                    want["expand"] += ok
+                    want["unpack"] += ok and w > 0
+                    want["mixed"] += not ok
+                    ws = sorted({int(x) for x, r in zip(runs.widths,
+                                                        runs.is_rle)
+                                 if not r})
+                    key = f"{c}.{kind}: bit-packed widths {ws or 'none'}"
+                    want["widths"][key] = want["widths"].get(key, 0) + 1
+    return want
+
+
+class HostTimer:
+    """Adds up the host time of the per-column decode's O(runs) Python
+    (stream_width, the dense extent, _dense_meta, and the run matrix of
+    the window-gather composition) while it is entered."""
+
+    TARGETS = (("kdec", "stream_width"), ("kdec", "_dense_extent"),
+               ("kdec", "_dense_meta"), ("dp", "_upload_runs"))
+
+    def __init__(self):
+        from spark_rapids_tpu_torch.io import device_parquet as dp
+        self.mods = {"kdec": kdec, "dp": dp}
+        self.seconds = {}
+
+    def __enter__(self):
+        self._orig = [getattr(self.mods[m], a) for m, a in self.TARGETS]
+        for (m, a), fn in zip(self.TARGETS, self._orig):
+            def timed_fn(*args, _fn=fn, _a=a):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args)
+                finally:
+                    self.seconds[_a] = self.seconds.get(_a, 0.0) + \
+                        time.perf_counter() - t0
+            setattr(self.mods[m], a, timed_fn)
+        return self
+
+    def __exit__(self, *a):
+        for (m, attr), fn in zip(self.TARGETS, self._orig):
+            setattr(self.mods[m], attr, fn)
+
+
+def _check_perfile_counts(tag: str, launches, fallbacks, want) -> None:
+    got = (launches.get("decode.expand_stream", 0),
+           launches.get("decode.unpack_bits", 0),
+           fallbacks.get("decode.expand.mixed_widths", 0))
+    if got != (want["expand"], want["unpack"], want["mixed"]):
+        fail(f"{tag}: expand/unpack launches and mixed-width fallbacks "
+             f"{got} != predicted {(want['expand'], want['unpack'], want['mixed'])}")
+    other = {k: v for k, v in fallbacks.items()
+             if k != "decode.expand.mixed_widths"}
+    if other:
+        fail(f"{tag} took other plain fallbacks: {other}")
+    for name in SEGREDUCE:
+        if launches.get(name, 0) <= 0:
+            fail(f"{tag} did not launch {name}")
+
+
+def phase_q6_perfile(root: str, ref: pa.Table):
+    """q6 through the PERFILE reader over the q6-parquet phase's files."""
+    from spark_rapids_tpu_torch.entry import q6_perfile_plan
+    from spark_rapids_tpu_torch.io import parquet_meta as pm
+    from spark_rapids_tpu_torch.io import scan_cache as sc
+    # room for both readers' plans (they key plans apart): warm runs walk
+    # nothing
+    sc.configure(True, 8 << 30)
+    torch.cuda.reset_peak_memory_stats()
+    walks0 = pm.walk_count()
+    kb.reset_counts()
+    with ShapeRecorder() as shapes:
+        out, plan, wall, ev = _timed_run(
+            lambda: q6_perfile_plan(root, device="cuda"))
+    launches = dict(kb.launches)
+    fallbacks = dict(kb.fallbacks)
+    walks = pm.walk_count() - walks0
+    rel = check_q6(out, ref)
+    scan = _scan_of(plan)
+    fb_cols = scan.metrics.extra["fallbackColumns"]
+    want = _perfile_prediction(root)
+    log(f"q6-perfile: {out.num_rows} groups match pyarrow (avg max rel "
+        f"{rel:.3g}); {scan.metrics.num_output_batches} batches (one per "
+        f"row group of {want['row_groups']}); launches {launches}; "
+        f"fallbacks {fallbacks}; fallbackColumns {fb_cols}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"q6-perfile predicted from the plans' {want['streams']} streams: "
+        f"{want['expand']} expand, {want['unpack']} unpack launches, "
+        f"{want['mixed']} mixed-width fallbacks; streams by width: "
+        f"{want['widths']}")
+    _check_perfile_counts("q6-perfile", launches, fallbacks, want)
+    if fb_cols:
+        fail(f"q6-perfile decoded {fb_cols} columns on the host")
+    if scan.metrics.num_output_batches != want["row_groups"]:
+        fail("q6-perfile did not emit one batch per row group")
+    log(f"q6-perfile cold run ({walks} page walks; the fused reader's "
+        f"plans are cached, the PERFILE reader walks with allow_mixed): "
+        f"{wall * 1e3:.1f} ms on the host clock, {ev * 1e3:.1f} ms between "
+        f"CUDA events; sections {_fmt_sections(_sections(plan), wall)}")
+    walls, events, sections, hosts = [], [], [], []
+    walks0 = pm.walk_count()
+    for i in range(5):
         kb.reset_counts()
-        with ShapeRecorder() as shapes:
-            out, plan, wall, ev = _timed_run(
-                lambda: q6_parquet_plan(root, device="cuda"))
-        launches = dict(kb.launches)
-        fallbacks = dict(kb.fallbacks)
-        walks = pm.walk_count() - walks0
-        rel = check_q6(out, ref)
-        scan = _scan_of(plan)
-        fb_cols = scan.metrics.extra["fallbackColumns"]
-        log(f"q6-parquet: {out.num_rows} groups match pyarrow (avg max rel "
-            f"{rel:.3g}); launches {launches}; fallbacks {fallbacks}; "
-            f"fallbackColumns {fb_cols}; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        _check_launches("q6-parquet", launches, fallbacks, Q6P_KERNELS)
-        if fb_cols:
-            fail(f"q6-parquet decoded {fb_cols} columns on the host")
-        groups = scan._fused_groups()
-        caps = {}
-        for srcs, _pv in groups:
-            rows = sum(sc.get_footer(p).metadata.row_group(rg).num_rows
-                       for p, rg in srcs)
-            caps[bucket_rows(rows)] = caps.get(bucket_rows(rows), 0) + 1
-        log(f"q6-parquet fused batches: {len(groups)} "
-            f"({scan.metrics.num_output_batches} emitted), capacities "
-            + ", ".join(f"{n} x 2^{c.bit_length() - 1}"
-                        for c, n in sorted(caps.items())))
-        log(f"q6-parquet cold run (footers, {walks} page walks, plan cache "
-            f"empty): {wall * 1e3:.1f} ms on the host clock, "
-            f"{ev * 1e3:.1f} ms between CUDA events; sections "
-            f"{_fmt_sections(_sections(plan), wall)}")
-        walls, events, sections = [], [], []
-        walks0 = pm.walk_count()
-        for i in range(5):
+        with HostTimer() as ht:
             o, plan, wall, ev = _timed_run(
-                lambda: q6_parquet_plan(root, device="cuda"))
-            walls.append(wall)
-            events.append(ev)
-            sections.append(_sections(plan))
-            if i == 0:
-                check_q6(o, ref)
-        if pm.walk_count() != walks0:
-            fail(f"warm q6-parquet runs walked "
-                 f"{pm.walk_count() - walks0} chunks")
-        med_wall = statistics.median(walls)
-        med = {k: statistics.median(s[k] for s in sections)
-               for k in sections[0]}
-        log(f"q6-parquet warm wall: median {med_wall * 1e3:.1f} ms of 5 on "
-            f"the host clock, {statistics.median(events) * 1e3:.1f} ms "
-            f"between CUDA events (host-clock runs ms: "
-            f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}); 0 page walks; "
-            f"plan cache {sc.stats()}")
-        log("q6-parquet warm wall by section (host clock, median of 5; the "
-            "aggregate's rung and merge choices read the device, so its "
-            "sections include the device work): "
-            + _fmt_sections(med, med_wall))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+                lambda: q6_perfile_plan(root, device="cuda"))
+        _check_perfile_counts(f"warm q6-perfile run {i}", dict(kb.launches),
+                              dict(kb.fallbacks), want)
+        walls.append(wall)
+        events.append(ev)
+        sections.append(_sections(plan))
+        hosts.append(ht.seconds)
+        if i == 0:
+            check_q6(o, ref)
+    if pm.walk_count() != walks0:
+        fail(f"warm q6-perfile runs walked {pm.walk_count() - walks0} "
+             f"chunks")
+    med_wall = statistics.median(walls)
+    med = {k: statistics.median(s[k] for s in sections)
+           for k in sections[0]}
+    host = {k: statistics.median(h.get(k, 0.0) for h in hosts)
+            for k in hosts[0]}
+    log(f"q6-perfile warm wall: median {med_wall * 1e3:.1f} ms of 5 on the "
+        f"host clock, {statistics.median(events) * 1e3:.1f} ms between CUDA "
+        f"events (host-clock runs ms: "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}); 0 page walks; "
+        f"plan cache {sc.stats()}")
+    log("q6-perfile warm wall by section (host clock, median of 5; "
+        "scan.decode is host work and enqueue, the aggregate's sections "
+        "include the device work they wait for): "
+        + _fmt_sections(med, med_wall))
+    log("q6-perfile host part of scan.decode (median of 5, O(runs) "
+        "Python): " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                for k, v in host.items())
+        + f"; total {sum(host.values()) * 1e3:.1f} ms")
     return launches, shapes.classes
 
 
@@ -671,8 +936,137 @@ def phase_q6s_parquet():
     return launches, shapes.classes
 
 
+def _modes_table(n: int, seed: int) -> pa.Table:
+    """About 4% nulls in every column; a boolean; a double dictionary
+    that overflows into PLAIN pages; 16-character string keys; a
+    list<int32> of 0-4 elements, some lists and elements null."""
+    from spark_rapids_tpu_torch.entry import item_ids
+    rng = np.random.default_rng(seed)
+
+    def nulls():
+        return rng.random(n) < 0.04
+    null_list = nulls()
+    # a null list spans no elements (pyarrow refuses one that does)
+    lens = np.where(null_list, 0, rng.integers(0, 5, n)).astype(np.int32)
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    elems = pa.array(rng.integers(0, 100, int(offsets[-1])).astype(np.int32),
+                     mask=rng.random(int(offsets[-1])) < 0.04)
+    lists = pa.ListArray.from_arrays(pa.array(offsets), elems,
+                                     mask=pa.array(null_list))
+    return pa.table({
+        "k": pa.array(rng.integers(0, 1000, n), pa.int64(), mask=nulls()),
+        "b": pa.array(rng.random(n) < 0.5, mask=nulls()),
+        "f": pa.array(np.round(rng.uniform(0, 1e6, n), 2), mask=nulls()),
+        "s": pa.array(item_ids(rng.integers(1, 5001, n)).to_numpy(
+            zero_copy_only=False), type=pa.string(), mask=nulls()),
+        "l": lists,
+    })
+
+
+def _list_matches(col, want: pa.ListArray, n: int) -> bool:
+    """The port's [cap, L] list column against pyarrow's list array."""
+    lens = np.where(want.is_null().to_numpy(zero_copy_only=False), 0,
+                    np.diff(want.offsets.to_numpy()))
+    L = col.data.shape[1]
+    if lens.max(initial=0) > L:
+        return False
+    flat = want.flatten()
+    rows = np.repeat(np.arange(n), lens)
+    cols = np.arange(rows.shape[0]) - np.repeat(
+        np.concatenate([[0], np.cumsum(lens)[:-1]]), lens)
+    data = np.zeros((n, L), np.int32)
+    ev = np.zeros((n, L), bool)
+    data[rows, cols] = flat.fill_null(0).to_numpy()
+    ev[rows, cols] = ~flat.is_null().to_numpy(zero_copy_only=False)
+    valid = ~want.is_null().to_numpy(zero_copy_only=False)
+    return (np.array_equal(col.validity[:n].cpu().numpy(), valid) and
+            np.array_equal(col.lengths[:n].cpu().numpy(), lens) and
+            np.array_equal(col.data[:n].cpu().numpy(), data) and
+            np.array_equal(col.elem_validity[:n].cpu().numpy(), ev))
+
+
+def phase_perfile_modes() -> None:
+    """Every decode mode of the PERFILE reader at 2^21 rows per file,
+    checked row group by row group against pyarrow."""
+    from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, to_arrow
+    from spark_rapids_tpu_torch.config import RapidsTpuConf
+    from spark_rapids_tpu_torch.io import device_parquet as dp
+    from spark_rapids_tpu_torch.io import parquet_meta as pm
+    from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+    from spark_rapids_tpu_torch.plan.logical import FileScan, Schema
+    root = _parquet_dir("perfile-modes")
+    try:
+        t0 = time.perf_counter()
+        paths = []
+        for i in range(MODES_FILES):
+            p = os.path.join(root, f"part-{i:04d}.parquet")
+            papq.write_table(_modes_table(MODES_ROWS // MODES_FILES, 300 + i),
+                             p, use_dictionary=["k", "f", "s", "l"],
+                             dictionary_pagesize_limit=256 << 10,
+                             data_page_version="1.0")
+            paths.append(p)
+        pf = papq.ParquetFile(paths[0])
+        modes = {}
+        schema = Schema.from_arrow(pf.schema_arrow)
+        for c, leaf in dp.leaf_map(pf).items():
+            if schema.field(c).dtype.is_list:
+                modes[c] = "list"
+                continue
+            chunk = pm.read_chunk_pages(paths[0], 0, leaf, parquet_file=pf)
+            modes[c] = dp.plan_chunk(chunk, schema.field(c).dtype,
+                                     allow_mixed=True).mode
+        if modes != {"k": "dict", "b": "bool", "f": "mixed",
+                     "s": "dict_str", "l": "list"}:
+            fail(f"perfile-modes: files do not hold every mode: {modes}")
+        log(f"perfile-modes: wrote {MODES_ROWS} rows in {MODES_FILES} files "
+            f"in {time.perf_counter() - t0:.1f} s; first chunks' modes "
+            f"{modes}")
+        scan = TpuParquetScanExec(
+            FileScan("parquet", paths, schema, {}),
+            RapidsTpuConf({"spark.rapids.tpu.sql.format.parquet.fusedDecode"
+                           ".enabled": False}), device="cuda")
+        kb.reset_counts()
+        t0 = time.perf_counter()
+        n_rg = 0
+        for part, path in zip(scan.execute(), paths):
+            want_pf = papq.ParquetFile(path)
+            for rg, batch in enumerate(part):
+                want = want_pf.read_row_group(rg)
+                n = want.num_rows
+                if int(batch.num_rows) != n:
+                    fail(f"perfile-modes {path}#{rg}: {batch.num_rows} rows "
+                         f"!= {n}")
+                flat = [c for c in batch.names if c != "l"]
+                got = to_arrow(DeviceBatch(
+                    flat, [batch.columns[batch.names.index(c)]
+                           for c in flat], n))
+                if not got.equals(want.select(flat).cast(got.schema)):
+                    fail(f"perfile-modes {path}#{rg}: flat columns differ "
+                         f"from pyarrow")
+                lcol = batch.columns[batch.names.index("l")]
+                if not _list_matches(lcol, want["l"].combine_chunks(), n):
+                    fail(f"perfile-modes {path}#{rg}: the list column "
+                         f"differs from pyarrow")
+                n_rg += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+        fb_cols = scan.metrics.extra["fallbackColumns"]
+        log(f"perfile-modes: {n_rg} row groups match pyarrow in "
+            f"{wall:.1f} s (check included); launches {launches}; "
+            f"fallbacks {fallbacks}; fallbackColumns {fb_cols}")
+        for name in ("decode.expand_stream", "decode.unpack_bits"):
+            if launches.get(name, 0) <= 0:
+                fail(f"perfile-modes did not launch {name}")
+        if set(fallbacks) - {"decode.expand.mixed_widths"} or fb_cols:
+            fail("perfile-modes took fallbacks other than mixed widths")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
-# 5. kernel timings at the q6 shapes
+# 9. kernel timings at the q6 shapes
 # ---------------------------------------------------------------------------
 
 def _time_device(fn, reps: int = 20, flush=None) -> float:
@@ -733,13 +1127,16 @@ class Case:
     ok) of the two, bit for bit unless given; ``nbytes`` is what the
     function must move (each input read once, each output written once,
     counting what this input's data needs); ``library`` is one torch call
-    computing the same function, or None."""
+    computing the same function, or None; ``half``, for the expansion,
+    its whole device half (scatter, cumsum, unpack, expand)."""
 
-    def __init__(self, run, plain, nbytes, shape, check=None, library=None):
+    def __init__(self, run, plain, nbytes, shape, check=None, library=None,
+                 half=None):
         self.run, self.plain = run, plain
         self.nbytes, self.shape = nbytes, shape
         self.check = check or (lambda: _exact(run(), plain()))
         self.library = library
+        self.half = half     # the expansion's whole device half
 
 
 def _case(name: str, args) -> Case:
@@ -758,6 +1155,23 @@ def _case(name: str, args) -> Case:
             check=partial(compare, new, x, op, ident, order, out),
             library=partial(torch.segment_reduce, gathered, reduce,
                             lengths=_segments(new)))
+    if name == "decode.expand_stream":
+        # the device half's inputs: the run matrix and the packed bytes;
+        # the kernel's own inputs are what the half builds from them.  The
+        # bound counts what the half must move (run matrix, packed bytes,
+        # the 4*cap output), not the materialised step functions
+        mat, packed, w, ncap, cap = args
+        dense = kdec.unpack_bits(packed, w, ncap) if w else \
+            torch.zeros(32, dtype=torch.int32, device=mat.device)
+        a, c = kdec.step_functions(mat, cap)
+        return Case(partial(kdec.expand, dense, a, c),
+                    partial(kdec.plain_expand, dense, a, c),
+                    mat.numel() * mat.element_size() + packed.numel() +
+                    4 * cap,
+                    f"w={w} ncap={ncap} cap={cap} runs<={mat.shape[0]} "
+                    f"steps={mat.dtype}",
+                    half=partial(kdec.expand_device, mat, packed, w, ncap,
+                                 cap))
     if name == "decode.unpack_bits":
         b, w, ncap = args
         return Case(partial(kdec.unpack_bits, b, w, ncap),
@@ -819,10 +1233,13 @@ def phase_timing(paths):
                              "plain_ms": plain_ms, "library_ms": library_ms,
                              "bound_ms": bound_ms, "max_abs_err": err})
                 lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+                half = "" if case.half is None else \
+                    f", whole device half {_time_device(case.half, flush=flush):.4f} ms"
                 log(f"timing {name} {tag} [{case.shape}] x{c['calls']}/query: "
                     f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
                     f"({bound_ms / ms:.1%} of roofline), plain "
-                    f"{plain_ms:.3f} ms, library {lib}, max_abs_err {err:g}")
+                    f"{plain_ms:.3f} ms, library {lib}{half}, max_abs_err "
+                    f"{err:g}")
             if not rows:
                 fail(f"no recorded call of {name} in {tag}")
             label = f"{name}@{tag}" if name in seen else name
@@ -831,15 +1248,18 @@ def phase_timing(paths):
     return kernels
 
 
+ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "q6s",
+              "modes"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
-        ["build", "parity", "entry", "q6", "q6p", "q6s"]
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-        f"{torch.cuda.get_device_name(0)}")
+    phases = sys.argv[1].split(",") if len(sys.argv) > 1 else ALL_PHASES
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} pyarrow "
+        f"{pa.__version__} on {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     phase_build()
     if "parity" in phases:
@@ -847,15 +1267,30 @@ def main() -> int:
         phase_parity_decode()
     if "entry" in phases:
         phase_entry()
+    runs = {}
+    if "q6" in phases:
+        runs["q6"] = ("q6", *phase_q6(), SEGREDUCE)
+    if "q6p" in phases or "q6pf" in phases:
+        root = _parquet_dir("q6-parquet")
+        try:
+            ref = write_q6_files(root)
+            if "q6p" in phases:
+                runs["q6p"] = ("q6-parquet", *phase_q6_parquet(root, ref),
+                               Q6P_KERNELS)
+            if "q6pf" in phases:
+                runs["q6pf"] = ("q6-perfile", *phase_q6_perfile(root, ref),
+                                Q6PF_KERNELS)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    if "q6s" in phases:
+        runs["q6s"] = ("q6s-parquet", *phase_q6s_parquet(),
+                       ["filter_decode.decode_str"])
+    if "modes" in phases:
+        phase_perfile_modes()
     kernels = None
-    if {"q6", "q6p", "q6s"} <= set(phases):
-        q6 = phase_q6()
-        q6p = phase_q6_parquet()
-        q6s = phase_q6s_parquet()
-        kernels = phase_timing([
-            ("q6", *q6, SEGREDUCE),
-            ("q6-parquet", *q6p, Q6P_KERNELS),
-            ("q6s-parquet", *q6s, ["filter_decode.decode_str"])])
+    if set(ALL_PHASES) <= set(phases):
+        kernels = phase_timing([runs[k] for k in ("q6", "q6p", "q6s",
+                                                  "q6pf")])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

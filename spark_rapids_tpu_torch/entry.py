@@ -17,6 +17,12 @@
 ``q6_parquet_plan(root, ...)`` — q6 over those files: TpuParquetScanExec
                          (fused decode, the filter pushed into the scan)
                          -> TpuHashAggregateExec -> DeviceToHostExec.
+``q6_perfile_plan(root, ...)`` — the same q6 with fused decode off
+                         (``q6_parquet_plan`` with the reference's key
+                         ``spark.rapids.tpu.sql.format.parquet.fusedDecode
+                         .enabled`` false): the scan's PERFILE reader,
+                         one batch per row group, decoded column by column
+                         through ``expand_stream``.
 ``q6s_parquet_plan(root, ...)`` — the same filter grouped by the string
                          column ``ss_item_id`` (files written with
                          ``item_id=True``): count(*), sum(ss_quantity).
@@ -219,6 +225,13 @@ def q6_parquet_plan(root: str, device="cuda",
         ir.Average(_bind(schema,
                          ir.UnresolvedAttribute("ss_ext_sales_price")))])
     return _filtered_aggregate(scan, "ss_item_sk", aggregates, Q6_OUT)
+
+
+def q6_perfile_plan(root: str, device="cuda") -> DeviceToHostExec:
+    """q6 over the Parquet files under ``root`` through the scan's
+    PERFILE reader (fused decode off).  Run it with :func:`collect`."""
+    return q6_parquet_plan(root, device=device, conf=RapidsTpuConf(
+        {"spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled": False}))
 
 
 Q6S_OUT = ["ss_item_id", "cnt", "qty"]

@@ -1,20 +1,31 @@
-"""Parquet host planning: page runs walked on the host, decoded on device.
+"""Parquet decode: page runs walked on the host, values expanded on device.
 
-Ported from ``spark_rapids_tpu/io/device_parquet.py``, the host half only:
-the CPU walks page headers and RLE/bit-packed run boundaries — O(pages +
-runs), not O(values) — into a :class:`ChunkPlan` per column chunk, which
-the fused whole-batch decode (io/parquet_fused.py) uploads packed and
-expands on the device.
+Ported from ``spark_rapids_tpu/io/device_parquet.py``.  The CPU walks page
+headers and RLE/bit-packed run boundaries — O(pages + runs), not
+O(values) — into a :class:`ChunkPlan` per column chunk; the device then
+does the O(values) work.  Two readers consume the plans: the fused
+whole-batch decode (io/parquet_fused.py) and the per-column decode here,
+which the scan's PERFILE reader (io/device_scan.py) runs per row group:
+
+  * hybrid RLE/bit-pack expansion, one stream at a time:
+    ``kernels/decode.expand_stream`` (csrc/decode.cu on the card), or for
+    a stream that mixes bit widths and for list indices the window-gather
+    composition :func:`expand_runs_matrix` in plain torch;
+  * definition levels -> validity, then the non-null values scattered by
+    ``cumsum(validity)`` (:func:`_def_expand`);
+  * dictionary gathers on the device, string dictionaries as padded byte
+    matrices (:func:`_dict_gather`);
+  * ``list<primitive>`` columns (:func:`decode_list_chunk`): repetition and
+    definition levels decode on the host with vectorised numpy, element
+    values on the device, then one scatter places them in the
+    ``[cap, L]`` list matrix.
 
 Coverage: PLAIN + PLAIN_/RLE_DICTIONARY for INT32/INT64/FLOAT/DOUBLE/
 BOOLEAN, dictionary-encoded BYTE_ARRAY (strings), flat schemas
-(max_rep == 0, max_def <= 1), data pages v1 + v2, any Arrow-supported page
-codec (host decompress).  Anything else raises :class:`UnsupportedChunk`
-and the column falls back to Arrow host decode *per column*.
-
-The reference's per-column device decode (``expand_runs_matrix``,
-``decode_plan``, ``decode_row_group``) and the list decode are not ported
-yet: they need the ``expand_stream`` kernel.
+(max_rep == 0, max_def <= 1) and lists of primitives, data pages v1 + v2,
+any Arrow-supported page codec (host decompress).  Anything else raises
+:class:`UnsupportedChunk` and the column falls back to Arrow host decode
+*per column*.
 """
 
 from __future__ import annotations
@@ -25,12 +36,22 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.parquet as papq
+import torch
 
 from spark_rapids_tpu_torch import dtypes as dt
+from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
+                                                   _bucket_strlen,
+                                                   bucket_rows, from_arrow,
+                                                   resolve_device,
+                                                   scatter_drop)
 from spark_rapids_tpu_torch.io import parquet_meta as pm
+from spark_rapids_tpu_torch.kernels.decode import _as_int32
+from spark_rapids_tpu_torch.plan.logical import Schema
 
-# the fused decode (io/parquet_fused.py and kernels/decode.py) unpacks any
-# width up to a full 32-bit index word
+_MAX_W = 24  # the window-gather composition reads shift (<= 7) + w bits
+# the dense paths (io/parquet_fused.py and kernels/decode.expand_stream)
+# unpack any width up to a full 32-bit index word
 _MAX_W_DENSE = 32
 
 # ---------------------------------------------------------------------------
@@ -148,6 +169,106 @@ def _pad_np(a: np.ndarray, cap: int, fill=0) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Device side: the window-gather run expansion
+# ---------------------------------------------------------------------------
+
+def expand_runs_matrix(runs_mat: torch.Tensor, packed: torch.Tensor,
+                       cap: int) -> torch.Tensor:
+    """Expand one hybrid-run stream to ``[cap]`` values (int32 bit
+    patterns of the reference's uint32).  ``runs_mat`` is ``[rcap, 5]``
+    int64 with columns (cumulative end, is_rle, value, bit_base, width);
+    ``packed`` the stream's bit-packed bytes.
+
+    Each element finds its run by a bump scatter at the run ends plus a
+    cumsum, then reads a 4-byte window at its bit position: any width up
+    to ``_MAX_W``.  The 2^62 end of a padding row clamps to ``cap`` before
+    the scatter and drops there."""
+    dev = runs_mat.device
+    ends = runs_mat[:, 0]
+    i = torch.arange(cap, dtype=ends.dtype, device=dev)
+    bump = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    bump.index_add_(0, torch.clamp(ends, max=cap),
+                    torch.ones(ends.shape[0], dtype=torch.int32, device=dev))
+    rid = torch.cumsum(bump[:cap], 0, dtype=torch.int32)
+    rid = torch.clamp(rid, 0, ends.shape[0] - 1).long()
+    prev_end = torch.where(rid > 0, ends[torch.clamp(rid - 1, min=0)], 0)
+    local = i - prev_end
+    w = runs_mat[rid, 4]
+    bitpos = runs_mat[rid, 3] + local * w
+    byte0 = bitpos >> 3
+    sh = bitpos & 7
+    nb = packed.shape[0]
+
+    def g(k: int) -> torch.Tensor:
+        return packed[torch.clamp(byte0 + k, 0, nb - 1)].to(torch.int64)
+
+    window = g(0) | (g(1) << 8) | (g(2) << 16) | (g(3) << 24)
+    mask = (torch.ones_like(w) << w) - 1
+    unpacked = (window >> sh) & mask
+    return _as_int32(torch.where(runs_mat[rid, 1] != 0, runs_mat[rid, 2],
+                                 unpacked) & 0xFFFFFFFF)
+
+
+def _upload_runs(runs: "RunTable", packed: bytes, device) -> dict:
+    """A run table as two device tensors: the ``[rcap, 5]`` int64 run
+    matrix (padding rows end at 2^62) and the packed bytes, padded to a
+    64-byte-tier length."""
+    dev = torch.device(device)
+    r = max(len(runs.counts), 1)
+    rcap = bucket_rows(r, 8)
+    ends = np.cumsum(np.asarray(runs.counts + [0], dtype=np.int64))[:r]
+    n = len(runs.counts)
+    mat = np.zeros((rcap, 5), dtype=np.int64)
+    mat[:, 0] = _pad_np(ends, rcap, fill=np.int64(1) << 62)
+    mat[:n, 1] = np.asarray(runs.is_rle, dtype=np.int64)
+    mat[:n, 2] = np.asarray(runs.values, dtype=np.int64)
+    mat[:n, 3] = np.asarray(runs.bit_bases, dtype=np.int64)
+    mat[:n, 4] = np.asarray(runs.widths, dtype=np.int64)
+    bcap = bucket_rows(max(len(packed), 4), 64)
+    pk = _pad_np(np.frombuffer(bytes(packed), dtype=np.uint8), bcap)
+    return dict(runs_mat=torch.from_numpy(mat).to(dev),
+                packed=torch.from_numpy(pk.copy()).to(dev))
+
+
+def expand_runs(runs: "RunTable", packed: bytes, cap: int,
+                device) -> torch.Tensor:
+    """The window-gather expansion of one stream (the reference's XLA
+    path of ``expand_stream``): raises :class:`UnsupportedChunk` for a
+    bit-packed width past ``_MAX_W``, so the column takes the host
+    fallback as in the reference."""
+    wmax = max((int(x) for x, r in zip(runs.widths, runs.is_rle) if not r),
+               default=0)
+    if wmax > _MAX_W:
+        raise UnsupportedChunk(f"dict bit width {wmax}")
+    d = _upload_runs(runs, packed, device)
+    return expand_runs_matrix(d["runs_mat"], d["packed"], cap)
+
+
+def _def_expand(levels: torch.Tensor, values: torch.Tensor, n_rows: int,
+                cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Validity + per-row values from definition levels and the
+    non-null-compacted values (cumsum two-pass scatter; values 1-D or
+    2-D)."""
+    row = torch.arange(cap, device=levels.device)
+    valid = (levels == 1) & (row < n_rows)
+    vidx = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1
+    vidx = torch.clamp(vidx, 0, values.shape[0] - 1)
+    out = values[vidx.long()]
+    keep = valid[:, None] if out.dim() == 2 else valid
+    return torch.where(keep, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device)), valid
+
+
+def _dict_gather(indices: torch.Tensor, dictionary: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    idx = torch.clamp(indices.to(torch.int32), 0, dictionary.shape[0] - 1)
+    out = dictionary[idx.long()]
+    keep = valid[:, None] if out.dim() == 2 else valid
+    return torch.where(keep, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device))
+
+
+# ---------------------------------------------------------------------------
 # Per-chunk host plan
 # ---------------------------------------------------------------------------
 
@@ -185,13 +306,13 @@ def _string_dict_matrix(vals: List[bytes]) -> Tuple[np.ndarray, np.ndarray]:
 class ChunkPlan:
     """Host-side decode plan for one flat column chunk: run tables,
     packed bit regions, raw PLAIN bytes and dictionaries — everything
-    the device expansion kernels need, produced by one O(pages+runs)
-    host walk, consumed by the fused whole-batch decode
-    (io/parquet_fused.py)."""
+    the device expansion needs, produced by one O(pages+runs) host walk.
+    Shared by the per-column decode (:func:`decode_plan`) and the fused
+    whole-batch decode (io/parquet_fused.py)."""
     n_rows: int
     nullable: bool
     out_dtype: dt.DType
-    mode: str                      # 'dict' | 'dict_str' | 'plain' | 'bool'
+    mode: str          # 'dict' | 'dict_str' | 'plain' | 'bool' | 'mixed'
     def_runs: RunTable = None
     def_packed: bytes = b""
     val_runs: RunTable = None      # dict indices or bool bits
@@ -355,6 +476,88 @@ def plan_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType,
         page_segs=page_segs)
 
 
+def decode_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType, cap: int,
+                 device="cuda") -> DeviceColumn:
+    """Decode one flat column chunk into a DeviceColumn of capacity cap
+    on ``device``."""
+    return decode_plan(plan_chunk(chunk, out_dtype, allow_mixed=True), cap,
+                       device=device)
+
+
+def decode_plan(p: ChunkPlan, cap: int, device="cuda") -> DeviceColumn:
+    """Decode one host-walked ChunkPlan (possibly from the scan-plan
+    cache, io/scan_cache.py) into a DeviceColumn of capacity cap on
+    ``device``.  The plan is shared across queries and threads and is
+    not modified."""
+    from spark_rapids_tpu_torch.kernels import decode as kdec
+    dev = resolve_device(device)
+    out_dtype = p.out_dtype
+    n_rows = p.n_rows
+
+    def upload(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    vcap = bucket_rows(max(n_rows, 1))
+    levels = kdec.expand_stream(p.def_runs, p.def_packed, vcap, dev) \
+        if p.nullable else None
+    np_t = out_dtype.to_np() if not out_dtype.is_string else None
+    live = torch.arange(vcap, device=dev) < n_rows
+
+    if p.mode in ("dict", "dict_str"):
+        indices = kdec.expand_stream(p.val_runs, p.val_packed, vcap, dev)
+        valid = live
+        if p.nullable:
+            indices, valid = _def_expand(levels, indices, n_rows, vcap)
+        if out_dtype.is_string:
+            data = _dict_gather(indices, upload(p.dict_np), valid)
+            lengths = _dict_gather(indices, upload(p.dict_lens), valid)
+            return _to_cap(DeviceColumn(out_dtype, data, valid,
+                                        lengths.to(torch.int32)), cap)
+        data = _dict_gather(indices, upload(p.dict_np.astype(
+            np_t, copy=False)), valid)
+        return _to_cap(DeviceColumn(out_dtype, data, valid), cap)
+
+    if p.mode == "bool":
+        vals = kdec.expand_stream(p.val_runs, p.val_packed, vcap, dev) != 0
+    elif p.mode == "mixed":
+        # dict-coded and PLAIN page segments merge in page order through
+        # per-value source selectors built on the host
+        indices = kdec.expand_stream(p.val_runs, p.val_packed, vcap, dev)
+        dvals = upload(p.dict_np.astype(np_t, copy=False))
+        d_vals = dvals[torch.clamp(indices, 0, dvals.shape[0] - 1).long()]
+        p_vals = upload(_pad_np(p.plain_np.astype(np_t, copy=True), vcap))
+        kinds = np.array([k == "dict" for k, _ in p.page_segs])
+        counts = np.array([c for _, c in p.page_segs], dtype=np.int64)
+        sel = np.repeat(kinds, counts)
+        di = np.cumsum(sel) - 1
+        pi = np.cumsum(~sel) - 1
+        sel_d = upload(_pad_np(sel, vcap))
+        di_d = upload(_pad_np(di.astype(np.int32), vcap))
+        pi_d = upload(_pad_np(pi.astype(np.int32), vcap))
+        vals = torch.where(sel_d,
+                           d_vals[torch.clamp(di_d, 0, vcap - 1).long()],
+                           p_vals[torch.clamp(pi_d, 0, vcap - 1).long()])
+    else:
+        vals = upload(_pad_np(p.plain_np.copy(), vcap))
+
+    if p.nullable:
+        data, valid = _def_expand(levels, vals, n_rows, vcap)
+    else:
+        data, valid = torch.where(live, vals, torch.zeros(
+            (), dtype=vals.dtype, device=dev)), live
+    data = data.to(out_dtype.to_torch())
+    return _to_cap(DeviceColumn(out_dtype, data, valid), cap)
+
+
+def _to_cap(col: DeviceColumn, cap: int) -> DeviceColumn:
+    """Re-bucket a column to the batch capacity."""
+    if col.capacity == cap:
+        return col
+    idx = torch.arange(cap, device=col.data.device)
+    return col.gather(torch.clamp(idx, 0, col.capacity - 1),
+                      idx < col.capacity)
+
+
 # ---------------------------------------------------------------------------
 # File-level API
 # ---------------------------------------------------------------------------
@@ -390,9 +593,351 @@ def leaf_map(pf) -> dict:
     return leaf_index_map(pf)
 
 
+def _null_column(dtype: dt.DType, cap: int,
+                 dev: torch.device) -> DeviceColumn:
+    """All-null column for a partition or missing column."""
+    def zeros(shape, t):
+        return torch.zeros(shape, dtype=t, device=dev)
+    invalid = zeros((cap,), torch.bool)
+    if dtype.is_string:
+        return DeviceColumn(dtype, zeros((cap, 1), torch.uint8), invalid,
+                            zeros((cap,), torch.int32))
+    if dtype.is_list:
+        return DeviceColumn(dtype, zeros((cap, 1), dtype.element.to_torch()),
+                            invalid, zeros((cap,), torch.int32),
+                            zeros((cap, 1), torch.bool))
+    return DeviceColumn(dtype, zeros((cap,), dtype.to_torch()), invalid)
+
+
+def decode_row_group(path, row_group: int, schema: Schema,
+                     columns: Optional[List[str]] = None,
+                     parquet_file=None,
+                     source_key: Optional[tuple] = None,
+                     metrics=None,
+                     device="cuda") -> Tuple[DeviceBatch, List[str]]:
+    """Decode one row group to a DeviceBatch on ``device``.
+
+    Returns (batch, fallback_columns): fallback columns were decoded on
+    the host by Arrow because their chunks use encodings or types the
+    device path does not cover.  The host walk of a chunk may fail in any
+    way (an unsupported chunk, a malformed page) and its column falls
+    back alone; the device half raises only ``UnsupportedChunk`` for a
+    fallback (a mixed-width stream past 24 bits) and lets every other
+    error through.
+
+    ``path`` may also be an in-memory Parquet blob (bytes).
+    ``source_key`` (io/scan_cache.handle_key) enables the scan-plan cache
+    for the flat columns' page walks; None walks fresh.  ``parquet_file``
+    may be a ParquetFile or a cached ``scan_cache.FooterInfo``."""
+    from spark_rapids_tpu_torch.io import scan_cache as sc
+    dev = resolve_device(device)
+    opened = parquet_file is None
+    if opened and isinstance(path, (bytes, bytearray, memoryview)):
+        parquet_file = sc.blob_footer(path)
+    pf = parquet_file or papq.ParquetFile(path)
+    md = pf.metadata
+    leaf_of = leaf_map(pf)
+    wanted = columns or [f.name for f in schema.fields]
+    n_rows = md.row_group(row_group).num_rows
+    cap = bucket_rows(max(n_rows, 1))
+
+    cols: List[DeviceColumn] = []
+    fallbacks: List[str] = []
+    fb_pf = None    # one transient open shared by all fallback columns
+
+    def fb_reader():
+        nonlocal fb_pf
+        if fb_pf is None:
+            fb_pf = papq.ParquetFile(path) \
+                if isinstance(pf, sc.FooterInfo) else pf
+        return fb_pf
+
+    try:
+        for name in wanted:
+            f = schema.field(name)
+            if name not in leaf_of:
+                cols.append(_null_column(f.dtype, cap, dev))
+                continue
+            ci = leaf_of[name]
+            try:
+                if f.dtype.is_list:
+                    # nested chunks are not plan-cached: walk fresh
+                    chunk = pm.read_chunk_pages(path, row_group, ci,
+                                                parquet_file=pf)
+                    plan = _plan_list_chunk(chunk, f.dtype, f.nullable)
+                else:
+                    plan = sc.get_chunk_plan(source_key, path, row_group,
+                                             ci, f.dtype, True, pf,
+                                             metrics=metrics)
+            except Exception:
+                plan = None
+            col = None
+            if plan is not None:
+                try:
+                    col = _decode_list_plan(plan, cap, dev) \
+                        if f.dtype.is_list else decode_plan(plan, cap, dev)
+                except UnsupportedChunk:
+                    col = None
+            if col is None:
+                fallbacks.append(name)
+                t = fb_reader().read_row_group(row_group, columns=[name])
+                col = from_arrow(_cast_one(t, f), capacity=cap,
+                                 device=dev).columns[0]
+            cols.append(col)
+    finally:
+        if fb_pf is not None and fb_pf is not pf:
+            fb_pf.close()
+        if opened:
+            pf.close()
+    return DeviceBatch(list(wanted), cols, n_rows, dev), fallbacks
+
 
 def _cast_one(t: pa.Table, f) -> pa.Table:
     col = t.column(0).cast(f.dtype.to_arrow())
     return pa.Table.from_arrays(
         [col], schema=pa.schema([pa.field(f.name, f.dtype.to_arrow(),
                                           f.nullable)]))
+
+
+# ---------------------------------------------------------------------------
+# Nested (list) decode: max_rep == 1.  Repetition / definition level
+# structure decodes with vectorised host numpy in O(levels); element values
+# decode on the device, then one scatter places them in the [cap, L] list
+# matrix.
+# ---------------------------------------------------------------------------
+
+def _expand_levels_host(runs: RunTable, packed: bytes) -> np.ndarray:
+    """Hybrid runs -> numpy int32 levels (np.repeat / unpackbits per run:
+    O(runs) Python, O(levels) vectorised)."""
+    parts = []
+    pk = np.frombuffer(packed, np.uint8)
+    for i in range(len(runs.counts)):
+        c = runs.counts[i]
+        if c <= 0:
+            continue
+        if runs.is_rle[i]:
+            parts.append(np.full(c, runs.values[i], np.int32))
+        else:
+            w = runs.widths[i]
+            base = runs.bit_bases[i]
+            nbits = c * w
+            b0 = base // 8
+            off = base % 8
+            nb = (off + nbits + 7) // 8
+            bits = np.unpackbits(pk[b0:b0 + nb], bitorder="little")
+            bits = bits[off:off + nbits].reshape(c, w)
+            parts.append(
+                (bits.astype(np.int32) *
+                 (1 << np.arange(w, dtype=np.int32))).sum(axis=1))
+    return np.concatenate(parts) if parts else np.zeros(0, np.int32)
+
+
+@dataclass
+class ListPlan:
+    """Host half of one list chunk's decode: the element values' source
+    (dictionary index runs or PLAIN bytes) and the level structure,
+    reduced to flat slot positions in the ``[cap, L]`` matrix."""
+    out_dtype: dt.DType
+    outer_nullable: bool
+    n_rows: int
+    n_vals: int
+    L: int
+    flat_val: np.ndarray       # slot of each non-null element
+    flat_all: np.ndarray       # slot of each element, null ones too
+    has_val_slot: np.ndarray   # per element: not null
+    row_valid: np.ndarray      # per row: not a null list
+    lengths: np.ndarray        # per row: elements
+    idx_runs: Optional[RunTable]
+    idx_packed: bytes
+    dict_np: Optional[np.ndarray]
+    plain_np: Optional[np.ndarray]
+
+
+def _plan_list_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType,
+                     outer_nullable: bool) -> ListPlan:
+    """Host walk of a list<primitive> column chunk (max_rep == 1)."""
+    if chunk.max_rep != 1:
+        raise UnsupportedChunk("max_rep > 1")
+    if not out_dtype.is_list or out_dtype.element is None or \
+            out_dtype.element.is_string or out_dtype.element.is_nested:
+        raise UnsupportedChunk("list element type")
+    ptype = chunk.physical_type
+    if ptype not in _PLAIN_NP and ptype != "BOOLEAN":
+        raise UnsupportedChunk(f"list physical type {ptype}")
+    max_def = chunk.max_def
+    elem_nullable = (max_def - (1 if outer_nullable else 0)) == 2
+    null_row_def = 0 if outer_nullable else -1
+    slot_def = max_def - (1 if elem_nullable else 0)
+
+    def_w = max(max_def.bit_length(), 1)
+    rep_w = 1
+
+    dict_np = None
+    if chunk.dict_page is not None:
+        dpg = chunk.dict_page
+        payload = pm.decompress(
+            chunk.codec,
+            chunk.data[dpg.payload_off:dpg.payload_off +
+                       dpg.compressed_size], dpg.uncompressed_size)
+        dict_np = np.frombuffer(payload, dtype=_PLAIN_NP[ptype],
+                                count=dpg.num_values).copy()
+        if dict_np.shape[0] == 0:
+            dict_np = np.zeros((1,), dtype=_PLAIN_NP[ptype])
+
+    reps, defs = [], []
+    idx_runs = RunTable.empty()
+    idx_packed = bytearray()
+    plain_parts: List[bytes] = []
+    idx_target = 0
+    any_dict = any_plain = False
+    for page in chunk.data_pages:
+        raw = chunk.data[page.payload_off:
+                         page.payload_off + page.compressed_size]
+        if page.page_type == pm.DATA_PAGE_V2:
+            lvl = page.v2_rep_bytes + page.v2_def_bytes
+            rep_buf = raw[:page.v2_rep_bytes]
+            def_buf = raw[page.v2_rep_bytes:lvl]
+            rep_s, rep_e = 0, len(rep_buf)
+            def_s, def_e = 0, len(def_buf)
+            if page.v2_is_compressed:
+                vals_buf = pm.decompress(chunk.codec, raw[lvl:],
+                                         page.uncompressed_size - lvl)
+            else:
+                vals_buf = raw[lvl:]
+        else:
+            payload = pm.decompress(chunk.codec, raw,
+                                    page.uncompressed_size)
+            rlen = struct.unpack_from("<I", payload, 0)[0]
+            rep_buf = payload
+            rep_s, rep_e = 4, 4 + rlen
+            dlen = struct.unpack_from("<I", payload, rep_e)[0]
+            def_buf = payload
+            def_s, def_e = rep_e + 4, rep_e + 4 + dlen
+            vals_buf = payload[def_e:]
+        rt = RunTable.empty()
+        rpk = bytearray()
+        walk_hybrid(rep_buf, rep_s, rep_e, rep_w, rpk, rt)
+        rt.trim_to(page.num_values)
+        reps.append(_expand_levels_host(rt, bytes(rpk)))
+        dtab = RunTable.empty()
+        dpk = bytearray()
+        walk_hybrid(def_buf, def_s, def_e, def_w, dpk, dtab)
+        dtab.trim_to(page.num_values)
+        page_defs = _expand_levels_host(dtab, bytes(dpk))
+        defs.append(page_defs)
+        nn = int((page_defs == max_def).sum())
+
+        enc = page.encoding
+        if enc in (pm.PLAIN_DICTIONARY, pm.RLE_DICTIONARY):
+            if dict_np is None:
+                raise UnsupportedChunk("dict page w/o dictionary")
+            any_dict = True
+            w = vals_buf[0]
+            if w > _MAX_W:
+                raise UnsupportedChunk(f"dict bit width {w}")
+            walk_hybrid(vals_buf, 1, len(vals_buf), w, idx_packed,
+                        idx_runs)
+            idx_target += nn
+            idx_runs.trim_to(idx_target)
+        elif enc == pm.PLAIN:
+            any_plain = True
+            if ptype == "BOOLEAN":
+                raise UnsupportedChunk("PLAIN boolean list")
+            itemsize = _PLAIN_NP[ptype].itemsize
+            plain_parts.append(vals_buf[:nn * itemsize])
+        else:
+            raise UnsupportedChunk(f"list encoding {enc}")
+    if any_dict and any_plain:
+        raise UnsupportedChunk("mixed dict+plain pages")
+
+    rep = np.concatenate(reps) if reps else np.zeros(0, np.int32)
+    dfl = np.concatenate(defs) if defs else np.zeros(0, np.int32)
+    is_row = rep == 0
+    n_rows = int(is_row.sum())
+    row_id = np.cumsum(is_row) - 1
+    is_slot = dfl >= slot_def
+    has_val = dfl == max_def
+    null_row = is_row & (dfl == null_row_def) if outer_nullable else \
+        np.zeros_like(is_row)
+
+    lengths = np.bincount(row_id[is_slot],
+                          minlength=max(n_rows, 1)).astype(np.int32)
+    if n_rows == 0:
+        lengths = np.zeros(1, np.int32)
+    L = _bucket_strlen(int(lengths.max()) if lengths.size else 0)
+    slot_rows = row_id[is_slot]
+    prev = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    cols = np.arange(slot_rows.shape[0], dtype=np.int64) - \
+        np.repeat(prev[:n_rows], lengths[:n_rows])
+    flat_all = slot_rows.astype(np.int64) * L + cols
+    has_val_slot = has_val[is_slot]
+    n_vals = int(has_val.sum())
+    plain_np = None
+    if not any_dict:
+        npd = _PLAIN_NP[ptype] if ptype != "BOOLEAN" else np.dtype(bool)
+        plain_np = np.frombuffer(b"".join(plain_parts), dtype=npd,
+                                 count=n_vals)
+    row_valid = ~null_row[is_row] if outer_nullable else \
+        np.ones(n_rows, dtype=bool)
+    return ListPlan(
+        out_dtype=out_dtype, outer_nullable=outer_nullable, n_rows=n_rows,
+        n_vals=n_vals, L=L, flat_val=flat_all[has_val_slot],
+        flat_all=flat_all, has_val_slot=has_val_slot, row_valid=row_valid,
+        lengths=lengths, idx_runs=idx_runs if any_dict else None,
+        idx_packed=bytes(idx_packed), dict_np=dict_np if any_dict else None,
+        plain_np=plain_np)
+
+
+def _decode_list_plan(lp: ListPlan, cap: int, device) -> DeviceColumn:
+    """Device half of the list decode: element values (dictionary
+    indices through the window-gather expansion, as in the reference),
+    then the scatters into the ``[cap, L]`` data and element-validity
+    matrices."""
+    dev = torch.device(device)
+    L = lp.L
+    el_t = lp.out_dtype.element.to_torch()
+    el_np = lp.out_dtype.element.to_np()
+    vcap = bucket_rows(max(lp.n_vals, 1))
+    if lp.idx_runs is not None:
+        d = _upload_runs(lp.idx_runs, lp.idx_packed, dev)
+        indices = expand_runs_matrix(d["runs_mat"], d["packed"], vcap)
+        d_vals = torch.from_numpy(lp.dict_np.astype(el_np)).to(dev)
+        vals = d_vals[torch.clamp(indices, 0, d_vals.shape[0] - 1).long()]
+    else:
+        vals = torch.from_numpy(_pad_np(lp.plain_np.astype(el_np,
+                                                           copy=True),
+                                        vcap)).to(dev)
+
+    nv = lp.flat_val.shape[0]
+    fcap = bucket_rows(max(nv, 1))
+    fidx = torch.from_numpy(_pad_np(lp.flat_val.astype(np.int64), fcap,
+                                    fill=cap * L)).to(dev)
+    src = vals[:fcap] if vals.shape[0] >= fcap else torch.cat(
+        [vals, vals.new_zeros(fcap - vals.shape[0])])
+    src = torch.where(torch.arange(fcap, device=dev) < nv, src,
+                      torch.zeros((), dtype=el_t, device=dev))
+    data = scatter_drop(fidx, src, cap * L).reshape(cap, L)
+
+    acap = bucket_rows(max(lp.flat_all.shape[0], 1))
+    aidx = torch.from_numpy(_pad_np(lp.flat_all.astype(np.int64), acap,
+                                    fill=cap * L)).to(dev)
+    ev_src = torch.from_numpy(_pad_np(lp.has_val_slot.astype(bool),
+                                      acap)).to(dev)
+    ev = scatter_drop(aidx, ev_src, cap * L).reshape(cap, L)
+
+    n_rows = lp.n_rows
+    validity = np.zeros(cap, dtype=bool)
+    validity[:n_rows] = lp.row_valid
+    lens_full = np.zeros(cap, dtype=np.int32)
+    lens_full[:n_rows] = np.where(lp.row_valid, lp.lengths[:n_rows], 0)
+    return DeviceColumn(lp.out_dtype, data, torch.from_numpy(validity).to(dev),
+                        torch.from_numpy(lens_full).to(dev), ev)
+
+
+def decode_list_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType, cap: int,
+                      outer_nullable: bool, device="cuda") -> DeviceColumn:
+    """Decode a list<primitive> column chunk (max_rep == 1) on
+    ``device``."""
+    return _decode_list_plan(_plan_list_chunk(chunk, out_dtype,
+                                              outer_nullable),
+                             cap, resolve_device(device))

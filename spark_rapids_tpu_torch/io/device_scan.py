@@ -1,17 +1,25 @@
 """Parquet scan exec whose decode runs on the device.
 
 Ported from ``spark_rapids_tpu/io/device_scan.py``: ``TpuParquetScanExec``
-(:73) with its fused coalescing reader.  Row groups of the scan's files
-group greedily into batches bounded by ``sql.reader.batchSizeRows`` /
-``batchSizeBytes`` (the reference's multi-file coalescing goal); each
-batch is one host prep + upload (io/parquet_fused.prepare_fused) and one
-fused decode on ``device`` (finish_fused).  Hive partition-value columns
-are appended as constant columns.
+(:73) with its two readers.
 
-Not ported yet: the per-column decode (taken by the reference when fused
-decode is off or the plan reads ``input_file_name()``; here it raises
-``NotImplementedError``), the ``ScanPrefetcher`` look-ahead and scan
-sharing (io/scan_share.py).
+  * The fused coalescing reader: row groups of the scan's files group
+    greedily into batches bounded by ``sql.reader.batchSizeRows`` /
+    ``batchSizeBytes`` (the reference's multi-file coalescing goal); each
+    batch is one host prep + upload (io/parquet_fused.prepare_fused) and
+    one fused decode on ``device`` (finish_fused).
+  * The PERFILE reader, taken when
+    ``spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled`` is false
+    or the plan reads ``input_file_name()`` (``allow_fused`` cleared): one
+    partition per file and one batch per row group, each decoded column
+    by column (io/device_parquet.decode_row_group, the ``scan.decode``
+    section).  It sets the ``input_file_name()`` slot (exec/context.py)
+    right before each batch is yielded and clears it when the file is
+    done.  It ignores a pushed filter: the consumer applies its condition.
+
+Hive partition-value columns are appended as constant columns.  Not
+ported yet: the ``ScanPrefetcher`` look-ahead and scan sharing
+(io/scan_share.py).
 """
 
 from __future__ import annotations
@@ -89,7 +97,74 @@ class TpuParquetScanExec(TpuExec):
     def execute(self) -> List[Iterator[DeviceBatch]]:
         if self.allow_fused and self.conf.get(cfg.PARQUET_FUSED_DECODE):
             return self._execute_fused()
-        raise NotImplementedError("per-column decode: expand_stream")
+        from spark_rapids_tpu_torch.io.readers import scan_file_indices
+        return [self._file_part(i) for i in scan_file_indices(self.scan)]
+
+    # -- PERFILE reader: one partition per file, one batch per row group --
+    def _file_part(self, file_index: int) -> Iterator[DeviceBatch]:
+        from spark_rapids_tpu_torch.exec.context import set_input_file
+        path = self.scan.paths[file_index]
+        try:
+            for b in self._file_part_inner(file_index):
+                # set right before the yield so the consumer evaluates
+                # input_file_name() against THIS batch's file even when
+                # two scans are drained interleaved
+                set_input_file(path)
+                yield b
+        finally:
+            set_input_file("")
+
+    def _file_part_inner(self, file_index: int) -> Iterator[DeviceBatch]:
+        path = self.scan.paths[file_index]
+        pv_list = self.scan.options.get("part_values") or []
+        pv = pv_list[file_index] if file_index < len(pv_list) else {}
+        wanted = [f.name for f in self._schema.fields]
+        part_cols = [c for c in wanted if c in self.part_fields]
+        file_cols = [c for c in wanted if c not in self.part_fields]
+        file_schema = Schema([self._schema.field(c) for c in file_cols])
+        fctx = self._open(path)  # one open / footer parse per file
+        try:
+            for rg in range(self._num_chunks(fctx)):
+                with timed(self.metrics, "scan.decode"):
+                    batch, fallbacks = self._decode_chunk(
+                        fctx, rg, file_schema, file_cols)
+                self.metrics.add_extra("fallbackColumns", len(fallbacks))
+                names = list(batch.names)
+                cols = list(batch.columns)
+                for c in part_cols:
+                    names.append(c)
+                    cols.append(_const_column(self.part_fields[c], pv.get(c),
+                                              batch.capacity,
+                                              int(batch.num_rows),
+                                              self.device))
+                # restore the requested column order
+                order = [names.index(c) for c in wanted]
+                out = DeviceBatch([names[i] for i in order],
+                                  [cols[i] for i in order], batch.num_rows,
+                                  self.device)
+                self.metrics.add_rows(int(out.num_rows))
+                self.metrics.add_batches()
+                yield out
+        finally:
+            fctx[1].close()
+
+    def _open(self, path: str):
+        from spark_rapids_tpu_torch.io import scan_cache as sc
+        return path, sc.open_source(path, metrics=self.metrics)
+
+    def _num_chunks(self, fctx) -> int:
+        return fctx[1].metadata.num_row_groups
+
+    def _decode_chunk(self, fctx, idx: int, file_schema: Schema, file_cols):
+        from spark_rapids_tpu_torch.io import device_parquet as devpq
+        from spark_rapids_tpu_torch.io import scan_cache as sc
+        path, pf = fctx
+        return devpq.decode_row_group(
+            path, idx, file_schema, columns=file_cols, parquet_file=pf,
+            source_key=sc.handle_key(pf, path), metrics=self.metrics,
+            device=self.device)
+
+    # -- fused coalescing reader -------------------------------------------
 
     def _fused_groups(self):
         """Greedy grouping of (file, row-group) pairs: same partition

@@ -53,14 +53,20 @@ from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
                                                    _VBIT_BUCKETS,
                                                    _bucket_strlen,
                                                    bits_for_range,
-                                                   bucket_rows, from_arrow,
+                                                   bucket_rows,
+                                                   concat_batches,
+                                                   from_arrow,
                                                    resolve_device)
 from spark_rapids_tpu_torch.columnar.interop import fused_arrays_to_torch
 from spark_rapids_tpu_torch.exec.base import timed
 from spark_rapids_tpu_torch.expr import ir
+from spark_rapids_tpu_torch.io import parquet_meta as pm
 from spark_rapids_tpu_torch.io.device_parquet import (ChunkPlan, RunTable,
                                                       UnsupportedChunk,
-                                                      _cast_one, _pad_np,
+                                                      _cast_one,
+                                                      _decode_list_plan,
+                                                      _pad_np,
+                                                      _plan_list_chunk,
                                                       leaf_map)
 from spark_rapids_tpu_torch.kernels import backend as kb
 from spark_rapids_tpu_torch.plan.logical import Schema
@@ -709,11 +715,34 @@ def _make_kernel(fp: _FusedPlan):
 # Public entry: host prep (prepare) split from the device decode (finish)
 # ---------------------------------------------------------------------------
 
+def _fused_list_column(sources, f, n_rows: List[int],
+                       dev: torch.device) -> Optional[DeviceColumn]:
+    """A list column of the fused batch: the per-column list decode of
+    every row group, concatenated on the device; None when a chunk's
+    host walk fails (the column then takes the host fallback)."""
+    plans = []
+    try:
+        for pf, path, rg in sources:
+            leaf_of = leaf_map(pf)
+            if f.name not in leaf_of:
+                return None
+            chunk = pm.read_chunk_pages(path, rg, leaf_of[f.name],
+                                        parquet_file=pf)
+            plans.append(_plan_list_chunk(chunk, f.dtype, f.nullable))
+    except Exception:
+        return None
+    per = [DeviceBatch([f.name], [_decode_list_plan(
+        lp, bucket_rows(max(nr, 1)), dev)], nr, dev)
+        for lp, nr in zip(plans, n_rows)]
+    return concat_batches(per).columns[0]
+
+
 @dataclass
 class PreparedScan:
     """Everything a fused scan batch needs except the device decode: the
-    assembled plan, its upload set on the device, and the host-decoded
-    fallback columns (already uploaded)."""
+    assembled plan, its upload set on the device, the list columns
+    (already decoded) and the host-decoded fallback columns (already
+    uploaded)."""
     wanted: List[str]
     total: int
     cap: int
@@ -726,22 +755,23 @@ class PreparedScan:
 
 
 def _collect_plans(sources, schema, wanted, host_threads: int,
-                   metrics=None) -> Tuple[List, List[str]]:
+                   metrics=None, device="cuda"
+                   ) -> Tuple[List, List[str], Dict[str, DeviceColumn]]:
     """Walk (or cache-fetch) every flat column chunk's ChunkPlan: a
     thread pool of ``host_threads`` walks page headers and run
     boundaries across (column, row-group) pairs concurrently (page reads
-    and codec decompression release the GIL).  Returns per wanted column
-    its plans (None for a column that falls back to host Arrow) and the
-    fallback column names."""
+    and codec decompression release the GIL).  List columns decode per
+    row group through the list decode and concatenate on ``device``.
+    Returns per wanted column its plans (None for a list column and for
+    a column that falls back to host Arrow), the fallback column names
+    and the decoded list columns."""
     from spark_rapids_tpu_torch.io import scan_cache as sc
 
     # key on the stamp each footer was PARSED under (handle_key), not a
     # fresh stat: a file rewritten mid-scan must never cache plans built
     # from the stale footer's offsets under its new key
     skeys = {path: sc.handle_key(pf, path) for pf, path, _ in sources}
-    for c in wanted:
-        if schema.field(c).dtype.is_list:
-            raise NotImplementedError("decode_list_chunk")
+    flat_cols = [c for c in wanted if not schema.field(c).dtype.is_list]
 
     def run(item):
         c, si = item
@@ -758,7 +788,7 @@ def _collect_plans(sources, schema, wanted, host_threads: int,
             # on the host; the rest of the batch stays on the device
             return e
 
-    tasks = [(c, si) for c in wanted for si in range(len(sources))]
+    tasks = [(c, si) for c in flat_cols for si in range(len(sources))]
     if host_threads > 1 and len(tasks) > 1:
         with cf.ThreadPoolExecutor(
                 max_workers=min(host_threads, len(tasks)),
@@ -768,16 +798,27 @@ def _collect_plans(sources, schema, wanted, host_threads: int,
         outs = [run(t) for t in tasks]
     results = dict(zip(tasks, outs))
 
+    n_rows = [pf.metadata.row_group(rg).num_rows for pf, _, rg in sources]
     plans: List[Optional[List[Optional[ChunkPlan]]]] = []
     fallbacks: List[str] = []
+    list_cols: Dict[str, DeviceColumn] = {}
     for c in wanted:
+        f = schema.field(c)
+        if f.dtype.is_list:
+            col = _fused_list_column(sources, f, n_rows, device)
+            if col is not None:
+                list_cols[c] = col
+            else:
+                fallbacks.append(c)
+            plans.append(None)
+            continue
         col_plans = [results[(c, si)] for si in range(len(sources))]
         if any(isinstance(p, Exception) for p in col_plans):
             fallbacks.append(c)
             plans.append(None)
         else:
             plans.append(col_plans)
-    return plans, fallbacks
+    return plans, fallbacks, list_cols
 
 
 def _host_fallback(sources, schema, fallbacks: List[str], cap: int,
@@ -848,8 +889,9 @@ def prepare_fused(sources: Sequence[Tuple[Any, str, int]],
     cap = bucket_rows(max(total, 1))
 
     with phase("scan.hostPrepTime"):
-        plans, fallbacks = _collect_plans(sources, schema, wanted,
-                                          host_threads, metrics=metrics)
+        plans, fallbacks, list_cols = _collect_plans(
+            sources, schema, wanted, host_threads, metrics=metrics,
+            device=dev)
         dev_cols = [c for c, p in zip(wanted, plans) if p is not None]
         dev_dtypes = [d for d, p in zip(out_dtypes, plans) if p is not None]
         dev_plans = [p for p in plans if p is not None]
@@ -877,8 +919,10 @@ def prepare_fused(sources: Sequence[Tuple[Any, str, int]],
             if metrics is not None:
                 metrics.add_extra("scan.bytesUploaded", sum(
                     int(v.nbytes) for v in fp.arrays.values()))
-        extra_cols = _host_fallback(sources, schema, fallbacks, cap, dev) \
-            if fallbacks else {}
+        extra_cols = dict(list_cols)
+        if fallbacks:
+            extra_cols.update(_host_fallback(sources, schema, fallbacks, cap,
+                                             dev))
 
     return PreparedScan(wanted=wanted, total=total, cap=cap, fp=fp,
                         dev_arrays=dev_arrays, dev_cols=dev_cols,

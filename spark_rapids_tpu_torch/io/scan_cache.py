@@ -1,7 +1,8 @@
 """Process-wide scan-plan cache: memoized host-prep artifacts.
 
-Ported from ``spark_rapids_tpu/io/scan_cache.py`` (file sources only; the
-reference's in-memory blob keys and result-cache stamps are not ported).
+Ported from ``spark_rapids_tpu/io/scan_cache.py`` (file sources; an
+in-memory blob gets a footer from :func:`blob_footer` but its plans are not
+cached: the reference's blob keys and result-cache stamps are not ported).
 The CPU half of the device parquet scan — footer parse, Thrift
 page-header walks, RLE run-boundary tables (``ChunkPlan``) — is pure
 O(pages+runs) host work that would otherwise be redone on every query:
@@ -27,6 +28,7 @@ benign because plans are immutable after construction).
 
 from __future__ import annotations
 
+import io
 import os
 import threading
 from collections import OrderedDict
@@ -366,3 +368,8 @@ def open_source(path: str, metrics=None):
     if _ENABLED and file_key(path) is not None:
         return get_footer(path, metrics=metrics)
     return papq.ParquetFile(path)
+
+
+def blob_footer(blob) -> papq.ParquetFile:
+    """ParquetFile over an in-memory Parquet blob."""
+    return papq.ParquetFile(io.BytesIO(blob))

@@ -1,7 +1,9 @@
-"""Phase 0 of the fused Parquet decode: the dense bit unpack.
+"""The Parquet stream kernels: the dense bit unpack and the run expansion.
 
-Ported from ``spark_rapids_tpu/kernels/decode.py``: ``unpack_bits`` :155,
-whose Pallas kernel is ``_unpack_pallas`` :139.  The fused decode
+Ported from ``spark_rapids_tpu/kernels/decode.py``.
+
+``unpack_bits`` (reference :155, Pallas kernel ``_unpack_pallas`` :139)
+is phase 0 of every decode.  The fused decode
 (io/parquet_fused.py) concatenates every bit-packed region of one width
 into one byte buffer and unpacks it here, once per width: Parquet packs
 LSB-first, so the value j of each group of 32 is word ``(j*w) >> 5`` at
@@ -22,14 +24,34 @@ Values are unsigned 32-bit, returned in an ``int32`` tensor as bit
 patterns (torch's uint32 has few ops); callers cast them to int32 as the
 reference does.  Integer-exact on both routes.
 
-The per-column stream expansion (``expand_stream``) waits for a later
-slice.
+``expand_stream`` (reference :336, Pallas kernel ``_expand_pallas`` :215)
+expands one hybrid RLE / bit-packed stream of the per-column decode
+(io/device_parquet.decode_plan) to ``[cap]`` values in three phases:
+
+  phase 0  the stream's bit-packed regions unpack as one dense array
+           (``unpack_bits``; a stream with no bit-packed width skips it);
+  phase 1  the host's per-run deltas (:func:`_dense_meta`) become two step
+           functions over the elements, A (dense index - element) and C
+           (RLE value * 2 + 1), by a delta scatter plus a cumsum in torch
+           (:func:`step_functions`), as the reference builds them outside
+           its kernel (``_expand_impl`` :310);
+  phase 2  ``expand``: the RLE value where C is odd, else one gather
+           ``dense[clip(A + i)]`` -- ``csrc/decode.cu`` on a CUDA tensor,
+           :func:`plain_expand` on a CPU tensor.
+
+A stream whose bit-packed runs mix widths (``stream_width``) has no single
+dense array: as in the reference, it takes the window-gather composition
+``io/device_parquet.expand_runs_matrix`` on either device and counts a
+``decode.expand.mixed_widths`` fallback; that composition stops at 24-bit
+widths and raises ``UnsupportedChunk`` past them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.kernels import backend as kb
@@ -37,6 +59,7 @@ from spark_rapids_tpu_torch.kernels import backend as kb
 SOURCE = "spark_rapids_tpu_torch/csrc/decode.cu"
 
 _UNPACK_BLOCK = 8192      # the reference's base values per grid step
+_EXPAND_BLOCK = 8192      # the reference's base elements per grid step
 
 
 def _unpack_block(ncap: int) -> int:
@@ -52,7 +75,8 @@ def _unpack_supported(w: int, ncap: int, nbytes: int) -> bool:
 
 
 def _as_int32(v: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> the int32 with the same low 32 bits."""
+    """int64 values in [0, 2^32) -> the int32 with the same low 32 bits
+    (the reference's uint32, as a bit pattern)."""
     return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
 
 
@@ -96,6 +120,9 @@ def _kernel_lib():
         lib.decode_unpack_bits.argtypes = [vp, ll, ctypes.c_int, ll, vp,
                                            ctypes.c_int, vp]
         lib.decode_unpack_bits.restype = ctypes.c_int
+        lib.decode_expand.argtypes = [vp, ll, vp, vp, ctypes.c_int, ll, vp,
+                                      ctypes.c_int, vp]
+        lib.decode_expand.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -139,3 +166,200 @@ def unpack_bits(bytes_arr: torch.Tensor, w: int, ncap: int) -> torch.Tensor:
             kb.record_fallback("decode.unpack", "shape")
         return plain_unpack_bits(bytes_arr, w, ncap)
     return kernel_unpack_bits(bytes_arr, w, ncap)
+
+
+# ---------------------------------------------------------------------------
+# run expansion
+# ---------------------------------------------------------------------------
+
+def stream_width(runs) -> Tuple[bool, int, str]:
+    """(supported, width, reason): a stream expands through one dense
+    array when its bit-packed runs share one nonzero width <= 32.
+
+    Width-0 bit-packed runs (a page written against a one-entry
+    dictionary) hold zero packed bytes and decode to 0, so they do not
+    constrain the width: :func:`_dense_meta` rewrites them as RLE-0 runs
+    (mapping one through ``bit_base // w`` would alias the next run's
+    values)."""
+    w = 0
+    for i in range(len(runs.counts)):
+        if runs.is_rle[i]:
+            continue
+        wi = int(runs.widths[i])
+        if wi == 0:
+            continue        # zero packed bytes; rewritten to RLE-0
+        if w and wi != w:
+            return False, 0, "mixed_widths"
+        w = wi
+        if wi > 32:
+            return False, 0, "width"
+    return True, w, ""
+
+
+def _dense_meta(runs, w: int, rcap: int) -> np.ndarray:
+    """Per-run (start, dA, dC) deltas, ``[rcap, 3]``: the coefficients
+    phase 1 scatters (O(runs) host work).  A carries through RLE runs so
+    the deltas telescope.  The matrix widens to int64 when a wide RLE
+    payload overflows int32 deltas; padding rows start at 2^30 and
+    drop."""
+    n = len(runs.counts)
+    rows = []
+    pos = 0
+    prev_a = prev_c = 0
+    lo = hi = 0
+    for i in range(n):
+        start = pos
+        pos += int(runs.counts[i])
+        if runs.is_rle[i]:
+            a = prev_a
+            c = (int(runs.values[i]) << 1) | 1
+        elif int(runs.widths[i]) == 0:
+            # width-0 bit-pack: zero packed bytes, every value 0
+            a = prev_a
+            c = 1
+        else:
+            valoff = int(runs.bit_bases[i]) // w if w else 0
+            a = valoff - start
+            c = 0
+        rows.append((start, a - prev_a, c - prev_c))
+        lo = min(lo, rows[-1][1], rows[-1][2])
+        hi = max(hi, rows[-1][1], rows[-1][2])
+        prev_a, prev_c = a, c
+    np_t = np.int32 if -(1 << 31) <= lo and hi < (1 << 31) else np.int64
+    mat = np.zeros((rcap, 3), dtype=np_t)
+    mat[n:, 0] = np_t(1 << 30)
+    if rows:
+        mat[:n] = np.asarray(rows, dtype=np_t)
+    return mat
+
+
+def _dense_extent(runs, w: int) -> int:
+    """Values the dense array must hold: at least the stream's bit-packed
+    values, and past the end of its last bit-packed run.  A page's last
+    bit-packed run is trimmed to the page's value count, but its packed
+    padding stays, so later runs start past the trimmed count.  (The
+    reference sizes the array from the count alone and, where the padding
+    carries the last run past the capacity tier, reads clipped values
+    there: ROADMAP Queue C.)"""
+    nvals = sum(int(c) for c, r in zip(runs.counts, runs.is_rle) if not r)
+    end = max((int(b) // w + int(c) for c, r, b, wi in zip(
+        runs.counts, runs.is_rle, runs.bit_bases, runs.widths)
+        if not r and int(wi)), default=0) if w else 0
+    return max(nvals, end)
+
+
+def _expand_supported(w: int, ncap: int, cap: int) -> bool:
+    """The reference's Pallas gates past ``stream_width``, kept as the
+    CPU fallback count: the unpack's grid and the expand grid's block."""
+    if w and not _unpack_supported(w, ncap, ncap * w // 8):
+        return False
+    return cap % kb.tpu_block(cap, _EXPAND_BLOCK) == 0
+
+
+def step_functions(mat: torch.Tensor, cap: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1: the step functions A and C over ``[cap]`` elements, in the
+    run matrix's dtype, from its (start, dA, dC) rows.  Deltas at one
+    start add; starts at or past ``cap`` (padding rows) land in slot cap
+    of a cap+1 buffer and drop.  The cumsum keeps the dtype (and wraps
+    like the reference's)."""
+    starts = torch.clamp(mat[:, 0], max=cap).long()
+
+    def step(delta: torch.Tensor) -> torch.Tensor:
+        acc = torch.zeros(cap + 1, dtype=mat.dtype, device=mat.device)
+        acc.index_add_(0, starts, delta.contiguous())
+        return torch.cumsum(acc[:cap], 0, dtype=mat.dtype)
+
+    return step(mat[:, 1]), step(mat[:, 2])
+
+
+def plain_expand(dense: torch.Tensor, a: torch.Tensor,
+                 c: torch.Tensor) -> torch.Tensor:
+    """The expand kernel's function in plain torch: the RLE value where C
+    is odd, else ``dense[clip(A + i, 0, dlen - 1)]``; int32 bit patterns
+    of the reference's uint32."""
+    i = torch.arange(a.shape[0], dtype=a.dtype, device=a.device)
+    idx = torch.clamp(a + i, 0, dense.shape[0] - 1)
+    v = c >> 1
+    if v.dtype == torch.int64:
+        v = _as_int32(v & 0xFFFFFFFF)
+    return torch.where((c & 1) != 0, v, dense[idx.long()])
+
+
+def kernel_expand(dense: torch.Tensor, a: torch.Tensor,
+                  c: torch.Tensor) -> torch.Tensor:
+    """Launch the expand kernel of csrc/decode.cu on CUDA tensors (no
+    fallback: anything it does not take raises)."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"expand: the kernel needs CUDA tensors, got {dev}")
+    if dense.device != dev or c.device != dev:
+        raise ValueError("expand: dense, a and c must share one device")
+    if dense.dtype != torch.int32 or dense.dim() != 1 or \
+            dense.shape[0] == 0:
+        raise ValueError("expand: dense must be a non-empty 1-D int32 "
+                         "tensor")
+    if a.dtype not in (torch.int32, torch.int64) or c.dtype != a.dtype:
+        raise ValueError(f"expand: steps must be both int32 or both int64, "
+                         f"got {a.dtype} and {c.dtype}")
+    if a.dim() != 1 or c.shape != a.shape:
+        raise ValueError("expand: a and c must be 1-D of one length")
+    dense, a, c = dense.contiguous(), a.contiguous(), c.contiguous()
+    cap = a.shape[0]
+    out = torch.empty(cap, dtype=torch.int32, device=dev)
+    err = _kernel_lib().decode_expand(
+        dense.data_ptr(), dense.shape[0], a.data_ptr(), c.data_ptr(),
+        a.element_size(), cap, out.data_ptr(),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"expand: CUDA launch failed with error {err}")
+    kb.record_launch("decode.expand_stream")
+    return out
+
+
+def expand(dense: torch.Tensor, a: torch.Tensor,
+           c: torch.Tensor) -> torch.Tensor:
+    """Phase 2 on the tensors' device: the kernel on CUDA, its plain
+    version on the CPU."""
+    if a.device.type == "cpu":
+        return plain_expand(dense, a, c)
+    return kernel_expand(dense, a, c)
+
+
+def expand_device(mat: torch.Tensor, packed: torch.Tensor, w: int,
+                  ncap: int, cap: int) -> torch.Tensor:
+    """The device half of one stream's expansion (the reference's
+    ``_expand_impl``): unpack, step functions, expand."""
+    if w:
+        dense = unpack_bits(packed, w, ncap)
+    else:
+        # no bit-packed width (single-entry dictionary, all-RLE levels):
+        # every bit-packed value is 0, so no dense phase at all
+        dense = torch.zeros(32, dtype=torch.int32, device=mat.device)
+    a, c = step_functions(mat, cap)
+    return expand(dense, a, c)
+
+
+def expand_stream(runs, packed: bytes, cap: int,
+                  device="cuda") -> torch.Tensor:
+    """Expand one hybrid RLE / bit-packed stream to ``[cap]`` values on
+    ``device`` (int32 bit patterns of the reference's uint32): the run
+    matrix and the packed bytes are the two uploads."""
+    from spark_rapids_tpu_torch.columnar.batch import bucket_rows
+    from spark_rapids_tpu_torch.io import device_parquet as dp
+    dev = torch.device(device)
+    ok, w, reason = stream_width(runs)
+    if not ok:
+        kb.record_fallback("decode.expand", reason)
+        return dp.expand_runs(runs, packed, cap, dev)
+    ncap = bucket_rows(max(_dense_extent(runs, w), 1), 32)
+    if dev.type == "cpu" and not _expand_supported(w, ncap, cap):
+        kb.record_fallback("decode.expand", "shape")
+    rcap = bucket_rows(max(len(runs.counts), 1), 8)
+    mat = _dense_meta(runs, w, rcap)
+    pbytes = dp._pad_np(np.frombuffer(bytes(packed), dtype=np.uint8),
+                        max(ncap * w // 8, 4))
+    return expand_device(torch.from_numpy(mat).to(dev),
+                         torch.from_numpy(pbytes.copy()).to(dev),
+                         w, ncap, cap)

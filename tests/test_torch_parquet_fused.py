@@ -43,7 +43,7 @@ from spark_rapids_tpu_torch.columnar import batch as tbatch
 from spark_rapids_tpu_torch.columnar.interop import fused_arrays_to_torch
 from spark_rapids_tpu_torch.config import RapidsTpuConf
 from spark_rapids_tpu_torch.entry import (collect, q6_parquet_plan,
-                                          q6s_parquet_plan,
+                                          q6_perfile_plan, q6s_parquet_plan,
                                           write_store_sales)
 from spark_rapids_tpu_torch.expr import ir as tir
 from spark_rapids_tpu_torch.io import device_parquet as tdp
@@ -377,12 +377,37 @@ def test_scan_without_device_columns_keeps_its_device(files):
     assert batch.num_rows == sum(FILE_ROWS)
 
 
-def test_list_column_is_not_ported_yet(tmp_path):
-    p = str(tmp_path / "l.parquet")
-    papq.write_table(pa.table({"l": pa.array([[1, 2], None, [3]])}), p)
-    schema = TSchema([TField("l", tdt.list_of(tdt.INT64))])
-    with pytest.raises(NotImplementedError, match="decode_list_chunk"):
-        tpf.decode_row_groups_fused(_sources([p]), schema, device="cpu")
+def test_list_column_in_fused_batch_matches_reference(tmp_path):
+    """A list column of a fused batch decodes per row group through the
+    list decode and concatenates on the device, beside the fused flat
+    columns, as in the reference."""
+    rng = np.random.default_rng(21)
+    paths = []
+    for i, n in enumerate((700, 450)):
+        py = [None if j % 9 == 0 else
+              [int(x) for x in rng.integers(-50, 50, int(rng.integers(0, 5)))]
+              for j in range(n)]
+        t = pa.table({"l": pa.array(py, type=pa.list_(pa.int32())),
+                      "q": pa.array(rng.integers(0, 20, n), pa.int32())})
+        p = str(tmp_path / f"l{i}.parquet")
+        papq.write_table(t, p, row_group_size=300)
+        paths.append(p)
+    jschema = JSchema([JField("l", jdt.list_of(jdt.INT32)),
+                       JField("q", jdt.INT32)])
+    tschema = TSchema([TField("l", tdt.list_of(tdt.INT32)),
+                       TField("q", tdt.INT32)])
+    jb, jfb = jpf.finish_fused(jpf.prepare_fused(_sources(paths), jschema,
+                                                 backend="pallas"))
+    tb, tfb = tpf.decode_row_groups_fused(_sources(paths), tschema,
+                                          device="cpu")
+    assert tfb == jfb == []
+    assert tb.names == jb.names and tb.capacity == jb.capacity
+    _assert_leaves_equal(_t_leaves(tb), _j_leaves(jb))
+    jl, tl = jb.columns[0], tb.columns[0]
+    assert np.array_equal(tl.elem_validity.numpy(),
+                          np.asarray(jl.elem_validity))
+    want = pa.concat_tables([papq.read_table(p) for p in paths])
+    assert tbatch.to_arrow(tb).equals(want)
 
 
 # ---------------------------------------------------------------------------
@@ -483,8 +508,96 @@ def test_q6s_parquet_plan_matches_pyarrow(store_sales):
     assert all(len(s) == 16 for s in out["ss_item_id"].to_pylist())
 
 
-def test_fused_decode_off_is_not_ported_yet(store_sales):
-    conf = RapidsTpuConf({
+def _predicted_perfile_counts(root):
+    """Expand launches, unpack launches and mixed-width fallbacks that q6
+    through the PERFILE reader must make, from its chunk plans'
+    streams."""
+    from spark_rapids_tpu_torch.kernels import decode as tdec
+    names = ["ss_item_sk", "ss_quantity", "ss_sales_price",
+             "ss_ext_sales_price"]
+    want = {"expand": 0, "unpack": 0, "mixed": 0}
+    for f in sorted(os.listdir(root)):
+        path = os.path.join(root, f)
+        pf = papq.ParquetFile(path)
+        schema = TSchema.from_arrow(pf.schema_arrow)
+        leaf = tdp.leaf_map(pf)
+        for rg in range(pf.metadata.num_row_groups):
+            for c in names:
+                chunk = tpm.read_chunk_pages(path, rg, leaf[c],
+                                             parquet_file=pf)
+                p = tdp.plan_chunk(chunk, schema.field(c).dtype,
+                                   allow_mixed=True)
+                streams = [p.def_runs] if p.nullable else []
+                if p.mode != "plain":
+                    streams.append(p.val_runs)
+                for runs in streams:
+                    ok, w, _ = tdec.stream_width(runs)
+                    want["expand"] += ok
+                    want["unpack"] += ok and w > 0
+                    want["mixed"] += not ok
+    return want
+
+
+def test_q6_perfile_plan_matches_reference_session_and_pyarrow(
+        store_sales):
+    """q6 with fused decode off: the port's PERFILE reader (one batch per
+    row group, decoded column by column) against a reference session with
+    the same key off, and against pyarrow; then the fused reader and the
+    PERFILE reader each find their own cached plans warm."""
+    import bench
+    from spark_rapids_tpu import TpuSparkSession
+    kb.reset_counts()
+    tsc.clear()
+    plan = q6_perfile_plan(store_sales, device="cpu")
+    out = collect(plan).sort_by("ss_item_sk")
+    scan = plan.children[0].children[0]
+    assert scan.metrics.num_output_batches == 3       # one per row group
+    assert scan.metrics.extra["fallbackColumns"] == 0
+    assert scan.metrics.extra["scan.decode"] > 0
+    want = _predicted_perfile_counts(store_sales)
+    assert want["expand"] >= 9 and want["unpack"] >= 3
+    assert not kb.launches                            # CPU: plain versions
+    assert kb.fallbacks == ({"decode.expand.mixed_widths": want["mixed"]}
+                            if want["mixed"] else {})
+    session = TpuSparkSession({
+        "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
         "spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled": False})
-    with pytest.raises(NotImplementedError, match="expand_stream"):
-        collect(q6_parquet_plan(store_sales, device="cpu", conf=conf))
+    ref = bench._query(session, store_sales).collect().sort_by("ss_item_sk")
+    pa_ref = _q6_pyarrow(store_sales).group_by("ss_item_sk").aggregate(
+        [("ss_item_sk", "count"), ("ss_quantity", "sum"),
+         ("ss_ext_sales_price", "mean")]).sort_by("ss_item_sk")
+    for want_k, want_c, want_q, want_a in (
+            (ref["ss_item_sk"], ref["cnt"], ref["qty"], ref["aesp"]),
+            (pa_ref["ss_item_sk"], pa_ref["ss_item_sk_count"],
+             pa_ref["ss_quantity_sum"],
+             pa_ref["ss_ext_sales_price_mean"])):
+        assert out["ss_item_sk"].to_pylist() == want_k.to_pylist()
+        assert out["cnt"].to_pylist() == want_c.to_pylist()
+        assert out["qty"].to_pylist() == want_q.to_pylist()
+        a, r = out["aesp"].to_numpy(), want_a.to_numpy()
+        assert np.all(np.abs(a - r) <= REL * np.abs(r))
+    # the fused reader walks with allow_mixed False and keeps its own
+    # plans: after one cold run of each, warm runs of both walk nothing
+    collect(q6_parquet_plan(store_sales, device="cpu"))
+    walks = tpm.walk_count()
+    again = collect(q6_perfile_plan(store_sales, device="cpu"))
+    collect(q6_parquet_plan(store_sales, device="cpu"))
+    assert tpm.walk_count() == walks
+    assert again.sort_by("ss_item_sk").equals(out)
+
+
+def test_perfile_reader_sets_input_file(store_sales):
+    """The PERFILE reader names each batch's file in the
+    ``input_file_name()`` slot while the batch is consumed, and clears
+    the slot when its file is done."""
+    from spark_rapids_tpu_torch.exec.context import input_file
+    from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+    scan = q6_perfile_plan(store_sales, device="cpu").children[0].children[0]
+    assert isinstance(scan, TpuParquetScanExec)
+    seen = []
+    for part, path in zip(scan.execute(), scan.scan.paths):
+        for batch in part:
+            seen.append(input_file())
+            assert batch.device.type == "cpu"
+        assert input_file() == ""
+    assert seen == list(scan.scan.paths)
