@@ -11,9 +11,13 @@ Phases (any failure exits non-zero):
   2. parity  — every kernel, through the wrappers the main paths call,
                against its plain torch version on the card: segreduce for
                each type pair x op, sorted and with the fused gather, at
-               capacities 2^18, 2^20 and 2^24; unpack_bits for every width
-               1-32; decode over 4- and 8-byte dictionaries of 2^7, 2^15
-               and 2^20 entries with keep densities 0.25 and 0 and a fully
+               capacities 2^18, 2^20 and 2^24 over two group-start
+               densities, no flag at all and a flag at each tile's end
+               (and one segment at 2^24), at 2^20+7 and 1-7 elements, and
+               gathered from a longer source; every float sum three times,
+               bit for bit; one device launch per call; unpack_bits for
+               every width 1-32; decode over 4- and 8-byte dictionaries of
+               2^7, 2^15 and 2^20 entries with keep densities 0.25 and 0 and a fully
                dropped range; decode_str at widths 1, 16, 64 and 256 with
                empty rows and byte bases clipped at the buffer's end; the
                run expansion (expand) for every width 0-32 at capacities
@@ -230,43 +234,127 @@ def _identity(op, dtype):
     return info.max if op == "min" else info.min
 
 
-# the update's two rungs and the merge's: 128, 512 and 8192 tiles of 2048,
-# so at 2^24 the carry scan folds 8 tiles per thread before its block scan
+# the update's two rungs and the merge's: 64, 256 and 4096 tiles of 4096
+# elements (twice as many tiles of 2048 for 8-byte outputs)
 PARITY_CAPS = (1 << 18, 1 << 20, 1 << 24)
 # group starts: q6-like short groups (every tile holds a start), and
-# groups of ~2^16 rows that carry across 32 tiles, with no start at row 0
+# groups of ~2^16 rows that carry across many tiles, with no start at row 0
 PARITY_DENSITIES = (1 / 60, 1 / 65536)
+# layouts that stress the look-back, beside the densities: no flag at all
+# (row 0 included); a flag only at each tile's last element; one segment
+# spanning the capacity (the global aggregate), at 2^24 only
+PARITY_LAYOUTS = ("none", "tile_last")
+# capacities that are not a multiple of the tile
+RAGGED_CAPS = ((1 << 20) + 7,) + tuple(range(1, 8))
+
+
+def _layout_flags(layout, cap: int, tile: int, gen) -> torch.Tensor:
+    if isinstance(layout, float):
+        new = torch.rand(cap, generator=gen, device="cuda") < layout
+        new[0] = layout > 1e-3
+        return new
+    new = torch.zeros(cap, dtype=torch.bool, device="cuda")
+    if layout == "tile_last":
+        new[tile - 1::tile] = True
+    elif layout == "one_segment":
+        new[0] = True
+    return new
+
+
+def _layout_tag(layout) -> str:
+    return f"starts~1/{round(1 / layout)}" if isinstance(layout, float) \
+        else layout
 
 
 def phase_parity() -> None:
+    """segreduce through its wrappers against its plain version, for every
+    type pair x op, sorted and with the fused gather, over the densities
+    and layouts above, ragged capacities and a gather from a source longer
+    than the capacity.  Every float add also runs twice more and must give
+    the same bits each time (the look-back folds in a fixed order)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
-    n_ok = 0
-    for cap in PARITY_CAPS:
-        order = torch.randperm(cap, generator=gen, device="cuda").to(
-            torch.int32)
-        for density in PARITY_DENSITIES:
-            new = torch.rand(cap, generator=gen, device="cuda") < density
-            new[0] = density > 1e-3
+    n_ok = n_rep = 0
+
+    def run_all(cap: int, layouts, src: int = 0) -> None:
+        nonlocal n_ok, n_rep
+        order = torch.randperm(src or cap, generator=gen, device="cuda")[
+            :cap].to(torch.int32)
+        for layout in layouts:
             for tin, tout in sorted(kseg.KERNEL_TYPES, key=str):
+                new = _layout_flags(layout, cap, kseg.tile_elems(tout), gen)
                 for op in ("add", "min", "max"):
-                    x = _values(tin, cap, gen)
+                    x = _values(tin, src or cap, gen)
                     ident = _identity(op, tout)
-                    # seg_scan_sorted never widens: gather only then
-                    for o in ((None, order) if tin == tout else (order,)):
-                        err, ok = compare(new, x, op, ident, o,
-                                          None if tin == tout else tout)
+                    # seg_scan_sorted never widens, nor reads a longer
+                    # source: gather only then
+                    paths = (None, order) if tin == tout and not src \
+                        else (order,)
+                    for o in paths:
+                        out = None if tin == tout else tout
+                        err, ok = compare(new, x, op, ident, o, out)
                         tag = (f"{tin}->{tout} {op} "
                                f"{'sorted' if o is None else 'gather'} "
-                               f"cap={cap} starts~1/{round(1 / density)}")
+                               f"cap={cap} src={x.shape[0]} "
+                               f"{_layout_tag(layout)}")
                         detail(f"parity {tag}: max_abs_err={err} ok={ok}")
                         if not ok:
                             fail(f"kernel != plain for {tag} "
                                  f"(max err {err})")
                         n_ok += 1
+                        if op == "add" and tout.is_floating_point:
+                            first = wrapper_scan(new, x, op, ident, o, out)
+                            for _ in range(2):
+                                again = wrapper_scan(new, x, op, ident, o,
+                                                     out)
+                                if not torch.equal(again.view(torch.uint8),
+                                                   first.view(torch.uint8)):
+                                    fail(f"float sum not repeatable: {tag}")
+                            n_rep += 1
+
+    for cap in PARITY_CAPS:
+        run_all(cap, PARITY_DENSITIES + PARITY_LAYOUTS +
+                (("one_segment",) if cap == 1 << 24 else ()))
+    for cap in RAGGED_CAPS:
+        run_all(cap, (PARITY_DENSITIES[0], "none"))
+    run_all(1 << 18, PARITY_DENSITIES, src=1 << 20)
     caps = ", ".join(f"2^{c.bit_length() - 1}" for c in PARITY_CAPS)
     log(f"parity: {n_ok} kernel/plain comparisons through the wrappers "
-        f"agree (caps {caps}, {len(PARITY_DENSITIES)} group-start "
-        f"densities)")
+        f"agree (caps {caps}: {len(PARITY_DENSITIES)} group-start "
+        f"densities, no flag, a flag at each tile's end, one segment at "
+        f"2^24; caps 2^20+7 and 1-7; cap 2^18 gathered from 2^20); "
+        f"{n_rep} float sums gave the same bits over 3 calls")
+    _one_launch_per_call(gen)
+
+
+def _one_launch_per_call(gen) -> None:
+    """Each wrapper call is one kernel launch: the device kernels that
+    torch.profiler records for one call after a warm one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cap = 1 << 20
+    new = _layout_flags(PARITY_DENSITIES[0], cap, 0, gen)
+    x = _values(torch.float64, cap, gen)
+    order = torch.randperm(cap, generator=gen, device="cuda").to(torch.int32)
+    for name, fn in (
+            ("seg_scan_sorted", partial(kseg.seg_scan_sorted, new, x, "add",
+                                        0)),
+            ("gather_seg_scan", partial(kseg.gather_seg_scan, x, order, new,
+                                        "add", 0))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if not names:
+            log(f"launches per {name} call: not measured (the profiler "
+                f"recorded no device activity)")
+        elif len(names) != 1:
+            fail(f"{name} ran {len(names)} device operations per call: "
+                 f"{names}")
+        else:
+            log(f"launches per {name} call: 1 ({names[0][:60]})")
 
 
 def _exact(got: torch.Tensor, want: torch.Tensor):
@@ -1069,6 +1157,15 @@ def phase_perfile_modes() -> None:
 # 9. kernel timings at the q6 shapes
 # ---------------------------------------------------------------------------
 
+# GPU cycles each timed rep waits before its first event: about 3 ms on
+# the H100, far longer than the host takes to enqueue one call (40-160 us
+# measured for segreduce by segreduce_profile.py), so no idle time lands
+# between the events.  A sleep of 200,000 cycles (about 0.1 ms) is
+# shorter than the host at times, and then counts idle time as kernel
+# time.
+SLEEP_CYCLES = 5_000_000
+
+
 def _time_device(fn, reps: int = 20, flush=None) -> float:
     """Mean ms per call on the device: per rep, flush L2 (the q6 caller
     finds its inputs cold), keep the GPU busy while the host enqueues,
@@ -1079,7 +1176,7 @@ def _time_device(fn, reps: int = 20, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()

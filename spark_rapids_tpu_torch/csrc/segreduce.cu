@@ -1,4 +1,5 @@
-// Segmented inclusive scan with a fused gather, for Hopper (sm_90a).
+// Segmented inclusive scan with a fused gather, for Hopper (sm_90a): one
+// launch per call, a single pass with a deterministic decoupled look-back.
 //
 // Replaces the TPU kernel spark_rapids_tpu/kernels/segreduce.py: both of its
 // entry points, seg_scan_sorted (_seg_kernel) and gather_seg_scan
@@ -7,51 +8,94 @@
 //     y[k] = op-scan of cast(x[order[k]])  (or of cast(x[k]) when order is
 //            null), restarting wherever flags[k] is set,
 //
-// for op in {add, min, max}; the caller supplies the op's identity.  The
-// sorted-key aggregate (exec/tpu_aggregate.py) then reads y at each group's
-// last row.
+// for op in {add, min, max}; the caller supplies the op's identity, which
+// only pads the last tile.  The sorted-key aggregate (exec/tpu_aggregate.py)
+// then reads y at each group's last row.
 //
-// What bounds it: memory traffic.  Per element it reads 4 B of order, 1 B of
-// flags and one gathered value of sizeof(TIn), and writes sizeof(TOut); the
-// arithmetic is one op per element.  The design answers that with one pass
-// over the elements: the gather feeds the scan in registers and shared
-// memory, so no sorted copy of x ever lands in device memory.  The two extra
-// phases touch only per-tile data (24 B per 2048 elements) and the elements
-// of a tile that precede its first flag.
+// What bounds it: per element it reads 4 B of order, 1 B of flags and one
+// gathered value of sizeof(TIn), and writes sizeof(TOut), with one op of
+// arithmetic, so the bytes bound it.  At the capacities the aggregate's
+// updates use (2^18 and 2^20 rows: 0.7-5.5 MB, 0.2-1.7 us at 3.35 TB/s) the
+// launch and the latency of one tile's dependent loads (order, then the
+// gather) cost more than the bytes; at the merge's 2^24 rows the bytes
+// dominate.  So the design makes one launch and one pass, keeps every load
+// coalesced and many in flight, and moves each byte once.
 //
-// The scan is a simple, correct three-phase scan (a faster decoupled
-// look-back single pass is later work):
-//   1. seg_tile: each block gathers a tile of TILE elements through order,
-//      widens them to TOut, runs a shared-memory segmented scan of (flag,
-//      value) pairs, and writes the local results, the tile's aggregate and
-//      the position of its first flag.
-//   2. carry_scan: one block scans the tile aggregates into the carry that
-//      enters each tile (starting from the identity, as the reference's
-//      blocked scan does).
-//   3. apply_carry: elements of a tile that precede its first flag combine
-//      with the tile's carry.
-// The TPU kernel's 2-D (element block x source tile) grid is not carried
-// over: on Hopper the gather reads device memory directly.
+//   * One launch.  Each block takes its tile number from a device-wide
+//     counter, not from blockIdx, so it only waits on tiles that have
+//     already started: forward progress without assuming co-residency.
+//   * A tile is 8 warps x 32 lanes x ITEMS rows (ITEMS = 16 for outputs of
+//     up to 4 bytes, 8 for 8-byte outputs).  A warp owns 32 x ITEMS
+//     consecutive elements as ITEMS rows of 32; lane l holds element l of
+//     each row.  So every load, gather and store of a warp touches 32
+//     consecutive elements, and a sorted gather reads whole sectors.
+//     (ITEMS consecutive elements per thread, loaded as 16-byte vectors,
+//     make each warp's gather and store touch 4x the sectors: measured
+//     slower than the old three-phase kernel at 2^24 rows, PERF.md.)  All
+//     of a thread's loads are issued before any is used.
+//   * The scan needs no shared-memory exchange, hence no bank conflicts:
+//     each row is scanned across lanes by shuffles, restarting at the row's
+//     last flag at or before the lane (one ballot of the row's flags); the
+//     rows and then the warps are folded in order.
+//   * Decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
+//     Scan with Decoupled Look-back", 2016).  A tile that holds a flag (and
+//     tile 0) publishes its inclusive prefix at once: its aggregate is that
+//     prefix.  Any other tile publishes its aggregate, looks back, then
+//     publishes its inclusive prefix.  Warp 0 reads 128 predecessors per
+//     round trip; the nearest published prefix ends the look-back: one step
+//     when every tile holds a group start (q6's short groups), a few when a
+//     segment spans hundreds of tiles (q6's sorted-last padding rows).
+//   * Deterministic float sums.  A tile's inclusive prefix is the left fold
+//     P_j = P_{j-1} op a_j, restarting at a tile with a flag.  The look-back
+//     folds the aggregates after the prefix it found forward, one by one,
+//     from that prefix, so whichever prefix it finds the result is the same
+//     left fold, bit for bit.  The in-tile tree is fixed.  So every call
+//     returns the same bits; integers, min and max are exact anyway.
+//   * Memory ordering without fences: every 64-bit word of the look-back
+//     state carries a 32-bit tag (the call's epoch and the kind, aggregate
+//     or prefix) beside 32 bits of value, and is written and read whole
+//     (relaxed atomics at device scope).  A value is valid when all its
+//     words carry the expected tag, so no store needs to be ordered before
+//     another, and no acquire load invalidates the SM's L1.
+//   * No reset per call.  Tags carry the call's epoch (the wrapper keeps one
+//     state buffer per device and stream and counts its calls), so a word of
+//     an earlier call reads as empty; the block that takes the last tile
+//     puts the counter back to 0.  A call costs no memset and no second
+//     launch, at any capacity.
 //
 // Float sums use another reduction tree than the reference's
 // jax.lax.associative_scan, so they agree to rounding, not bit for bit.
-// Integers (wrapping) and min/max agree exactly.
+// Integers (wrapping) and min/max agree exactly; min and max propagate NaN;
+// uint64 compares unsigned.
 //
-// Interface: plain C, loaded with ctypes.  Launches go to the caller's
-// stream, nothing synchronises, and the caller allocates y and the scratch
-// (segreduce_scratch_bytes).  The entry point returns cudaGetLastError().
+// Interface: plain C, loaded with ctypes.  The launch goes to the caller's
+// stream and nothing synchronises; the caller allocates y and the state
+// (segreduce_state_bytes) and passes the call's epoch.  The entry point
+// returns cudaGetLastError().
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ITEMS = 8;
-constexpr int TILE = THREADS * ITEMS;  // elements per block in phase 1
-constexpr int CARRY_THREADS = 1024;
+constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
+// predecessors warp 0 reads per look-back round trip: LB_K per lane
+constexpr int LB_K = 4;
+constexpr int LB_SPAN = 32 * LB_K;
+// a look-back that waits this many rounds has lost a predecessor: trap
+// (a launch error) rather than hang the card
+constexpr long long SPIN_LIMIT = 1LL << 26;
+
+template <typename TOut>
+__host__ __device__ constexpr int items_of() {
+  return sizeof(TOut) <= 4 ? 16 : 8;
+}
 
 enum { OP_ADD = 0, OP_MIN = 1, OP_MAX = 2 };
 
@@ -61,273 +105,405 @@ enum {
   DT_UINT8 = 5, DT_UINT64 = 6, DT_FLOAT32 = 7, DT_FLOAT64 = 8
 };
 
-template <typename T>
-__device__ __forceinline__ bool is_nan(T v) { return false; }
-template <>
-__device__ __forceinline__ bool is_nan<float>(float v) { return v != v; }
-template <>
-__device__ __forceinline__ bool is_nan<double>(double v) { return v != v; }
+// the kind of a published value (the low two bits of a word's tag, the
+// call's epoch above them); EMPTY: nothing of this call yet
+enum : uint32_t { ST_EMPTY = 0, ST_AGG = 1, ST_PREFIX = 2 };
 
-// jnp.add / jnp.minimum / jnp.maximum: min and max propagate NaN
-template <typename T, int OP>
-__device__ __forceinline__ T apply(T a, T b) {
-  if (OP == OP_ADD) return a + b;
-  if (is_nan(a)) return a;
-  if (is_nan(b)) return b;
-  if (OP == OP_MIN) return b < a ? b : a;
-  return a < b ? b : a;
+using ull = unsigned long long;
+using dev_u64 = cuda::atomic_ref<ull, cuda::thread_scope_device>;
+
+// the state buffer: the tile counter (16 B), then per tile 4 words of 8 B:
+// its prefix and its aggregate, each in one word (outputs of up to 4 bytes)
+// or two (8-byte outputs: low, then high 32 bits)
+struct State {
+  uint32_t* counter;
+  ull* words;
+};
+
+template <typename TOut>
+__device__ __forceinline__ constexpr int words_of() {
+  return sizeof(TOut) <= 4 ? 1 : 2;
 }
 
 template <typename T>
-__device__ __forceinline__ T shfl_up(T v, int d) {
-  if constexpr (sizeof(T) == 8) {
-    unsigned long long u;
-    memcpy(&u, &v, 8);
-    u = __shfl_up_sync(FULL, u, d);
-    T r;
-    memcpy(&r, &u, 8);
-    return r;
-  } else if constexpr (sizeof(T) == 4) {
-    unsigned u;
-    memcpy(&u, &v, 4);
-    u = __shfl_up_sync(FULL, u, d);
-    T r;
-    memcpy(&r, &u, 4);
-    return r;
-  } else {  // 1- and 2-byte integers travel widened
-    return static_cast<T>(__shfl_up_sync(FULL, static_cast<int>(v), d));
+__device__ __forceinline__ ull to_bits(T v) {
+  ull u = 0;
+  memcpy(&u, &v, sizeof(T));
+  return u;
+}
+
+template <typename T>
+__device__ __forceinline__ T from_bits(ull u) {
+  T v;
+  memcpy(&v, &u, sizeof(T));
+  return v;
+}
+
+template <typename TOut>
+__device__ __forceinline__ void publish(const State& s, long long t,
+                                        uint32_t epoch, uint32_t kind,
+                                        TOut v) {
+  constexpr int W = words_of<TOut>();
+  ull* w = s.words + 4 * t + (kind == ST_PREFIX ? 0 : 2);
+  const ull tag = (ull)((epoch << 2) | kind) << 32;
+  const ull bits = to_bits(v);
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+    dev_u64(w[i]).store(tag | ((bits >> (32 * i)) & 0xffffffffull),
+                        cuda::memory_order_relaxed);
+}
+
+// tile t's kind: its prefix if published, else its aggregate if published,
+// else ST_EMPTY; v receives the value
+template <typename TOut>
+__device__ __forceinline__ uint32_t read_tile(const State& s, long long t,
+                                              uint32_t epoch, TOut& v) {
+  constexpr int W = words_of<TOut>();
+  ull* w = s.words + 4 * t;
+  ull p[W], a[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    p[i] = dev_u64(w[i]).load(cuda::memory_order_relaxed);
+    a[i] = dev_u64(w[2 + i]).load(cuda::memory_order_relaxed);
+  }
+  const ull tp = (ull)((epoch << 2) | ST_PREFIX);
+  const ull ta = (ull)((epoch << 2) | ST_AGG);
+  bool pv = true, av = true;
+  ull pb = 0, ab = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    pv &= (p[i] >> 32) == tp;
+    av &= (a[i] >> 32) == ta;
+    pb |= (p[i] & 0xffffffffull) << (32 * i);
+    ab |= (a[i] & 0xffffffffull) << (32 * i);
+  }
+  if (pv) {
+    v = from_bits<TOut>(pb);
+    return ST_PREFIX;
+  }
+  if (av) {
+    v = from_bits<TOut>(ab);
+    return ST_AGG;
+  }
+  return ST_EMPTY;
+}
+
+// tile t's aggregate, known to be published (its prefix may be too)
+template <typename TOut>
+__device__ __forceinline__ TOut aggregate_of(const State& s, long long t) {
+  constexpr int W = words_of<TOut>();
+  ull* w = s.words + 4 * t + 2;
+  ull b = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+    b |= (dev_u64(w[i]).load(cuda::memory_order_relaxed) & 0xffffffffull)
+         << (32 * i);
+  return from_bits<TOut>(b);
+}
+
+template <typename T>
+__device__ __forceinline__ bool is_nan(T v) {
+  if constexpr (std::is_floating_point<T>::value) return v != v;
+  return false;
+}
+
+// jnp.add (wrapping for integers) / jnp.minimum / jnp.maximum: min and max
+// propagate NaN
+template <typename T, int OP>
+__device__ __forceinline__ T apply(T a, T b) {
+  if constexpr (OP == OP_ADD) {
+    if constexpr (std::is_integral<T>::value) {
+      using U = std::make_unsigned_t<T>;
+      return static_cast<T>(static_cast<U>(static_cast<U>(a) +
+                                           static_cast<U>(b)));
+    } else {
+      return a + b;
+    }
+  } else {
+    if (is_nan(a)) return a;
+    if (is_nan(b)) return b;
+    if constexpr (OP == OP_MIN) return b < a ? b : a;
+    return a < b ? b : a;
   }
 }
 
-// (fa, va) then (fb, vb): a later flag restarts the run
-template <typename T, int OP>
-__device__ __forceinline__ void combine(int fa, T va, int& fb, T& vb) {
-  if (!fb) vb = apply<T, OP>(va, vb);
-  fb |= fa;
+// 1- and 2-byte integers travel widened
+template <typename T>
+__device__ __forceinline__ T shfl_up(T v, int d) {
+  if constexpr (sizeof(T) < 4)
+    return static_cast<T>(__shfl_up_sync(FULL, static_cast<int>(v), d));
+  else
+    return __shfl_up_sync(FULL, v, d);
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_idx(T v, int src) {
+  if constexpr (sizeof(T) < 4)
+    return static_cast<T>(__shfl_sync(FULL, static_cast<int>(v), src));
+  else
+    return __shfl_sync(FULL, v, src);
+}
+
+// jnp.take never faults: wrap a negative index, clamp the rest
+__device__ __forceinline__ long long source_of(int32_t o, long long n_src) {
+  long long s = o;
+  if (s < 0) s += n_src;
+  return s < 0 ? 0 : (s >= n_src ? n_src - 1 : s);
+}
+
+// acc op each value of v[k] on lanes (oldest first) whose distance
+// k*32 + lane from the newest tile is below `below`; uniform in the warp
+template <typename TOut, int OP>
+__device__ __forceinline__ TOut fold_span(TOut acc, const TOut (&v)[LB_K],
+                                          int below) {
+#pragma unroll
+  for (int k = LB_K - 1; k >= 0; --k) {
+    if (k * 32 >= below) continue;
+#pragma unroll
+    for (int i = 31; i >= 0; --i) {
+      const TOut vi = shfl_idx(v[k], i);
+      if (k * 32 + i < below) acc = apply<TOut, OP>(acc, vi);
+    }
+  }
+  return acc;
+}
+
+// Warp 0 of tile `tile` (> 0): the inclusive prefix of tile - 1.  Reads
+// predecessors LB_SPAN at a time (a span: tile base - d for distance
+// d = k*32 + lane) until it finds the nearest published prefix with every
+// nearer tile's aggregate published, then folds those aggregates forward
+// from that prefix, oldest first.  Every lane returns the same value.
+template <typename TOut, int OP>
+__device__ __forceinline__ TOut look_back(const State& s, long long tile,
+                                          uint32_t epoch, int lane,
+                                          TOut ident) {
+  long long base = tile - 1;
+  TOut v[LB_K];
+  int near = -1;  // distance of the nearest prefix in the last span read
+  long long spins = 0;
+  for (;;) {
+    for (;;) {
+      uint32_t st[LB_K];
+#pragma unroll
+      for (int k = 0; k < LB_K; ++k) {
+        const long long t = base - (k * 32 + lane);
+        v[k] = ident;
+        // a lane before tile 0 counts as published, never as the prefix
+        st[k] = t >= 0 ? read_tile(s, t, epoch, v[k]) : ST_AGG;
+      }
+      unsigned blocked = 0;
+      near = -1;
+#pragma unroll
+      for (int k = 0; k < LB_K; ++k) {
+        const unsigned pre = __ballot_sync(FULL, st[k] == ST_PREFIX);
+        const unsigned empty = __ballot_sync(FULL, st[k] == ST_EMPTY);
+        if (near < 0) {
+          // the tiles nearer than the nearest prefix must all be published
+          blocked |= pre ? empty & ((pre & (0u - pre)) - 1u) : empty;
+          if (pre) near = k * 32 + __ffs(pre) - 1;
+        }
+      }
+      if (!blocked) break;
+      if (++spins > SPIN_LIMIT) __trap();
+    }
+    if (near >= 0) break;
+    base -= LB_SPAN;
+  }
+  TOut acc = ident;
+#pragma unroll
+  for (int k = 0; k < LB_K; ++k)
+    if (near / 32 == k) acc = shfl_idx(v[k], near % 32);
+  acc = fold_span<TOut, OP>(acc, v, near);
+  // spans read before the last one, oldest first: their aggregates, read
+  // again (a published value never changes within a call; a tile may have
+  // published its prefix since, which must not be folded in)
+  for (long long b = base + LB_SPAN; b < tile; b += LB_SPAN) {
+#pragma unroll
+    for (int k = 0; k < LB_K; ++k)
+      v[k] = aggregate_of<TOut>(s, b - (k * 32 + lane));
+    acc = fold_span<TOut, OP>(acc, v, LB_SPAN);
+  }
+  return acc;
 }
 
 template <typename TIn, typename TOut, int OP>
 __global__ void __launch_bounds__(THREADS)
-seg_tile(const TIn* __restrict__ x, int64_t n_src,
-         const int32_t* __restrict__ order, const uint8_t* __restrict__ flags,
-         TOut* __restrict__ y, int64_t n, TOut ident,
-         TOut* __restrict__ agg_v, int32_t* __restrict__ agg_f,
-         int32_t* __restrict__ first_flag) {
-  __shared__ TOut sv[TILE];
-  __shared__ uint8_t sf[TILE];
-  __shared__ TOut warp_v[THREADS / 32];
-  __shared__ int warp_f[THREADS / 32];
-  __shared__ int s_first;
+seg_scan_onepass(const TIn* __restrict__ x, long long n_src,
+                 const int32_t* __restrict__ order,
+                 const uint8_t* __restrict__ flags, TOut* __restrict__ y,
+                 long long n, TOut ident, State s, uint32_t epoch,
+                 long long n_tiles) {
+  constexpr int ITEMS = items_of<TOut>();
+  constexpr int SPAN = 32 * ITEMS;  // elements per warp
+  constexpr int TILE = WARPS * SPAN;
+  __shared__ TOut warp_v[WARPS];
+  __shared__ int warp_f[WARPS];
+  __shared__ long long s_tile;
+  __shared__ TOut s_carry;
+  __shared__ int s_has_carry;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int64_t base = (int64_t)blockIdx.x * TILE;
-  if (tid == 0) s_first = TILE;
-
-  // gather: coalesced reads of order and flags, one gathered value each;
-  // rows past n are (no flag, identity) and never stored
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int local = i * THREADS + tid;
-    const int64_t k = base + local;
-    TOut v = ident;
-    uint8_t f = 0;
-    if (k < n) {
-      int64_t src = k;
-      if (order != nullptr) {
-        src = order[k];
-        // jnp.take never faults: wrap a negative index, clamp the rest
-        if (src < 0) src += n_src;
-        src = src < 0 ? 0 : (src >= n_src ? n_src - 1 : src);
-      }
-      v = static_cast<TOut>(x[src]);
-      f = flags[k];
-    }
-    sv[local] = v;
-    sf[local] = f;
-  }
-  __syncthreads();
-
-  // each thread scans its ITEMS consecutive elements
-  const int j0 = tid * ITEMS;
-  TOut tv[ITEMS];
-  unsigned seen = 0;  // bit i: a flag at or before item i of this thread
-  int tf = 0;
-  int my_first = TILE;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const TOut v = sv[j0 + i];
-    const int f = sf[j0 + i];
-    tv[i] = (i == 0 || f) ? v : apply<TOut, OP>(tv[i - 1], v);
-    if (f && my_first == TILE) my_first = j0 + i;
-    tf |= f;
-    seen |= (unsigned)tf << i;
-  }
-  if (my_first < TILE) atomicMin(&s_first, my_first);
-
-  // inclusive warp scan of the thread aggregates (tf, tv[ITEMS-1])
-  int wf = tf;
-  TOut wv = tv[ITEMS - 1];
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const TOut ov = shfl_up(wv, d);
-    const int of = __shfl_up_sync(FULL, wf, d);
-    if (lane >= d) combine<TOut, OP>(of, ov, wf, wv);
-  }
-  // the lane-exclusive prefix, then the warp totals
-  const TOut ex_v = shfl_up(wv, 1);
-  const int ex_f = __shfl_up_sync(FULL, wf, 1);
-  if (lane == 31) {
-    warp_v[warp] = wv;
-    warp_f[warp] = wf;
-  }
-  __syncthreads();
-
-  // prefix of this thread = (earlier warps) then (earlier lanes)
-  bool has = false;
-  int pf = 0;
-  TOut pv = ident;
-  for (int w = 0; w < warp; ++w) {
-    int f = warp_f[w];
-    TOut v = warp_v[w];
-    if (has) combine<TOut, OP>(pf, pv, f, v);
-    pf = f;
-    pv = v;
-    has = true;
-  }
-  if (lane > 0) {
-    int f = ex_f;
-    TOut v = ex_v;
-    if (has) combine<TOut, OP>(pf, pv, f, v);
-    pf = f;
-    pv = v;
-    has = true;
-  }
-  if (has) {
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i)
-      if (!((seen >> i) & 1u)) tv[i] = apply<TOut, OP>(pv, tv[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) sv[j0 + i] = tv[i];
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int local = i * THREADS + tid;
-    const int64_t k = base + local;
-    if (k < n) y[k] = sv[local];
-  }
   if (tid == 0) {
-    agg_v[blockIdx.x] = sv[TILE - 1];
-    agg_f[blockIdx.x] = s_first < TILE;
-    first_flag[blockIdx.x] = s_first;
+    const long long t = atomicAdd(s.counter, 1u);
+    if (t == n_tiles - 1) atomicExch(s.counter, 0u);  // the last tile taken
+    s_tile = t;
   }
-}
+  __syncthreads();
+  const long long tile = s_tile;
+  // row i of this warp: elements w0 + i*32 + lane
+  const long long w0 = tile * TILE + (long long)warp * SPAN + lane;
 
-// carry[b] = the scan value just before tile b, folded from the identity
-template <typename TOut, int OP>
-__global__ void __launch_bounds__(CARRY_THREADS)
-carry_scan(const TOut* __restrict__ agg_v, const int32_t* __restrict__ agg_f,
-           TOut* __restrict__ carry, int64_t nb, TOut ident) {
-  __shared__ TOut cv[2][CARRY_THREADS];
-  __shared__ int cf[2][CARRY_THREADS];
-  const int t = threadIdx.x;
-  const int64_t per = (nb + CARRY_THREADS - 1) / CARRY_THREADS;
-  const int64_t lo = t * per;
-  const int64_t hi = lo + per < nb ? lo + per : nb;
-
-  // aggregate of this thread's chunk; an empty chunk is (0, identity)
-  int f = 0;
-  TOut v = ident;
-  for (int64_t b = lo; b < hi; ++b) {
-    int fb = agg_f[b];
-    TOut vb = agg_v[b];
-    if (b > lo) combine<TOut, OP>(f, v, fb, vb);
-    f = fb;
-    v = vb;
+  // every load is issued before any is used; rows past n are (no flag,
+  // identity) and never stored
+  TOut v[ITEMS];
+  unsigned fm[ITEMS];  // per row: the ballot of its flags
+  {
+    uint8_t f[ITEMS];
+    TIn g[ITEMS];
+    if (tile * TILE + (long long)(warp + 1) * SPAN <= n) {
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) f[i] = flags[w0 + i * 32];
+      if (order != nullptr) {
+        int32_t o[ITEMS];
+#pragma unroll
+        for (int i = 0; i < ITEMS; ++i) o[i] = order[w0 + i * 32];
+#pragma unroll
+        for (int i = 0; i < ITEMS; ++i) g[i] = x[source_of(o[i], n_src)];
+      } else {
+#pragma unroll
+        for (int i = 0; i < ITEMS; ++i) g[i] = x[w0 + i * 32];
+      }
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) v[i] = static_cast<TOut>(g[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        const long long k = w0 + i * 32;
+        f[i] = 0;
+        v[i] = ident;
+        if (k < n) {
+          f[i] = flags[k];
+          v[i] = static_cast<TOut>(
+              x[order != nullptr ? source_of(order[k], n_src) : k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) fm[i] = __ballot_sync(FULL, f[i] != 0);
   }
-  cf[0][t] = f;
-  cv[0][t] = v;
+
+  // each row: inclusive scan across lanes from the row's last flag at or
+  // before the lane (lo), by shuffles
+  const unsigned upto = (2u << lane) - 1u;  // lanes 0..lane
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int last = 31 - __clz(fm[i] & upto);  // -1: no flag
+    const int lo = last > 0 ? last : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const TOut o = shfl_up(v[i], d);
+      if (lane - d >= lo) v[i] = apply<TOut, OP>(o, v[i]);
+    }
+  }
+  // the warp aggregate: the rows folded in order
+  {
+    int wf = fm[0] != 0;
+    TOut wv = shfl_idx(v[0], 31);
+#pragma unroll
+    for (int i = 1; i < ITEMS; ++i) {
+      const TOut r = shfl_idx(v[i], 31);
+      wv = fm[i] ? r : apply<TOut, OP>(wv, r);
+      wf |= fm[i] != 0;
+    }
+    if (lane == 0) {
+      warp_v[warp] = wv;
+      warp_f[warp] = wf;
+    }
+  }
   __syncthreads();
 
-  // Hillis-Steele inclusive scan of the chunk aggregates
-  int src = 0;
-  for (int d = 1; d < CARRY_THREADS; d <<= 1) {
-    int ff = cf[src][t];
-    TOut vv = cv[src][t];
-    if (t >= d) combine<TOut, OP>(cf[src][t - d], cv[src][t - d], ff, vv);
-    cf[src ^ 1][t] = ff;
-    cv[src ^ 1][t] = vv;
-    src ^= 1;
-    __syncthreads();
+  if (warp == 0) {
+    // the tile aggregate, folded over the warps in order
+    int af = warp_f[0];
+    TOut av = warp_v[0];
+    for (int w = 1; w < WARPS; ++w) {
+      av = warp_f[w] ? warp_v[w] : apply<TOut, OP>(av, warp_v[w]);
+      af |= warp_f[w];
+    }
+    if (lane == 0)
+      publish(s, tile, epoch, (tile == 0 || af) ? ST_PREFIX : ST_AGG, av);
+    // rows before the tile's first flag need P_{tile-1}
+    const bool carry = tile > 0 && !(fm[0] & 1u);
+    if (carry) {
+      const TOut c = look_back<TOut, OP>(s, tile, epoch, lane, ident);
+      if (lane == 0) {
+        if (!af) publish(s, tile, epoch, ST_PREFIX, apply<TOut, OP>(c, av));
+        s_carry = c;
+      }
+    }
+    if (lane == 0) s_has_carry = carry;
+  }
+  __syncthreads();
+
+  // the prefix entering this warp: the carry, then the earlier warps
+  bool has = s_has_carry;
+  TOut p = has ? s_carry : ident;
+  for (int w = 0; w < warp; ++w) {
+    p = (has && !warp_f[w]) ? apply<TOut, OP>(p, warp_v[w]) : warp_v[w];
+    has = true;
+  }
+  // then row by row: a lane with no flag at or before it in its row takes
+  // the prefix of the rows before
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const TOut r = shfl_idx(v[i], 31);
+    if (has && !(fm[i] & upto)) v[i] = apply<TOut, OP>(p, v[i]);
+    p = (has && !fm[i]) ? apply<TOut, OP>(p, r) : r;
+    has = true;
   }
 
-  TOut c = ident;
-  if (t > 0) {
-    int ff = cf[src][t - 1];
-    TOut vv = cv[src][t - 1];
-    c = ff ? vv : apply<TOut, OP>(ident, vv);
-  }
-  for (int64_t b = lo; b < hi; ++b) {
-    carry[b] = c;
-    c = agg_f[b] ? agg_v[b] : apply<TOut, OP>(c, agg_v[b]);
-  }
-}
-
-// tiles 1.. : rows before the tile's first flag take the incoming carry
-template <typename TOut, int OP>
-__global__ void __launch_bounds__(THREADS)
-apply_carry(TOut* __restrict__ y, const TOut* __restrict__ carry,
-            const int32_t* __restrict__ first_flag, int64_t n) {
-  const int64_t b = (int64_t)blockIdx.x + 1;
-  const int stop = first_flag[b];
-  const TOut c = carry[b];
-  for (int local = threadIdx.x; local < stop; local += THREADS) {
-    const int64_t k = b * TILE + local;
-    if (k < n) y[k] = apply<TOut, OP>(c, y[k]);
-  }
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i)
+    if (w0 + i * 32 < n) y[w0 + i * 32] = v[i];
 }
 
 template <typename TIn, typename TOut, int OP>
-int run(const void* x, int64_t n_src, const int32_t* order,
-        const uint8_t* flags, void* y, int64_t n, uint64_t ident_bits,
-        void* scratch, cudaStream_t stream) {
+int run(const void* x, long long n_src, const int32_t* order,
+        const uint8_t* flags, void* y, long long n, ull ident_bits,
+        void* state, long long state_tiles, uint32_t epoch,
+        cudaStream_t stream) {
+  constexpr int TILE = THREADS * items_of<TOut>();
+  const long long nb = (n + TILE - 1) / TILE;
+  if (nb > state_tiles || epoch == 0 || epoch >= (1u << 30))
+    return (int)cudaErrorInvalidValue;
   TOut ident;
   memcpy(&ident, &ident_bits, sizeof(TOut));
-  const int64_t nb = (n + TILE - 1) / TILE;
-  char* p = static_cast<char*>(scratch);
-  TOut* agg_v = reinterpret_cast<TOut*>(p);
-  TOut* carry = reinterpret_cast<TOut*>(p + 8 * nb);
-  int32_t* agg_f = reinterpret_cast<int32_t*>(p + 16 * nb);
-  int32_t* first = agg_f + nb;
-  seg_tile<TIn, TOut, OP><<<(unsigned)nb, THREADS, 0, stream>>>(
+  char* b = static_cast<char*>(state);
+  const State s{reinterpret_cast<uint32_t*>(b),
+                reinterpret_cast<ull*>(b + 16)};
+  seg_scan_onepass<TIn, TOut, OP><<<(unsigned)nb, THREADS, 0, stream>>>(
       static_cast<const TIn*>(x), n_src, order, flags,
-      static_cast<TOut*>(y), n, ident, agg_v, agg_f, first);
-  if (nb > 1) {
-    carry_scan<TOut, OP><<<1, CARRY_THREADS, 0, stream>>>(
-        agg_v, agg_f, carry, nb, ident);
-    apply_carry<TOut, OP><<<(unsigned)(nb - 1), THREADS, 0, stream>>>(
-        static_cast<TOut*>(y), carry, first, n);
-  }
+      static_cast<TOut*>(y), n, ident, s, epoch, nb);
   return (int)cudaGetLastError();
 }
 
 template <typename TIn, typename TOut>
-int run_op(int op, const void* x, int64_t n_src, const int32_t* order,
-           const uint8_t* flags, void* y, int64_t n, uint64_t ident_bits,
-           void* scratch, cudaStream_t s) {
+int run_op(int op, const void* x, long long n_src, const int32_t* order,
+           const uint8_t* flags, void* y, long long n, ull ident_bits,
+           void* state, long long state_tiles, uint32_t epoch,
+           cudaStream_t s) {
   switch (op) {
     case OP_ADD:
       return run<TIn, TOut, OP_ADD>(x, n_src, order, flags, y, n,
-                                    ident_bits, scratch, s);
+                                    ident_bits, state, state_tiles, epoch, s);
     case OP_MIN:
       return run<TIn, TOut, OP_MIN>(x, n_src, order, flags, y, n,
-                                    ident_bits, scratch, s);
+                                    ident_bits, state, state_tiles, epoch, s);
     case OP_MAX:
       return run<TIn, TOut, OP_MAX>(x, n_src, order, flags, y, n,
-                                    ident_bits, scratch, s);
+                                    ident_bits, state, state_tiles, epoch, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -336,17 +512,21 @@ int run_op(int op, const void* x, int64_t n_src, const int32_t* order,
 
 extern "C" {
 
-int segreduce_tile(void) { return TILE; }
-
-long long segreduce_scratch_bytes(long long n) {
-  return 24LL * ((n + TILE - 1) / TILE);
+// elements per tile for an output of out_size bytes
+int segreduce_tile(int out_size) {
+  return THREADS * (out_size <= 4 ? 16 : 8);
 }
 
-// in_code/out_code: the DT_* codes above; order may be null (sorted path)
+long long segreduce_state_bytes(long long tiles) { return 16 + 32 * tiles; }
+
+// in_code/out_code: the DT_* codes above; order may be null (sorted path);
+// state holds state_tiles tiles, epoch is in [1, 2^30) and new for each call
+// on this state
 int segreduce_scan(int in_code, int out_code, int op, const void* x,
                    long long n_src, const int32_t* order,
                    const uint8_t* flags, void* y, long long n,
-                   unsigned long long ident_bits, void* scratch, int device,
+                   unsigned long long ident_bits, void* state,
+                   long long state_tiles, unsigned epoch, int device,
                    void* stream) {
   if (n <= 0) return 0;
   cudaError_t e = cudaSetDevice(device);
@@ -355,7 +535,7 @@ int segreduce_scan(int in_code, int out_code, int op, const void* x,
 #define SEG_CASE(IC, OC, TI, TO)                                           \
   if (in_code == IC && out_code == OC)                                     \
     return run_op<TI, TO>(op, x, n_src, order, flags, y, n, ident_bits,    \
-                          scratch, s);
+                          state, state_tiles, epoch, s);
   SEG_CASE(DT_INT8, DT_INT8, int8_t, int8_t)
   SEG_CASE(DT_INT16, DT_INT16, int16_t, int16_t)
   SEG_CASE(DT_INT32, DT_INT32, int32_t, int32_t)

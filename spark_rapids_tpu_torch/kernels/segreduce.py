@@ -28,13 +28,20 @@ counted as fallbacks with their reason.
 
 Tolerance against the plain version: integers (wrapping) and min/max
 exactly; float sums to rounding, because the kernel's reduction tree is
-not the reference's ``jax.lax.associative_scan`` tree.
+not the reference's ``jax.lax.associative_scan`` tree.  The kernel's own
+float sums repeat bit for bit from call to call (its look-back folds tile
+prefixes in a fixed order).
+
+The kernel is one launch with a decoupled look-back across tiles.  Its
+tile statuses live in a state buffer that this module keeps per device
+and stream (:class:`ScanState`), tagged with a per-call epoch so that no
+call has to clear it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -165,6 +172,60 @@ KERNEL_TYPES = {
     (torch.float32, torch.float64)}
 _OP_CODES = {"add": 0, "min": 1, "max": 2}
 
+# threads per block and elements per thread of csrc/segreduce.cu (checked
+# against the library when it loads)
+_THREADS = 256
+# the look-back words carry a 30-bit call epoch (csrc/segreduce.cu)
+_EPOCH_LIMIT = 1 << 30
+# a state's least size in tiles: 256 KiB, enough for capacities up to 2^24
+# at any output width, so the aggregate's calls never regrow it
+_MIN_TILES = 1 << 13
+
+
+def tile_elems(out_dtype: torch.dtype) -> int:
+    """Elements per tile of the kernel for this output dtype: 16 per
+    thread for outputs of up to 4 bytes, 8 for 8-byte outputs."""
+    return _THREADS * (16 if out_dtype.itemsize <= 4 else 8)
+
+
+def state_bytes(tiles: int) -> int:
+    """Bytes of a look-back state for ``tiles`` tiles: the tile counter
+    (16 B), then four 8-byte words per tile (its prefix and its
+    aggregate, one or two words each)."""
+    return 16 + 32 * tiles
+
+
+class ScanState:
+    """The look-back state one device and stream share across calls.
+
+    Each call takes a new epoch; the kernel tags every word it writes with
+    it, so a word written by an earlier call reads as empty and the buffer is
+    never cleared between calls (no memset, no second launch).  The buffer
+    is zeroed only when it is (re)allocated: on the first call, when a call
+    needs more tiles than it holds (it grows to at least double), or when
+    the epochs run out.  Calls on one stream run in order, so they never
+    share a live epoch."""
+
+    def __init__(self):
+        self.buf: Optional[torch.Tensor] = None
+        self.tiles = 0
+        self.epoch = 0
+
+    def claim(self, tiles: int, device) -> Tuple[torch.Tensor, int]:
+        """(buffer, epoch) for a call over ``tiles`` tiles."""
+        if self.buf is None or tiles > self.tiles or \
+                self.epoch + 1 >= _EPOCH_LIMIT:
+            self.tiles = max(tiles, 2 * self.tiles, _MIN_TILES)
+            self.buf = torch.zeros(state_bytes(self.tiles),
+                                   dtype=torch.uint8, device=device)
+            self.epoch = 0
+        self.epoch += 1
+        return self.buf, self.epoch
+
+
+# (device index, stream handle) -> its ScanState
+_states: Dict[Tuple[int, int], ScanState] = {}
+
 _lib = None
 
 
@@ -176,10 +237,19 @@ def _kernel_lib():
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         lib.segreduce_scan.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, ll, vp, vp, vp,
-            ll, ctypes.c_ulonglong, vp, ctypes.c_int, vp]
+            ll, ctypes.c_ulonglong, vp, ll, ctypes.c_uint, ctypes.c_int, vp]
         lib.segreduce_scan.restype = ctypes.c_int
-        lib.segreduce_scratch_bytes.argtypes = [ll]
-        lib.segreduce_scratch_bytes.restype = ll
+        lib.segreduce_state_bytes.argtypes = [ll]
+        lib.segreduce_state_bytes.restype = ll
+        lib.segreduce_tile.argtypes = [ctypes.c_int]
+        lib.segreduce_tile.restype = ctypes.c_int
+        if [lib.segreduce_tile(t.itemsize) for t in (torch.int32,
+                                                     torch.int64)] != \
+                [tile_elems(torch.int32), tile_elems(torch.int64)] or \
+                lib.segreduce_state_bytes(1000) != state_bytes(1000):
+            raise RuntimeError("segreduce: csrc/segreduce.cu and "
+                               "kernels/segreduce.py disagree on the tile "
+                               "or state layout")
         _lib = lib
     return _lib
 
@@ -191,19 +261,14 @@ def _ident_bits(identity, out_dtype: torch.dtype) -> int:
     return int.from_bytes(b.ljust(8, b"\0"), "little")
 
 
-def kernel_seg_scan(new: torch.Tensor, x: torch.Tensor, op_key: str,
-                    identity, order: Optional[torch.Tensor] = None,
-                    out_dtype: Optional[torch.dtype] = None,
-                    name: str = "segreduce") -> torch.Tensor:
-    """Launch csrc/segreduce.cu on CUDA tensors (no fallback: anything
-    it does not take raises)."""
-    out_dtype = out_dtype or x.dtype
+def check_args(new: torch.Tensor, x: torch.Tensor, op_key: str,
+               order: Optional[torch.Tensor], out_dtype: torch.dtype,
+               name: str = "segreduce") -> None:
+    """Raise on what csrc/segreduce.cu does not take, whatever the
+    device."""
     cap = new.shape[0]
-    dev = new.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: the kernel needs CUDA tensors, got "
-                         f"{dev}")
-    if x.device != dev or (order is not None and order.device != dev):
+    if x.device != new.device or (order is not None and
+                                  order.device != new.device):
         raise ValueError(f"{name}: tensors on different devices")
     if op_key not in _OP_CODES:
         raise ValueError(f"{name}: op {op_key!r} is not add/min/max")
@@ -213,25 +278,41 @@ def kernel_seg_scan(new: torch.Tensor, x: torch.Tensor, op_key: str,
         raise ValueError(f"{name}: needs 1-D values and a 1-D bool flag "
                          f"vector")
     if order is not None and (order.dtype != torch.int32 or
-                              order.shape[0] != cap):
+                              order.dim() != 1 or order.shape[0] != cap):
         raise ValueError(f"{name}: order must be int32 [{cap}]")
     if order is None and x.shape[0] != cap:
         raise ValueError(f"{name}: sorted values must be [{cap}]")
+
+
+def kernel_seg_scan(new: torch.Tensor, x: torch.Tensor, op_key: str,
+                    identity, order: Optional[torch.Tensor] = None,
+                    out_dtype: Optional[torch.dtype] = None,
+                    name: str = "segreduce") -> torch.Tensor:
+    """Launch csrc/segreduce.cu on CUDA tensors (no fallback: anything
+    it does not take raises)."""
+    out_dtype = out_dtype or x.dtype
+    check_args(new, x, op_key, order, out_dtype, name)
+    cap = new.shape[0]
+    dev = new.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs CUDA tensors, got "
+                         f"{dev}")
     new, x = new.contiguous(), x.contiguous()
     if order is not None:
         order = order.contiguous()
     y = torch.empty(cap, dtype=out_dtype, device=dev)
     lib = _kernel_lib()
-    scratch = torch.empty(max(int(lib.segreduce_scratch_bytes(cap)), 8),
-                          dtype=torch.uint8, device=dev)
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = _states.setdefault((index, stream), ScanState())
+    buf, epoch = state.claim(-(-cap // tile_elems(out_dtype)), dev)
     err = lib.segreduce_scan(
         _CODES[x.dtype], _CODES[out_dtype], _OP_CODES[op_key],
         x.data_ptr(), x.shape[0],
         None if order is None else order.data_ptr(), new.data_ptr(),
         y.data_ptr(), cap, _ident_bits(identity, out_dtype),
-        scratch.data_ptr(), dev.index if dev.index is not None
-        else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        buf.data_ptr(), state.tiles, epoch, index, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     kb.record_launch(name)

@@ -13,7 +13,11 @@ agree bit for bit; the bound is what the port promises, and what the
 CUDA kernel, whose tree differs, is held to.)
 
 The CUDA kernel itself only runs on a GPU: ``test_cuda_kernel_matches_plain``
-is marked ``cuda`` and skips without one.
+is marked ``cuda`` and skips without one.  What of its design can be
+checked here is: a model of its tile decomposition (local scans per tile,
+carries folded forward from the nearest flagged tile) against the plain
+version, over the flag layouts that stress the look-back; the look-back
+state's sizing and epochs; and the wrapper's argument checks.
 """
 
 import numpy as np
@@ -195,15 +199,20 @@ def test_kernel_wrapper_raises_on_cpu_tensors():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ("q6", "sparse", "none", "tile_last",
+                                    "one_segment"))
 @pytest.mark.parametrize("np_t,op", [(np.float64, "add"), (np.int64, "min"),
-                                     (np.int32, "max")])
-def test_cuda_kernel_matches_plain(np_t, op):
+                                     (np.int32, "max"), (np.float32, "add")])
+def test_cuda_kernel_matches_plain(np_t, op, layout):
+    """The kernel against its plain version at 2^20 + 7 rows (not a
+    multiple of the tile) over every flag layout; float sums must repeat
+    bit for bit over three calls."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     rng = np.random.default_rng(5)
-    cap = 1 << 20
-    flags = rng.random(cap) < 0.02
-    flags[0] = True
+    cap = (1 << 20) + 7
+    tile = tseg.tile_elems(torch.from_numpy(np.zeros(1, np_t)).dtype)
+    flags = _flags(layout, cap, tile, rng)
     vals = _values(rng, np_t, cap)
     order = rng.permutation(cap).astype(np.int32)
     ident = _identity(op, np_t)
@@ -211,6 +220,199 @@ def test_cuda_kernel_matches_plain(np_t, op):
     got = tseg.gather_seg_scan(v, o, f, op, ident).cpu().numpy()
     want = tseg.plain_seg_scan(f.cpu(), v.cpu(), op, ident,
                                o.cpu()).numpy()
-    abs_scan = tscans.seg_scan(torch.add, f.cpu(), torch.from_numpy(
-        np.abs(vals[order].astype(np.float64))), 0.0).numpy()
-    _assert_close(got, want, abs_scan, np_t, op)
+    abs_scan = _abs_scan(flags, vals[order])
+    if np_t == np.float32 and op == "add":
+        assert np.all(np.abs(got.astype(np.float64) - want) <=
+                      1e-5 * abs_scan)
+    else:
+        _assert_close(got, want, abs_scan, np_t, op)
+    if op == "add" and np.dtype(np_t).kind == "f":
+        for _ in range(2):
+            again = tseg.gather_seg_scan(v, o, f, op, ident).cpu().numpy()
+            assert again.tobytes() == got.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the kernel's tile decomposition (csrc/segreduce.cu), modelled in numpy
+# ---------------------------------------------------------------------------
+
+_NP_OPS = {"add": np.add, "min": np.minimum, "max": np.maximum}
+_LAYOUTS = ("q6", "sparse", "none", "tile_last", "one_segment")
+
+
+def _flags(layout, cap, tile, rng):
+    """Group starts: q6-like short groups; rare starts with none at row 0;
+    no flag at all (row 0 included); a flag only at each tile's last
+    element; one segment spanning the capacity (the global aggregate)."""
+    f = np.zeros(cap, bool)
+    if layout == "q6":
+        f = rng.random(cap) < 1 / 60
+        f[0] = True
+    elif layout == "sparse":
+        f = rng.random(cap) < 1 / 2000
+        f[0] = False
+    elif layout == "tile_last":
+        f[tile - 1::tile] = True
+    elif layout == "one_segment":
+        f[0] = True
+    return f
+
+
+def _tile_model(flags, vals, op, ident, tile, rng):
+    """y as the kernel composes it: every tile scans its own elements
+    (the plain version on the slice); P_j, the inclusive prefix through
+    tile j, is a_j (the tile's aggregate) when tile j holds a flag or is
+    tile 0, else P_{j-1} op a_j; rows of tile j before its first flag
+    combine with P_{j-1}.  The look-back finds a published prefix P_k
+    somewhere between the nearest flagged tile and j-1 and folds the
+    aggregates after it forward: the model picks k at random and checks
+    that the fold gives P_{j-1} bit for bit."""
+    npop = _NP_OPS[op]
+    n = vals.shape[0]
+    nb = -(-n // tile)
+    local, agg, has = [], [], []
+    for j in range(nb):
+        sl = slice(j * tile, min(n, (j + 1) * tile))
+        s = tseg.plain_seg_scan(torch.from_numpy(flags[sl]),
+                                torch.from_numpy(vals[sl]), op,
+                                ident).numpy()
+        local.append(s)
+        agg.append(s[-1])
+        has.append(bool(flags[sl].any()))
+    prefix = []
+    for j in range(nb):
+        prefix.append(agg[j] if j == 0 or has[j]
+                      else npop(prefix[j - 1], agg[j]))
+    out = []
+    for j in range(nb):
+        y = local[j]
+        if j > 0 and not flags[j * tile]:
+            start = max([i for i in range(j) if has[i]], default=0)
+            k = int(rng.integers(start, j))
+            carry = prefix[k]
+            for i in range(k + 1, j):
+                carry = npop(carry, agg[i])
+            assert np.asarray(carry).tobytes() == \
+                np.asarray(prefix[j - 1]).tobytes()
+            before = np.cumsum(flags[j * tile:j * tile + y.shape[0]]) == 0
+            y = np.where(before, npop(carry, y), y)
+        out.append(y)
+    return np.concatenate(out)
+
+
+def _abs_scan(flags, vals):
+    return tscans.seg_scan(
+        torch.add, torch.from_numpy(flags),
+        torch.from_numpy(np.abs(vals.astype(np.float64))), 0.0).numpy()
+
+
+@pytest.mark.parametrize("layout", _LAYOUTS)
+@pytest.mark.parametrize("np_t,op", [
+    (np.float64, "add"), (np.float32, "add"), (np.int32, "add"),
+    (np.int64, "min"), (np.uint64, "max"), (np.float64, "max")])
+def test_tile_model_matches_plain(layout, np_t, op):
+    """The decomposition the kernel computes equals the plain scan
+    (integers, uint64 and min/max exactly, float sums within 1e-12 x
+    sum|x|, float32 within 1e-5 x sum|x|) at random tile sizes and a
+    capacity that is not a multiple of the tile."""
+    rng = np.random.default_rng(len(layout) * 31 + len(op))
+    for tile in (32, int(rng.integers(33, 700)), 4096):
+        cap = 3 * tile + int(rng.integers(1, tile))
+        flags = _flags(layout, cap, tile, rng)
+        vals = _values(rng, np_t, cap)
+        ident = _identity(op, np_t)
+        want = tseg.plain_seg_scan(torch.from_numpy(flags),
+                                   torch.from_numpy(vals), op, ident).numpy()
+        got = _tile_model(flags, vals, op, ident, tile, rng)
+        assert got.dtype == want.dtype
+        if np_t == np.float32 and op == "add":
+            assert np.all(np.abs(got.astype(np.float64) - want) <=
+                          1e-5 * _abs_scan(flags, vals))
+        else:
+            _assert_close(got, want, _abs_scan(flags, vals), np_t, op)
+
+
+@pytest.mark.parametrize("cap", range(1, 8))
+def test_tile_model_tiny_capacities(cap):
+    """Capacities of 1-7 elements: one partial tile, every layout."""
+    rng = np.random.default_rng(cap)
+    for layout in _LAYOUTS:
+        flags = _flags(layout, cap, 4, rng)
+        vals = _values(rng, np.int64, cap)
+        want = tseg.plain_seg_scan(torch.from_numpy(flags),
+                                   torch.from_numpy(vals), "add", 0).numpy()
+        for tile in (1, 2, 4096):
+            got = _tile_model(flags, vals, "add", np.int64(0), tile, rng)
+            assert np.array_equal(got, want), (layout, tile)
+
+
+def test_tile_sizes_and_state_layout():
+    """The wrapper's mirror of csrc/segreduce.cu: 256 threads x 16
+    elements for outputs of up to 4 bytes, x 8 for 8-byte outputs; the
+    state is a 16-byte counter, then four 8-byte words per tile (its
+    prefix and its aggregate, one word each for outputs of up to 4 bytes,
+    two for 8-byte outputs)."""
+    for dt, tile in ((torch.int8, 4096), (torch.int16, 4096),
+                     (torch.int32, 4096), (torch.float32, 4096),
+                     (torch.int64, 2048), (torch.uint64, 2048),
+                     (torch.float64, 2048)):
+        assert tseg.tile_elems(dt) == tile
+    assert tseg.state_bytes(1) == 16 + 32
+    assert tseg.state_bytes(5) == 16 + 5 * 32
+    # the largest capacity the aggregate uses, at 8-byte outputs
+    tiles = -(-(1 << 24) // tseg.tile_elems(torch.float64))
+    assert tiles == tseg._MIN_TILES
+
+
+def test_scan_state_epochs_and_growth():
+    """One buffer serves call after call with a new epoch each; it is
+    reallocated (zeroed, epochs from 1) only to grow or when the 30-bit
+    epochs run out."""
+    st = tseg.ScanState()
+    buf, e1 = st.claim(64, "cpu")
+    assert e1 == 1 and st.tiles == tseg._MIN_TILES
+    assert buf.numel() == tseg.state_bytes(st.tiles) and not buf.any()
+    buf[:] = 7
+    b2, e2 = st.claim(256, "cpu")
+    assert b2 is buf and e2 == 2
+    b3, e3 = st.claim(st.tiles + 1, "cpu")
+    assert b3 is not buf and e3 == 1 and not b3.any()
+    assert st.tiles == 2 * tseg._MIN_TILES
+    st.epoch = tseg._EPOCH_LIMIT - 2
+    b4, e4 = st.claim(1, "cpu")
+    assert b4 is b3 and e4 == tseg._EPOCH_LIMIT - 1
+    b5, e5 = st.claim(1, "cpu")
+    assert b5 is not b3 and e5 == 1
+
+
+_F8 = torch.ones(8, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((_F8, torch.arange(8), "mul", None, torch.int64), "add/min/max"),
+    ((_F8, torch.arange(8), "add", None, torch.int32), "no kernel"),
+    ((_F8, torch.arange(8, dtype=torch.int8), "add", None, torch.int32),
+     "no kernel"),
+    ((_F8.int(), torch.arange(8), "add", None, torch.int64), "1-D"),
+    ((_F8, torch.arange(16).view(2, 8), "add", None, torch.int64), "1-D"),
+    ((_F8, torch.arange(9), "add", None, torch.int64), "sorted values"),
+    ((_F8, torch.arange(9), "add", torch.arange(8), torch.int64),
+     "order must be int32"),
+    ((_F8, torch.arange(9), "add", torch.arange(7, dtype=torch.int32),
+      torch.int64), "order must be int32")])
+def test_kernel_argument_checks(args, match):
+    """What the kernel does not take raises before any launch, on any
+    device."""
+    new, x, op, order, out = args
+    with pytest.raises(ValueError, match=match):
+        tseg.check_args(new, x, op, order, out)
+    with pytest.raises(ValueError, match=match):
+        tseg.kernel_seg_scan(new, x, op, 0, order, out)
+
+
+def test_kernel_argument_checks_pass_on_good_args():
+    """A gather from a source longer than the capacity (the ladder's
+    rungs) and every instantiated type pair pass the checks."""
+    order = torch.arange(8, dtype=torch.int32)
+    for tin, tout in tseg.KERNEL_TYPES:
+        tseg.check_args(_F8, torch.zeros(32, dtype=tin), "min", order, tout)
