@@ -16,13 +16,19 @@ Phases (any failure exits non-zero):
                (and one segment at 2^24), at 2^20+7 and 1-7 elements, and
                gathered from a longer source; every float sum three times,
                bit for bit; one device launch per call; unpack_bits for
-               every width 1-32; decode over 4- and 8-byte dictionaries of
+               every width 1-32 at 2^20, 2^22 and a ragged count, fresh and
+               into offset slices of a larger array; decode over 4- and
+               8-byte dictionaries of
                2^7, 2^15 and 2^20 entries with keep densities 0.25 and 0 and a fully
                dropped range; decode_str at widths 1, 16, 64 and 256 with
                empty rows and byte bases clipped at the buffer's end; the
-               run expansion (expand) for every width 0-32 at capacities
-               2^16, 2^18, 2^20 and 2^22 with int32 and int64 step
-               functions, bit for bit;
+               run expansion (one launch from the run table and the packed
+               bits) for every width 0-32 at capacities 2^16-2^22 and a
+               ragged one, with int32 and int64 rows, over hybrid streams,
+               runs of 1 and bit-packed groups at every offset (more rows
+               per tile than shared memory holds), one RLE run, shared
+               starts and trimmed page-end runs, bit for bit; one device
+               launch per expand and unpack call;
   3. entry   — ``entry(device="cuda")`` against pyarrow on the same table;
   4. q6      — the q6 query at TPC-DS SF10 ``store_sales`` scale
                (28,800,991 rows, 8 partitions) in memory, through
@@ -36,9 +42,10 @@ Phases (any failure exits non-zero):
   6. q6-perfile — the same files through the scan's PERFILE reader (fused
                decode off: one batch per row group, decoded column by column
                through expand_stream); cold run, then 5 warm runs with
-               sections and the host part of the decode.  Its expand and
-               unpack launches and its mixed-width fallbacks must equal the
-               counts predicted from the chunk plans' streams, in every run;
+               sections and the host part of the decode.  Its expand
+               launches and its mixed-width fallbacks must equal the counts
+               predicted from the chunk plans' streams, with no unpack
+               launch, in every run;
   7. q6s-parquet — q6's filter grouped by the string key ss_item_id over 4
                files of 2^20 rows (the string kernel's path, cut for time);
   8. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
@@ -50,9 +57,7 @@ Phases (any failure exits non-zero):
                named ``name@q6-parquet`` and ``name@q6-perfile``): a check
                against the plain version, its time (CUDA events, L2
                flushed), its bytes bound, the plain version's time and a
-               library call's where one computes the same function; for the
-               expansion also the whole device half (scatter, cumsum,
-               unpack, expand).
+               library call's where one computes the same function.
 
 Before each q6 path the kernel launch counts are set to 0, and they are
 read just after it: every kernel of the path must have launched, with no
@@ -113,8 +118,9 @@ Q6P_KERNELS = SEGREDUCE + ["decode.unpack_bits", "filter_decode.decode"]
 Q6S_KERNELS = ["decode.unpack_bits", "filter_decode.decode",
                "filter_decode.decode_str"]
 # the kernels the PERFILE q6 must launch (its dictionary columns are not
-# deferred: the per-column decode ignores the pushed filter)
-Q6PF_KERNELS = ["decode.expand_stream", "decode.unpack_bits"] + SEGREDUCE
+# deferred: the per-column decode ignores the pushed filter; the expansion
+# reads the packed bits itself, so nothing unpacks)
+Q6PF_KERNELS = ["decode.expand_stream"] + SEGREDUCE
 Q6PF_COLUMNS = ["ss_item_sk", "ss_quantity", "ss_sales_price",
                 "ss_ext_sales_price"]
 MODES_FILES = 2
@@ -335,11 +341,18 @@ def _one_launch_per_call(gen) -> None:
     new = _layout_flags(PARITY_DENSITIES[0], cap, 0, gen)
     x = _values(torch.float64, cap, gen)
     order = torch.randperm(cap, generator=gen, device="cuda").to(torch.int32)
+    runs, packed = _synthetic_stream(7, cap, np.random.default_rng(5))
+    table, pk, ncap = _stream_inputs(runs, packed, 7, "cuda")
+    raw = torch.randint(0, 256, (cap * 7 // 8,), generator=gen,
+                        device="cuda", dtype=torch.uint8)
     for name, fn in (
             ("seg_scan_sorted", partial(kseg.seg_scan_sorted, new, x, "add",
                                         0)),
             ("gather_seg_scan", partial(kseg.gather_seg_scan, x, order, new,
-                                        "add", 0))):
+                                        "add", 0)),
+            ("expand_stream", partial(kdec.expand_device, table, pk, 7, ncap,
+                                      cap)),
+            ("unpack_bits", partial(kdec.unpack_bits, raw, 7, cap))):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -371,7 +384,6 @@ def _exact(got: torch.Tensor, want: torch.Tensor):
     return err, same
 
 
-UNPACK_NCAP = 1 << 20
 DECODE_CAP = 1 << 21
 DECODE_DICTS = (1 << 7, 1 << 15, 1 << 20)
 DECODE_TYPES = (torch.int32, torch.float32, torch.int64, torch.float64)
@@ -394,12 +406,30 @@ def phase_parity_decode() -> None:
             fail(f"kernel != plain for {tag} (max err {err})")
         n_ok += 1
 
-    for w in range(1, 33):
-        raw = torch.randint(0, 256, (UNPACK_NCAP * w // 8,), generator=gen,
-                            device="cuda", dtype=torch.uint8)
-        check(f"unpack_bits w={w} ncap={UNPACK_NCAP}",
-              kdec.unpack_bits(raw, w, UNPACK_NCAP),
-              kdec.plain_unpack_bits(raw, w, UNPACK_NCAP))
+    n_unpack = 0
+    for ncap in UNPACK_NCAPS:
+        for w in range(1, 33):
+            # one spare word in front: a 4-byte-aligned source that is not
+            # 16-byte aligned takes the word loads
+            buf = torch.randint(0, 256, (ncap * w // 8 + 4,), generator=gen,
+                                device="cuda", dtype=torch.uint8)
+            whole = torch.full((ncap + 32,), -7, dtype=torch.int32,
+                               device="cuda")
+            for src_off in (0, 4):
+                raw = buf[src_off:src_off + ncap * w // 8]
+                want = kdec.plain_unpack_bits(raw, w, ncap)
+                tag = f"unpack_bits w={w} ncap={ncap} src+{src_off}"
+                check(tag, kdec.unpack_bits(raw, w, ncap), want)
+                # into slices of a larger array: 16-byte aligned, and not
+                for off in (16, 3):
+                    whole.fill_(-7)
+                    dst = whole[off:off + ncap]
+                    kdec.unpack_bits(raw, w, ncap, out=dst)
+                    check(f"{tag} out@{off}", dst, want)
+                    if not (bool((whole[:off] == -7).all()) and
+                            bool((whole[off + ncap:] == -7).all())):
+                        fail(f"{tag} out@{off} wrote outside its slice")
+                n_unpack += 3
     for dlen in DECODE_DICTS:
         for dtype in DECODE_TYPES:
             dbuf = (torch.randn(dlen, generator=gen, device="cuda",
@@ -431,38 +461,63 @@ def phase_parity_decode() -> None:
               kfd.decode_str(dbuf, bb, lw, keep, width),
               kfd.plain_decode_str(dbuf, bb, lw, keep, width))
     rng = np.random.default_rng(13)
-    for cap in EXPAND_CAPS:
-        for w in range(33):
-            runs, packed = _synthetic_stream(w, cap, rng)
-            mat, pk, ncap = _stream_inputs(runs, packed, w, cap, "cuda")
-            dense = kdec.unpack_bits(pk, w, ncap) if w else \
-                torch.zeros(32, dtype=torch.int32, device="cuda")
-            for step in (torch.int32, torch.int64):
-                if mat.dtype == torch.int64 and step == torch.int32:
-                    continue           # a wide RLE value needs int64 steps
-                a, c = kdec.step_functions(mat.to(step), cap)
-                check(f"expand w={w} cap={cap} steps={step} "
-                      f"runs={len(runs.counts)}",
-                      kdec.expand(dense, a, c),
-                      kdec.plain_expand(dense, a, c))
+    n_expand = 0
+    for layout, caps, widths in EXPAND_LAYOUTS:
+        for cap in caps:
+            for w in widths:
+                runs, packed = EXPAND_STREAMS[layout](w, cap, rng)
+                n_expand += _check_expand(check, f"{layout} w={w} cap={cap}",
+                                          runs, packed, w, cap)
     log(f"parity: {n_ok} unpack_bits/decode/decode_str/expand comparisons "
-        f"through the wrappers agree exactly (unpack w 1-32 at ncap 2^20; "
+        f"through the wrappers agree exactly ({n_unpack} unpack: w 1-32 at "
+        f"ncap {', '.join(map(str, UNPACK_NCAPS))}, aligned and unaligned "
+        f"sources, fresh and into 16-byte aligned and unaligned slices; "
         f"dictionaries of 2^7, 2^15, 2^20 entries at cap 2^21; widths "
-        f"{', '.join(map(str, STR_WIDTHS))}; expand w 0-32 at caps "
-        f"{', '.join(f'2^{c.bit_length() - 1}' for c in EXPAND_CAPS)}, "
-        f"int32 and int64 steps)")
+        f"{', '.join(map(str, STR_WIDTHS))}; {n_expand} expand: "
+        + "; ".join(f"{layout} at caps {', '.join(map(str, caps))}"
+                    for layout, caps, _ in EXPAND_LAYOUTS)
+        + ", w 0-32, int32 and int64 rows)")
 
 
-EXPAND_CAPS = (1 << 16, 1 << 18, 1 << 20, 1 << 22)
+def _check_expand(check, tag: str, runs, packed, w: int, cap: int) -> int:
+    """The one-launch expansion through its wrapper against
+    plain_expand_device on the same table, with the table's own rows and,
+    where they are int32, widened to int64."""
+    w = kdec.stream_width(runs)[1]      # as expand_stream takes it
+    table, pk, ncap = _stream_inputs(runs, packed, w, "cuda")
+    dtypes = [table.dtype] if table.dtype == torch.int64 else \
+        [table.dtype, torch.int64]
+    for rows in dtypes:
+        t = table.to(rows)
+        check(f"expand {tag} rows={rows} nrows={t.shape[0]}",
+              kdec.expand_device(t, pk, w, ncap, cap),
+              kdec.plain_expand_device(t, pk, w, ncap, cap))
+    return len(dtypes)
+
+
+UNPACK_NCAPS = (1 << 20, 1 << 22, (1 << 20) + 40)
+EXPAND_CAPS = (1 << 16, 1 << 18, 1 << 20, 1 << 22, (1 << 20) + 7)
+
+
+def _run_table(rows) -> object:
+    """A RunTable from (count, is_rle, value, bit_base, width) rows."""
+    from spark_rapids_tpu_torch.io.device_parquet import RunTable
+    runs = RunTable.empty()
+    for count, rle, value, base, width in rows:
+        runs.counts.append(int(count))
+        runs.is_rle.append(bool(rle))
+        runs.values.append(int(value))
+        runs.bit_bases.append(int(base))
+        runs.widths.append(int(width))
+    return runs
 
 
 def _synthetic_stream(w: int, cap: int, rng):
     """A hybrid stream of width w filling most of ``cap``: about 400
     alternating RLE runs and bit-packed runs over random packed bytes,
     some trimmed below their 8-value groups as at a page's end; at
-    w = 32 one RLE value of 2^32 - 5 (int64 steps)."""
-    from spark_rapids_tpu_torch.io.device_parquet import RunTable
-    runs = RunTable.empty()
+    w = 32 one RLE value of 2^32 - 5 (int64 rows)."""
+    rows = []
     bits = 0
     total = 0
     target = cap - cap // 16
@@ -473,34 +528,95 @@ def _synthetic_stream(w: int, cap: int, rng):
         if k % 2 == 0:
             v = (1 << 32) - 5 if w == 32 and k == 2 else \
                 int(rng.integers(0, 1 << w)) if w else 0
-            runs.counts.append(min(n, target - total))
-            runs.is_rle.append(True)
-            runs.values.append(v)
-            runs.bit_bases.append(0)
+            rows.append((min(n, target - total), True, v, 0, w))
         else:
             groups = -(-n // 8)
-            runs.counts.append(min(groups * 8 - int(rng.integers(0, 8)),
-                                   target - total))
-            runs.is_rle.append(False)
-            runs.values.append(0)
-            runs.bit_bases.append(bits)
+            rows.append((min(groups * 8 - int(rng.integers(0, 8)),
+                             target - total), False, 0, bits, w))
             bits += groups * 8 * w
-        runs.widths.append(w)
-        total += runs.counts[-1]
+        total += rows[-1][0]
         k += 1
     packed = rng.integers(0, 256, -(-bits // 8), dtype=np.uint8).tobytes()
-    return runs, packed
+    return _run_table(rows), packed
 
 
-def _stream_inputs(runs, packed, w: int, cap: int, device):
-    """expand_stream's two uploads, as it makes them: the run matrix and
+def _short_runs_stream(w: int, cap: int, rng):
+    """RLE runs of 1 between bit-packed groups of 8 trimmed to 1-8 values,
+    so the dense index of a run starts at every offset within a word and
+    a tile of the kernel (1024 elements) covers about 370 rows, more than
+    it stages (256)."""
+    k = np.arange(2 * (cap // 5) + 2)
+    counts = np.where(k % 2 == 0, 1, 1 + (k // 2) % 8)
+    ends = np.cumsum(counts)
+    n = int(np.searchsorted(ends, cap - 1)) + 1    # runs up to cap - 1
+    k, counts = k[:n], counts[:n]
+    counts[-1] -= int(ends[n - 1]) - (cap - 1)
+    rle = k % 2 == 0
+    values = np.where(rle, rng.integers(0, 1 << w, n) if w else 0, 0)
+    bases = np.where(rle, 0, np.cumsum(np.where(rle, 0, 8 * w)) - 8 * w)
+    rows = zip(counts.tolist(), rle.tolist(), values.tolist(),
+               bases.tolist(), [w] * n)
+    nbytes = int((~rle).sum()) * w
+    return _run_table(rows), rng.integers(0, 256, nbytes,
+                                          dtype=np.uint8).tobytes()
+
+
+def _one_rle_stream(w: int, cap: int, rng):
+    """One RLE run over the whole capacity (2^32 - 5 at w = 32)."""
+    v = (1 << 32) - 5 if w == 32 else int(rng.integers(0, 1 << w)) if w \
+        else 0
+    return _run_table([(cap, True, v, 0, w)]), b""
+
+
+def _shared_starts_stream(w: int, cap: int, rng):
+    """The hybrid stream with zero-count runs, RLE and bit-packed,
+    before every third run: rows that share a start."""
+    runs, packed = _synthetic_stream(w, cap, rng)
+    rows = []
+    for i, row in enumerate(zip(runs.counts, runs.is_rle, runs.values,
+                                runs.bit_bases, runs.widths)):
+        if i % 3 == 0:
+            rows.append((0, True, int(rng.integers(0, 1 << w)) if w else 0,
+                         0, w))
+            rows.append((0, False, 0, row[3] if not row[1] else 0, w))
+        rows.append(row)
+    return _run_table(rows), packed
+
+
+def _trimmed_stream(w: int, cap: int, rng):
+    """Pages' last 1-bit runs of 24 packed values trimmed to 21 (the
+    input of ROADMAP Queue C), repeated over most of the capacity: later
+    runs start past earlier pages' padding."""
+    n = max(cap // 32, 3)
+    rows = [(21, False, 0, 24 * i, 1) for i in range(n)]
+    return _run_table(rows), rng.integers(0, 256, -(-24 * n // 8),
+                                          dtype=np.uint8).tobytes()
+
+
+EXPAND_STREAMS = {"hybrid": _synthetic_stream, "short_runs": _short_runs_stream,
+                  "one_rle": _one_rle_stream,
+                  "shared_starts": _shared_starts_stream,
+                  "trimmed": _trimmed_stream}
+# (layout, caps, widths)
+EXPAND_LAYOUTS = (
+    ("hybrid", EXPAND_CAPS, range(33)),
+    ("short_runs", (1 << 16, 1 << 18), range(33)),
+    ("one_rle", EXPAND_CAPS, range(33)),
+    ("shared_starts", (1 << 18, (1 << 20) + 7), range(33)),
+    ("trimmed", EXPAND_CAPS, (1,)),
+)
+
+
+def _stream_inputs(runs, packed, w: int, device):
+    """expand_stream's two uploads, as it makes them: the run table and
     the padded packed bytes, with the dense capacity."""
     from spark_rapids_tpu_torch.columnar.batch import bucket_rows
     from spark_rapids_tpu_torch.io.device_parquet import _pad_np
     ncap = bucket_rows(max(kdec._dense_extent(runs, w), 1), 32)
-    mat = kdec._dense_meta(runs, w, bucket_rows(len(runs.counts), 8))
+    table = kdec.run_table(kdec._dense_meta(
+        runs, w, bucket_rows(len(runs.counts), 8)))
     pk = _pad_np(np.frombuffer(packed, np.uint8), max(ncap * w // 8, 4))
-    return (torch.from_numpy(mat).to(device),
+    return (torch.from_numpy(table).to(device),
             torch.from_numpy(pk.copy()).to(device), ncap)
 
 
@@ -540,7 +656,7 @@ class ShapeRecorder:
 
     LAUNCHERS = ((kseg, "kernel_seg_scan"), (kdec, "kernel_unpack_bits"),
                  (kfd, "kernel_decode"), (kfd, "kernel_decode_str"),
-                 (kdec, "expand_device"))
+                 (kdec, "kernel_expand"))
 
     def __init__(self):
         self.classes = {}
@@ -556,7 +672,7 @@ class ShapeRecorder:
         c["calls"] += 1
 
     def __enter__(self):
-        seg, unpack, decode, decode_str, expand_half = self._orig
+        seg, unpack, decode, decode_str, expand = self._orig
 
         def rec_seg(new, x, op_key, identity, order=None, out_dtype=None,
                     name="segreduce"):
@@ -566,9 +682,11 @@ class ShapeRecorder:
             return seg(new, x, op_key, identity, order, out_dtype,
                        name=name)
 
-        def rec_unpack(b, w, ncap):
-            self._keep(("decode.unpack_bits", w, ncap), (b, w, ncap))
-            return unpack(b, w, ncap)
+        def rec_unpack(b, w, ncap, out=None):
+            # a call into a slice keeps a copy of the slice to write into
+            self._keep(("decode.unpack_bits", w, ncap, out is not None),
+                       (b, w, ncap, out))
+            return unpack(b, w, ncap, out)
 
         def rec_decode(dbuf, codes, keep):
             self._keep(("filter_decode.decode", str(dbuf.dtype),
@@ -580,12 +698,11 @@ class ShapeRecorder:
                         bb.shape[0], width), (dbuf, bb, lw, keep, width))
             return decode_str(dbuf, bb, lw, keep, width)
 
-        def rec_expand(mat, packed, w, ncap, cap):
-            # the expansion's device half, whose expand launch counts in
-            # kernel_expand: its inputs give the kernel's and the half's
-            self._keep(("decode.expand_stream", w, ncap, cap, mat.shape[0],
-                        str(mat.dtype)), (mat, packed, w, ncap, cap))
-            return expand_half(mat, packed, w, ncap, cap)
+        def rec_expand(table, packed, w, ncap, cap):
+            self._keep(("decode.expand_stream", w, ncap, cap,
+                        table.shape[0], str(table.dtype)),
+                       (table, packed, w, ncap, cap))
+            return expand(table, packed, w, ncap, cap)
 
         for (mod, attr), fn in zip(self.LAUNCHERS, (
                 rec_seg, rec_unpack, rec_decode, rec_decode_str,
@@ -829,9 +946,10 @@ def phase_q6_parquet(root: str, ref: pa.Table):
 
 def _perfile_prediction(root: str) -> dict:
     """The expand launches, unpack launches and mixed-width fallbacks q6
-    through the PERFILE reader must make: one per stream of its chunk
-    plans (served by the plan cache, so nothing is walked), by the
-    stream's bit widths."""
+    through the PERFILE reader must make: one expand launch or one
+    fallback per stream of its chunk plans (served by the plan cache, so
+    nothing is walked), by the stream's bit widths, and no unpack launch:
+    the expansion reads the packed bits itself."""
     from spark_rapids_tpu_torch.io import scan_cache as sc
     from spark_rapids_tpu_torch.io.device_parquet import leaf_map
     from spark_rapids_tpu_torch.plan.logical import Schema
@@ -855,7 +973,6 @@ def _perfile_prediction(root: str) -> dict:
                     ok, w, _ = kdec.stream_width(runs)
                     want["streams"] += 1
                     want["expand"] += ok
-                    want["unpack"] += ok and w > 0
                     want["mixed"] += not ok
                     ws = sorted({int(x) for x, r in zip(runs.widths,
                                                         runs.is_rle)
@@ -1144,9 +1261,10 @@ def phase_perfile_modes() -> None:
         log(f"perfile-modes: {n_rg} row groups match pyarrow in "
             f"{wall:.1f} s (check included); launches {launches}; "
             f"fallbacks {fallbacks}; fallbackColumns {fb_cols}")
-        for name in ("decode.expand_stream", "decode.unpack_bits"):
-            if launches.get(name, 0) <= 0:
-                fail(f"perfile-modes did not launch {name}")
+        if launches.get("decode.expand_stream", 0) <= 0:
+            fail("perfile-modes did not launch decode.expand_stream")
+        if launches.get("decode.unpack_bits", 0):
+            fail("perfile-modes launched decode.unpack_bits")
         if set(fallbacks) - {"decode.expand.mixed_widths"} or fb_cols:
             fail("perfile-modes took fallbacks other than mixed widths")
     finally:
@@ -1224,16 +1342,13 @@ class Case:
     ok) of the two, bit for bit unless given; ``nbytes`` is what the
     function must move (each input read once, each output written once,
     counting what this input's data needs); ``library`` is one torch call
-    computing the same function, or None; ``half``, for the expansion,
-    its whole device half (scatter, cumsum, unpack, expand)."""
+    computing the same function, or None."""
 
-    def __init__(self, run, plain, nbytes, shape, check=None, library=None,
-                 half=None):
+    def __init__(self, run, plain, nbytes, shape, check=None, library=None):
         self.run, self.plain = run, plain
         self.nbytes, self.shape = nbytes, shape
         self.check = check or (lambda: _exact(run(), plain()))
         self.library = library
-        self.half = half     # the expansion's whole device half
 
 
 def _case(name: str, args) -> Case:
@@ -1253,27 +1368,23 @@ def _case(name: str, args) -> Case:
             library=partial(torch.segment_reduce, gathered, reduce,
                             lengths=_segments(new)))
     if name == "decode.expand_stream":
-        # the device half's inputs: the run matrix and the packed bytes;
-        # the kernel's own inputs are what the half builds from them.  The
-        # bound counts what the half must move (run matrix, packed bytes,
-        # the 4*cap output), not the materialised step functions
-        mat, packed, w, ncap, cap = args
-        dense = kdec.unpack_bits(packed, w, ncap) if w else \
-            torch.zeros(32, dtype=torch.int32, device=mat.device)
-        a, c = kdec.step_functions(mat, cap)
-        return Case(partial(kdec.expand, dense, a, c),
-                    partial(kdec.plain_expand, dense, a, c),
-                    mat.numel() * mat.element_size() + packed.numel() +
+        # the whole expansion: the run table and the packed bytes in, 4*cap
+        # out (the run matrix the bound counted before has the table's
+        # size)
+        table, packed, w, ncap, cap = args
+        return Case(partial(kdec.expand_device, table, packed, w, ncap, cap),
+                    partial(kdec.plain_expand_device, table, packed, w, ncap,
+                            cap),
+                    table.numel() * table.element_size() + packed.numel() +
                     4 * cap,
-                    f"w={w} ncap={ncap} cap={cap} runs<={mat.shape[0]} "
-                    f"steps={mat.dtype}",
-                    half=partial(kdec.expand_device, mat, packed, w, ncap,
-                                 cap))
+                    f"w={w} ncap={ncap} cap={cap} rows={table.shape[0]} "
+                    f"{table.dtype}")
     if name == "decode.unpack_bits":
-        b, w, ncap = args
-        return Case(partial(kdec.unpack_bits, b, w, ncap),
+        b, w, ncap, out = args
+        where = " in place" if out is not None else ""
+        return Case(partial(kdec.unpack_bits, b, w, ncap, out=out),
                     partial(kdec.plain_unpack_bits, b, w, ncap),
-                    b.shape[0] + 4 * ncap, f"w={w} ncap={ncap}")
+                    b.shape[0] + 4 * ncap, f"w={w} ncap={ncap}{where}")
     if name == "filter_decode.decode":
         # keep bytes; per kept row its code; each dictionary entry at
         # most once; the output
@@ -1330,12 +1441,10 @@ def phase_timing(paths):
                              "plain_ms": plain_ms, "library_ms": library_ms,
                              "bound_ms": bound_ms, "max_abs_err": err})
                 lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
-                half = "" if case.half is None else \
-                    f", whole device half {_time_device(case.half, flush=flush):.4f} ms"
                 log(f"timing {name} {tag} [{case.shape}] x{c['calls']}/query: "
                     f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
                     f"({bound_ms / ms:.1%} of roofline), plain "
-                    f"{plain_ms:.3f} ms, library {lib}{half}, max_abs_err "
+                    f"{plain_ms:.3f} ms, library {lib}, max_abs_err "
                     f"{err:g}")
             if not rows:
                 fail(f"no recorded call of {name} in {tag}")

@@ -10,7 +10,8 @@ phases:
 
   phase 0  bit unpack: the bit-packed regions of one width concatenate
            into one byte buffer, unpacked by ``kernels/decode.unpack_bits``
-           (csrc/decode.cu on the card) into one dense value array;
+           (csrc/decode.cu on the card) in place into that width's slice
+           of one dense value array (:func:`unpack_dense`);
   phase 1  run expansion: streams with few runs copy slices of the dense
            array per run; many-run streams broadcast per-run metadata
            (A = dense index - run start, C = RLE value * 2 + is_rle) to
@@ -69,6 +70,7 @@ from spark_rapids_tpu_torch.io.device_parquet import (ChunkPlan, RunTable,
                                                       _plan_list_chunk,
                                                       leaf_map)
 from spark_rapids_tpu_torch.kernels import backend as kb
+from spark_rapids_tpu_torch.kernels import decode as kdec
 from spark_rapids_tpu_torch.plan.logical import Schema
 
 _BIG = np.int32(1 << 30)
@@ -516,11 +518,30 @@ def _def_apply(levels: Optional[torch.Tensor], values: torch.Tensor,
     return values[vidx.long()], valid
 
 
+def unpack_dense(fp: _FusedPlan,
+                 arrays: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Phase 0: the one dense value array, a zero pad of vcap, each width's
+    unpacked values in ``fp.widths`` order, a zero pad of vcap.  It is
+    allocated once; only the pads are zeroed, and each width's unpack
+    writes into its own slice."""
+    vcap = fp.vcap
+    total = sum(ncap for _, ncap in fp.widths)
+    dense_all = torch.empty(2 * vcap + total, dtype=torch.int32,
+                            device=arrays["meta"].device)
+    dense_all[:vcap].zero_()                                 # front pad
+    dense_all[vcap + total:].zero_()                         # tail pad
+    off = vcap
+    for w, ncap in fp.widths:
+        kdec.unpack_bits(arrays[f"bits_{w}"], w, ncap,
+                         out=dense_all[off:off + ncap])
+        off += ncap
+    return dense_all
+
+
 def _make_kernel(fp: _FusedPlan):
     """The fused decode of one assembled batch, as an eager function of
     the uploaded arrays: ``kernel(arrays) -> (columns, total)``, one
     DeviceColumn per fused column."""
-    from spark_rapids_tpu_torch.kernels import decode as kdec
     specs = fp.specs
     out_dtypes = fp.out_dtypes
     vcap, cap = fp.vcap, fp.cap
@@ -538,12 +559,7 @@ def _make_kernel(fp: _FusedPlan):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         # -- phase 0: dense per-width unpack -> one value array ----------
-        dense_parts = [zeros(vcap, torch.int32)]             # front pad
-        for w, ncap in fp.widths:
-            dense_parts.append(
-                kdec.unpack_bits(arrays[f"bits_{w}"], w, ncap))
-        dense_parts.append(zeros(vcap, torch.int32))         # tail pad
-        dense_all = torch.cat(dense_parts)
+        dense_all = unpack_dense(fp, arrays)
 
         # -- phase 1: expand every stream to [vcap] -----------------------
         gen_out = _expand_general(arrays["gruns"], dense_all, vcap) \

@@ -5,7 +5,8 @@ Ported from ``spark_rapids_tpu/kernels/decode.py``.
 ``unpack_bits`` (reference :155, Pallas kernel ``_unpack_pallas`` :139)
 is phase 0 of every decode.  The fused decode
 (io/parquet_fused.py) concatenates every bit-packed region of one width
-into one byte buffer and unpacks it here, once per width: Parquet packs
+into one byte buffer and unpacks it here, once per width, in place into
+that width's slice of one dense value array (``out=``): Parquet packs
 LSB-first, so the value j of each group of 32 is word ``(j*w) >> 5`` at
 shift ``(j*w) & 31``, spilling into the next word.
 
@@ -26,18 +27,19 @@ reference does.  Integer-exact on both routes.
 
 ``expand_stream`` (reference :336, Pallas kernel ``_expand_pallas`` :215)
 expands one hybrid RLE / bit-packed stream of the per-column decode
-(io/device_parquet.decode_plan) to ``[cap]`` values in three phases:
-
-  phase 0  the stream's bit-packed regions unpack as one dense array
-           (``unpack_bits``; a stream with no bit-packed width skips it);
-  phase 1  the host's per-run deltas (:func:`_dense_meta`) become two step
-           functions over the elements, A (dense index - element) and C
-           (RLE value * 2 + 1), by a delta scatter plus a cumsum in torch
-           (:func:`step_functions`), as the reference builds them outside
-           its kernel (``_expand_impl`` :310);
-  phase 2  ``expand``: the RLE value where C is odd, else one gather
-           ``dense[clip(A + i)]`` -- ``csrc/decode.cu`` on a CUDA tensor,
-           :func:`plain_expand` on a CPU tensor.
+(io/device_parquet.decode_plan) to ``[cap]`` values in one launch.  The
+host turns the stream's runs into per-run (start, dA, dC) deltas
+(:func:`_dense_meta`, held against the reference's) and then into
+absolute (start, A, C) rows (:func:`run_table`, one cumsum); the table
+and the packed bytes are the two uploads.  The kernel reads, for element
+i, the row of the last start <= i: the RLE value where C is odd, else the
+w bits of dense value ``clip(A + i)`` straight from the packed bytes.
+What the reference computes in three phases (``_expand_impl`` :310: the
+dense unpack, the step functions A and C by a delta scatter plus a
+cumsum, the gather) has no intermediate array here: no step function and
+no dense array is materialised on the card.  On a CPU tensor
+:func:`plain_expand_device` runs those three phases in plain torch
+(:func:`plain_unpack_bits`, :func:`step_functions`, :func:`plain_expand`).
 
 A stream whose bit-packed runs mix widths (``stream_width``) has no single
 dense array: as in the reference, it takes the window-gather composition
@@ -49,7 +51,7 @@ widths and raises ``UnsupportedChunk`` past them.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,11 +82,28 @@ def _as_int32(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
 
 
-def plain_unpack_bits(bytes_arr: torch.Tensor, w: int,
-                      ncap: int) -> torch.Tensor:
+def _check_out(out: torch.Tensor, ncap: int, dev) -> None:
+    if out.device != dev or out.dtype != torch.int32 or out.dim() != 1 or \
+            out.shape[0] != ncap or not out.is_contiguous():
+        raise ValueError(f"unpack_bits: out must be a contiguous 1-D int32 "
+                         f"tensor of {ncap} values on {dev}")
+
+
+def plain_unpack_bits(bytes_arr: torch.Tensor, w: int, ncap: int,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain torch (``_unpack_xla``): w == 1
     expands bits, the word path reads 32 values from each w little-endian
-    words, the bit path sums bits for shapes off the 32-value grid."""
+    words, the bit path sums bits for shapes off the 32-value grid.  With
+    ``out`` the values are written into it (a slice of a larger array)."""
+    vals = _plain_unpack(bytes_arr, w, ncap)
+    if out is None:
+        return vals
+    _check_out(out, ncap, bytes_arr.device)
+    out.copy_(vals)
+    return out
+
+
+def _plain_unpack(bytes_arr: torch.Tensor, w: int, ncap: int) -> torch.Tensor:
     shifts = torch.arange(8, dtype=torch.uint8, device=bytes_arr.device)
     if w == 1:
         bits = (bytes_arr[:, None] >> shifts) & 1
@@ -120,17 +139,18 @@ def _kernel_lib():
         lib.decode_unpack_bits.argtypes = [vp, ll, ctypes.c_int, ll, vp,
                                            ctypes.c_int, vp]
         lib.decode_unpack_bits.restype = ctypes.c_int
-        lib.decode_expand.argtypes = [vp, ll, vp, vp, ctypes.c_int, ll, vp,
-                                      ctypes.c_int, vp]
+        lib.decode_expand.argtypes = [vp, ctypes.c_int, ll, vp, ll,
+                                      ctypes.c_int, ll, ll, vp, ctypes.c_int,
+                                      vp]
         lib.decode_expand.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def kernel_unpack_bits(bytes_arr: torch.Tensor, w: int,
-                       ncap: int) -> torch.Tensor:
-    """Launch csrc/decode.cu on a CUDA byte buffer (no fallback: anything
-    it does not take raises)."""
+def kernel_unpack_bits(bytes_arr: torch.Tensor, w: int, ncap: int,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch csrc/decode.cu on a CUDA byte buffer, into ``out`` when
+    given (no fallback: anything it does not take raises)."""
     dev = bytes_arr.device
     if dev.type != "cuda":
         raise ValueError(f"unpack_bits: the kernel needs a CUDA tensor, "
@@ -142,14 +162,14 @@ def kernel_unpack_bits(bytes_arr: torch.Tensor, w: int,
     if ncap * w % 8 or bytes_arr.shape[0] != ncap * w // 8:
         raise ValueError(f"unpack_bits: {bytes_arr.shape[0]} bytes do not "
                          f"hold {ncap} values of {w} bits")
-    src = bytes_arr.contiguous()
-    if src.data_ptr() % 4:
-        src = src.clone()          # the kernel loads aligned words
-    out = torch.empty(ncap, dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty(ncap, dtype=torch.int32, device=dev)
+    else:
+        _check_out(out, ncap, dev)
+    src = _aligned(bytes_arr)
     err = _kernel_lib().decode_unpack_bits(
         src.data_ptr(), src.shape[0], w, ncap, out.data_ptr(),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"unpack_bits: CUDA launch failed with error "
                            f"{err}")
@@ -157,15 +177,28 @@ def kernel_unpack_bits(bytes_arr: torch.Tensor, w: int,
     return out
 
 
-def unpack_bits(bytes_arr: torch.Tensor, w: int, ncap: int) -> torch.Tensor:
+def _aligned(bytes_arr: torch.Tensor) -> torch.Tensor:
+    """The buffer, contiguous and 4-byte aligned (the kernels load words)."""
+    src = bytes_arr.contiguous()
+    return src.clone() if src.data_ptr() % 4 else src
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+
+
+def unpack_bits(bytes_arr: torch.Tensor, w: int, ncap: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense phase-0 unpack of one width's packed byte buffer
     (uint8 ``[ncap*w/8]``) to ``[ncap]`` 32-bit values, returned as int32
-    bit patterns."""
+    bit patterns; with ``out`` (a contiguous int32 slice of ncap values)
+    they are written into it in place."""
     if bytes_arr.device.type == "cpu":
         if not _unpack_supported(w, ncap, bytes_arr.shape[0]):
             kb.record_fallback("decode.unpack", "shape")
-        return plain_unpack_bits(bytes_arr, w, ncap)
-    return kernel_unpack_bits(bytes_arr, w, ncap)
+        return plain_unpack_bits(bytes_arr, w, ncap, out)
+    return kernel_unpack_bits(bytes_arr, w, ncap, out)
 
 
 # ---------------------------------------------------------------------------
@@ -256,13 +289,33 @@ def _expand_supported(w: int, ncap: int, cap: int) -> bool:
     return cap % kb.tpu_block(cap, _EXPAND_BLOCK) == 0
 
 
+def run_table(mat: np.ndarray) -> np.ndarray:
+    """The run matrix's (start, dA, dC) deltas as absolute (start, A, C)
+    rows, the table the expand kernel searches: one cumsum down the rows
+    in the matrix's dtype, which wraps as the step functions' cumsum does.
+    A row holds A and C from its start on; rows with one start leave the
+    last of them in force, as the summed deltas do; padding rows start
+    past every element."""
+    table = mat.copy()
+    table[:, 1:] = np.cumsum(mat[:, 1:], axis=0, dtype=mat.dtype)
+    return table
+
+
+def table_deltas(table: torch.Tensor) -> torch.Tensor:
+    """:func:`run_table` undone on the table's device: per-row deltas
+    (wrapping in the dtype), the run matrix :func:`step_functions` takes."""
+    mat = table.clone()
+    mat[1:, 1:] -= table[:-1, 1:]
+    return mat
+
+
 def step_functions(mat: torch.Tensor, cap: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Phase 1: the step functions A and C over ``[cap]`` elements, in the
-    run matrix's dtype, from its (start, dA, dC) rows.  Deltas at one
-    start add; starts at or past ``cap`` (padding rows) land in slot cap
-    of a cap+1 buffer and drop.  The cumsum keeps the dtype (and wraps
-    like the reference's)."""
+    """The step functions A and C over ``[cap]`` elements, in the run
+    matrix's dtype, from its (start, dA, dC) rows.  Deltas at one start
+    add; starts at or past ``cap`` (padding rows) land in slot cap of a
+    cap+1 buffer and drop.  The cumsum keeps the dtype (and wraps like the
+    reference's)."""
     starts = torch.clamp(mat[:, 0], max=cap).long()
 
     def step(delta: torch.Tensor) -> torch.Tensor:
@@ -275,9 +328,9 @@ def step_functions(mat: torch.Tensor, cap: int
 
 def plain_expand(dense: torch.Tensor, a: torch.Tensor,
                  c: torch.Tensor) -> torch.Tensor:
-    """The expand kernel's function in plain torch: the RLE value where C
-    is odd, else ``dense[clip(A + i, 0, dlen - 1)]``; int32 bit patterns
-    of the reference's uint32."""
+    """The expansion's last phase in plain torch: the RLE value where C is
+    odd, else ``dense[clip(A + i, 0, dlen - 1)]``; int32 bit patterns of
+    the reference's uint32."""
     i = torch.arange(a.shape[0], dtype=a.dtype, device=a.device)
     idx = torch.clamp(a + i, 0, dense.shape[0] - 1)
     v = c >> 1
@@ -286,31 +339,49 @@ def plain_expand(dense: torch.Tensor, a: torch.Tensor,
     return torch.where((c & 1) != 0, v, dense[idx.long()])
 
 
-def kernel_expand(dense: torch.Tensor, a: torch.Tensor,
-                  c: torch.Tensor) -> torch.Tensor:
-    """Launch the expand kernel of csrc/decode.cu on CUDA tensors (no
-    fallback: anything it does not take raises)."""
-    dev = a.device
+def plain_expand_device(table: torch.Tensor, packed: torch.Tensor, w: int,
+                        ncap: int, cap: int) -> torch.Tensor:
+    """The expand kernel's function in plain torch, as the reference's
+    ``_expand_impl`` computes it: the dense unpack, the step functions
+    from the table's deltas, the gather."""
+    if w:
+        dense = plain_unpack_bits(packed, w, ncap)
+    else:
+        # no bit-packed width (single-entry dictionary, all-RLE levels):
+        # every bit-packed value is 0
+        dense = torch.zeros(32, dtype=torch.int32, device=table.device)
+    a, c = step_functions(table_deltas(table), cap)
+    return plain_expand(dense, a, c)
+
+
+def kernel_expand(table: torch.Tensor, packed: torch.Tensor, w: int,
+                  ncap: int, cap: int) -> torch.Tensor:
+    """Launch the expand kernel of csrc/decode.cu: one launch for the
+    whole stream (no fallback: anything it does not take raises)."""
+    dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"expand: the kernel needs CUDA tensors, got {dev}")
-    if dense.device != dev or c.device != dev:
-        raise ValueError("expand: dense, a and c must share one device")
-    if dense.dtype != torch.int32 or dense.dim() != 1 or \
-            dense.shape[0] == 0:
-        raise ValueError("expand: dense must be a non-empty 1-D int32 "
+    if packed.device != dev:
+        raise ValueError("expand: the table and the packed bytes must share "
+                         "one device")
+    if table.dtype not in (torch.int32, torch.int64) or table.dim() != 2 \
+            or table.shape[1] != 3:
+        raise ValueError(f"expand: the run table must be [rows, 3] int32 or "
+                         f"int64, got {tuple(table.shape)} {table.dtype}")
+    if packed.dtype != torch.uint8 or packed.dim() != 1:
+        raise ValueError("expand: the packed bytes must be a 1-D uint8 "
                          "tensor")
-    if a.dtype not in (torch.int32, torch.int64) or c.dtype != a.dtype:
-        raise ValueError(f"expand: steps must be both int32 or both int64, "
-                         f"got {a.dtype} and {c.dtype}")
-    if a.dim() != 1 or c.shape != a.shape:
-        raise ValueError("expand: a and c must be 1-D of one length")
-    dense, a, c = dense.contiguous(), a.contiguous(), c.contiguous()
-    cap = a.shape[0]
+    if not 0 <= w <= 32:
+        raise ValueError(f"expand: width {w} is not in 0..32")
+    if w and (ncap <= 0 or packed.shape[0] * 8 < ncap * w):
+        raise ValueError(f"expand: {packed.shape[0]} packed bytes do not "
+                         f"hold {ncap} values of {w} bits")
+    table, src = table.contiguous(), _aligned(packed)
     out = torch.empty(cap, dtype=torch.int32, device=dev)
     err = _kernel_lib().decode_expand(
-        dense.data_ptr(), dense.shape[0], a.data_ptr(), c.data_ptr(),
-        a.element_size(), cap, out.data_ptr(),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        table.data_ptr(), table.element_size(), table.shape[0],
+        src.data_ptr(), src.shape[0], w, ncap if w else 32, cap,
+        out.data_ptr(), _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"expand: CUDA launch failed with error {err}")
@@ -318,34 +389,20 @@ def kernel_expand(dense: torch.Tensor, a: torch.Tensor,
     return out
 
 
-def expand(dense: torch.Tensor, a: torch.Tensor,
-           c: torch.Tensor) -> torch.Tensor:
-    """Phase 2 on the tensors' device: the kernel on CUDA, its plain
-    version on the CPU."""
-    if a.device.type == "cpu":
-        return plain_expand(dense, a, c)
-    return kernel_expand(dense, a, c)
-
-
-def expand_device(mat: torch.Tensor, packed: torch.Tensor, w: int,
+def expand_device(table: torch.Tensor, packed: torch.Tensor, w: int,
                   ncap: int, cap: int) -> torch.Tensor:
-    """The device half of one stream's expansion (the reference's
-    ``_expand_impl``): unpack, step functions, expand."""
-    if w:
-        dense = unpack_bits(packed, w, ncap)
-    else:
-        # no bit-packed width (single-entry dictionary, all-RLE levels):
-        # every bit-packed value is 0, so no dense phase at all
-        dense = torch.zeros(32, dtype=torch.int32, device=mat.device)
-    a, c = step_functions(mat, cap)
-    return expand(dense, a, c)
+    """The device half of one stream's expansion, on the tensors' device:
+    the kernel on CUDA, its plain version on the CPU."""
+    if table.device.type == "cpu":
+        return plain_expand_device(table, packed, w, ncap, cap)
+    return kernel_expand(table, packed, w, ncap, cap)
 
 
 def expand_stream(runs, packed: bytes, cap: int,
                   device="cuda") -> torch.Tensor:
     """Expand one hybrid RLE / bit-packed stream to ``[cap]`` values on
     ``device`` (int32 bit patterns of the reference's uint32): the run
-    matrix and the packed bytes are the two uploads."""
+    table and the packed bytes are the two uploads."""
     from spark_rapids_tpu_torch.columnar.batch import bucket_rows
     from spark_rapids_tpu_torch.io import device_parquet as dp
     dev = torch.device(device)
@@ -357,9 +414,9 @@ def expand_stream(runs, packed: bytes, cap: int,
     if dev.type == "cpu" and not _expand_supported(w, ncap, cap):
         kb.record_fallback("decode.expand", "shape")
     rcap = bucket_rows(max(len(runs.counts), 1), 8)
-    mat = _dense_meta(runs, w, rcap)
+    table = run_table(_dense_meta(runs, w, rcap))
     pbytes = dp._pad_np(np.frombuffer(bytes(packed), dtype=np.uint8),
                         max(ncap * w // 8, 4))
-    return expand_device(torch.from_numpy(mat).to(dev),
+    return expand_device(torch.from_numpy(table).to(dev),
                          torch.from_numpy(pbytes.copy()).to(dev),
                          w, ncap, cap)

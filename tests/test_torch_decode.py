@@ -7,8 +7,11 @@ tensor runs the plain torch version of ``csrc/decode.cu``; the numpy
 golden is the one of ``tests/test_kernels.py``.  Integer unpacking is
 exact: every value must match bit for bit.
 
-The CUDA kernel itself only runs on a GPU: ``test_cuda_unpack_matches_plain``
-is marked ``cuda`` and skips without one.
+``unpack_bits(..., out=)`` writes into a slice of a larger array, and a
+Python model of the kernel's chunking is held against the plain version
+on ragged shapes.  The CUDA kernel itself only runs on a GPU:
+``test_cuda_unpack_matches_plain`` is marked ``cuda`` and skips without
+one.
 """
 
 import numpy as np
@@ -71,6 +74,58 @@ def test_unpack_gate_matches_reference(w, ncap):
             jdec._unpack_supported(w, ncap, nbytes)
 
 
+@pytest.mark.parametrize("w,ncap", [(1, 64), (7, 2048), (15, 48),
+                                    (32, 24)])
+def test_unpack_bits_out_writes_only_its_slice(w, ncap):
+    """With ``out`` the values land in that slice of a larger array, the
+    rest of which stays as it was."""
+    rng = np.random.default_rng(400 + w)
+    raw = torch.from_numpy(rng.integers(0, 256, ncap * w // 8)
+                           .astype(np.uint8))
+    whole = torch.full((ncap + 37,), -7, dtype=torch.int32)
+    dst = whole[13:13 + ncap]
+    got = tdec.unpack_bits(raw, w, ncap, out=dst)
+    assert got.data_ptr() == dst.data_ptr()
+    assert torch.equal(dst, tdec.plain_unpack_bits(raw, w, ncap))
+    assert (whole[:13] == -7).all() and (whole[13 + ncap:] == -7).all()
+    with pytest.raises(ValueError, match="out"):
+        tdec.unpack_bits(raw, w, ncap, out=whole[:ncap + 1])
+
+
+def _unpack_model(raw: np.ndarray, w: int, ncap: int,
+                  vals: int = 4096) -> np.ndarray:
+    """csrc/decode.cu's unpack kernel, block by block, in Python: a block
+    stages its chunk of vals*w/8 bytes (zeros past the buffer), then
+    extracts groups of 4 values and writes those below ncap."""
+    out = np.zeros(ncap, np.uint32)
+    mask = (1 << w) - 1
+    for v0 in range(0, ncap, vals):
+        b0, chunk = v0 // 8 * w, vals // 8 * w
+        staged = raw[b0:b0 + chunk].tobytes()
+        words = np.frombuffer(staged + bytes(chunk - len(staged)), "<u4")
+        for e in range(v0, min(v0 + vals, ncap), 4):
+            for i in range(e, min(e + 4, ncap)):
+                bit = (i - v0) * w
+                a, s = bit >> 5, bit & 31
+                x = int(words[a]) >> s
+                if s + w > 32:
+                    x |= int(words[a + 1]) << (32 - s)
+                out[i] = x & mask
+    return out
+
+
+@pytest.mark.parametrize("w,ncap", [(3, 40), (7, 4104), (13, 8),
+                                    (32, 4100), (5, 8192)])
+def test_unpack_kernel_model_matches_plain(w, ncap):
+    """The unpack kernel's chunking, with ragged last chunks, against the
+    plain version."""
+    rng = np.random.default_rng(500 + w)
+    raw = rng.integers(0, 256, ncap * w // 8).astype(np.uint8)
+    want = tdec.plain_unpack_bits(torch.from_numpy(raw), w, ncap)
+    np.testing.assert_array_equal(_unpack_model(raw, w, ncap),
+                                  want.numpy().view(np.uint32))
+
+
 def test_unpack_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tdec.kernel_unpack_bits(torch.zeros(8, dtype=torch.uint8), 2, 32)
@@ -82,12 +137,17 @@ def test_cuda_unpack_matches_plain(w):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     rng = np.random.default_rng(w)
-    for ncap in (1 << 16, 48):
+    for ncap in (1 << 16, 48, 4096 + 40):
         raw = torch.from_numpy(
             rng.integers(0, 256, ncap * w // 8).astype(np.uint8)).cuda()
         kb.reset_counts()
         got = tdec.unpack_bits(raw, w, ncap)
         assert kb.launches == {"decode.unpack_bits": 1}
         want = tdec.plain_unpack_bits(raw, w, ncap)
+        whole = torch.full((ncap + 9,), -7, dtype=torch.int32,
+                           device="cuda")
+        tdec.unpack_bits(raw, w, ncap, out=whole[5:5 + ncap])
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+        assert torch.equal(whole[5:5 + ncap], want)
+        assert (whole[:5] == -7).all() and (whole[5 + ncap:] == -7).all()

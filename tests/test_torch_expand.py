@@ -15,7 +15,13 @@ Covered: widths 0, 1, 3, 7, 11, 24, 25, 31 and 32 (the XLA path stops at
 24 and raises ``UnsupportedChunk`` past it), a width-0 run before a wider
 one, int64 step functions (an RLE value of 2^32 - 5 at width 32), the
 mixed-width fallback with its counted reason on both sides, the kernel's
-function on raw step functions, and the reference's TPU gates.
+last phase on raw step functions, and the reference's TPU gates.  The run
+table the kernel searches is a wrapping cumsum of the reference's run
+matrix (int32 wrap, int64 steps, shared starts, padding rows); every
+width 0-32 goes through the table path; and a Python model of the
+kernel's tile decomposition (narrowing rounds, staged and in-place row
+searches) is held against ``plain_expand_device`` on short runs, one RLE
+run, shared starts, the trimmed-runs input and 32-bit values.
 
 The CUDA kernel itself only runs on a GPU: the ``cuda``-marked test skips
 without one.
@@ -286,9 +292,10 @@ def test_expand_gates_match_reference(w, ncap, cap):
 
 
 def test_expand_kernel_refuses_cpu_tensors():
-    z = torch.zeros(8, dtype=torch.int32)
+    table = torch.zeros((8, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        tdec.kernel_expand(z, z, z)
+        tdec.kernel_expand(table, torch.zeros(8, dtype=torch.uint8), 1, 64,
+                           64)
 
 
 @pytest.mark.cuda
@@ -309,5 +316,209 @@ def test_cuda_expand_matches_plain(w):
     assert torch.equal(got.cpu(), want)
     np.testing.assert_array_equal(
         got[:len(expect)].cpu().numpy().view(np.uint32), expect)
+    table = torch.zeros((8, 3), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):
-        tdec.kernel_expand(got, got.float(), got)
+        tdec.kernel_expand(table.float(), got.to(torch.uint8), w, 64, 64)
+
+
+# ---------------------------------------------------------------------------
+# the run table and the one-launch kernel
+# ---------------------------------------------------------------------------
+
+def _table_case(case: str):
+    """(reference RunTable, port RunTable, packed, golden, w, rcap) for a
+    run-table case: int32 C values that wrap in the cumsum, int64 steps,
+    zero-count runs that share a start, and a table mostly of padding."""
+    rng = np.random.default_rng(len(case))
+    if case == "int32_wrap":
+        # C = 2^31 - 1 then 2^31 + 1: deltas fit int32, the cumsum wraps
+        segs, w = [("bp", rng.integers(0, 1 << 31, 16)),
+                   ("rle", 8, (1 << 30) - 1), ("rle", 8, 1 << 30),
+                   ("rle", 8, 5)], 31
+    elif case == "int64":
+        segs, w = [("bp", rng.integers(0, 1 << 32, 16, dtype=np.uint64)),
+                   ("rle", 9, (1 << 32) - 5),
+                   ("bp", rng.integers(0, 1 << 32, 8, dtype=np.uint64))], 32
+    elif case == "shared_starts":
+        segs, w = [("rle", 5, 3), ("rle", 0, 6), ("bp", rng.integers(
+            0, 16, 8), 0), ("bp", rng.integers(0, 16, 16), 13),
+            ("rle", 0, 1), ("rle", 7, 9)], 4
+    else:
+        segs, w = [("bp", rng.integers(0, 128, 24), 20),
+                   ("rle", 30, 100)], 7
+    jr, tr, packed, expect = _streams(segs, w)
+    return jr, tr, packed, expect, w, 64 if case == "padding" else 8
+
+
+@pytest.mark.parametrize("case", ["int32_wrap", "int64", "shared_starts",
+                                  "padding"])
+def test_run_table_is_the_cumsum_of_the_reference_meta(case):
+    """The table equals a wrapping cumsum of the reference's run matrix,
+    and each row holds the step functions' values at its start (the last
+    row of a shared start); its deltas give the matrix back."""
+    jr, tr, _, _, w, rcap = _table_case(case)
+    mat = tdec._dense_meta(tr, w, rcap)
+    ref = jdec._dense_meta(jr, w, rcap)
+    table = tdec.run_table(mat)
+    want = ref.copy()
+    want[:, 1:] = np.cumsum(ref[:, 1:], axis=0, dtype=ref.dtype)
+    assert table.dtype == ref.dtype
+    np.testing.assert_array_equal(table, want)
+    cap = 64
+    a, c = tdec.step_functions(torch.from_numpy(mat), cap)
+    starts = table[:, 0]
+    for r in range(rcap):
+        s = int(starts[r])
+        if s < cap and (r + 1 == rcap or int(starts[r + 1]) != s):
+            assert (int(a[s]), int(c[s])) == tuple(table[r, 1:]), r
+    np.testing.assert_array_equal(
+        tdec.table_deltas(torch.from_numpy(table)).numpy(), mat)
+    if case == "int32_wrap":
+        assert table.dtype == np.int32 and table[2, 2] == -(1 << 31) + 1
+    if case == "padding":
+        assert (starts[len(tr.counts):] == 1 << 30).all()
+
+
+def test_expand_stream_int32_wrap_matches_reference():
+    """An RLE value of 2^30 after one of 2^30 - 1 at width 31: both
+    packages keep int32 steps (the deltas fit) and the cumsum wraps, so
+    both give 3 * 2^30 for 2^30 (ROADMAP Queue C); the other lanes are
+    the golden values."""
+    jr, tr, packed, expect, _, _ = _table_case("int32_wrap")
+    got = _port(tr, packed, 64)
+    np.testing.assert_array_equal(got, _ref(jr, packed, 64, "pallas"))
+    assert (got[24:32] == 3 << 30).all() and (expect[24:32] == 1 << 30).all()
+    np.testing.assert_array_equal(got[:24].astype(np.uint64), expect[:24])
+    np.testing.assert_array_equal(got[32:40].astype(np.uint64), expect[32:])
+
+
+@pytest.mark.parametrize("w", range(33))
+def test_expand_stream_every_width_matches_reference_xla(w):
+    """The table path (plain_expand_device on the CPU) against the
+    reference's XLA composition on the live lanes (it stops at 24 bits:
+    wider streams are held against the golden values here, and against
+    the reference's Pallas path in test_expand_stream_matches_reference)."""
+    rng = np.random.default_rng(300 + w)
+    jr, tr, packed, expect = _streams(_segments(w, rng), w)
+    got = _port(tr, packed, 2048)
+    np.testing.assert_array_equal(got[:jr.total].astype(np.uint64), expect)
+    if w <= tdp._MAX_W:
+        np.testing.assert_array_equal(
+            got[:jr.total], _ref(jr, packed, 2048, "xla")[:jr.total])
+
+
+def _wrap(v: int, bits: int) -> int:
+    v &= (1 << bits) - 1
+    return v - (1 << bits) if v >> (bits - 1) else v
+
+
+def _kernel_model(table: np.ndarray, packed: np.ndarray, w: int, ncap: int,
+                  cap: int, threads: int):
+    """csrc/decode.cu's expand kernel, block by block, in Python: tiles of
+    4 elements per thread, the k-ary narrowing of the tile's rows (one
+    __syncthreads_count per key and round), staging (rows that fit one
+    load per thread) or the in-place search, then per thread a binary
+    search and a forward walk over its 4 elements, and the packed reads.
+    Returns (values as uint32, rounds, staged tiles, in-place tiles)."""
+    tile = 4 * threads
+    bits = 8 * table.dtype.itemsize
+    nrows = table.shape[0]
+    rows_all = [tuple(int(x) for x in r) for r in table]
+    words = np.frombuffer(packed.tobytes() + bytes(-len(packed) % 4), "<u4")
+    dlen = ncap if w else 32
+    mask = (1 << w) - 1
+    out = np.zeros(cap, np.uint32)
+    rounds = staged = in_place = 0
+    for t0 in range(0, cap, tile):
+        t1 = min(t0 + tile, cap) - 1
+        rng_ = [[0, nrows, t0], [0, nrows, t1]]
+        while any(lo < hi for lo, hi, _ in rng_) and \
+                rng_[1][1] - max(rng_[0][0] - 1, 0) > threads:
+            rounds += 1
+            for r in rng_:
+                lo, hi, x = r
+                st = -(-(hi - lo) // threads) if hi > lo else 0
+                cnt = sum(1 for t in range(threads) if lo + t * st < hi and
+                          rows_all[lo + t * st][0] <= x)
+                if lo < hi:
+                    r[:2] = [lo, lo] if cnt == 0 else \
+                        [lo + (cnt - 1) * st + 1, min(lo + cnt * st, hi)]
+        first = max(rng_[0][0] - 1, 0)
+        rows = rows_all[first:rng_[1][1]]
+        staged += len(rows) <= threads
+        in_place += len(rows) > threads
+        rstarts = [r[0] for r in rows]
+        for e in range(t0, t1 + 1, 4):
+            j = int(np.searchsorted(rstarts, e, side="right")) - 1
+            for i in range(e, min(e + 4, t1 + 1)):
+                while j + 1 < len(rows) and rows[j + 1][0] <= i:
+                    j += 1
+                a, c = rows[j][1:] if j >= 0 else (0, 0)
+                if c & 1:
+                    out[i] = (c >> 1) & 0xFFFFFFFF
+                elif w:
+                    d = min(max(_wrap(a + i, bits), 0), dlen - 1)
+                    bit = d * w
+                    word, s = bit >> 5, bit & 31
+                    x = int(words[word]) >> s if word < len(words) else 0
+                    if s + w > 32 and word + 1 < len(words):
+                        x |= int(words[word + 1]) << (32 - s)
+                    out[i] = x & mask
+    return out, rounds, staged, in_place
+
+
+def _layout(name: str, rng):
+    """(segments, width) of the kernel-model layouts."""
+    if name == "short_runs":
+        # RLE runs of 1 between bit-packed groups trimmed to 1-8 values:
+        # dense offsets at every position of a word
+        segs = []
+        for k in range(90):
+            segs.append(("rle", 1, int(rng.integers(0, 1 << 7))))
+            segs.append(("bp", rng.integers(0, 1 << 7, 8), 1 + k % 8))
+        return segs, 7
+    if name == "one_rle":
+        return [("rle", 700, 77)], 7
+    if name == "shared_starts":
+        segs = []
+        for k in range(40):
+            segs.append(("rle", k % 3 * 5, k))
+            segs.append(("bp", rng.integers(0, 1 << 11, 16), k % 17))
+        return segs, 11
+    if name == "trimmed":
+        return [("bp", rng.integers(0, 2, 24), 21) for _ in range(3)], 1
+    return [("bp", rng.integers(0, 1 << 32, 64, dtype=np.uint64)),
+            ("rle", 50, (1 << 32) - 5),
+            ("bp", rng.integers(0, 1 << 32, 128, dtype=np.uint64), 120)], 32
+
+
+@pytest.mark.parametrize("layout,step", [
+    (layout, step) for layout in ("short_runs", "one_rle", "shared_starts",
+                                  "trimmed", "wide")
+    for step in (np.int32, np.int64)
+    if not (layout == "wide" and step is np.int32)])   # 2^32 - 5: int64
+def test_kernel_model_matches_plain_expand_device(layout, step):
+    """The expand kernel's tile decomposition (8 threads, tiles of 32:
+    narrowing rounds, staged and in-place searches)
+    against plain_expand_device on the same table, bit for bit, and the
+    golden values on the live lanes."""
+    from spark_rapids_tpu_torch.columnar.batch import bucket_rows
+    rng = np.random.default_rng(len(layout))
+    segs, w = _layout(layout, rng)
+    _, tr, packed, expect = _streams(segs, w)
+    mat = tdec._dense_meta(tr, w, bucket_rows(len(tr.counts), 8))
+    table = tdec.run_table(mat.astype(step))
+    ncap = bucket_rows(max(tdec._dense_extent(tr, w), 1), 32)
+    pk = tdp._pad_np(np.frombuffer(packed, np.uint8), max(ncap * w // 8, 4))
+    cap = 1024 + 3 if layout != "one_rle" else 700
+    got, rounds, staged, in_place = _kernel_model(
+        table, pk, w, ncap, cap, threads=8)
+    want = tdec.plain_expand_device(torch.from_numpy(table),
+                                    torch.from_numpy(pk.copy()), w, ncap,
+                                    cap).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:len(expect)].astype(np.uint64),
+                                  expect)
+    assert staged > 0
+    if layout == "short_runs":
+        assert in_place > 0 and rounds > 0

@@ -28,6 +28,7 @@ import pyarrow as pa
 import pyarrow.compute as pc
 import pyarrow.parquet as papq
 import pytest
+import torch
 
 from spark_rapids_tpu import dtypes as jdt
 from spark_rapids_tpu.columnar import batch as jbatch
@@ -369,6 +370,21 @@ def test_same_upload_set_through_both_device_halves(decoded):
          for c in jcols])
 
 
+def test_unpack_dense_writes_each_width_in_place(decoded):
+    """Phase 0 allocates the dense array once and unpacks each width
+    into its slice: the same array as a zero pad, each width's values
+    and a zero pad concatenated."""
+    from spark_rapids_tpu_torch.kernels import decode as tdec
+    fp = decoded["tprep"].fp
+    assert fp.widths
+    arrays = fused_arrays_to_torch(fp.arrays, "cpu")
+    pad = torch.zeros(fp.vcap, dtype=torch.int32)
+    want = torch.cat([pad] + [tdec.plain_unpack_bits(arrays[f"bits_{w}"], w,
+                                                     ncap)
+                              for w, ncap in fp.widths] + [pad])
+    assert torch.equal(tpf.unpack_dense(fp, arrays), want)
+
+
 def test_scan_without_device_columns_keeps_its_device(files):
     batch, fallbacks = tpf.decode_row_groups_fused(
         _sources(files), TSchema([]), columns=[], device="cpu")
@@ -509,13 +525,13 @@ def test_q6s_parquet_plan_matches_pyarrow(store_sales):
 
 
 def _predicted_perfile_counts(root):
-    """Expand launches, unpack launches and mixed-width fallbacks that q6
-    through the PERFILE reader must make, from its chunk plans'
-    streams."""
+    """Expand launches, mixed-width fallbacks and streams with a packed
+    width (whose expansion reads bits in the same launch) that q6 through
+    the PERFILE reader must make, from its chunk plans' streams."""
     from spark_rapids_tpu_torch.kernels import decode as tdec
     names = ["ss_item_sk", "ss_quantity", "ss_sales_price",
              "ss_ext_sales_price"]
-    want = {"expand": 0, "unpack": 0, "mixed": 0}
+    want = {"expand": 0, "packed": 0, "mixed": 0}
     for f in sorted(os.listdir(root)):
         path = os.path.join(root, f)
         pf = papq.ParquetFile(path)
@@ -533,7 +549,7 @@ def _predicted_perfile_counts(root):
                 for runs in streams:
                     ok, w, _ = tdec.stream_width(runs)
                     want["expand"] += ok
-                    want["unpack"] += ok and w > 0
+                    want["packed"] += ok and w > 0
                     want["mixed"] += not ok
     return want
 
@@ -555,7 +571,7 @@ def test_q6_perfile_plan_matches_reference_session_and_pyarrow(
     assert scan.metrics.extra["fallbackColumns"] == 0
     assert scan.metrics.extra["scan.decode"] > 0
     want = _predicted_perfile_counts(store_sales)
-    assert want["expand"] >= 9 and want["unpack"] >= 3
+    assert want["expand"] >= 9 and want["packed"] >= 3
     assert not kb.launches                            # CPU: plain versions
     assert kb.fallbacks == ({"decode.expand.mixed_widths": want["mixed"]}
                             if want["mixed"] else {})
