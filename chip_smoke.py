@@ -18,17 +18,23 @@ Phases (any failure exits non-zero):
                bit for bit; one device launch per call; unpack_bits for
                every width 1-32 at 2^20, 2^22 and a ragged count, fresh and
                into offset slices of a larger array; decode over 4- and
-               8-byte dictionaries of
-               2^7, 2^15 and 2^20 entries with keep densities 0.25 and 0 and a fully
-               dropped range; decode_str at widths 1, 16, 64 and 256 with
-               empty rows and byte bases clipped at the buffer's end; the
-               run expansion (one launch from the run table and the packed
-               bits) for every width 0-32 at capacities 2^16-2^22 and a
-               ragged one, with int32 and int64 rows, over hybrid streams,
-               runs of 1 and bit-packed groups at every offset (more rows
-               per tile than shared memory holds), one RLE run, shared
-               starts and trimmed page-end runs, bit for bit; one device
-               launch per expand and unpack call;
+               8-byte dictionaries of 2^7, 2^15 and 2^20 entries at 2^21
+               and 2^21+3 rows, keep densities 0.125, 0.25, 0 and 1 and a
+               fully dropped range, and codes/keep views at odd offsets;
+               decode_str at widths 1, 7, 16, 17, 33, 64 and 256, 2^18 and
+               2^18+5 rows, with empty, negative and over-wide lengths,
+               byte bases below 0, past the end and at every offset mod 16
+               near both ends, over an aligned, an offset and a ragged
+               dictionary buffer, all-kept and all-dropped masks and
+               views at odd offsets; the run expansion (one launch from the
+               run table and the packed bits) for every width 0-32 at
+               capacities 2^16-2^22 and a ragged one, with int32 and int64
+               rows, over hybrid streams, runs of 1 and bit-packed groups
+               at every offset (more rows per tile than shared memory
+               holds), one RLE run, shared starts and trimmed page-end
+               runs, and an RLE value of 2^30 whose running sum leaves
+               int32 (against the golden values), bit for bit; one device
+               launch per expand, unpack, decode and decode_str call;
   3. entry   — ``entry(device="cuda")`` against pyarrow on the same table;
   4. q6      — the q6 query at TPC-DS SF10 ``store_sales`` scale
                (28,800,991 rows, 8 partitions) in memory, through
@@ -345,6 +351,14 @@ def _one_launch_per_call(gen) -> None:
     table, pk, ncap = _stream_inputs(runs, packed, 7, "cuda")
     raw = torch.randint(0, 256, (cap * 7 // 8,), generator=gen,
                         device="cuda", dtype=torch.uint8)
+    dbuf = torch.randint(0, 1 << 20, (1 << 15,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    codes = torch.randint(0, 1 << 15, (cap,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    keep = torch.rand(cap, generator=gen, device="cuda") < 0.125
+    sbuf = torch.randint(0, 256, (STR_DLEN,), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    bb, lw, skeep = _str_inputs(cap, 17, STR_DLEN, gen)
     for name, fn in (
             ("seg_scan_sorted", partial(kseg.seg_scan_sorted, new, x, "add",
                                         0)),
@@ -352,7 +366,13 @@ def _one_launch_per_call(gen) -> None:
                                         "add", 0)),
             ("expand_stream", partial(kdec.expand_device, table, pk, 7, ncap,
                                       cap)),
-            ("unpack_bits", partial(kdec.unpack_bits, raw, 7, cap))):
+            ("unpack_bits", partial(kdec.unpack_bits, raw, 7, cap)),
+            ("decode", partial(kfd.decode, dbuf, codes, keep)),
+            ("decode int64", partial(kfd.decode, dbuf.long(), codes, keep)),
+            ("decode_str width 16", partial(kfd.decode_str, sbuf, bb, lw,
+                                            skeep, 16)),
+            ("decode_str width 17", partial(kfd.decode_str, sbuf, bb, lw,
+                                            skeep, 17))):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -385,10 +405,16 @@ def _exact(got: torch.Tensor, want: torch.Tensor):
 
 
 DECODE_CAP = 1 << 21
+DECODE_CAPS = (DECODE_CAP, DECODE_CAP + 3)
 DECODE_DICTS = (1 << 7, 1 << 15, 1 << 20)
 DECODE_TYPES = (torch.int32, torch.float32, torch.int64, torch.float64)
+# q6's share of kept rows, a quarter, none and all
+DECODE_DENSITIES = (0.125, 0.25, 0.0, 1.0)
+# (codes offset, keep offset) of views the kernel cannot read as vectors
+DECODE_VIEWS = ((1, 0), (0, 3), (1, 3), (2, 1))
 STR_CAP = 1 << 18
-STR_WIDTHS = (1, 16, 64, 256)
+STR_WIDTHS = (1, 7, 16, 17, 33, 64, 256)
+STR_DLEN = 18_000 * 16          # the q6s dictionary's bytes
 
 
 def phase_parity_decode() -> None:
@@ -430,36 +456,7 @@ def phase_parity_decode() -> None:
                             bool((whole[off + ncap:] == -7).all())):
                         fail(f"{tag} out@{off} wrote outside its slice")
                 n_unpack += 3
-    for dlen in DECODE_DICTS:
-        for dtype in DECODE_TYPES:
-            dbuf = (torch.randn(dlen, generator=gen, device="cuda",
-                                dtype=torch.float64) * 1e6).to(dtype)
-            # codes past both ends: the clip applies
-            codes = torch.randint(-2, dlen + 2, (DECODE_CAP,), generator=gen,
-                                  device="cuda", dtype=torch.int32)
-            for density in (0.25, 0.0):
-                keep = torch.rand(DECODE_CAP, generator=gen,
-                                  device="cuda") < density
-                keep[1 << 18:(1 << 18) + (1 << 16)] = False
-                check(f"decode {dtype} dict={dlen} cap={DECODE_CAP} "
-                      f"keep={density}",
-                      kfd.decode(dbuf, codes, keep),
-                      kfd.plain_decode(dbuf, codes, keep))
-    dlen = 18_000 * 16
-    dbuf = torch.randint(0, 256, (dlen,), generator=gen, device="cuda",
-                         dtype=torch.uint8)
-    for width in STR_WIDTHS:
-        bb = torch.randint(0, dlen, (STR_CAP,), generator=gen,
-                           device="cuda", dtype=torch.int32)
-        bb[:1024] = dlen - 3          # rows that reach the end: clipped
-        lw = torch.randint(0, width + 1, (STR_CAP,), generator=gen,
-                           device="cuda", dtype=torch.int32)
-        lw[1024:2048] = 0
-        keep = torch.rand(STR_CAP, generator=gen, device="cuda") < 0.5
-        keep[:2048] = True
-        check(f"decode_str width={width} cap={STR_CAP}",
-              kfd.decode_str(dbuf, bb, lw, keep, width),
-              kfd.plain_decode_str(dbuf, bb, lw, keep, width))
+    n_gather = _parity_gathers(check, gen)
     rng = np.random.default_rng(13)
     n_expand = 0
     for layout, caps, widths in EXPAND_LAYOUTS:
@@ -468,15 +465,147 @@ def phase_parity_decode() -> None:
                 runs, packed = EXPAND_STREAMS[layout](w, cap, rng)
                 n_expand += _check_expand(check, f"{layout} w={w} cap={cap}",
                                           runs, packed, w, cap)
+    _check_int32_wrap(check)
+    n_expand += 1
     log(f"parity: {n_ok} unpack_bits/decode/decode_str/expand comparisons "
         f"through the wrappers agree exactly ({n_unpack} unpack: w 1-32 at "
         f"ncap {', '.join(map(str, UNPACK_NCAPS))}, aligned and unaligned "
         f"sources, fresh and into 16-byte aligned and unaligned slices; "
-        f"dictionaries of 2^7, 2^15, 2^20 entries at cap 2^21; widths "
-        f"{', '.join(map(str, STR_WIDTHS))}; {n_expand} expand: "
+        f"{n_gather} decode/decode_str: dictionaries of 2^7, 2^15, 2^20 "
+        f"entries at caps 2^21 and 2^21+3, keep densities "
+        f"{', '.join(map(str, DECODE_DENSITIES))}, views at odd offsets; "
+        f"string widths {', '.join(map(str, STR_WIDTHS))} at caps {STR_CAP} "
+        f"and {STR_CAP + 5}, negative bases, bases at every offset mod 16 "
+        f"near both ends, aligned, offset and ragged dictionary buffers, "
+        f"views at odd offsets; {n_expand} expand: "
         + "; ".join(f"{layout} at caps {', '.join(map(str, caps))}"
                     for layout, caps, _ in EXPAND_LAYOUTS)
-        + ", w 0-32, int32 and int64 rows)")
+        + ", w 0-32, int32 and int64 rows; an RLE value of 2^30 whose "
+        "running sum leaves int32, against the golden values)")
+
+
+def _parity_gathers(check, gen) -> int:
+    """decode and decode_str through their wrappers against their plain
+    versions, bit for bit; returns the number of comparisons."""
+    n = 0
+    for dlen in DECODE_DICTS:
+        for dtype in DECODE_TYPES:
+            dbuf = (torch.randn(dlen, generator=gen, device="cuda",
+                                dtype=torch.float64) * 1e6).to(dtype)
+            for cap in DECODE_CAPS:
+                # codes past both ends: the clip applies
+                codes = torch.randint(-2, dlen + 2, (cap,), generator=gen,
+                                      device="cuda", dtype=torch.int32)
+                for density in DECODE_DENSITIES:
+                    keep = torch.rand(cap, generator=gen,
+                                      device="cuda") < density
+                    if 0 < density < 1:
+                        keep[1 << 18:(1 << 18) + (1 << 16)] = False
+                    check(f"decode {dtype} dict={dlen} cap={cap} "
+                          f"keep={density}", kfd.decode(dbuf, codes, keep),
+                          kfd.plain_decode(dbuf, codes, keep))
+                    n += 1
+    # views at odd offsets, of a ragged length
+    cap = DECODE_CAP + 1
+    for dtype in DECODE_TYPES:
+        dbuf = (torch.randn(1 << 15, generator=gen, device="cuda",
+                            dtype=torch.float64) * 1e6).to(dtype)
+        codes_all = torch.randint(-2, (1 << 15) + 2, (cap + 4,),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32)
+        keep_all = torch.rand(cap + 4, generator=gen, device="cuda") < 0.125
+        for co, ko in DECODE_VIEWS:
+            codes, keep = codes_all[co:co + cap], keep_all[ko:ko + cap]
+            check(f"decode {dtype} dict=32768 cap={cap} codes[{co}:] "
+                  f"keep[{ko}:]", kfd.decode(dbuf, codes, keep),
+                  kfd.plain_decode(dbuf, codes, keep))
+            n += 1
+    base = torch.randint(0, 256, (STR_DLEN + 16,), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    buffers = {"aligned": base[:STR_DLEN], "at+5": base[5:5 + STR_DLEN],
+               "ragged end": base[:STR_DLEN - 7]}
+    for width in STR_WIDTHS:
+        for cap in (STR_CAP, STR_CAP + 5):
+            for bname, dbuf in buffers.items():
+                bb, lw, keep = _str_inputs(cap, width, dbuf.shape[0], gen)
+                check(f"decode_str width={width} cap={cap} dict {bname}",
+                      kfd.decode_str(dbuf, bb, lw, keep, width),
+                      kfd.plain_decode_str(dbuf, bb, lw, keep, width))
+                n += 1
+    dbuf = buffers["aligned"]
+    for width in (7, 16, 17, 33):
+        for density in (0.0, 1.0):
+            bb, lw, keep = _str_inputs(STR_CAP, width, STR_DLEN, gen,
+                                       density)
+            check(f"decode_str width={width} keep={density}",
+                  kfd.decode_str(dbuf, bb, lw, keep, width),
+                  kfd.plain_decode_str(dbuf, bb, lw, keep, width))
+            n += 1
+        # views at odd offsets
+        bb, lw, keep = _str_inputs(STR_CAP + 4, width, STR_DLEN, gen)
+        bb, lw, keep = bb[1:1 + STR_CAP], lw[2:2 + STR_CAP], \
+            keep[3:3 + STR_CAP]
+        check(f"decode_str width={width} bb[1:] lw[2:] keep[3:]",
+              kfd.decode_str(dbuf, bb, lw, keep, width),
+              kfd.plain_decode_str(dbuf, bb, lw, keep, width))
+        n += 1
+    return n
+
+
+def _str_inputs(cap: int, width: int, dlen: int, gen, density=0.5):
+    """decode_str's byte bases, lengths and keep mask: random rows, rows
+    that run past the buffer's end, negative bases, bases at every offset
+    mod 16 within 48 bytes of either end (full rows), and lengths of 0,
+    below 0 and above the width; at density 0.5 the edge rows are kept,
+    else keep is all one value."""
+    bb = torch.randint(0, dlen, (cap,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    lw = torch.randint(0, width + 1, (cap,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    bb[:1024] = dlen - 3
+    bb[1024:1064] = torch.arange(-40, 0, device="cuda", dtype=torch.int32)
+    edge = torch.arange(48, device="cuda", dtype=torch.int32)
+    bb[1064:1112] = edge
+    bb[1112:1160] = dlen - 48 + edge
+    lw[1024:1160] = width
+    lw[2000:2100] = 0
+    lw[2100:2150] = -5
+    lw[2150:2200] = width + 9
+    if density in (0.0, 1.0):
+        keep = torch.full((cap,), bool(density), device="cuda")
+    else:
+        keep = torch.rand(cap, generator=gen, device="cuda") < density
+        keep[:2200] = True
+    return bb, lw, keep
+
+
+def _bitpack(values: np.ndarray, w: int) -> bytes:
+    """Parquet's LSB-first bit-pack of a multiple of 8 values."""
+    bits = ((np.asarray(values, dtype=np.uint64)[:, None] >>
+             np.arange(w, dtype=np.uint64)) & 1).astype(np.uint8)
+    return np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+
+
+def _check_int32_wrap(check) -> None:
+    """An RLE value of 2^30 after one of 2^30 - 1 at width 31 (the C
+    steps' running sum leaves int32): the run table is int64 and the
+    kernel gives the golden values, 2^30 included."""
+    vals = np.random.default_rng(17).integers(0, 1 << 31, 16).astype(
+        np.uint64)
+    runs = _run_table([(16, False, 0, 0, 31), (8, True, (1 << 30) - 1, 0, 31),
+                       (8, True, 1 << 30, 0, 31), (8, True, 5, 0, 31)])
+    packed = _bitpack(vals, 31)
+    golden = np.concatenate([vals, np.repeat(np.uint64((1 << 30) - 1), 8),
+                             np.repeat(np.uint64(1 << 30), 8),
+                             np.repeat(np.uint64(5), 8)]).astype(np.uint32)
+    table, pk, ncap = _stream_inputs(runs, packed, 31, "cuda")
+    if table.dtype != torch.int64:
+        fail(f"int32 wrap: the run table is {table.dtype}, not int64")
+    got = kdec.expand_stream(runs, packed, 64, device="cuda")
+    if not np.array_equal(got[:40].cpu().numpy().view(np.uint32), golden):
+        fail("int32 wrap: the expansion is not the golden values")
+    check("expand int32 wrap w=31 cap=64 (golden)", got,
+          kdec.plain_expand_device(table, pk, 31, ncap, 64))
 
 
 def _check_expand(check, tag: str, runs, packed, w: int, cap: int) -> int:

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Time the Parquet stream kernels at the inputs the q6 Parquet paths give
+"""Time the Parquet decode kernels at the inputs the q6 Parquet paths give
 them.
 
-    python3 decode_profile.py record CASES.pt      # run the q6 Parquet paths,
-                                                   # keep every unpack_bits
-                                                   # and expand input
-    python3 decode_profile.py time CASES.pt LABEL  # time this checkout's
-                                                   # kernels on those inputs
+    python3 decode_profile.py record CASES.pt [PATHS] # run the q6 Parquet
+                                                      # paths, keep every
+                                                      # kernel input
+    python3 decode_profile.py time CASES.pt LABEL     # time this checkout's
+                                                      # kernels on those inputs
 
 ``record`` runs q6 over the bench's 8 Parquet files through the fused
-reader and through the PERFILE reader (``chip_smoke.py``'s phases q6p and
-q6pf) and saves the inputs of each distinct ``unpack_bits`` call shape (the
-fused reader's phase 0) and of each distinct expansion (the PERFILE
-reader's streams: the run table and the packed bytes), with their calls
+reader and through the PERFILE reader, and q6s over 4 files
+(``chip_smoke.py``'s phases q6p, q6pf and q6s; PATHS, a comma-separated
+subset of them, runs only those), and saves the inputs of each distinct
+call shape of ``unpack_bits`` (the fused reader's phase 0), of the
+expansion (the PERFILE reader's streams: the run table and the packed
+bytes) and of the predicated dictionary gathers ``filter_decode.decode``
+(fused q6 and q6s) and ``filter_decode.decode_str`` (q6s), with their calls
 per query.  ``time`` needs only the saved file, so a checkout of another
 commit can time its own kernels on the same inputs: run it from that
 checkout's root (it imports that checkout's package and ``chip_smoke.py``).
@@ -20,8 +23,12 @@ A checkout whose expansion takes per-run deltas in three phases (the dense
 unpack, the step functions, the gather, each its own launches) gets the
 deltas from the table and is timed twice: its whole device half and its
 last phase alone.  ``unpack_bits`` is timed writing a fresh array in every
-checkout.  Beside each expansion, ``fill_out`` times one ``torch.full`` of
-its output: the least a kernel that writes those bytes costs.
+checkout.  Beside each expansion and gather, ``fill_out`` times one
+``torch.full`` of its output: the least a kernel that writes those bytes
+costs.  Each gather's row also carries its bytes bound (``chip_smoke.py``'s
+count) and the floor that counts the whole 32-byte sectors of the per-row
+inputs (codes and dictionary entries; lw and byte_base) that its kept rows
+touch.
 
 Per shape and timed function, ``time`` prints one JSON line: its time as
 ``chip_smoke.py`` takes it (``_time_device``: CUDA events around one call
@@ -46,20 +53,31 @@ import torch
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402  (the checkout being timed)
 from spark_rapids_tpu_torch.kernels import decode as kdec  # noqa: E402
+from spark_rapids_tpu_torch.kernels import filter_decode as kfd  # noqa: E402
 
 REPS = 20
-KERNELS = ("decode.unpack_bits", "decode.expand_stream")
+KERNELS = ("decode.unpack_bits", "decode.expand_stream",
+           "filter_decode.decode", "filter_decode.decode_str")
+PATHS = ("q6p", "q6pf", "q6s")
 
 
-def record(path: str) -> None:
+def record(path: str, paths=PATHS) -> None:
     cs.phase_build()
-    root = cs._parquet_dir("q6-parquet")
-    try:
-        ref = cs.write_q6_files(root)
-        runs = [("q6-parquet", cs.phase_q6_parquet(root, ref)[1]),
-                ("q6-perfile", cs.phase_q6_perfile(root, ref)[1])]
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    runs = []
+    if "q6p" in paths or "q6pf" in paths:
+        root = cs._parquet_dir("q6-parquet")
+        try:
+            ref = cs.write_q6_files(root)
+            if "q6p" in paths:
+                runs.append(("q6-parquet",
+                             cs.phase_q6_parquet(root, ref)[1]))
+            if "q6pf" in paths:
+                runs.append(("q6-perfile",
+                             cs.phase_q6_perfile(root, ref)[1]))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    if "q6s" in paths:
+        runs.append(("q6s-parquet", cs.phase_q6s_parquet()[1]))
     cases = {}
     for tag, classes in runs:
         for key, c in sorted(classes.items(), key=lambda kv: str(kv[0])):
@@ -71,7 +89,7 @@ def record(path: str) -> None:
                 cases[f"{tag} {' '.join(map(str, key))}"] = {
                     "name": c["name"], "calls": c["calls"], "args": args}
     torch.save(cases, path)
-    print(f"saved {len(cases)} unpack_bits/expand shapes to {path}")
+    print(f"saved {len(cases)} kernel input shapes to {path}")
 
 
 def _deltas(table: torch.Tensor) -> torch.Tensor:
@@ -82,8 +100,54 @@ def _deltas(table: torch.Tensor) -> torch.Tensor:
     return mat
 
 
+def _sectors(mask: torch.Tensor, esize: int) -> int:
+    """32-byte sectors of a ``[n]`` array of ``esize``-byte elements that
+    hold at least one element where ``mask`` is true."""
+    per = 32 // esize
+    pad = -mask.shape[0] % per
+    m = torch.cat([mask, mask.new_zeros(pad)]) if pad else mask
+    return int(m.view(-1, per).any(1).sum())
+
+
+def _gather_bounds(name: str, args) -> dict:
+    """The bytes bound chip_smoke.py times the gather against, and the
+    floor in whole 32-byte sectors: keep, the sectors of the per-row
+    inputs that kept rows touch (decode: the codes and the dictionary
+    entries; decode_str: lw and byte_base, with the dictionary bytes as
+    the bound counts them), and the output."""
+    case = cs._case(name, args)
+    if name == "filter_decode.decode":
+        dbuf, codes, keep = args
+        es = dbuf.element_size()
+        idx = codes[keep].long().clamp(0, dbuf.shape[0] - 1)
+        hit = torch.zeros(dbuf.shape[0], dtype=torch.bool,
+                          device=dbuf.device)
+        hit[idx] = True
+        nbytes = (keep.shape[0] + 32 * _sectors(keep, 4) +
+                  32 * _sectors(hit, es) + keep.shape[0] * es)
+    else:
+        dbuf, bb, lw, keep, width = args
+        kept = int(keep.sum())
+        # the bound's count, less its 8 B per kept row of lw and byte_base
+        nbytes = case.nbytes - 8 * kept + 2 * 32 * _sectors(keep, 4)
+    return {"bound_ms": case.nbytes / cs.HBM_BYTES_PER_S * 1e3,
+            "sector_floor_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3}
+
+
 def _functions(name: str, args) -> dict:
     """label -> the call to time, for this checkout's API."""
+    if name == "filter_decode.decode":
+        dbuf, codes, keep = args
+        return {"kernel": partial(kfd.decode, dbuf, codes, keep),
+                "fill_out": partial(torch.full, (codes.shape[0],), 7,
+                                    dtype=dbuf.dtype, device=dbuf.device)}
+    if name == "filter_decode.decode_str":
+        dbuf, bb, lw, keep, width = args
+        # the same bytes as int32: the profiler counts a uint8 fill as the
+        # harness's L2 flush
+        return {"kernel": partial(kfd.decode_str, dbuf, bb, lw, keep, width),
+                "fill_out": partial(torch.full, (-(-bb.shape[0] * width // 4),),
+                                    7, dtype=torch.int32, device=dbuf.device)}
     if name == "decode.unpack_bits":
         b, w, ncap = args[:3]
         return {"kernel": partial(kdec.unpack_bits, b, w, ncap)}
@@ -152,6 +216,7 @@ def _profiled(fn, flush) -> dict:
 def time_cases(path: str, label: str) -> None:
     from spark_rapids_tpu_torch.kernels import _build
     _build.load("decode")
+    _build.load("filter_decode")
     cases = torch.load(path, weights_only=False)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     os.makedirs(cs.OUT_DIR, exist_ok=True)
@@ -175,6 +240,8 @@ def time_cases(path: str, label: str) -> None:
                        "time_device_ms": cs._time_device(fn, flush=flush),
                        "host_enqueue_us": _enqueue_us(fn, flush)}
                 row.update(_profiled(fn, flush))
+                if fname == "kernel" and c["name"].startswith("filter_"):
+                    row.update(_gather_bounds(c["name"], c["args"]))
                 out(row)
 
 
@@ -187,7 +254,8 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     if sys.argv[1] == "record":
-        record(sys.argv[2])
+        record(sys.argv[2], sys.argv[3].split(",") if len(sys.argv) > 3
+               else PATHS)
     else:
         time_cases(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else "run")
     return 0

@@ -291,13 +291,21 @@ def _expand_supported(w: int, ncap: int, cap: int) -> bool:
 
 def run_table(mat: np.ndarray) -> np.ndarray:
     """The run matrix's (start, dA, dC) deltas as absolute (start, A, C)
-    rows, the table the expand kernel searches: one cumsum down the rows
-    in the matrix's dtype, which wraps as the step functions' cumsum does.
-    A row holds A and C from its start on; rows with one start leave the
-    last of them in force, as the summed deltas do; padding rows start
-    past every element."""
-    table = mat.copy()
-    table[:, 1:] = np.cumsum(mat[:, 1:], axis=0, dtype=mat.dtype)
+    rows, the table the expand kernel searches: one cumsum down the rows.
+    The table keeps the matrix's dtype unless a running sum leaves it: an
+    int32 matrix whose A or C sums leave int32 (an RLE value of 2^30 or
+    more after a smaller one, whose deltas still fit) gets an int64
+    table, so the sums hold the golden values where the reference's int32
+    cumsum wraps (ROADMAP Queue C).  A row holds A and C from its start
+    on; rows with one start leave the last of them in force, as the summed
+    deltas do; padding rows start past every element."""
+    sums = np.cumsum(mat[:, 1:], axis=0, dtype=np.int64)
+    np_t = mat.dtype
+    if np_t != np.int64 and sums.size and \
+            (sums.min() < -(1 << 31) or sums.max() >= (1 << 31)):
+        np_t = np.int64
+    table = mat.astype(np_t)
+    table[:, 1:] = sums
     return table
 
 

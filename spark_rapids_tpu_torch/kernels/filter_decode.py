@@ -20,6 +20,19 @@ kernels of ``csrc/filter_decode.cu`` or raise; CPU tensors run the plain
 torch versions :func:`plain_decode` (the reference's ``decode_xla``) and
 :func:`plain_decode_str` (``str_decode_xla``).
 
+The kernels are bound by the bytes they move (the ``.cu`` note has the
+numbers).  ``decode`` gives each lane groups of rows whose outputs fill
+one 16-byte store (4 rows of 4-byte elements, 2 of 8-byte ones): keep as
+one word and the codes as one vector per group, lanes on neighbouring
+groups, several groups' loads in flight before any dictionary gather, no
+code read for a group without a kept row.  ``decode_str`` gives each
+thread one aligned 16-byte window of the flat ``[cap * width]`` output,
+written with one 16-byte store: one division finds the window's first
+row, each row's keep, length and byte base are read once, and a row's
+bytes come from aligned 16-byte loads where they lie inside the buffer,
+else byte by byte with the reference's clip.  Views at any offset and
+ragged lengths are handled inside the kernels; each call is one launch.
+
 :func:`supported` and :func:`str_supported` are the reference's gates on
 the deferral, with its TPU limits (the element block of ``_block`` and
 the 4 MiB VMEM tile budget of ``_str_block``).  The fused scan applies
