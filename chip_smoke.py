@@ -37,14 +37,15 @@ Phases (any failure exits non-zero):
                launch per expand, unpack, decode and decode_str call;
   3. entry   — ``entry(device="cuda")`` against pyarrow on the same table;
   4. q6      — the q6 query at TPC-DS SF10 ``store_sales`` scale
-               (28,800,991 rows, 8 partitions) in memory, through
-               TpuHashAggregateExec, checked against an independent pyarrow
-               group_by, with its wall and sections;
+               (28,800,991 rows, 8 partitions) in memory, planned by a port
+               session (entry.q6_plan: the upload pruned to four columns,
+               the filter fused into TpuHashAggregateExec), checked against
+               an independent pyarrow group_by, with its wall and sections;
   5. q6-parquet — the same rows written as 8 Parquet files (the reference
                bench's dataset) and scanned by the fused Parquet decode
-               with the filter pushed into the scan; cold run, then the
-               median of 5 warm runs with sections, the fused batches and
-               their capacities;
+               with the filter the planner pushes into the scan; cold run,
+               then the median of 5 warm runs with sections, the fused
+               batches and their capacities;
   6. q6-perfile — the same files through the scan's PERFILE reader (fused
                decode off: one batch per row group, decoded column by column
                through expand_stream); cold run, then 5 warm runs with
@@ -52,13 +53,25 @@ Phases (any failure exits non-zero):
                launches and its mixed-width fallbacks must equal the counts
                predicted from the chunk plans' streams, with no unpack
                launch, in every run;
-  7. q6s-parquet — q6's filter grouped by the string key ss_item_id over 4
+  7. session — ``bench.py::_query``'s DataFrame expression, written with
+               the port's ``col``/``functions``, on a port
+               ``TpuSparkSession`` on cuda in test mode over the same files,
+               and the same query with a selected ``input_file_name()``
+               column: each prints its physical plan, must hold the filter
+               fused into the aggregate and pushed into the scan (the
+               second with the scan's fused reader off and, as in the
+               reference, input_file_name() in a host projection over the
+               download; no other host node but the transitions), must
+               match pyarrow and must launch and fall back exactly as
+               phases 5 and 6 did; its planning time and warm collect wall
+               (median of 5 each);
+  8. q6s-parquet — q6's filter grouped by the string key ss_item_id over 4
                files of 2^20 rows (the string kernel's path, cut for time);
-  8. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
+  9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
                a dictionary that overflows into PLAIN pages, a 16-character
                string dictionary and a list<int32>, through the PERFILE
                reader, each row group checked against pyarrow;
-  9. timing  — per kernel at the shapes and on the inputs the q6 paths
+ 10. timing  — per kernel at the shapes and on the inputs the q6 paths
                gave it (segreduce from every q6 run; later runs' entries are
                named ``name@q6-parquet`` and ``name@q6-perfile``): a check
                against the plain version, its time (CUDA events, L2
@@ -72,7 +85,9 @@ before the last carries the kernel table as JSON, the line before it the
 card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
-q6p, q6pf, q6s, modes) runs only those phases and prints no kernel table.
+q6p, q6pf, session, q6s, modes) runs only those phases and prints no
+kernel table; ``session`` alone writes the files and counts the q6p and
+q6pf forms once itself.
 """
 
 import json
@@ -131,6 +146,13 @@ Q6PF_COLUMNS = ["ss_item_sk", "ss_quantity", "ss_sales_price",
                 "ss_ext_sales_price"]
 MODES_FILES = 2
 MODES_ROWS = MODES_FILES << 21
+# every q6 form runs on a port session, which configures the scan's plan
+# cache from its conf: room for every chunk plan of both readers, so warm
+# runs walk nothing
+SCAN_CONF = {"spark.rapids.tpu.sql.scan.metadataCache.maxBytes": 8 << 30}
+# host nodes test mode always allows (overrides.assert_is_on_tpu)
+HOST_OK = ("CpuScanExec", "CpuFileScanExec", "HostToDeviceExec",
+           "DeviceToHostExec")
 
 _log_lines = []
 
@@ -878,7 +900,8 @@ def phase_q6():
     torch.cuda.reset_peak_memory_stats()
     kb.reset_counts()
     with ShapeRecorder() as shapes:
-        out = collect(q6_plan(table, partitions=Q6_PARTS, device="cuda"))
+        out = collect(q6_plan(table, partitions=Q6_PARTS, device="cuda",
+                              conf=SCAN_CONF))
     launches = dict(kb.launches)
     fallbacks = dict(kb.fallbacks)
     rel = check_q6(out, ref)
@@ -896,7 +919,8 @@ def phase_q6():
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        plan = q6_plan(table, partitions=Q6_PARTS, device="cuda")
+        plan = q6_plan(table, partitions=Q6_PARTS, device="cuda",
+                       conf=SCAN_CONF)
         o = collect(plan)
         end.record()
         torch.cuda.synchronize()
@@ -1017,7 +1041,7 @@ def phase_q6_parquet(root: str, ref: pa.Table):
     kb.reset_counts()
     with ShapeRecorder() as shapes:
         out, plan, wall, ev = _timed_run(
-            lambda: q6_parquet_plan(root, device="cuda"))
+            lambda: q6_parquet_plan(root, device="cuda", conf=SCAN_CONF))
     launches = dict(kb.launches)
     fallbacks = dict(kb.fallbacks)
     walks = pm.walk_count() - walks0
@@ -1049,7 +1073,7 @@ def phase_q6_parquet(root: str, ref: pa.Table):
     walks0 = pm.walk_count()
     for i in range(5):
         o, plan, wall, ev = _timed_run(
-            lambda: q6_parquet_plan(root, device="cuda"))
+            lambda: q6_parquet_plan(root, device="cuda", conf=SCAN_CONF))
         walls.append(wall)
         events.append(ev)
         sections.append(_sections(plan))
@@ -1070,7 +1094,7 @@ def phase_q6_parquet(root: str, ref: pa.Table):
         "aggregate's rung and merge choices read the device, so its "
         "sections include the device work): "
         + _fmt_sections(med, med_wall))
-    return launches, shapes.classes
+    return launches, shapes.classes, fallbacks
 
 
 def _perfile_prediction(root: str) -> dict:
@@ -1171,7 +1195,7 @@ def phase_q6_perfile(root: str, ref: pa.Table):
     kb.reset_counts()
     with ShapeRecorder() as shapes:
         out, plan, wall, ev = _timed_run(
-            lambda: q6_perfile_plan(root, device="cuda"))
+            lambda: q6_perfile_plan(root, device="cuda", conf=SCAN_CONF))
     launches = dict(kb.launches)
     fallbacks = dict(kb.fallbacks)
     walks = pm.walk_count() - walks0
@@ -1203,7 +1227,7 @@ def phase_q6_perfile(root: str, ref: pa.Table):
         kb.reset_counts()
         with HostTimer() as ht:
             o, plan, wall, ev = _timed_run(
-                lambda: q6_perfile_plan(root, device="cuda"))
+                lambda: q6_perfile_plan(root, device="cuda", conf=SCAN_CONF))
         _check_perfile_counts(f"warm q6-perfile run {i}", dict(kb.launches),
                               dict(kb.fallbacks), want)
         walls.append(wall)
@@ -1233,7 +1257,140 @@ def phase_q6_perfile(root: str, ref: pa.Table):
         "Python): " + ", ".join(f"{k} {v * 1e3:.1f} ms"
                                 for k, v in host.items())
         + f"; total {sum(host.values()) * 1e3:.1f} ms")
-    return launches, shapes.classes
+    return launches, shapes.classes, fallbacks
+
+
+def bench_query(session, path):
+    """``bench.py::_query``, written against the port's ``col`` and
+    ``functions``."""
+    from spark_rapids_tpu_torch.api import col, functions as F
+    return (session.read.parquet(path)
+            .filter(col("ss_sales_price") > 150.0)
+            .group_by("ss_item_sk")
+            .agg(F.count("*").alias("cnt"),
+                 F.sum("ss_quantity").alias("qty"),
+                 F.avg("ss_ext_sales_price").alias("aesp")))
+
+
+def _plan_nodes(plan):
+    nodes = []
+    plan.foreach(nodes.append)
+    return nodes
+
+
+def _timed_collect(df):
+    """(output, host-clock s, CUDA-event s) of one ``df.collect()``:
+    planning, execution and the download."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = df.collect()
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+
+def _session_query(tag, df, ref, want, perfile: bool, entry_plan) -> None:
+    """Plan ``df`` on its session (test mode asserts the device placement),
+    check the plan the planner built, run it with the counts set to 0 and
+    read them after, check the rows, and time the planning and the warm
+    collect.  ``want``: the (launches, fallbacks) of the q6p or q6pf
+    phase; ``entry_plan()`` builds that phase's plan, whose warm runs
+    alternate with the session's so the two walls compare in one call."""
+    from spark_rapids_tpu_torch.exec.tpu_aggregate import TpuHashAggregateExec
+    from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+    log(f"{tag} explain_string('physical'):\n" +
+        df.explain_string("physical"))
+    nodes = _plan_nodes(df.session._plan_physical(df.plan).plan)
+    scans = [n for n in nodes if isinstance(n, TpuParquetScanExec)]
+    aggs = [n for n in nodes if isinstance(n, TpuHashAggregateExec)]
+    host = [type(n).__name__ for n in nodes
+            if not n.is_tpu and type(n).__name__ not in HOST_OK]
+    # input_file_name() has no device evaluator in the reference either:
+    # both plan it as a host projection over the aggregate's download
+    if host != (["CpuProjectExec"] if perfile else []):
+        fail(f"{tag}: plan has host nodes {host}")
+    if len(scans) != 1 or len(aggs) != 1:
+        fail(f"{tag}: plan has {len(scans)} device scans and {len(aggs)} "
+             f"aggregates")
+    scan, agg = scans[0], aggs[0]
+    if agg.fused_condition is None or agg.children[0] is not scan:
+        fail(f"{tag}: the filter is not fused into the aggregate above "
+             f"the scan")
+    if scan._pushed_filter is None:
+        fail(f"{tag}: the planner pushed no filter into the scan")
+    if scan.allow_fused == perfile:
+        fail(f"{tag}: scan allow_fused is {scan.allow_fused}")
+    kb.reset_counts()
+    out, wall, ev = _timed_collect(df)
+    launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+    rel = check_q6(out, ref)
+    if perfile and set(out["file"].to_pylist()) != {""}:
+        fail(f"{tag}: input_file_name() after the aggregate is not empty")
+    log(f"{tag}: {out.num_rows} groups match pyarrow (avg max rel "
+        f"{rel:.3g}); launches {launches}; fallbacks {fallbacks}; first "
+        f"run {wall * 1e3:.1f} ms on the host clock, {ev * 1e3:.1f} ms "
+        f"between CUDA events")
+    if (launches, fallbacks) != want:
+        fail(f"{tag}: launches/fallbacks {launches} {fallbacks} != the "
+             f"entry form's {want[0]} {want[1]}")
+    plans = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        df.session._plan_physical(df.plan)
+        plans.append(time.perf_counter() - t0)
+    log(f"{tag} planning (_plan_physical, host clock): median "
+        f"{statistics.median(plans) * 1e3:.2f} ms of 5 (runs ms: "
+        f"{', '.join(f'{p * 1e3:.2f}' for p in plans)})")
+    walls = {"session": [], "entry": []}
+    for i in range(5):
+        order = ("session", "entry") if i % 2 == 0 else ("entry", "session")
+        for who in order:
+            if who == "session":
+                wall = _timed_collect(df)[1]
+            else:
+                wall = _timed_run(entry_plan)[2]
+            walls[who].append(wall)
+    for who, label in (("session", "warm collect wall"),
+                       ("entry", "entry form's warm wall, in turns")):
+        w = walls[who]
+        log(f"{tag} {label}: median {statistics.median(w) * 1e3:.1f} ms "
+            f"of 5 on the host clock (runs ms: "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in w)})")
+
+
+def phase_session(root: str, ref: pa.Table, counts: dict) -> None:
+    """``bench.py::_query`` over the SF10 files on a port session on
+    ``cuda``, and the same query with a selected ``input_file_name()``
+    column (the planner switches the scan to its PERFILE reader).  Their
+    launch and fallback counts must equal the q6p and q6pf phases'
+    (``counts``: their (launches, fallbacks) by phase)."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.entry import (collect, q6_parquet_plan,
+                                              q6_perfile_plan)
+    want = dict(counts)
+    for key, make in (("q6p", q6_parquet_plan), ("q6pf", q6_perfile_plan)):
+        if key not in want:  # the phase runs alone: count that form once
+            kb.reset_counts()
+            collect(make(root, device="cuda", conf=SCAN_CONF))
+            want[key] = dict(kb.launches), dict(kb.fallbacks)
+    conf = dict(SCAN_CONF, **{
+        "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+        "spark.rapids.tpu.sql.test.enabled": True})
+    session = TpuSparkSession(conf, device="cuda")
+    _session_query("session q6", bench_query(session, root), ref,
+                   want["q6p"], perfile=False, entry_plan=lambda:
+                   q6_parquet_plan(root, device="cuda", conf=SCAN_CONF))
+    session = TpuSparkSession(dict(conf, **{
+        "spark.rapids.tpu.sql.test.allowedNonTpu": "CpuProjectExec"}),
+        device="cuda")
+    _session_query("session q6 + input_file_name()",
+                   bench_query(session, root).with_column(
+                       "file", F.input_file_name()),
+                   ref, want["q6pf"], perfile=True, entry_plan=lambda:
+                   q6_perfile_plan(root, device="cuda", conf=SCAN_CONF))
 
 
 def phase_q6s_parquet():
@@ -1251,7 +1408,8 @@ def phase_q6s_parquet():
         kb.reset_counts()
         with ShapeRecorder() as shapes:
             out, _plan, wall, ev = _timed_run(
-                lambda: q6s_parquet_plan(root, device="cuda"))
+                lambda: q6s_parquet_plan(root, device="cuda",
+                                         conf=SCAN_CONF))
         launches = dict(kb.launches)
         fallbacks = dict(kb.fallbacks)
         out = out.sort_by("ss_item_id")
@@ -1583,8 +1741,8 @@ def phase_timing(paths):
     return kernels
 
 
-ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "q6s",
-              "modes"]
+ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
+              "q6s", "modes"]
 
 
 def main() -> int:
@@ -1602,19 +1760,23 @@ def main() -> int:
         phase_parity_decode()
     if "entry" in phases:
         phase_entry()
-    runs = {}
+    runs, counts = {}, {}
     if "q6" in phases:
         runs["q6"] = ("q6", *phase_q6(), SEGREDUCE)
-    if "q6p" in phases or "q6pf" in phases:
+    if {"q6p", "q6pf", "session"} & set(phases):
         root = _parquet_dir("q6-parquet")
         try:
             ref = write_q6_files(root)
-            if "q6p" in phases:
-                runs["q6p"] = ("q6-parquet", *phase_q6_parquet(root, ref),
-                               Q6P_KERNELS)
-            if "q6pf" in phases:
-                runs["q6pf"] = ("q6-perfile", *phase_q6_perfile(root, ref),
-                                Q6PF_KERNELS)
+            for key, tag, fn, names in (
+                    ("q6p", "q6-parquet", phase_q6_parquet, Q6P_KERNELS),
+                    ("q6pf", "q6-perfile", phase_q6_perfile,
+                     Q6PF_KERNELS)):
+                if key in phases:
+                    launches, classes, fallbacks = fn(root, ref)
+                    runs[key] = (tag, launches, classes, names)
+                    counts[key] = (launches, fallbacks)
+            if "session" in phases:
+                phase_session(root, ref, counts)
         finally:
             shutil.rmtree(root, ignore_errors=True)
     if "q6s" in phases:

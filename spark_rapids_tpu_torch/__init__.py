@@ -8,6 +8,10 @@ device; every Pallas kernel of the reference becomes a hand-written
 Hopper kernel under ``csrc/``.  It imports neither jax nor the reference
 package.
 
-Ported so far: the in-memory q6 path (scan -> filter fused into the
-sorted-key hash aggregate -> Arrow), see :mod:`spark_rapids_tpu_torch.entry`.
+Ported so far: the DataFrame API and session
+(:mod:`spark_rapids_tpu_torch.api`), the planner (column pruning, CPU
+planning, the overrides with their fallbacks, whole-stage fusion), the
+CPU engine, the Parquet scan with both readers, and the sorted-key hash
+aggregate; the q6 forms of :mod:`spark_rapids_tpu_torch.entry` run
+through them.
 """

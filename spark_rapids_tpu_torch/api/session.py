@@ -1,0 +1,190 @@
+"""TpuSparkSession: the port's entry point.
+
+Ported from ``spark_rapids_tpu/api/session.py``: the conf, the data
+sources (``create_dataframe``, ``range``, ``read.parquet``/``csv``/
+``orc``), planning (``_plan_physical``: ``prune_columns`` ->
+``plan_cpu`` -> ``TpuOverrides.apply``), partition draining on
+``concurrentTpuTasks`` threads and the collect path, plus ``set_conf``,
+``get_conf`` and the plan listeners.
+
+The session runs on one device, ``cuda`` unless the caller asks for
+``cpu`` (``resolve_device`` raises without a GPU); every device exec of
+its plans and every partition thread uses it.  It accepts the
+reference's ``spark.rapids.tpu.*`` keys unchanged, so one conf dict
+drives both packages.
+
+``collect`` runs on the calling thread.  Not ported yet: the query
+scheduler (``QueryService``, ``submit``/``collect_async``), ``sql()`` and
+temp views, spill, the observability layer (profiles, tracing, the HTTP
+endpoint, the flight recorder), serving and the fleet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import pyarrow as pa
+
+from spark_rapids_tpu_torch import config as cfg
+from spark_rapids_tpu_torch.api.dataframe import DataFrame
+from spark_rapids_tpu_torch.columnar.batch import resolve_device
+from spark_rapids_tpu_torch.config import RapidsTpuConf
+from spark_rapids_tpu_torch.exec.cpu import concat_tables
+from spark_rapids_tpu_torch.plan import logical as lp
+from spark_rapids_tpu_torch.plan.overrides import (OverrideResult, TpuOverrides,
+                                                   assert_is_on_tpu)
+from spark_rapids_tpu_torch.plan.planner import plan_cpu
+
+
+class TpuSparkSession:
+    def __init__(self, conf: Optional[Dict[str, Any]] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.conf = cfg.configure(RapidsTpuConf(conf))
+        from spark_rapids_tpu_torch.io import scan_cache
+        scan_cache.configure(
+            self.conf.get(cfg.SCAN_METADATA_CACHE_ENABLED),
+            self.conf.get(cfg.SCAN_METADATA_CACHE_MAX_BYTES))
+        self._plan_listeners: List = []
+
+    # -- conf --------------------------------------------------------------
+    def set_conf(self, key: str, value: Any) -> None:
+        self.conf.set(key, value)
+
+    def get_conf(self, key: str, default: Any = None) -> Any:
+        return self.conf.get_raw(key, default)
+
+    # -- data sources ------------------------------------------------------
+    def create_dataframe(self, data, schema: Optional[Sequence[str]] = None,
+                         num_partitions: int = 1) -> DataFrame:
+        if isinstance(data, pa.Table):
+            table = data
+        elif hasattr(data, "to_dict") and hasattr(data, "columns"):
+            table = pa.Table.from_pandas(data)  # pandas DataFrame
+        elif isinstance(data, dict):
+            table = pa.table(data)
+        elif isinstance(data, list):
+            if schema is None:
+                raise ValueError("schema (column names) required for lists")
+            cols = list(zip(*data)) if data else [[] for _ in schema]
+            table = pa.table({n: list(c) for n, c in zip(schema, cols)})
+        else:
+            raise TypeError(f"cannot create DataFrame from {type(data)}")
+        return DataFrame(lp.InMemoryScan(table, num_partitions), self)
+
+    createDataFrame = create_dataframe
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              num_partitions: int = 1) -> DataFrame:
+        if end is None:
+            start, end = 0, start
+        return DataFrame(lp.Range(start, end, step, num_partitions), self)
+
+    @property
+    def read(self) -> "DataFrameReader":
+        return DataFrameReader(self)
+
+    # -- planning & execution ----------------------------------------------
+    def _plan_physical(self, plan: lp.LogicalPlan) -> OverrideResult:
+        if self.conf.get(cfg.COLUMN_PRUNING):
+            from spark_rapids_tpu_torch.plan.optimizer import prune_columns
+            plan = prune_columns(plan)
+        cpu_plan = plan_cpu(plan, self.conf)
+        result = TpuOverrides.apply(cpu_plan, self.conf, device=self.device)
+        if self.conf.test_enabled:
+            assert_is_on_tpu(result.plan, self.conf.test_allowed_non_tpu)
+        for listener in self._plan_listeners:
+            listener(result)
+        return result
+
+    def _drain_partitions(self, its) -> List:
+        """Drain partition iterators, one task per partition on a thread
+        pool sized by ``concurrentTpuTasks``; output keeps partition
+        order.  Every exec carries the session's device, so the threads
+        share it; none of them synchronizes the device."""
+        n_tasks = int(self.conf.get(cfg.CONCURRENT_TPU_TASKS))
+        if len(its) <= 1 or n_tasks <= 1:
+            return [x for it in its for x in it]
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=min(n_tasks, len(its)),
+                                thread_name_prefix="tpu-task") as pool:
+            parts = list(pool.map(list, its))
+        return [x for p in parts for x in p]
+
+    def _execute(self, plan: lp.LogicalPlan) -> pa.Table:
+        return self._execute_inner(plan)[1]
+
+    def _execute_inner(self, plan: lp.LogicalPlan):
+        """(planned result, Arrow table) of one query."""
+        from spark_rapids_tpu_torch.columnar.batch import to_arrow
+        from spark_rapids_tpu_torch.exec.context import set_input_file
+        from spark_rapids_tpu_torch.exec.tpu_basic import DeviceToHostExec
+        set_input_file("")  # fresh query: no stale input_file_name()
+        result = self._plan_physical(plan)
+        p = result.plan
+        if isinstance(p, DeviceToHostExec):
+            # drain the device plan first, then download batch by batch
+            # (the reference downloads behind one barrier, to_arrow_all)
+            batches = self._drain_partitions(p.children[0].execute())
+            tables = [to_arrow(b) for b in batches]
+            table = concat_tables(tables, p.schema)
+            # the terminal download exec never ran execute(); stamp it
+            # with the collected result
+            p.metrics.add_rows(table.num_rows)
+            p.metrics.add_batches(len(tables))
+            return result, table
+        tables = self._drain_partitions(p.execute())
+        return result, concat_tables(tables, p.schema)
+
+    # plan-capture hook for tests
+    def add_plan_listener(self, fn) -> None:
+        self._plan_listeners.append(fn)
+
+    def remove_plan_listener(self, fn) -> None:
+        self._plan_listeners.remove(fn)
+
+
+class DataFrameReader:
+    def __init__(self, session: TpuSparkSession):
+        self.session = session
+        self._options: Dict[str, Any] = {}
+
+    def option(self, key: str, value: Any) -> "DataFrameReader":
+        self._options[key] = value
+        return self
+
+    def _scan(self, fmt: str, paths) -> DataFrame:
+        from spark_rapids_tpu_torch.io.readers import (_partition_fields,
+                                                       expand_paths,
+                                                       infer_schema)
+        from spark_rapids_tpu_torch.plan.logical import Field, Schema
+        if isinstance(paths, str):
+            paths = [paths]
+        files, part_values = expand_paths(fmt, list(paths))
+        if not files:
+            raise FileNotFoundError(f"no {fmt} files under {paths}")
+        schema = infer_schema(fmt, files, self._options)
+        pfields = _partition_fields(part_values)
+        if pfields:
+            schema = Schema(list(schema.fields) +
+                            [Field(k, d, True) for k, d in pfields])
+        if self._options.get("columns"):
+            schema = Schema([schema.field(c)
+                             for c in self._options["columns"]])
+        opts = dict(self._options)
+        opts["part_values"] = part_values
+        opts["part_fields"] = pfields
+        return DataFrame(
+            lp.FileScan(fmt, files, schema, opts), self.session)
+
+    def parquet(self, *paths) -> DataFrame:
+        return self._scan("parquet", list(paths))
+
+    def csv(self, *paths, header: bool = True, sep: str = ","
+            ) -> DataFrame:
+        self._options.setdefault("header", header)
+        self._options.setdefault("sep", sep)
+        return self._scan("csv", list(paths))
+
+    def orc(self, *paths) -> DataFrame:
+        return self._scan("orc", list(paths))

@@ -105,6 +105,11 @@ class DeviceColumn:
         assert self.dtype.has_lengths
         return int(self.data.shape[1])
 
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.data, self.validity, self.lengths,
+                             self.elem_validity) if t is not None)
+
     def gather(self, indices: torch.Tensor,
                valid: torch.Tensor) -> "DeviceColumn":
         """Row gather; ``valid`` masks rows whose source index is
@@ -167,6 +172,9 @@ class DeviceBatch:
     def row_mask(self) -> torch.Tensor:
         return torch.arange(self._capacity, device=self.device) < \
             self.num_rows
+
+    def nbytes(self) -> int:
+        return sum(c.nbytes() for c in self.columns)
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{n}:{c.dtype.name}" for n, c in

@@ -3,14 +3,17 @@
 Ported from ``spark_rapids_tpu/config.py``.  Keys keep their reference
 names (``spark.rapids.tpu.*``), defaults and types, so one conf dict
 drives both packages in a parity test.  Keys the port does not read yet
-are absent from this registry and pass through unread.
+are absent from this registry and pass through unread; the per-operator
+kill switches (``spark.rapids.tpu.sql.exec.<Name>``,
+``...sql.expression.<Name>``) are read by name through
+:meth:`RapidsTpuConf.is_operator_enabled`, as in the reference.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 _REGISTRY: Dict[str, "ConfEntry"] = {}
 _REGISTRY_LOCK = threading.Lock()
@@ -50,12 +53,145 @@ def conf(key: str, default: Any, doc: str,
                                value_type=value_type))
 
 
+# ---------------------------------------------------------------------------
+# Planner and session keys (reference config.py:71-704)
+# ---------------------------------------------------------------------------
+
+SQL_ENABLED = conf(
+    "spark.rapids.tpu.sql.enabled", True,
+    "Enable or disable device acceleration of SQL operators entirely.",
+    bool)
+
+EXPLAIN = conf(
+    "spark.rapids.tpu.sql.explain", "NONE",
+    "Explain why parts of a query were or were not placed on the device: "
+    "NONE, NOT_ON_TPU, ALL.")
+
+INCOMPATIBLE_OPS = conf(
+    "spark.rapids.tpu.sql.incompatibleOps.enabled", False,
+    "Enable operators that produce results that differ from Spark in "
+    "corner cases (e.g. float aggregation ordering).", bool)
+
+VARIABLE_FLOAT_AGG = conf(
+    "spark.rapids.tpu.sql.variableFloatAgg.enabled", False,
+    "Allow float/double aggregations whose result may vary run-to-run "
+    "due to reduction ordering.", bool)
+
+MIN_BUCKET_ROWS = conf(
+    "spark.rapids.tpu.sql.shape.minBucketRows", 16,
+    "Smallest padded row-capacity bucket of an uploaded batch.", int)
+
+CONCURRENT_TPU_TASKS = conf(
+    "spark.rapids.tpu.sql.concurrentTpuTasks", 2,
+    "Number of partitions the session drains concurrently, one thread "
+    "each, all on the session's device.", int)
+
+TEST_ENABLED = conf(
+    "spark.rapids.tpu.sql.test.enabled", False,
+    "Test mode: assert that every supported operator actually runs on "
+    "the device.", bool)
+
+TEST_ALLOWED_NON_TPU = conf(
+    "spark.rapids.tpu.sql.test.allowedNonTpu", "",
+    "Comma-separated exec/expr class names allowed to stay on CPU in test "
+    "mode.")
+
+CAST_STRING_TO_FLOAT = conf(
+    "spark.rapids.tpu.sql.castStringToFloat.enabled", False,
+    "Enable string-to-float casts on the device.", bool)
+
+CAST_FLOAT_TO_STRING = conf(
+    "spark.rapids.tpu.sql.castFloatToString.enabled", True,
+    "Enable float-to-string casts on the device.", bool)
+
+ALLOW_INCOMPAT_UTC_ONLY = conf(
+    "spark.rapids.tpu.sql.castStringToTimestamp.enabled", False,
+    "Enable string-to-timestamp casts (UTC only).", bool)
+
+COLUMN_PRUNING = conf(
+    "spark.rapids.tpu.sql.columnPruning.enabled", True,
+    "Prune unreferenced columns out of file and in-memory scans before "
+    "physical planning (plan/optimizer.py).", bool)
+
+AGG_FUSED_FILTER = conf(
+    "spark.rapids.tpu.sql.agg.fusedFilter.enabled", True,
+    "Fuse a Filter directly under a hash aggregate into the aggregate's "
+    "update as a row mask instead of a compaction.", bool)
+
+FUSION_ENABLED = conf(
+    "spark.rapids.tpu.sql.fusion.enabled", True,
+    "Whole-stage fusion (plan/fusion.py): collapse chains of "
+    "Project/Filter execs into one TpuFusedStageExec and inline the "
+    "projections and filters directly under a hash aggregate into it.",
+    bool)
+
+FUSION_MAX_EXPRS = conf(
+    "spark.rapids.tpu.sql.fusion.maxExprs", 256,
+    "Ceiling on the expression-node count of one fused stage's composed "
+    "output and condition; past it the chain stays unfused.", int)
+
+AGG_EXCHANGE = conf(
+    "spark.rapids.tpu.sql.agg.exchange.enabled", False,
+    "Plan grouped aggregates as a hash exchange on the grouping keys "
+    "followed by a per-partition aggregate (needs shuffle/exchange.py, "
+    "not ported yet).", bool)
+
+SORT_EXCHANGE = conf(
+    "spark.rapids.tpu.sql.sort.exchange.enabled", False,
+    "Plan global ORDER BY as a range exchange followed by per-partition "
+    "sorts (needs shuffle/exchange.py, not ported yet).", bool)
+
+SHUFFLE_TRANSPORT = conf(
+    "spark.rapids.tpu.shuffle.transport", "local",
+    "Shuffle transport of the reference ('local', 'device', 'manager', "
+    "'ici', 'ici_ring', 'process').  The planner reads it to choose the "
+    "two-stage aggregate; the port has no shuffle yet.")
+
+SHUFFLE_PARTITIONS = conf(
+    "spark.rapids.tpu.sql.shuffle.partitions", 8,
+    "Default number of shuffle partitions.", int)
+
+AUTO_BROADCAST_THRESHOLD = conf(
+    "spark.rapids.tpu.sql.autoBroadcastJoinThreshold", 10 << 20,
+    "Max estimated byte size of a join side to broadcast it (-1 "
+    "disables).", int)
+
+PARQUET_DEVICE_DECODE = conf(
+    "spark.rapids.tpu.sql.format.parquet.deviceDecode.enabled", True,
+    "Decode parquet pages on the device (TpuParquetScanExec); off, the "
+    "scan stays a host CpuFileScanExec.", bool)
+
+PARQUET_READER_TYPE = conf(
+    "spark.rapids.tpu.sql.format.parquet.reader.type", "AUTO",
+    "Host parquet reader strategy: AUTO, PERFILE, COALESCING, "
+    "MULTITHREADED.")
+
+PARQUET_MULTITHREAD_READ_NUM_THREADS = conf(
+    "spark.rapids.tpu.sql.format.parquet.multiThreadedRead.numThreads", 20,
+    "Thread pool size for the MULTITHREADED host reader.", int)
+
+CLOUD_SCHEMES = conf(
+    "spark.rapids.tpu.cloudSchemes", "gs,s3,s3a,s3n,wasbs,abfs",
+    "URI schemes treated as high-latency cloud stores (selects the "
+    "MULTITHREADED reader under AUTO).")
+
+SCAN_METADATA_CACHE_ENABLED = conf(
+    "spark.rapids.tpu.sql.scan.metadataCache.enabled", True,
+    "Cache parsed parquet footers and chunk plans process-wide "
+    "(io/scan_cache.py).", bool)
+
+SCAN_METADATA_CACHE_MAX_BYTES = conf(
+    "spark.rapids.tpu.sql.scan.metadataCache.maxBytes", 256 << 20,
+    "Byte budget of the scan metadata/plan cache.", int)
+
+
 KERNEL_BACKEND = conf(
     "spark.rapids.tpu.kernel.backend", "pallas",
-    "Kernel backend of the reference ('pallas' or 'xla').  The port "
-    "validates the value and does not act on it: a CUDA tensor always "
-    "runs the hand-written kernel, a CPU tensor its plain torch "
-    "version.")
+    "Kernel backend of the reference ('pallas' or 'xla').  The planner "
+    "stamps it on every plan node and pushes scan filters only under "
+    "'pallas', as the reference does; the kernels do not switch on it: a "
+    "CUDA tensor always runs the hand-written kernel, a CPU tensor its "
+    "plain torch version.")
 
 KERNEL_ABI_ENABLED = conf(
     "spark.rapids.tpu.kernel.abi.enabled", True,
@@ -89,9 +225,9 @@ MAX_READER_BATCH_SIZE_BYTES = conf(
 PARQUET_FUSED_DECODE = conf(
     "spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled", True,
     "Decode all columns of all coalesced row groups of a scan batch in "
-    "one fused pass (io/parquet_fused.py).  The port has no per-column "
-    "decode yet: with this off, the Parquet scan raises "
-    "NotImplementedError.", bool)
+    "one fused pass (io/parquet_fused.py); off, the scan takes its "
+    "PERFILE reader (one batch per row group, decoded column by "
+    "column).", bool)
 
 SCAN_HOST_PREP_THREADS = conf(
     "spark.rapids.tpu.sql.scan.hostPrep.threads", 4,
@@ -109,6 +245,48 @@ class RapidsTpuConf:
 
     def get(self, entry: ConfEntry) -> Any:
         return entry.get(self)
+
+    def get_raw(self, key: str, default: Any = None) -> Any:
+        return self._settings.get(key, default)
+
+    def set(self, key: str, value: Any) -> "RapidsTpuConf":
+        self._settings[key] = value
+        return self
+
+    def is_operator_enabled(self, key: str, incompat: bool,
+                            disabled_by_default: bool) -> bool:
+        """Per-operator kill-switch lookup."""
+        raw = self._settings.get(key)
+        if raw is not None:
+            if isinstance(raw, str):
+                return raw.strip().lower() in ("true", "1", "yes")
+            return bool(raw)
+        if disabled_by_default:
+            return False
+        if incompat:
+            return self.get(INCOMPATIBLE_OPS)
+        return True
+
+    @property
+    def sql_enabled(self) -> bool:
+        return self.get(SQL_ENABLED)
+
+    @property
+    def explain(self) -> str:
+        return str(self.get(EXPLAIN)).upper()
+
+    @property
+    def shuffle_partitions(self) -> int:
+        return self.get(SHUFFLE_PARTITIONS)
+
+    @property
+    def test_enabled(self) -> bool:
+        return self.get(TEST_ENABLED)
+
+    @property
+    def test_allowed_non_tpu(self) -> List[str]:
+        raw = self.get(TEST_ALLOWED_NON_TPU) or ""
+        return [s.strip() for s in raw.split(",") if s.strip()]
 
 
 def configure(settings) -> RapidsTpuConf:

@@ -4,38 +4,44 @@
                          same 1024-row table and the same filter ->
                          compact -> update -> finalize step, as
                          ``(step, (batch,))`` with the batch on ``device``.
-``q6_plan(table, ...)`` — the TPC-DS q6-class query of the reference's
-                         bench (``bench.py:_query``) over an in-memory
-                         table: CpuScanExec -> HostToDeviceExec ->
-                         TpuHashAggregateExec(fused filter
-                         ss_sales_price > 150.0; group by ss_item_sk;
-                         count(*), sum(ss_quantity),
-                         avg(ss_ext_sales_price)) -> DeviceToHostExec.
+``q6_query(df)``       — the TPC-DS q6-class query of the reference's
+                         bench (``bench.py:_query``) as DataFrame code:
+                         filter ss_sales_price > 150.0, group by
+                         ss_item_sk, count(*), sum(ss_quantity),
+                         avg(ss_ext_sales_price).
+``q6_plan(table, ...)`` — q6 over an in-memory table, planned by a port
+                         session (api/session.py): CpuScanExec (pruned to
+                         four columns) -> HostToDeviceExec ->
+                         TpuHashAggregateExec(fused filter) ->
+                         DeviceToHostExec.
 ``gen_store_sales``    — the bench's q6-class fact table, from a seed.
 ``write_store_sales(root, n, files)`` — the same table as the bench's
                          Parquet files (``bench.py:_write_dataset``).
 ``q6_parquet_plan(root, ...)`` — q6 over those files: TpuParquetScanExec
-                         (fused decode, the filter pushed into the scan)
-                         -> TpuHashAggregateExec -> DeviceToHostExec.
-``q6_perfile_plan(root, ...)`` — the same q6 with fused decode off
-                         (``q6_parquet_plan`` with the reference's key
-                         ``spark.rapids.tpu.sql.format.parquet.fusedDecode
-                         .enabled`` false): the scan's PERFILE reader,
-                         one batch per row group, decoded column by column
-                         through ``expand_stream``.
+                         (fused decode, with the filter the planner
+                         pushes into it) -> TpuHashAggregateExec ->
+                         DeviceToHostExec.
+``q6_perfile_plan(root, ...)`` — the same q6 with fused decode off (the
+                         reference's key ``spark.rapids.tpu.sql.format.
+                         parquet.fusedDecode.enabled`` false): the scan's
+                         PERFILE reader, one batch per row group, decoded
+                         column by column through ``expand_stream``.
 ``q6s_parquet_plan(root, ...)`` — the same filter grouped by the string
                          column ``ss_item_id`` (files written with
                          ``item_id=True``): count(*), sum(ss_quantity).
 
+Each q6 form is DataFrame code on a port session with the bench's conf
+(float aggregates allowed) plus the caller's ``conf``; the function
+returns the planned physical plan, which :func:`collect` runs.  The
+planner, not this module, fuses the filter and pushes it into the scan.
 All of them run the port's kernels on ``cuda`` (the default, which raises
 without a GPU) and their plain torch versions on ``cpu``.
 """
 
 from __future__ import annotations
 
-import glob
 import os
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 import pyarrow as pa
@@ -44,16 +50,12 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.batch import from_arrow, resolve_device
 from spark_rapids_tpu_torch.config import RapidsTpuConf
-from spark_rapids_tpu_torch.exec.cpu import CpuScanExec
-from spark_rapids_tpu_torch.exec.tpu_aggregate import (TpuHashAggregateExec,
-                                                       finalize_aggregate,
+from spark_rapids_tpu_torch.exec.tpu_aggregate import (finalize_aggregate,
                                                        make_spec,
                                                        update_aggregate)
-from spark_rapids_tpu_torch.exec.tpu_basic import (DeviceToHostExec,
-                                                   HostToDeviceExec, compact)
+from spark_rapids_tpu_torch.exec.tpu_basic import compact
 from spark_rapids_tpu_torch.expr import eval_tpu, ir
-from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
-from spark_rapids_tpu_torch.plan.logical import Field, FileScan, Schema
+from spark_rapids_tpu_torch.plan.logical import Schema
 
 
 def _example_table(n: int = 1024) -> pa.Table:
@@ -119,25 +121,15 @@ Q6_OUT = ["ss_item_sk", "cnt", "qty", "aesp"]
 
 
 def q6_plan(table: pa.Table, partitions: int = 8, device="cuda",
-            max_batch_rows: int = 1 << 20) -> DeviceToHostExec:
-    """The q6 plan over ``table`` cut into ``partitions`` partitions.
-    Run it with :func:`collect`."""
-    scan = CpuScanExec(table, num_partitions=partitions,
-                       max_batch_rows=max_batch_rows)
-    schema = scan.schema
-    upload = HostToDeviceExec(scan, device=device)
-    key = _bind(schema, ir.UnresolvedAttribute("ss_item_sk"))
-    aggregates = _resolved([
-        ir.Count(None),
-        ir.Sum(_bind(schema, ir.UnresolvedAttribute("ss_quantity"))),
-        ir.Average(_bind(schema,
-                         ir.UnresolvedAttribute("ss_ext_sales_price")))])
-    out_schema = Schema([Field(Q6_OUT[0], key.dtype)] + [
-        Field(n, a.dtype) for n, a in zip(Q6_OUT[1:], aggregates)])
-    agg = TpuHashAggregateExec(upload, [key], aggregates, out_schema)
-    agg.fused_condition = _bind(schema, ir.GreaterThan(
-        ir.UnresolvedAttribute("ss_sales_price"), ir.Literal(150.0)))
-    return DeviceToHostExec(agg)
+            max_batch_rows: int = 1 << 20, conf=None):
+    """The q6 plan over ``table`` cut into ``partitions`` partitions of
+    ``max_batch_rows``-row batches, planned by a port session: the
+    planner prunes the upload to the four columns q6 reads and fuses the
+    filter into the aggregate.  Run it with :func:`collect`."""
+    session = _session(device, conf, **{
+        "spark.rapids.tpu.sql.reader.batchSizeRows": max_batch_rows})
+    return _planned(q6_query(session.create_dataframe(
+        table, num_partitions=partitions)))
 
 
 ITEM_ID_LEN = 16
@@ -179,76 +171,65 @@ def write_store_sales(root: str, n: int, files: int = 8, seed: int = 100,
     return paths
 
 
-def _parquet_scan(root: str, columns: List[str], conf: RapidsTpuConf,
-                  device) -> TpuParquetScanExec:
-    from spark_rapids_tpu_torch.io import scan_cache as sc
-    paths = sorted(glob.glob(os.path.join(glob.escape(root), "*.parquet")))
-    if not paths:
-        raise FileNotFoundError(f"no Parquet files under {root}")
-    schema = Schema.from_arrow(sc.get_footer(paths[0]).schema_arrow)
-    return TpuParquetScanExec(
-        FileScan("parquet", paths, schema, {"columns": columns}), conf,
-        device=device)
+def _session(device, conf=None, **settings):
+    """A port session on ``device`` for one q6 form: the reference bench's
+    conf (float aggregates allowed), the form's ``settings`` and then the
+    caller's ``conf`` (a dict or :class:`RapidsTpuConf`) on top."""
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    merged = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
+    merged.update(settings)
+    merged.update(conf._settings if isinstance(conf, RapidsTpuConf)
+                  else conf or {})
+    return TpuSparkSession(merged, device=device)
 
 
-def _filtered_aggregate(scan: TpuParquetScanExec, key: str,
-                        aggregates, out_names: List[str]
-                        ) -> DeviceToHostExec:
-    """``scan`` -> filter ss_sales_price > 150.0 fused into the
-    aggregate and pushed into the scan, as the reference's planner sets
-    both (``_fuse_filters_into_aggregates``, ``_push_scan_filters``)."""
-    schema = scan.schema
-    cond = _bind(schema, ir.GreaterThan(
-        ir.UnresolvedAttribute("ss_sales_price"), ir.Literal(150.0)))
-    k = _bind(schema, ir.UnresolvedAttribute(key))
-    out_schema = Schema([Field(out_names[0], k.dtype)] + [
-        Field(nm, a.dtype) for nm, a in zip(out_names[1:], aggregates)])
-    agg = TpuHashAggregateExec(scan, [k], aggregates, out_schema)
-    agg.fused_condition = cond
-    scan._pushed_filter = cond
-    return DeviceToHostExec(agg)
+def q6_query(df):
+    """The reference bench's q6 (``bench.py:_query``) over DataFrame
+    ``df``: filter ss_sales_price > 150.0, group by ss_item_sk,
+    count(*), sum(ss_quantity), avg(ss_ext_sales_price)."""
+    from spark_rapids_tpu_torch.api import col, functions as F
+    return (df.filter(col("ss_sales_price") > 150.0)
+            .group_by("ss_item_sk")
+            .agg(F.count("*").alias("cnt"),
+                 F.sum("ss_quantity").alias("qty"),
+                 F.avg("ss_ext_sales_price").alias("aesp")))
 
 
-def q6_parquet_plan(root: str, device="cuda",
-                    conf: Optional[RapidsTpuConf] = None
-                    ) -> DeviceToHostExec:
+def _planned(df):
+    return df.session._plan_physical(df.plan).plan
+
+
+def q6_parquet_plan(root: str, device="cuda", conf=None):
     """q6 over the Parquet files under ``root`` (:func:`write_store_sales`),
-    scanning the four columns the reference's planner prunes to.  Run it
-    with :func:`collect`."""
-    scan = _parquet_scan(root, ["ss_item_sk", "ss_quantity",
-                                "ss_sales_price", "ss_ext_sales_price"],
-                         conf or RapidsTpuConf(), device)
-    schema = scan.schema
-    aggregates = _resolved([
-        ir.Count(None),
-        ir.Sum(_bind(schema, ir.UnresolvedAttribute("ss_quantity"))),
-        ir.Average(_bind(schema,
-                         ir.UnresolvedAttribute("ss_ext_sales_price")))])
-    return _filtered_aggregate(scan, "ss_item_sk", aggregates, Q6_OUT)
+    planned by a port session: the planner prunes the scan to four
+    columns, fuses the filter into the aggregate and pushes it into the
+    fused scan.  Run it with :func:`collect`."""
+    session = _session(device, conf)
+    return _planned(q6_query(session.read.parquet(root)))
 
 
-def q6_perfile_plan(root: str, device="cuda") -> DeviceToHostExec:
+def q6_perfile_plan(root: str, device="cuda", conf=None):
     """q6 over the Parquet files under ``root`` through the scan's
     PERFILE reader (fused decode off).  Run it with :func:`collect`."""
-    return q6_parquet_plan(root, device=device, conf=RapidsTpuConf(
-        {"spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled": False}))
+    session = _session(device, conf, **{
+        "spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled": False})
+    return _planned(q6_query(session.read.parquet(root)))
 
 
 Q6S_OUT = ["ss_item_id", "cnt", "qty"]
 
 
-def q6s_parquet_plan(root: str, device="cuda",
-                     conf: Optional[RapidsTpuConf] = None
-                     ) -> DeviceToHostExec:
+def q6s_parquet_plan(root: str, device="cuda", conf=None):
     """q6's filter grouped by the string key ``ss_item_id`` — count(*),
     sum(ss_quantity) — over files written with ``item_id=True``."""
-    scan = _parquet_scan(root, ["ss_item_id", "ss_quantity",
-                                "ss_sales_price"],
-                         conf or RapidsTpuConf(), device)
-    aggregates = _resolved([
-        ir.Count(None),
-        ir.Sum(_bind(scan.schema, ir.UnresolvedAttribute("ss_quantity")))])
-    return _filtered_aggregate(scan, "ss_item_id", aggregates, Q6S_OUT)
+    from spark_rapids_tpu_torch.api import col, functions as F
+    session = _session(device, conf)
+    df = (session.read.parquet(root)
+          .filter(col("ss_sales_price") > 150.0)
+          .group_by("ss_item_id")
+          .agg(F.count("*").alias("cnt"),
+               F.sum("ss_quantity").alias("qty")))
+    return _planned(df)
 
 
 def collect(plan) -> pa.Table:

@@ -1,8 +1,12 @@
 """Physical plan contracts.
 
-Ported from ``spark_rapids_tpu/exec/base.py``: ``Metrics``,
-``PhysicalPlan``, ``TpuExec`` and ``timed``.  The reference's hooks into
-tracing, scheduling and cancellation are not ported yet.
+Ported from ``spark_rapids_tpu/exec/base.py``: the coalesce goals,
+``Metrics``, ``PhysicalPlan`` (``is_tpu``, ``simple_string``,
+``tree_string``, ``foreach``), ``TpuExec`` and ``timed``.  The
+reference's hooks into tracing and cooperative cancellation
+(``obs/trace.py``, ``sched/cancel.py``), its peak-memory metric and the
+executor-side metrics round trip wait for the ported ``obs/``,
+``sched/`` and ``shuffle/``.
 
 Execution model: ``execute()`` returns one Python iterator per partition.
 CPU execs yield ``pyarrow.Table`` batches; device execs yield
@@ -19,6 +23,30 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 from spark_rapids_tpu_torch.plan.logical import Schema
 
 
+# ---------------------------------------------------------------------------
+# Coalesce goals
+# ---------------------------------------------------------------------------
+
+class CoalesceGoal:
+    pass
+
+
+@dataclass(frozen=True)
+class TargetSize(CoalesceGoal):
+    bytes: int
+
+
+class RequireSingleBatch(CoalesceGoal):
+    """Operator needs its whole input in one batch."""
+
+
+REQUIRE_SINGLE_BATCH = RequireSingleBatch()
+
+
+# ---------------------------------------------------------------------------
+# Metrics
+# ---------------------------------------------------------------------------
+
 @dataclass
 class Metrics:
     """Per-exec counters; every time is in NANOSECONDS."""
@@ -32,7 +60,8 @@ class Metrics:
 
     def add_rows(self, nr) -> None:
         """Count output rows without reading a device count: 0-d tensors
-        buffer and resolve when the metric is read."""
+        buffer and resolve when the metric is read.  Thread-safe:
+        partition iterators of one exec run concurrently."""
         with self._rows_lock:
             if isinstance(nr, int):
                 self._rows_host += nr
@@ -73,9 +102,23 @@ class PhysicalPlan:
     def schema(self) -> Schema:
         raise NotImplementedError
 
+    @property
+    def is_tpu(self) -> bool:
+        return False
+
     def execute(self) -> List[Iterator[Any]]:
         """One iterator of batches per partition."""
         raise NotImplementedError
+
+    def simple_string(self) -> str:
+        return type(self).__name__
+
+    def tree_string(self, indent: int = 0) -> str:
+        pad = "  " * indent
+        lines = [f"{pad}{'*' if self.is_tpu else ' '}{self.simple_string()}"]
+        for c in self.children:
+            lines.append(c.tree_string(indent + 1))
+        return "\n".join(lines)
 
     def foreach(self, fn) -> None:
         fn(self)
@@ -85,6 +128,10 @@ class PhysicalPlan:
 
 class TpuExec(PhysicalPlan):
     """Marker base for device-side execs (the name is the reference's)."""
+
+    @property
+    def is_tpu(self) -> bool:
+        return True
 
 
 class _Timed:

@@ -1,0 +1,106 @@
+"""Whole-stage fused exec: one collapsed Project/Filter chain.
+
+Ported from ``spark_rapids_tpu/exec/fused_stage.py`` (``TpuFusedStageExec``
+:259, ``_impl`` :296, ``execute`` :340).  The planner pass in
+:mod:`spark_rapids_tpu_torch.plan.fusion` collapses a maximal chain of
+Project/Filter execs into one node that
+
+  1. evaluates the AND of every filter condition in the chain (each
+     rewritten over the stage INPUT schema),
+  2. performs at most ONE stream compaction, and
+  3. evaluates the composed output projection, so the chain's
+     intermediate columns are never materialized.  When the output is at
+     least as wide as the input the stage compacts first, else it
+     projects first and compacts only the output columns.
+
+A stage whose composed projection is pure column selection runs in
+**passthrough** mode: a host-side column pick, no device work.
+
+Here the stage runs as an eager torch composition of those three steps.
+The reference's compile machinery (``build_kernel``, ``dispatch``, input
+donation and the shared-scan donation gate, :111-252) exists to cut XLA
+dispatches and reuse HBM under ``jax.jit`` and has no counterpart in an
+eager port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
+from spark_rapids_tpu_torch.exec.base import PhysicalPlan, TpuExec, timed
+from spark_rapids_tpu_torch.expr import eval_tpu, ir
+from spark_rapids_tpu_torch.plan.logical import Schema
+
+
+class TpuFusedStageExec(TpuExec):
+    """One collapsed Project/Filter chain (see module docstring)."""
+
+    def __init__(self, child: PhysicalPlan,
+                 out_exprs: Sequence[ir.Expression], schema: Schema,
+                 condition: Optional[ir.Expression] = None,
+                 fused: Sequence[str] = ()):
+        super().__init__()
+        self.children = (child,)
+        self.out_exprs = list(out_exprs)
+        self._schema = schema
+        self.condition = condition
+        # display names of the execs this stage replaced (top-down)
+        self.fused = tuple(fused)
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def is_passthrough(self) -> bool:
+        """Pure column selection: no condition and every output a plain
+        BoundReference."""
+        return self.condition is None and all(
+            isinstance(e, ir.BoundReference) for e in self.out_exprs)
+
+    def n_fused(self) -> int:
+        return len(self.fused)
+
+    def simple_string(self) -> str:
+        mode = "passthrough" if self.is_passthrough else (
+            "filter+project" if self.condition is not None else "project")
+        return (f"TpuFusedStageExec({mode}, fused={len(self.fused)}: "
+                f"{'+'.join(self.fused)})")
+
+    def _impl(self, batch: DeviceBatch) -> DeviceBatch:
+        from spark_rapids_tpu_torch.exec.tpu_basic import compact
+        names = self._schema.names
+        keep = None
+        if self.condition is not None:
+            v = eval_tpu.evaluate(self.condition, batch)
+            keep = v.data.to(torch.bool) & v.validity
+            if len(self.out_exprs) >= len(batch.columns):
+                batch = compact(batch, keep)
+                keep = None
+        cols = [eval_tpu.evaluate(e, batch).to_column()
+                for e in self.out_exprs]
+        out = DeviceBatch(names, cols, batch.num_rows, batch.device)
+        return compact(out, keep) if keep is not None else out
+
+    def execute(self):
+        passthrough = self.is_passthrough
+        names = self._schema.names
+        ords = [e.ordinal for e in self.out_exprs] if passthrough else None
+
+        def run(it):
+            for b in it:
+                if passthrough:
+                    with timed(self.metrics, "fused.passthrough"):
+                        out = DeviceBatch(names,
+                                          [b.columns[i] for i in ords],
+                                          b.num_rows, b.device)
+                else:
+                    with timed(self.metrics, "fused.eval"):
+                        out = self._impl(b)
+                self.metrics.add_batches()
+                self.metrics.add_rows(out.num_rows)
+                yield out
+        return [run(it) for it in self.children[0].execute()]

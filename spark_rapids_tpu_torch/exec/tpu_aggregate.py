@@ -91,8 +91,7 @@ class _SortedCtx:
         name = kseg.op_name(op)
         ok, reason = kseg.kernel_gate(self.cap, dtype, name, ndim,
                                       self.new.device)
-        if not ok:
-            kb.record_fallback("agg.segreduce", reason or "unsupported")
+        if kb.choose("agg.segreduce", ok, reason or "unsupported") == kb.XLA:
             return None
         return name
 
@@ -755,10 +754,21 @@ class TpuHashAggregateExec(TpuExec):
         # a Filter that sat directly below this aggregate, fused in: its
         # rows are selected inside the update (see update_aggregate)
         self.fused_condition: Optional[ir.Expression] = None
+        # Project/Filter execs the fusion pass inlined into this
+        # aggregate (plan/fusion.py R2), and how many of them the plain
+        # filter fusion would not have absorbed
+        self.fused_prologue_execs = 0
+        self.fused_prologue_saved = 0
 
     @property
     def schema(self) -> Schema:
         return self._schema
+
+    def simple_string(self) -> str:
+        if self.fused_condition is not None:
+            return (f"TpuHashAggregateExec(fusedFilter="
+                    f"{self.fused_condition.sql()})")
+        return "TpuHashAggregateExec"
 
     def execute(self):
         n_keys = len(self.groupings)

@@ -1,26 +1,33 @@
-"""Basic device execs: transitions, project, filter, and ``compact``.
+"""Basic device execs: transitions, project, filter, ``compact``, range,
+union, global limit, batch coalescing and expand.
 
 Ported from ``spark_rapids_tpu/exec/tpu_basic.py`` (HostToDeviceExec :44,
 DeviceToHostExec :99, TpuProjectExec :118, compact :191, TpuFilterExec
-:209).  The port runs eagerly: no kernel cache and no input donation.
+:209, TpuRangeExec :272, TpuUnionExec :310, TpuGlobalLimitExec :333,
+TpuCoalesceBatchesExec :360, TpuExpandExec :413).  The port runs eagerly
+as plain torch: no kernel cache and no input donation.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import pyarrow as pa
 import torch
 
+from spark_rapids_tpu_torch import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
                                                    _bucket_strlen,
                                                    bucket_rows,
                                                    compact_arrays,
+                                                   concat_batches,
                                                    from_arrow,
                                                    resolve_device, to_arrow)
-from spark_rapids_tpu_torch.exec.base import PhysicalPlan, TpuExec, timed
+from spark_rapids_tpu_torch.exec.base import (CoalesceGoal, PhysicalPlan,
+                                              RequireSingleBatch, TargetSize,
+                                              TpuExec, timed)
 from spark_rapids_tpu_torch.expr import eval_tpu, ir
-from spark_rapids_tpu_torch.plan.logical import Schema
+from spark_rapids_tpu_torch.plan.logical import Field, Schema
 
 
 class HostToDeviceExec(TpuExec):
@@ -148,4 +155,162 @@ class TpuFilterExec(TpuExec):
                     v = eval_tpu.evaluate(self.condition, b)
                     out = compact(b, v.data.to(torch.bool) & v.validity)
                 yield out
+        return [run(it) for it in self.children[0].execute()]
+
+
+class TpuRangeExec(TpuExec):
+    def __init__(self, start: int, end: int, step: int, num_partitions: int,
+                 max_batch_rows: int = 1 << 22, device="cuda"):
+        super().__init__()
+        self.start, self.end, self.step = start, end, step
+        self.num_partitions = max(1, num_partitions)
+        self.max_batch_rows = max_batch_rows
+        self.device = resolve_device(device)
+        self._schema = Schema([Field("id", dt.INT64, False)])
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def execute(self):
+        total = max(0, -(-(self.end - self.start) // self.step)
+                    if self.step != 0 else 0)
+        per = (total + self.num_partitions - 1) // self.num_partitions or 1
+        dev = self.device
+
+        def part(i):
+            lo = min(i * per, total)
+            hi = min(lo + per, total)
+            for off in range(lo, max(hi, lo + 1), self.max_batch_rows):
+                n = min(self.max_batch_rows, hi - off)
+                if n <= 0 and off != lo:
+                    break
+                n = max(n, 0)
+                cap = bucket_rows(n)
+                first = self.start + off * self.step
+                valid = torch.arange(cap, device=dev) < n
+                data = first + torch.arange(cap, dtype=torch.int64,
+                                            device=dev) * self.step
+                data = torch.where(valid, data, 0)
+                yield DeviceBatch(["id"], [DeviceColumn(dt.INT64, data,
+                                                        valid)], n)
+                if hi == lo:
+                    break
+        return [part(i) for i in range(self.num_partitions)]
+
+
+class TpuUnionExec(TpuExec):
+    def __init__(self, children: Sequence[PhysicalPlan]):
+        super().__init__()
+        self.children = tuple(children)
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self):
+        names = self.schema.names
+
+        def run(it):
+            # unify column names to the union schema
+            for b in it:
+                yield DeviceBatch(names, b.columns, b.num_rows, b.device)
+        return [run(it) for c in self.children for it in c.execute()]
+
+
+class TpuGlobalLimitExec(TpuExec):
+    def __init__(self, child: PhysicalPlan, n: int):
+        super().__init__()
+        self.children = (child,)
+        self.n = n
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self):
+        def run():
+            remaining = self.n
+            for it in self.children[0].execute():
+                for b in it:
+                    if remaining <= 0:
+                        return
+                    rows = int(b.num_rows)
+                    take = min(remaining, rows)
+                    remaining -= take
+                    if take == rows:
+                        yield b
+                    else:
+                        yield DeviceBatch(b.names, b.columns, take, b.device)
+        return [run()]
+
+
+class TpuCoalesceBatchesExec(TpuExec):
+    """Goal-driven batch concatenation: batches of one partition up to a
+    byte target (``TargetSize``), or every partition into one batch
+    (``RequireSingleBatch``)."""
+
+    def __init__(self, child: PhysicalPlan, goal: CoalesceGoal):
+        super().__init__()
+        self.children = (child,)
+        self.goal = goal
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self):
+        target = self.goal.bytes if isinstance(self.goal, TargetSize) \
+            else None
+
+        def run(it):
+            pending: List[DeviceBatch] = []
+            pending_bytes = 0
+            for b in it:
+                if int(b.num_rows) == 0 and pending:
+                    continue
+                pending.append(b)
+                pending_bytes += b.nbytes()
+                if target is not None and pending_bytes >= target:
+                    self.metrics.add_batches()
+                    yield concat_batches(pending)
+                    pending, pending_bytes = [], 0
+            if pending:
+                self.metrics.add_batches()
+                yield concat_batches(pending)
+        if isinstance(self.goal, RequireSingleBatch):
+            def run_all():
+                batches = [b for it in self.children[0].execute()
+                           for b in it]
+                if batches:
+                    yield concat_batches(batches)
+            return [run_all()]
+        return [run(it) for it in self.children[0].execute()]
+
+
+class TpuExpandExec(TpuExec):
+    """N projections per input row: each batch yields one output batch per
+    projection."""
+
+    def __init__(self, child: PhysicalPlan,
+                 projections: Sequence[Sequence[ir.Expression]],
+                 schema: Schema):
+        super().__init__()
+        self.children = (child,)
+        self.projections = projections
+        self._schema = schema
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def execute(self):
+        names = self._schema.names
+
+        def run(it):
+            for b in it:
+                for proj in self.projections:
+                    cols = [eval_tpu.evaluate(e, b).to_column()
+                            for e in proj]
+                    yield DeviceBatch(names, cols, b.num_rows, b.device)
         return [run(it) for it in self.children[0].execute()]

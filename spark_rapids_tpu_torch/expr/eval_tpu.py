@@ -6,8 +6,10 @@ aliases, comparisons (Spark's total order for floats: NaN greatest, NaN ==
 NaN),
 AND/OR three-valued logic, NOT, ``+ - * /`` with Spark's null rules
 (x / 0 is NULL; integer overflow wraps), casts between numeric, boolean
-and temporal types, and IS [NOT] NULL.  Any other node raises
-``NotImplementedError(<node name>)``.
+and temporal types, and IS [NOT] NULL.  The planner keeps every other
+node on the CPU (:func:`supported_on_tpu`, read by plan/overrides.py), so
+a planned query never reaches the ``NotImplementedError(<node name>)``
+that evaluating one raises.
 """
 
 from __future__ import annotations
@@ -275,6 +277,18 @@ def _float_to_int(x: torch.Tensor, tgt: dt.DType) -> torch.Tensor:
                                    inner))
 
 
+def cast_supported(src: dt.DType, tgt: dt.DType) -> bool:
+    """Does :func:`_eval_cast` cover ``src -> tgt``?  The planner keeps
+    any other cast on the CPU."""
+    if src == tgt or src == dt.NULL:
+        return True
+    if src.is_string or tgt.is_string:
+        return False
+    return (src.is_temporal and (tgt.is_temporal or tgt.is_numeric)) or \
+        ((src.is_bool or src.is_numeric) and (tgt.is_numeric or
+                                              tgt.is_bool))
+
+
 def _eval_cast(e, batch):
     c = evaluate(e.child, batch)
     src, tgt = c.dtype, e.to
@@ -328,3 +342,7 @@ _DISPATCH = {
     ir.IsNotNull: _eval_isnotnull,
     ir.Cast: _eval_cast,
 }
+
+
+def supported_on_tpu(cls) -> bool:
+    return cls in _DISPATCH

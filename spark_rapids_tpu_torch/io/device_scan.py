@@ -94,6 +94,10 @@ class TpuParquetScanExec(TpuExec):
     def schema(self) -> Schema:
         return self._schema
 
+    def simple_string(self) -> str:
+        return (f"{type(self).__name__}"
+                f"(files={len(self.scan.paths)}, deviceDecode)")
+
     def execute(self) -> List[Iterator[DeviceBatch]]:
         if self.allow_fused and self.conf.get(cfg.PARQUET_FUSED_DECODE):
             return self._execute_fused()

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List
 
@@ -21,6 +22,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# one lock per source: partitions drained on several threads may reach a
+# kernel's first use together, while different sources still build in
+# parallel
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 # name -> nvcc's output of the build this process made (registers, shared
 # memory and spills per kernel, from -Xptxas -v)
 compiler_output: Dict[str, str] = {}
@@ -72,7 +78,13 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            _loaded[name] = lib
     return lib

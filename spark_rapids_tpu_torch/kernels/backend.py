@@ -1,26 +1,35 @@
-"""Launch and fallback counters of the port's hand-written kernels.
+"""Kernel-backend selection, and the launch and fallback counters of the
+port's hand-written kernels.
 
-Ported from ``spark_rapids_tpu/kernels/backend.py``.  The reference
+Ported from ``spark_rapids_tpu/kernels/backend.py`` (``configure``,
+``default_backend``, ``resolve`` :121, ``choose`` :242).  The reference
 chooses per call site between a Pallas kernel and its XLA composition
-(``kernel.backend``).  The port routes by the tensor's device instead:
-a CUDA tensor of a shape the kernel covers launches the kernel (or
-raises), a CPU tensor takes the kernel's plain torch version.  The
-``kernel.backend`` key is accepted and validated but not acted on.
+(``kernel.backend``).  In the port the planner reads the same key: it
+stamps the resolved backend on every plan node (``_kernel_backend``) and
+pushes scan filters only under ``pallas`` (plan/overrides.py), so one
+conf gives one plan shape in both packages.  The kernels themselves
+route by the tensor's device: a CUDA tensor of a shape the kernel covers
+launches the kernel (or raises), a CPU tensor takes the kernel's plain
+torch version.
 
 What a call site could not hand to its kernel is a *fallback*, counted
-with its reason exactly where the reference falls back to XLA (for
-example a 2-D string payload in the segmented reduction).  Every kernel
-launch is counted by name.  Both counters are plain ints, so a run can
+with its reason by :func:`choose` exactly where the reference falls back
+to XLA (for example a 2-D string payload in the segmented reduction).
+Every kernel launch is counted by name.  Both counters are plain ints
+behind one lock (partitions may drain on several threads), so a run can
 show that its main path went through the kernels.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import threading
+from typing import Dict, Optional
 
 XLA = "xla"
 PALLAS = "pallas"
 
+_lock = threading.Lock()
+_default_backend = PALLAS
 # kernel name -> launches since the last reset_counts()
 launches: Dict[str, int] = {}
 # "family.reason" -> call sites that took the plain composition
@@ -28,28 +37,60 @@ fallbacks: Dict[str, int] = {}
 
 
 def configure(conf) -> None:
-    """Validate the reference's kernel-backend key (the port does not act
-    on it)."""
+    """Session-init hook: validate ``spark.rapids.tpu.kernel.backend`` and
+    install it as the process default (every new session re-asserts its
+    own conf).  Plans carry their own ``_kernel_backend`` stamp, which
+    wins wherever a plan node is in scope."""
     from spark_rapids_tpu_torch import config as cfg
+    global _default_backend
     backend = str(conf.get(cfg.KERNEL_BACKEND) or PALLAS).strip().lower()
     if backend not in (XLA, PALLAS):
         raise ValueError(
             f"spark.rapids.tpu.kernel.backend must be 'xla' or "
             f"'pallas', got {backend!r}")
+    with _lock:
+        _default_backend = backend
+
+
+def default_backend() -> str:
+    with _lock:
+        return _default_backend
+
+
+def resolve(stamped: Optional[str] = None) -> str:
+    """The backend in effect at a call site: the plan-stamped value when
+    the caller has one (``_kernel_backend``), else the process default."""
+    if stamped in (XLA, PALLAS):
+        return stamped
+    return default_backend()
+
+
+def choose(family: str, supported: bool, reason: str = "unsupported"
+           ) -> str:
+    """One call site's route: ``pallas`` (the hand kernel) when it covers
+    this shape and dtype, else ``xla`` (the plain torch composition),
+    counted as a fallback of ``family`` with ``reason``."""
+    if not supported:
+        record_fallback(family, reason)
+        return XLA
+    return PALLAS
 
 
 def record_launch(name: str) -> None:
-    launches[name] = launches.get(name, 0) + 1
+    with _lock:
+        launches[name] = launches.get(name, 0) + 1
 
 
 def record_fallback(family: str, reason: str) -> None:
     key = f"{family}.{reason}"
-    fallbacks[key] = fallbacks.get(key, 0) + 1
+    with _lock:
+        fallbacks[key] = fallbacks.get(key, 0) + 1
 
 
 def reset_counts() -> None:
-    launches.clear()
-    fallbacks.clear()
+    with _lock:
+        launches.clear()
+        fallbacks.clear()
 
 
 def tpu_block(cap: int, base: int) -> int:

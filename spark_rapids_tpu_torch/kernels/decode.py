@@ -415,8 +415,7 @@ def expand_stream(runs, packed: bytes, cap: int,
     from spark_rapids_tpu_torch.io import device_parquet as dp
     dev = torch.device(device)
     ok, w, reason = stream_width(runs)
-    if not ok:
-        kb.record_fallback("decode.expand", reason)
+    if kb.choose("decode.expand", ok, reason) == kb.XLA:
         return dp.expand_runs(runs, packed, cap, dev)
     ncap = bucket_rows(max(_dense_extent(runs, w), 1), 32)
     if dev.type == "cpu" and not _expand_supported(w, ncap, cap):

@@ -141,11 +141,21 @@ def test_vbits_buckets_match_reference(lo, hi):
 
 
 def test_import_loads_neither_jax_nor_the_reference():
+    """Every module of the port imports, and a session plans and runs q6
+    on the CPU, with neither jax nor the reference package loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import spark_rapids_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from spark_rapids_tpu_torch.api.session import TpuSparkSession\n"
+        "from spark_rapids_tpu_torch.entry import gen_store_sales, "
+        "q6_query\n"
+        "s = TpuSparkSession({'spark.rapids.tpu.sql.variableFloatAgg."
+        "enabled': True, 'spark.rapids.tpu.sql.test.enabled': True}, "
+        "device='cpu')\n"
+        "out = q6_query(s.create_dataframe(gen_store_sales(2000))).collect()\n"
+        "assert out.num_rows > 100, out.num_rows\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'spark_rapids_tpu' or "
         "m.startswith('spark_rapids_tpu.'))\n"
