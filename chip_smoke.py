@@ -65,6 +65,23 @@ Phases (any failure exits non-zero):
                match pyarrow and must launch and fall back exactly as
                phases 5 and 6 did; its planning time and warm collect wall
                (median of 5 each);
+  7b. pipeline — the scan pipeline on the fused and the PERFILE q6
+               (``bench.py::_query`` on a session) and the in-memory q6 over
+               the same SF10 data: with ``sql.scan.prefetch.depth`` 2 and 0
+               each must match pyarrow and launch and fall back exactly as
+               before the pipeline (PIPELINE_COUNTS); the prefetch and
+               semaphore counters (``scan.prefetchOverlapNs`` must be > 0
+               on the fused q6), the
+               pinned bytes held at most; one ``torch.profiler`` trace per
+               form (the device's busy share: the union of kernel and
+               memcpy intervals over the wall; the ten device operations
+               that took the most time; the five longest idle gaps, each
+               named by the host spans it fell in); the sections of a
+               median of 5 warm runs, with the fused host prep split into
+               ``_collect_plans`` and ``assemble``, the PERFILE decode's
+               O(runs) Python and the in-memory upload's host work
+               (``pipeline_profile.py`` takes the same sections of another
+               checkout, for runs in turns with it);
   8. q6s-parquet — q6's filter grouped by the string key ss_item_id over 4
                files of 2^20 rows (the string kernel's path, cut for time);
   9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
@@ -85,9 +102,10 @@ before the last carries the kernel table as JSON, the line before it the
 card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
-q6p, q6pf, session, q6s, modes) runs only those phases and prints no
-kernel table; ``session`` alone writes the files and counts the q6p and
-q6pf forms once itself.
+q6p, q6pf, session, pipeline, q6s, modes) runs only those phases and
+prints no kernel table; ``session`` alone writes the files and counts the
+q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
+makes the in-memory table itself.
 """
 
 import json
@@ -121,6 +139,7 @@ Q6S_FILES = 4
 Q6S_ROWS = Q6S_FILES << 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 OUT_DIR = "chiprun_out"
+LOG_NAME = "chip_smoke.log"
 SOURCES = ["segreduce", "decode", "filter_decode"]
 REPLACES = {
     "segreduce.seg_scan_sorted": "spark_rapids_tpu/kernels/segreduce.py:278",
@@ -174,7 +193,7 @@ def fail(msg: str) -> None:
 
 def _write_log() -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
+    with open(os.path.join(OUT_DIR, LOG_NAME), "w") as f:
         f.write("\n".join(_log_lines) + "\n")
 
 
@@ -653,14 +672,8 @@ EXPAND_CAPS = (1 << 16, 1 << 18, 1 << 20, 1 << 22, (1 << 20) + 7)
 def _run_table(rows) -> object:
     """A RunTable from (count, is_rle, value, bit_base, width) rows."""
     from spark_rapids_tpu_torch.io.device_parquet import RunTable
-    runs = RunTable.empty()
-    for count, rle, value, base, width in rows:
-        runs.counts.append(int(count))
-        runs.is_rle.append(bool(rle))
-        runs.values.append(int(value))
-        runs.bit_bases.append(int(base))
-        runs.widths.append(int(width))
-    return runs
+    cols = list(zip(*rows)) or [()] * 5
+    return RunTable(*[[int(v) for v in c] for c in cols])
 
 
 def _synthetic_stream(w: int, cap: int, rng):
@@ -890,13 +903,25 @@ def check_q6(out: pa.Table, ref: pa.Table) -> float:
     return float(rel.max())
 
 
+_Q6_TABLE = []
+
+
+def q6_table():
+    """The in-memory q6's SF10 table and its pyarrow result, made once."""
+    from spark_rapids_tpu_torch.entry import gen_store_sales
+    if not _Q6_TABLE:
+        t0 = time.perf_counter()
+        table = gen_store_sales(Q6_ROWS, seed=42)
+        ref = q6_reference(table)
+        log(f"q6: generated {Q6_ROWS} rows + pyarrow reference in "
+            f"{time.perf_counter() - t0:.1f} s ({ref.num_rows} groups)")
+        _Q6_TABLE.append((table, ref))
+    return _Q6_TABLE[0]
+
+
 def phase_q6():
-    from spark_rapids_tpu_torch.entry import collect, gen_store_sales, q6_plan
-    t0 = time.perf_counter()
-    table = gen_store_sales(Q6_ROWS, seed=42)
-    ref = q6_reference(table)
-    log(f"q6: generated {Q6_ROWS} rows + pyarrow reference in "
-        f"{time.perf_counter() - t0:.1f} s ({ref.num_rows} groups)")
+    from spark_rapids_tpu_torch.entry import collect, q6_plan
+    table, ref = q6_table()
     torch.cuda.reset_peak_memory_stats()
     kb.reset_counts()
     with ShapeRecorder() as shapes:
@@ -994,10 +1019,17 @@ def _scan_of(plan):
     return found[0]
 
 
+# sections a prefetch thread may time beside the consumer's: the rest of
+# the wall is what the consumer's own sections leave
+OVERLAPPED = ("scan.hostPrepTime", "scan.uploadTime")
+
+
 def _fmt_sections(sec: dict, wall: float) -> str:
-    rest = wall - sum(sec.values())
+    rest = wall - sum(v for k, v in sec.items() if k not in OVERLAPPED)
     return ", ".join([f"{k} {v * 1e3:.1f} ms" for k, v in sec.items()] +
-                     [f"rest {rest * 1e3:.1f} ms"])
+                     [f"rest {rest * 1e3:.1f} ms (the wall less the "
+                      f"sections but {', '.join(OVERLAPPED)}, which may run "
+                      f"on prefetch threads)"])
 
 
 def _timed_run(make_plan):
@@ -1135,35 +1167,50 @@ def _perfile_prediction(root: str) -> dict:
     return want
 
 
-class HostTimer:
-    """Adds up the host time of the per-column decode's O(runs) Python
-    (stream_width, the dense extent, _dense_meta, and the run matrix of
-    the window-gather composition) while it is entered."""
+# host functions whose time the sections split out, by form: the fused
+# host prep's two halves, the PERFILE decode's O(runs) Python, the
+# in-memory upload's host work (the rest of transition.upload is the copy)
+HOST_FNS = {
+    "fused": (("spark_rapids_tpu_torch.io.parquet_fused", "_collect_plans"),
+              ("spark_rapids_tpu_torch.io.parquet_fused", "assemble")),
+    "perfile": (("spark_rapids_tpu_torch.kernels.decode", "stream_width"),
+                ("spark_rapids_tpu_torch.kernels.decode", "_dense_extent"),
+                ("spark_rapids_tpu_torch.kernels.decode", "_dense_meta"),
+                ("spark_rapids_tpu_torch.io.device_parquet", "_upload_runs")),
+    "memory": (("spark_rapids_tpu_torch.columnar.batch",
+                "_np_column_from_arrow"),
+               ("spark_rapids_tpu_torch.columnar.batch", "_upload_hints")),
+}
 
-    TARGETS = (("kdec", "stream_width"), ("kdec", "_dense_extent"),
-               ("kdec", "_dense_meta"), ("dp", "_upload_runs"))
 
-    def __init__(self):
-        from spark_rapids_tpu_torch.io import device_parquet as dp
-        self.mods = {"kdec": kdec, "dp": dp}
-        self.seconds = {}
+class FnTimer:
+    """Adds up the host time of module functions while entered, over
+    every thread (the prefetch threads call the fused host prep)."""
+
+    def __init__(self, targets):
+        import importlib
+        import threading
+        self.targets = [(importlib.import_module(m), a) for m, a in targets]
+        self.seconds = {a: 0.0 for _, a in self.targets}
+        self._lock = threading.Lock()
 
     def __enter__(self):
-        self._orig = [getattr(self.mods[m], a) for m, a in self.TARGETS]
-        for (m, a), fn in zip(self.TARGETS, self._orig):
-            def timed_fn(*args, _fn=fn, _a=a):
+        self._orig = [getattr(m, a) for m, a in self.targets]
+        for (m, a), fn in zip(self.targets, self._orig):
+            def timed_fn(*args, _fn=fn, _a=a, **kwargs):
                 t0 = time.perf_counter()
                 try:
-                    return _fn(*args)
+                    return _fn(*args, **kwargs)
                 finally:
-                    self.seconds[_a] = self.seconds.get(_a, 0.0) + \
-                        time.perf_counter() - t0
-            setattr(self.mods[m], a, timed_fn)
+                    dt = time.perf_counter() - t0
+                    with self._lock:
+                        self.seconds[_a] += dt
+            setattr(m, a, timed_fn)
         return self
 
     def __exit__(self, *a):
-        for (m, attr), fn in zip(self.TARGETS, self._orig):
-            setattr(self.mods[m], attr, fn)
+        for (m, attr), fn in zip(self.targets, self._orig):
+            setattr(m, attr, fn)
 
 
 def _check_perfile_counts(tag: str, launches, fallbacks, want) -> None:
@@ -1225,7 +1272,7 @@ def phase_q6_perfile(root: str, ref: pa.Table):
     walks0 = pm.walk_count()
     for i in range(5):
         kb.reset_counts()
-        with HostTimer() as ht:
+        with FnTimer(HOST_FNS["perfile"]) as ht:
             o, plan, wall, ev = _timed_run(
                 lambda: q6_perfile_plan(root, device="cuda", conf=SCAN_CONF))
         _check_perfile_counts(f"warm q6-perfile run {i}", dict(kb.launches),
@@ -1559,6 +1606,240 @@ def phase_perfile_modes() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 11. the scan pipeline: prefetch depth, counters, traces, sections
+# ---------------------------------------------------------------------------
+
+DEPTH_KEY = "spark.rapids.tpu.sql.scan.prefetch.depth"
+# the launches and fallbacks of each q6 form as they were before the scan
+# pipeline, which must not change them: the fused and PERFILE q6 through
+# bench.py::_query on a session, the in-memory q6 through entry.q6_plan
+PIPELINE_COUNTS = {
+    "fused": ({"decode.unpack_bits": 48, "filter_decode.decode": 32,
+               "segreduce.seg_scan_sorted": 48,
+               "segreduce.gather_seg_scan": 37}, {}),
+    "perfile": ({"decode.expand_stream": 160,
+                 "segreduce.seg_scan_sorted": 32,
+                 "segreduce.gather_seg_scan": 133},
+                {"decode.expand.mixed_widths": 32}),
+    "memory": ({"segreduce.seg_scan_sorted": 96,
+                "segreduce.gather_seg_scan": 69}, {}),
+}
+PIPELINE_COUNTERS = ("scan.prefetchStalls", "scan.prefetchOverlapNs",
+                     "scan.prefetchStallNs", "semaphore.acquires",
+                     "semaphore.waitNs")
+def pipeline_forms(root: str, table: pa.Table):
+    """form -> run(conf) -> (Arrow output, planned plan): the fused and the
+    PERFILE q6 as bench.py::_query on a port session (its partitions drain
+    on concurrentTpuTasks threads), the in-memory q6 as entry.q6_plan."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.entry import collect, q6_plan
+
+    def on_session(conf):
+        s = TpuSparkSession(dict(
+            {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True},
+            **conf), device="cuda")
+        plans = []
+        s.add_plan_listener(lambda r: plans.append(r.plan))
+        out = bench_query(s, root).collect()
+        return out, plans[-1]
+
+    def memory(conf):
+        plan = q6_plan(table, partitions=Q6_PARTS, device="cuda",
+                       conf=conf)
+        return collect(plan), plan
+
+    perfile = {"spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled":
+               False}
+    return {"fused": lambda conf: on_session(dict(SCAN_CONF, **conf)),
+            "perfile": lambda conf: on_session(dict(SCAN_CONF, **perfile,
+                                                    **conf)),
+            "memory": lambda conf: memory(dict(SCAN_CONF, **conf))}
+
+
+def form_sections(form: str, run, conf: dict, reps: int = 5) -> dict:
+    """Median of ``reps`` warm runs of one form (after one warm-up): the
+    wall on the host clock, every exec section, the host functions of
+    HOST_FNS[form], and the runs' walls."""
+    run(conf)
+    torch.cuda.synchronize()
+    walls, secs, fns = [], [], []
+    for _ in range(reps):
+        with FnTimer(HOST_FNS[form]) as ft:
+            t0 = time.perf_counter()
+            _out, plan = run(conf)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        secs.append(_sections(plan))
+        fns.append(dict(ft.seconds))
+    out = {"wall": statistics.median(walls)}
+    for k in secs[0]:
+        out[k] = statistics.median(s.get(k, 0.0) for s in secs)
+    for k in fns[0]:
+        out[k] = statistics.median(f[k] for f in fns)
+    out["walls"] = walls
+    return out
+
+
+def _fmt_ms(d: dict) -> str:
+    return ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in d.items()
+                     if k != "walls")
+
+
+def _merge(ivs):
+    """Union of [start, end) intervals, sorted."""
+    out = []
+    for a, b in sorted(ivs):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def trace_form(tag: str, run, conf: dict) -> dict:
+    """One warm query under torch.profiler (CPU and CUDA) with the span
+    tracer on.  The device's busy share is the union of its kernel and
+    memcpy/memset intervals over the query's wall; prints the ten device
+    operations that took the most time and the five longest idle gaps,
+    each named by the host spans (obs/trace.py) it fell in."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from spark_rapids_tpu_torch.obs import trace as obstrace
+    # the session switches the span tracer from its conf, as the
+    # reference's does
+    conf = dict(conf, **{"spark.rapids.tpu.obs.trace.enabled": True})
+    run(conf)
+    torch.cuda.synchronize()
+    mark = obstrace.mark()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("pipeline.align"):
+                t_align = time.perf_counter_ns()
+            t0 = time.perf_counter_ns()
+            run(conf)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter_ns()
+    finally:
+        obstrace.configure(False)
+    spans = obstrace.spans_since(mark)
+    events = prof.events()
+    align = [e for e in events if e.name == "pipeline.align"]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not align or not dev:
+        fail(f"pipeline trace {tag}: the profiler recorded "
+             f"{len(dev)} device operations and {len(align)} markers")
+    # profiler microseconds -> host perf_counter nanoseconds
+    off_ns = t_align - align[0].time_range.start * 1e3
+    ivs = [(e.time_range.start * 1e3 + off_ns,
+            e.time_range.end * 1e3 + off_ns) for e in dev]
+    busy = [(max(a, t0), min(b, t1)) for a, b in _merge(ivs)
+            if b > t0 and a < t1]
+    busy_ns = sum(b - a for a, b in busy)
+    wall_ns = t1 - t0
+    by_name = {}
+    for e in dev:
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.end - e.time_range.start,
+                           n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    gaps, prev = [], t0
+    for a, b in busy + [(t1, t1)]:
+        if a > prev:
+            gaps.append((prev, a))
+        prev = max(prev, b)
+    gaps = sorted(gaps, key=lambda g: g[0] - g[1])[:5]
+
+    def named(g0, g1):
+        over = {}
+        for _s, _tid, name, _cat, s0, dur, _d, _args in spans:
+            ov = min(g1, s0 + dur) - max(g0, s0)
+            if ov > 0:
+                over[name] = over.get(name, 0) + ov
+        best = sorted(over.items(), key=lambda kv: -kv[1])[:3]
+        return ", ".join(f"{n} ({ov / 1e6:.1f} ms)" for n, ov in best) \
+            or "no span"
+    log(f"pipeline trace {tag}: wall {wall_ns / 1e6:.1f} ms, device busy "
+        f"{busy_ns / 1e6:.1f} ms = {busy_ns / wall_ns:.1%} of the wall "
+        f"(union of {len(dev)} kernel and memcpy/memset intervals; the "
+        f"profiler's own host cost is in the wall)")
+    log(f"pipeline trace {tag}: top device operations: " + "; ".join(
+        f"{name[:60]} {tot / 1e3:.2f} ms x{n}" for name, (tot, n) in top))
+    log(f"pipeline trace {tag}: longest idle gaps: " + "; ".join(
+        f"{(b - a) / 1e6:.2f} ms at +{(a - t0) / 1e6:.1f} ms in "
+        f"[{named(a, b)}]" for a, b in gaps))
+    return {"wall_ms": wall_ns / 1e6, "busy_ms": busy_ns / 1e6,
+            "busy_share": busy_ns / wall_ns}
+
+
+def _pinned_peak() -> str:
+    """The pinned memory torch's caching host allocator held at its peak
+    (process lifetime: every upload of the run so far)."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    peak = stats().get("allocated_bytes.peak") if stats is not None \
+        else None
+    if peak is None:
+        return "host allocator peak not available"
+    return f"host allocator's pinned peak {peak / 2**20:.1f} MiB"
+
+
+def phase_pipeline(root: str, table: pa.Table, ref: pa.Table,
+                   mem_ref: pa.Table) -> dict:
+    """The scan pipeline on each q6 form: depth 2 and 0 give the same rows
+    as pyarrow and the pinned launch and fallback counts; the prefetch and
+    semaphore counters; one profiler trace each; the sections of a
+    median of 5 warm runs (fused at depth 2 and 0)."""
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    forms = pipeline_forms(root, table)
+    refs = {"fused": ref, "perfile": ref, "memory": mem_ref}
+    out = {}
+    for form, run in forms.items():
+        for depth in (2, 0):
+            conf = {DEPTH_KEY: depth}
+            view = obsreg.get_registry().view()
+            torch.cuda.reset_peak_memory_stats()
+            kb.reset_counts()
+            got, plan = run(conf)
+            launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+            torch.cuda.synchronize()
+            counters = view.delta()["counters"]
+            rel = check_q6(got, refs[form])
+            want = PIPELINE_COUNTS[form]
+            log(f"pipeline {form} depth {depth}: {got.num_rows} groups match "
+                f"pyarrow (avg max rel {rel:.3g}); launches {launches}; "
+                f"fallbacks {fallbacks}; counters " + ", ".join(
+                    f"{k} {counters.get(k, 0):.0f}"
+                    for k in PIPELINE_COUNTERS)
+                + f"; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if (launches, fallbacks) != want:
+                fail(f"pipeline {form} depth {depth}: launches/fallbacks "
+                     f"{launches} {fallbacks} != the pinned {want}")
+            if form == "fused":
+                scan = _scan_of(plan)
+                cs = scan.copy_stream
+                log(f"pipeline fused depth {depth}: "
+                    f"{len(scan._fused_groups())} batches, pinned bytes "
+                    f"held at most {cs.peak_held_bytes / 2**20:.1f} MiB on "
+                    f"the session's copy stream; {_pinned_peak()}")
+                if depth == 2 and counters.get(
+                        "scan.prefetchOverlapNs", 0) <= 0:
+                    fail("pipeline fused depth 2: scan.prefetchOverlapNs "
+                         "is 0: the look-ahead overlapped nothing")
+            out[(form, depth)] = counters
+    busy = {form: trace_form(form, run, {}) for form, run in forms.items()}
+    for form, run in forms.items():
+        depths = (2, 0) if form == "fused" else (2,)
+        for depth in depths:
+            sec = form_sections(form, run, {DEPTH_KEY: depth})
+            log(f"pipeline sections {form} depth {depth} (host clock, "
+                f"median of 5 warm runs; runs ms "
+                f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
+                + _fmt_ms(sec))
+    return busy
+
+
+# ---------------------------------------------------------------------------
 # 9. kernel timings at the q6 shapes
 # ---------------------------------------------------------------------------
 
@@ -1742,7 +2023,7 @@ def phase_timing(paths):
 
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
-              "q6s", "modes"]
+              "pipeline", "q6s", "modes"]
 
 
 def main() -> int:
@@ -1763,7 +2044,7 @@ def main() -> int:
     runs, counts = {}, {}
     if "q6" in phases:
         runs["q6"] = ("q6", *phase_q6(), SEGREDUCE)
-    if {"q6p", "q6pf", "session"} & set(phases):
+    if {"q6p", "q6pf", "session", "pipeline"} & set(phases):
         root = _parquet_dir("q6-parquet")
         try:
             ref = write_q6_files(root)
@@ -1777,6 +2058,12 @@ def main() -> int:
                     counts[key] = (launches, fallbacks)
             if "session" in phases:
                 phase_session(root, ref, counts)
+            if "pipeline" in phases:
+                table, mem_ref = q6_table()
+                busy = phase_pipeline(root, table, ref, mem_ref)
+                log("pipeline: device busy share " + ", ".join(
+                    f"{k} {v['busy_share']:.1%} of {v['wall_ms']:.1f} ms"
+                    for k, v in busy.items()))
         finally:
             shutil.rmtree(root, ignore_errors=True)
     if "q6s" in phases:

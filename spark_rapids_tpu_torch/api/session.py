@@ -8,19 +8,24 @@ sources (``create_dataframe``, ``range``, ``read.parquet``/``csv``/
 ``get_conf`` and the plan listeners.
 
 The session runs on one device, ``cuda`` unless the caller asks for
-``cpu`` (``resolve_device`` raises without a GPU); every device exec of
-its plans and every partition thread uses it.  It accepts the
-reference's ``spark.rapids.tpu.*`` keys unchanged, so one conf dict
-drives both packages.
+``cpu`` (``resolve_device`` raises without a GPU, ``mem/device.
+check_device`` without that card); every device exec of its plans and
+every partition thread uses it.  On the card the session owns one copy
+stream (``columnar/transfer.CopyStream``) for its plans' uploads.  As in
+the reference, it sizes the device semaphore from ``concurrentTpuTasks``
+(``mem/device.initialize``) and switches the span tracer from the
+``obs.trace.*`` keys.  It accepts the reference's ``spark.rapids.tpu.*``
+keys unchanged, so one conf dict drives both packages.
 
 ``collect`` runs on the calling thread.  Not ported yet: the query
 scheduler (``QueryService``, ``submit``/``collect_async``), ``sql()`` and
-temp views, spill, the observability layer (profiles, tracing, the HTTP
-endpoint, the flight recorder), serving and the fleet.
+temp views, spill, the rest of the observability layer (profiles, the
+HTTP endpoint, the flight recorder), serving and the fleet.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Sequence
 
 import pyarrow as pa
@@ -30,6 +35,7 @@ from spark_rapids_tpu_torch.api.dataframe import DataFrame
 from spark_rapids_tpu_torch.columnar.batch import resolve_device
 from spark_rapids_tpu_torch.config import RapidsTpuConf
 from spark_rapids_tpu_torch.exec.cpu import concat_tables
+from spark_rapids_tpu_torch.mem import device as devmgr
 from spark_rapids_tpu_torch.plan import logical as lp
 from spark_rapids_tpu_torch.plan.overrides import (OverrideResult, TpuOverrides,
                                                    assert_is_on_tpu)
@@ -40,11 +46,21 @@ class TpuSparkSession:
     def __init__(self, conf: Optional[Dict[str, Any]] = None,
                  device="cuda"):
         self.device = resolve_device(device)
+        self.device_name = devmgr.check_device(self.device)
         self.conf = cfg.configure(RapidsTpuConf(conf))
+        devmgr.initialize(self.conf.get(cfg.CONCURRENT_TPU_TASKS))
+        self.copy_stream = None
+        if self.device.type == "cuda":
+            from spark_rapids_tpu_torch.columnar.transfer import CopyStream
+            self.copy_stream = CopyStream(self.device)
         from spark_rapids_tpu_torch.io import scan_cache
         scan_cache.configure(
             self.conf.get(cfg.SCAN_METADATA_CACHE_ENABLED),
             self.conf.get(cfg.SCAN_METADATA_CACHE_MAX_BYTES))
+        from spark_rapids_tpu_torch.obs import trace as obs_trace
+        obs_trace.configure(
+            bool(self.conf.get(cfg.OBS_TRACE_ENABLED)),
+            int(self.conf.get(cfg.OBS_TRACE_BUFFER_SPANS)))
         self._plan_listeners: List = []
 
     # -- conf --------------------------------------------------------------
@@ -91,6 +107,12 @@ class TpuSparkSession:
             plan = prune_columns(plan)
         cpu_plan = plan_cpu(plan, self.conf)
         result = TpuOverrides.apply(cpu_plan, self.conf, device=self.device)
+        if self.copy_stream is not None:
+            # the uploading execs (HostToDeviceExec, the Parquet scan)
+            # copy on the session's stream
+            result.plan.foreach(
+                lambda n: setattr(n, "copy_stream", self.copy_stream)
+                if hasattr(n, "copy_stream") else None)
         if self.conf.test_enabled:
             assert_is_on_tpu(result.plan, self.conf.test_allowed_non_tpu)
         for listener in self._plan_listeners:
@@ -106,13 +128,31 @@ class TpuSparkSession:
         if len(its) <= 1 or n_tasks <= 1:
             return [x for it in its for x in it]
         from concurrent.futures import ThreadPoolExecutor
+        from spark_rapids_tpu_torch.sched import cancel as sched_cancel
+        tok = sched_cancel.current()
+
+        def drain(it):
+            # task threads inherit the query's CancelToken explicitly
+            # (pool threads don't propagate thread-locals)
+            with sched_cancel.install(tok):
+                return list(it)
         with ThreadPoolExecutor(max_workers=min(n_tasks, len(its)),
                                 thread_name_prefix="tpu-task") as pool:
-            parts = list(pool.map(list, its))
+            parts = list(pool.map(drain, its))
         return [x for p in parts for x in p]
 
     def _execute(self, plan: lp.LogicalPlan) -> pa.Table:
-        return self._execute_inner(plan)[1]
+        table = self._execute_inner(plan)[1]
+        if self.conf.get(cfg.OBS_TRACE_ENABLED):
+            # tracing without profiling (the port has no profiles yet):
+            # the whole span ring stands in for the query window, as in
+            # the reference's _execute_attributed
+            from spark_rapids_tpu_torch.obs import trace as obs_trace
+            chrome = str(self.conf.get(cfg.OBS_TRACE_CHROME_PATH) or "")
+            if chrome and obs_trace.is_enabled():
+                with contextlib.suppress(OSError):
+                    obs_trace.dump_chrome_trace(chrome)
+        return table
 
     def _execute_inner(self, plan: lp.LogicalPlan):
         """(planned result, Arrow table) of one query."""

@@ -187,24 +187,38 @@ class DeviceBatch:
 # Host (Arrow) <-> device conversion
 # ---------------------------------------------------------------------------
 
-def _np_column_from_arrow(arr, dtype: dt.DType, capacity: int
+def _np_column_from_arrow(arr, dtype: dt.DType, capacity: int,
+                          empty=np.empty
                           ) -> Tuple[np.ndarray, np.ndarray,
                                      Optional[np.ndarray],
                                      Optional[np.ndarray]]:
+    """One Arrow column as padded numpy arrays (data, validity, lengths,
+    element validity), each built in place in a buffer from ``empty(shape,
+    dtype)``: the pad is the only host copy of the values, and only the
+    padding rows are zeroed."""
+    def zeros(shape, np_dtype):
+        a = empty(shape, np_dtype)
+        a[...] = 0
+        return a
+
     if isinstance(arr, pa.ChunkedArray):
-        arr = arr.combine_chunks()
+        arr = arr.chunk(0) if arr.num_chunks == 1 else arr.combine_chunks()
     n = len(arr)
-    validity = np.zeros(capacity, dtype=np.bool_)
-    validity[:n] = ~np.asarray(arr.is_null())
+    validity = empty(capacity, np.bool_)
+    validity[n:] = False
+    if arr.null_count:
+        validity[:n] = ~np.asarray(arr.is_null())
+    else:
+        validity[:n] = True
 
     if dtype.is_list:
         py = arr.to_pylist()
         lens = [len(v) if v is not None else 0 for v in py]
         max_len = _bucket_strlen(max(lens, default=0))
         el_np = dtype.element.to_np()
-        data = np.zeros((capacity, max_len), dtype=el_np)
-        ev = np.zeros((capacity, max_len), dtype=np.bool_)
-        lengths = np.zeros(capacity, dtype=np.int32)
+        data = zeros((capacity, max_len), el_np)
+        ev = zeros((capacity, max_len), np.bool_)
+        lengths = zeros(capacity, np.int32)
         for i, v in enumerate(py):
             if v is None:
                 continue
@@ -220,8 +234,8 @@ def _np_column_from_arrow(arr, dtype: dt.DType, capacity: int
         py = arr.to_pylist()
         blens = [len(s.encode("utf-8")) if s is not None else 0 for s in py]
         max_len = _bucket_strlen(max(blens, default=0))
-        data = np.zeros((capacity, max_len), dtype=np.uint8)
-        lengths = np.zeros(capacity, dtype=np.int32)
+        data = zeros((capacity, max_len), np.uint8)
+        lengths = zeros(capacity, np.int32)
         for i, s in enumerate(py):
             if s is None:
                 continue
@@ -232,7 +246,8 @@ def _np_column_from_arrow(arr, dtype: dt.DType, capacity: int
         return data, validity, lengths, None
 
     np_dtype = dtype.to_np()
-    data = np.zeros(capacity, dtype=np_dtype)
+    data = empty(capacity, np_dtype)
+    data[n:] = 0
     if pa.types.is_timestamp(arr.type):
         arr = arr.cast(pa.timestamp("us"))
         vals = arr.to_numpy(zero_copy_only=False)
@@ -245,7 +260,9 @@ def _np_column_from_arrow(arr, dtype: dt.DType, capacity: int
         ints = np.where(validity[:n], ints, 0)
         data[:n] = ints
     else:
-        vals = arr.fill_null(_zero_value(dtype)).to_numpy(zero_copy_only=False)
+        # no nulls: the values are read in place (no fill_null copy)
+        vals = (arr.fill_null(_zero_value(dtype)) if arr.null_count
+                else arr).to_numpy(zero_copy_only=False)
         data[:n] = vals.astype(np_dtype, copy=False)
     return data, validity, None, None
 
@@ -260,11 +277,19 @@ def _zero_value(dtype: dt.DType):
 
 def from_arrow(table: pa.Table, min_bucket: int = 16,
                capacity: Optional[int] = None,
-               device="cuda") -> DeviceBatch:
-    """Upload an Arrow table into a padded DeviceBatch on ``device``."""
+               device="cuda", copy_stream=None) -> DeviceBatch:
+    """Upload an Arrow table into a padded DeviceBatch on ``device``.
+
+    On the card each column is padded straight into pinned host buffers
+    and copied on ``copy_stream`` (a ``columnar/transfer.CopyStream``; a
+    fresh one when None) while the next column is padded; the caller's
+    stream waits for the copies before anything reads them."""
+    from spark_rapids_tpu_torch.columnar import transfer
     dev = resolve_device(device)
     n = table.num_rows
     cap = capacity or bucket_rows(n, min_bucket)
+    if dev.type == "cuda" and copy_stream is None:
+        copy_stream = transfer.CopyStream(dev)
     names, cols = [], []
     for field_, col in zip(table.schema, table.columns):
         dtype = dt.from_arrow(field_.type)
@@ -273,12 +298,20 @@ def from_arrow(table: pa.Table, min_bucket: int = 16,
                             f"for column {field_.name}")
         if dtype == dt.NULL:
             dtype = dt.BOOL  # void columns materialize as all-null bool
-        data, validity, lengths, ev = _np_column_from_arrow(col, dtype, cap)
+        stage = transfer.PinnedStage() if copy_stream is not None else None
+        host = _np_column_from_arrow(
+            col, dtype, cap, stage.empty if stage is not None else np.empty)
         names.append(field_.name)
-        vb, nn = _upload_hints(dtype, data, validity, n)
-        cols.append(DeviceColumn(
-            dtype, _upload(data, dev), _upload(validity, dev),
-            _upload(lengths, dev), _upload(ev, dev), vbits=vb, nonnull=nn))
+        vb, nn = _upload_hints(dtype, host[0], host[1], n)
+        if stage is not None:
+            up = copy_stream.upload(stage, {str(k): a for k, a in
+                                            enumerate(host)
+                                            if a is not None})
+            up.wait()
+            arrays = [up.get(str(k)) for k in range(4)]
+        else:
+            arrays = [_upload(a, dev) for a in host]
+        cols.append(DeviceColumn(dtype, *arrays, vbits=vb, nonnull=nn))
     return DeviceBatch(names, cols, n, dev)
 
 

@@ -2,7 +2,8 @@
 
 The second carrier, :func:`fused_arrays_to_torch`, uploads the numpy
 upload set of a fused Parquet plan (``_FusedPlan.arrays`` of either
-package) for the port's device half.
+package) for the port's device half: on the card through pinned memory
+on a copy stream (columnar/transfer.py).
 
 A batch is fully described by its *leaves*: the column names, each
 column's dtype name, data, validity, lengths, elem_validity, ``vbits``
@@ -22,7 +23,7 @@ The leaves are a plain dict::
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ import torch
 from spark_rapids_tpu_torch import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
                                                    resolve_device)
+from spark_rapids_tpu_torch.columnar.transfer import CopyStream, PinnedStage
 
 
 def dtype_from_name(name: str) -> dt.DType:
@@ -75,12 +77,25 @@ def batch_to_numpy(batch: DeviceBatch) -> Dict[str, Any]:
     }
 
 
-def fused_arrays_to_torch(np_arrays: Dict[str, np.ndarray],
-                          device="cuda") -> Dict[str, torch.Tensor]:
+def fused_arrays_to_torch(np_arrays: Dict[str, np.ndarray], device="cuda",
+                          copy_stream: Optional[CopyStream] = None,
+                          stage: Optional[PinnedStage] = None
+                          ) -> Dict[str, torch.Tensor]:
     """A fused Parquet plan's upload set (``_FusedPlan.arrays``: packed
     bits, run tables, meta, plain and dictionary buffers, all numpy) as
-    tensors on ``device``, key by key.  On the CPU a writable array is
-    shared, not copied; the decode never writes into its inputs."""
+    tensors on ``device``, key by key.
+
+    On the CPU a writable array is shared, not copied; the decode never
+    writes into its inputs.  On the card every array is staged in pinned
+    memory (``stage``, where ``assemble`` built the large ones in place;
+    the others are copied there) and copied on ``copy_stream`` (a fresh
+    one when None) without blocking the host: the result is a
+    :class:`~spark_rapids_tpu_torch.columnar.transfer.PinnedUpload`, whose
+    ``wait()`` the consumer calls before it reads the tensors."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(v if v.flags.writeable else v.copy()).to(dev)
-            for k, v in np_arrays.items()}
+    if dev.type != "cuda":
+        return {k: torch.from_numpy(v if v.flags.writeable else v.copy())
+                .to(dev) for k, v in np_arrays.items()}
+    stage = stage or PinnedStage()
+    views = {k: stage.put(v) for k, v in np_arrays.items()}
+    return (copy_stream or CopyStream(dev)).upload(stage, views)

@@ -236,6 +236,38 @@ SCAN_HOST_PREP_THREADS = conf(
     "concurrently instead of sequentially (page reads and codec "
     "decompression release the GIL). 1 disables the pool.", int)
 
+SCAN_PREFETCH_DEPTH = conf(
+    "spark.rapids.tpu.sql.scan.prefetch.depth", 2,
+    "Bounded look-ahead for the fused parquet scan: up to this many "
+    "batches' host prep + packed-page upload run ahead of the "
+    "dispatch-only device decode of the current batch (prep of batch "
+    "k+1 overlaps decode of batch k; no device->host read happens "
+    "before the terminal barrier). 0 disables pipelining.", int)
+
+# ---------------------------------------------------------------------------
+# Observability keys (reference config.py:719-737)
+# ---------------------------------------------------------------------------
+
+OBS_TRACE_ENABLED = conf(
+    "spark.rapids.tpu.obs.trace.enabled", False,
+    "Record execution spans (scan prep/upload/dispatch, exchange "
+    "phases, semaphore waits, pyworker batches) into the bounded "
+    "in-process ring buffer. Disabled, the instrumented paths take a "
+    "single-bool-check no-op. Spans surface through the per-query "
+    "profile and the Chrome trace exporter "
+    "(obs/trace.py; open in Perfetto or chrome://tracing).", bool)
+
+OBS_TRACE_BUFFER_SPANS = conf(
+    "spark.rapids.tpu.obs.trace.bufferSpans", 65536,
+    "Capacity of the span ring buffer; when a query outruns it the "
+    "oldest spans drop (bounded memory, never the process).", int)
+
+OBS_TRACE_CHROME_PATH = conf(
+    "spark.rapids.tpu.obs.trace.chromePath", "",
+    "When set (and tracing is enabled), every query's span window is "
+    "also written to this path as Chrome trace-event JSON, overwriting "
+    "the previous query's file.")
+
 
 class RapidsTpuConf:
     """Accessor over a settings map."""

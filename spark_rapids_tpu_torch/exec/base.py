@@ -2,11 +2,11 @@
 
 Ported from ``spark_rapids_tpu/exec/base.py``: the coalesce goals,
 ``Metrics``, ``PhysicalPlan`` (``is_tpu``, ``simple_string``,
-``tree_string``, ``foreach``), ``TpuExec`` and ``timed``.  The
-reference's hooks into tracing and cooperative cancellation
-(``obs/trace.py``, ``sched/cancel.py``), its peak-memory metric and the
-executor-side metrics round trip wait for the ported ``obs/``,
-``sched/`` and ``shuffle/``.
+``tree_string``, ``foreach``), ``TpuExec``, ``timed`` and
+``timed_extra``, with their hooks into tracing (``obs/trace.py``) and
+cooperative cancellation (``sched/cancel.py``).  The reference's
+peak-memory metric and the executor-side metrics round trip wait for the
+ported ``shuffle/``.
 
 Execution model: ``execute()`` returns one Python iterator per partition.
 CPU execs yield ``pyarrow.Table`` batches; device execs yield
@@ -20,7 +20,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+from spark_rapids_tpu_torch.obs import trace as _trace
 from spark_rapids_tpu_torch.plan.logical import Schema
+from spark_rapids_tpu_torch.sched import cancel as _cancel
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +138,9 @@ class TpuExec(PhysicalPlan):
 
 class _Timed:
     """Accumulates elapsed host ns into ``metrics.total_time_ns`` and, for
-    a named section, into ``metrics.extra[name]`` (the reference records
-    the section as a trace span instead)."""
+    a named section, into ``metrics.extra[name]`` and a trace span of that
+    name (obs/trace.py; one bool check when tracing is off).  Entry is the
+    per-batch cancellation checkpoint, as in the reference."""
 
     __slots__ = ("metrics", "name", "t0")
 
@@ -146,6 +149,7 @@ class _Timed:
         self.name = name
 
     def __enter__(self):
+        _cancel.check_current()
         self.t0 = time.perf_counter_ns()
         return self
 
@@ -154,7 +158,35 @@ class _Timed:
         self.metrics.add_time_ns(dur)
         if self.name is not None:
             self.metrics.add_extra(self.name, dur)
+            _trace.record(self.name, self.t0, dur)
 
 
 def timed(metrics: Metrics, name: Optional[str] = None):
     return _Timed(metrics, name)
+
+
+class _TimedExtra:
+    __slots__ = ("metrics", "key", "t0")
+
+    def __init__(self, metrics: Metrics, key: str):
+        self.metrics = metrics
+        self.key = key
+
+    def __enter__(self):
+        _cancel.check_current()   # prefetch-thread batch checkpoint
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *a):
+        dur = time.perf_counter_ns() - self.t0
+        self.metrics.add_extra(self.key, dur)
+        _trace.record(self.key, self.t0, dur)
+
+
+def timed_extra(metrics: Metrics, key: str):
+    """Time a sub-phase into ``Metrics.extra[key]`` (nanoseconds) WITHOUT
+    touching total_time_ns — for phases that overlap the operator's main
+    timing (scan host prep / upload running on a prefetch thread while
+    the consumer's ``timed`` covers the dispatch).  Also recorded as a
+    span named ``key`` when tracing is enabled."""
+    return _TimedExtra(metrics, key)

@@ -36,7 +36,11 @@ class HostToDeviceExec(TpuExec):
     String-outlier guard: the padded byte matrix costs capacity x max_len
     bytes, so when a batch's padded string payload would exceed
     ``string_budget`` the table splits into row slices, each measuring
-    its own max_len."""
+    its own max_len.
+
+    On the card the copies go through pinned memory on ``copy_stream``
+    (the session's ``columnar/transfer.CopyStream``; the exec makes its
+    own when none is set)."""
 
     def __init__(self, child: PhysicalPlan, min_bucket: int = 16,
                  string_budget: int = 256 << 20, device="cuda"):
@@ -45,6 +49,7 @@ class HostToDeviceExec(TpuExec):
         self.min_bucket = min_bucket
         self.string_budget = string_budget
         self.device = resolve_device(device)
+        self.copy_stream = None
 
     @property
     def schema(self) -> Schema:
@@ -68,12 +73,17 @@ class HostToDeviceExec(TpuExec):
                 self._split_for_strings(t.slice(half)))
 
     def execute(self):
+        if self.device.type == "cuda" and self.copy_stream is None:
+            from spark_rapids_tpu_torch.columnar.transfer import CopyStream
+            self.copy_stream = CopyStream(self.device)
+
         def run(it):
             for t in it:
                 for piece in self._split_for_strings(t):
                     with timed(self.metrics, "transition.upload"):
                         b = from_arrow(piece, self.min_bucket,
-                                       device=self.device)
+                                       device=self.device,
+                                       copy_stream=self.copy_stream)
                     self.metrics.add_rows(piece.num_rows)
                     self.metrics.add_batches()
                     yield b

@@ -60,20 +60,49 @@ _MAX_W_DENSE = 32
 
 @dataclass
 class RunTable:
-    """Hybrid RLE/bit-pack runs, concatenated across pages of a chunk.
+    """Hybrid RLE/bit-pack runs, concatenated across pages of a chunk, as
+    numpy arrays: int64 ``counts``, ``values`` and ``bit_bases``, bool
+    ``is_rle``, int32 ``widths``.  The page walk builds them once
+    (:class:`RunBuilder`), so a cached plan converts nothing.
 
-    `bit_base` indexes into the shared `packed` byte buffer for bit-packed
-    runs; `value` holds the repeated value for RLE runs."""
+    `bit_bases` index into the shared `packed` byte buffer for bit-packed
+    runs; `values` hold the repeated value for RLE runs."""
 
-    counts: List[int]
-    is_rle: List[bool]
-    values: List[int]
-    bit_bases: List[int]
-    widths: List[int]
+    counts: np.ndarray
+    is_rle: np.ndarray
+    values: np.ndarray
+    bit_bases: np.ndarray
+    widths: np.ndarray
+
+    def __post_init__(self):
+        self.counts = np.asarray(self.counts, dtype=np.int64)
+        self.is_rle = np.asarray(self.is_rle, dtype=bool)
+        self.values = np.asarray(self.values, dtype=np.int64)
+        self.bit_bases = np.asarray(self.bit_bases, dtype=np.int64)
+        self.widths = np.asarray(self.widths, dtype=np.int32)
 
     @staticmethod
     def empty() -> "RunTable":
         return RunTable([], [], [], [], [])
+
+    @property
+    def total(self) -> int:
+        return int(self.counts.sum())
+
+
+class RunBuilder:
+    """The runs of a page walk as they are found (Python lists, appended
+    once per run; the reference's list-backed ``RunTable``), frozen into
+    a :class:`RunTable` by :meth:`table`."""
+
+    __slots__ = ("counts", "is_rle", "values", "bit_bases", "widths")
+
+    def __init__(self):
+        self.counts: List[int] = []
+        self.is_rle: List[bool] = []
+        self.values: List[int] = []
+        self.bit_bases: List[int] = []
+        self.widths: List[int] = []
 
     @property
     def total(self) -> int:
@@ -91,9 +120,13 @@ class RunTable:
                             self.bit_bases, self.widths):
                     lst.pop()
 
+    def table(self) -> RunTable:
+        return RunTable(self.counts, self.is_rle, self.values,
+                        self.bit_bases, self.widths)
+
 
 def walk_hybrid(buf: bytes, start: int, end: int, w: int,
-                packed: bytearray, runs: RunTable,
+                packed: bytearray, runs: RunBuilder,
                 max_values: Optional[int] = None) -> int:
     """Walk one page's hybrid stream appending runs; returns values seen.
 
@@ -137,7 +170,7 @@ def walk_hybrid(buf: bytes, start: int, end: int, w: int,
     return seen
 
 
-def nonnull_count(runs: RunTable, packed: bytes, lo_run: int, hi_run: int,
+def nonnull_count(runs: RunBuilder, packed: bytes, lo_run: int, hi_run: int,
                   n: int) -> int:
     """Host count of def-level==1 entries among the first n values of the
     run range [lo_run, hi_run) — popcount over bit-packed regions only."""
@@ -212,22 +245,24 @@ def expand_runs_matrix(runs_mat: torch.Tensor, packed: torch.Tensor,
 def _upload_runs(runs: "RunTable", packed: bytes, device) -> dict:
     """A run table as two device tensors: the ``[rcap, 5]`` int64 run
     matrix (padding rows end at 2^62) and the packed bytes, padded to a
-    64-byte-tier length."""
+    64-byte-tier length.  The matrix fills column by column from the
+    table's arrays."""
     dev = torch.device(device)
-    r = max(len(runs.counts), 1)
-    rcap = bucket_rows(r, 8)
-    ends = np.cumsum(np.asarray(runs.counts + [0], dtype=np.int64))[:r]
-    n = len(runs.counts)
+    n = runs.counts.shape[0]
+    rcap = bucket_rows(max(n, 1), 8)
     mat = np.zeros((rcap, 5), dtype=np.int64)
-    mat[:, 0] = _pad_np(ends, rcap, fill=np.int64(1) << 62)
-    mat[:n, 1] = np.asarray(runs.is_rle, dtype=np.int64)
-    mat[:n, 2] = np.asarray(runs.values, dtype=np.int64)
-    mat[:n, 3] = np.asarray(runs.bit_bases, dtype=np.int64)
-    mat[:n, 4] = np.asarray(runs.widths, dtype=np.int64)
-    bcap = bucket_rows(max(len(packed), 4), 64)
-    pk = _pad_np(np.frombuffer(bytes(packed), dtype=np.uint8), bcap)
+    mat[:, 0] = np.int64(1) << 62
+    np.cumsum(runs.counts, out=mat[:n, 0])
+    mat[:n, 1] = runs.is_rle
+    mat[:n, 2] = runs.values
+    mat[:n, 3] = runs.bit_bases
+    mat[:n, 4] = runs.widths
+    if n == 0:
+        mat[0, 0] = 0      # the cumulative end of the empty table
+    pk = np.zeros(bucket_rows(max(len(packed), 4), 64), dtype=np.uint8)
+    pk[:len(packed)] = np.frombuffer(packed, dtype=np.uint8)
     return dict(runs_mat=torch.from_numpy(mat).to(dev),
-                packed=torch.from_numpy(pk.copy()).to(dev))
+                packed=torch.from_numpy(pk).to(dev))
 
 
 def expand_runs(runs: "RunTable", packed: bytes, cap: int,
@@ -236,8 +271,7 @@ def expand_runs(runs: "RunTable", packed: bytes, cap: int,
     path of ``expand_stream``): raises :class:`UnsupportedChunk` for a
     bit-packed width past ``_MAX_W``, so the column takes the host
     fallback as in the reference."""
-    wmax = max((int(x) for x, r in zip(runs.widths, runs.is_rle) if not r),
-               default=0)
+    wmax = int(runs.widths[~runs.is_rle].max(initial=0))
     if wmax > _MAX_W:
         raise UnsupportedChunk(f"dict bit width {wmax}")
     d = _upload_runs(runs, packed, device)
@@ -363,12 +397,12 @@ def plan_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType,
                 dict_np = np.zeros((1,), dtype=_PLAIN_NP[ptype])
 
     nullable = chunk.max_def == 1
-    def_runs = RunTable.empty()
+    def_runs = RunBuilder()
     def_packed = bytearray()
-    idx_runs = RunTable.empty()
+    idx_runs = RunBuilder()
     idx_packed = bytearray()
     plain_parts: List[bytes] = []   # PLAIN value byte regions
-    bool_runs = RunTable.empty()    # BOOLEAN PLAIN == w=1 bit-pack runs
+    bool_runs = RunBuilder()        # BOOLEAN PLAIN == w=1 bit-pack runs
     bool_packed = bytearray()
     n_rows = 0
     n_nonnull_plain = 0
@@ -469,8 +503,8 @@ def plan_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType,
                                  count=n_nonnull_plain)
     return ChunkPlan(
         n_rows=n_rows, nullable=nullable, out_dtype=out_dtype, mode=mode,
-        def_runs=def_runs, def_packed=bytes(def_packed),
-        val_runs=idx_runs if any_dict else bool_runs,
+        def_runs=def_runs.table(), def_packed=bytes(def_packed),
+        val_runs=(idx_runs if any_dict else bool_runs).table(),
         val_packed=bytes(idx_packed) if any_dict else bytes(bool_packed),
         plain_np=plain_np, dict_np=dict_np, dict_lens=dict_lens,
         page_segs=page_segs)
@@ -706,7 +740,7 @@ def _cast_one(t: pa.Table, f) -> pa.Table:
 # matrix.
 # ---------------------------------------------------------------------------
 
-def _expand_levels_host(runs: RunTable, packed: bytes) -> np.ndarray:
+def _expand_levels_host(runs: RunBuilder, packed: bytes) -> np.ndarray:
     """Hybrid runs -> numpy int32 levels (np.repeat / unpackbits per run:
     O(runs) Python, O(levels) vectorised)."""
     parts = []
@@ -785,7 +819,7 @@ def _plan_list_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType,
             dict_np = np.zeros((1,), dtype=_PLAIN_NP[ptype])
 
     reps, defs = [], []
-    idx_runs = RunTable.empty()
+    idx_runs = RunBuilder()
     idx_packed = bytearray()
     plain_parts: List[bytes] = []
     idx_target = 0
@@ -814,12 +848,12 @@ def _plan_list_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType,
             def_buf = payload
             def_s, def_e = rep_e + 4, rep_e + 4 + dlen
             vals_buf = payload[def_e:]
-        rt = RunTable.empty()
+        rt = RunBuilder()
         rpk = bytearray()
         walk_hybrid(rep_buf, rep_s, rep_e, rep_w, rpk, rt)
         rt.trim_to(page.num_values)
         reps.append(_expand_levels_host(rt, bytes(rpk)))
-        dtab = RunTable.empty()
+        dtab = RunBuilder()
         dpk = bytearray()
         walk_hybrid(def_buf, def_s, def_e, def_w, dpk, dtab)
         dtab.trim_to(page.num_values)
@@ -883,7 +917,7 @@ def _plan_list_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType,
         out_dtype=out_dtype, outer_nullable=outer_nullable, n_rows=n_rows,
         n_vals=n_vals, L=L, flat_val=flat_all[has_val_slot],
         flat_all=flat_all, has_val_slot=has_val_slot, row_valid=row_valid,
-        lengths=lengths, idx_runs=idx_runs if any_dict else None,
+        lengths=lengths, idx_runs=idx_runs.table() if any_dict else None,
         idx_packed=bytes(idx_packed), dict_np=dict_np if any_dict else None,
         plain_np=plain_np)
 

@@ -3,23 +3,30 @@
 Ported from ``spark_rapids_tpu/io/device_scan.py``: ``TpuParquetScanExec``
 (:73) with its two readers.
 
-  * The fused coalescing reader: row groups of the scan's files group
-    greedily into batches bounded by ``sql.reader.batchSizeRows`` /
-    ``batchSizeBytes`` (the reference's multi-file coalescing goal); each
-    batch is one host prep + upload (io/parquet_fused.prepare_fused) and
-    one fused decode on ``device`` (finish_fused).
+  * The fused coalescing reader (``_execute_fused``, reference :213-412):
+    row groups of the scan's files group greedily into batches bounded
+    by ``sql.reader.batchSizeRows`` / ``batchSizeBytes``; each batch is
+    one ``prepare`` (host prep and the upload, io/parquet_fused.
+    prepare_fused, no device read) and one ``finish`` (the fused decode,
+    finish_fused) under the device semaphore (mem/device.tpu_semaphore).
+    With ``sql.scan.prefetch.depth`` > 0 and two or more batches, a
+    ``ScanPrefetcher`` (exec/scans.py) prepares the next batches on its
+    threads while the consumer decodes: on the card the upload goes
+    through pinned memory on the scan's copy stream, and the decode's
+    stream waits on its event.
   * The PERFILE reader, taken when
     ``spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled`` is false
     or the plan reads ``input_file_name()`` (``allow_fused`` cleared): one
     partition per file and one batch per row group, each decoded column
     by column (io/device_parquet.decode_row_group, the ``scan.decode``
-    section).  It sets the ``input_file_name()`` slot (exec/context.py)
-    right before each batch is yielded and clears it when the file is
-    done.  It ignores a pushed filter: the consumer applies its condition.
+    section) under the device semaphore.  It sets the
+    ``input_file_name()`` slot (exec/context.py) right before each batch
+    is yielded and clears it when the file is done.  It ignores a pushed
+    filter: the consumer applies its condition.
 
 Hive partition-value columns are appended as constant columns.  Not
-ported yet: the ``ScanPrefetcher`` look-ahead and scan sharing
-(io/scan_share.py).
+ported yet: scan sharing (io/scan_share.py), which acts across
+concurrent queries and waits for the query scheduler (``sched/``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
                                                    _bucket_strlen,
                                                    resolve_device)
 from spark_rapids_tpu_torch.exec.base import TpuExec, timed
+from spark_rapids_tpu_torch.mem.device import tpu_semaphore
 from spark_rapids_tpu_torch.plan.logical import FileScan, Schema
 
 
@@ -67,13 +75,29 @@ def _const_column(dtype: dt.DType, raw: Optional[str], cap: int,
     return DeviceColumn(dtype, data, row_valid)
 
 
+def _group_label(srcs) -> str:
+    """Short source id for one coalesced scan group — the prefetcher
+    stamps it into prefetch/stall span args so a trace names WHICH
+    file/row-group the consumer starved on."""
+    import os as _os
+    if not srcs:
+        return ""
+    path, rg = srcs[0]
+    label = f"{_os.path.basename(str(path))}#rg{rg}"
+    if len(srcs) > 1:
+        label += f"+{len(srcs) - 1}"
+    return label
+
+
 class TpuParquetScanExec(TpuExec):
     """Device-decoding Parquet scan (yields DeviceBatch on ``device``).
 
     ``_pushed_filter`` is the consumer's condition, bound over this
     scan's output names, which the planner pushes into the scan (the
     reference's ``plan/overrides._push_scan_filters``): dictionary
-    columns it does not read then decode only for the rows it keeps."""
+    columns it does not read then decode only for the rows it keeps.
+    ``copy_stream`` is the session's ``columnar/transfer.CopyStream``
+    on the card; the scan makes its own when none is set."""
 
     def __init__(self, scan: FileScan, conf, device="cuda"):
         super().__init__()
@@ -88,6 +112,7 @@ class TpuParquetScanExec(TpuExec):
         # coalescing reader bails out the same way)
         self.allow_fused = True
         self._pushed_filter = None
+        self.copy_stream = None
         self.metrics.extra["fallbackColumns"] = 0
 
     @property
@@ -129,26 +154,26 @@ class TpuParquetScanExec(TpuExec):
         fctx = self._open(path)  # one open / footer parse per file
         try:
             for rg in range(self._num_chunks(fctx)):
-                with timed(self.metrics, "scan.decode"):
-                    batch, fallbacks = self._decode_chunk(
-                        fctx, rg, file_schema, file_cols)
-                self.metrics.add_extra("fallbackColumns", len(fallbacks))
-                names = list(batch.names)
-                cols = list(batch.columns)
-                for c in part_cols:
-                    names.append(c)
-                    cols.append(_const_column(self.part_fields[c], pv.get(c),
-                                              batch.capacity,
-                                              int(batch.num_rows),
-                                              self.device))
-                # restore the requested column order
-                order = [names.index(c) for c in wanted]
-                out = DeviceBatch([names[i] for i in order],
-                                  [cols[i] for i in order], batch.num_rows,
-                                  self.device)
-                self.metrics.add_rows(int(out.num_rows))
-                self.metrics.add_batches()
-                yield out
+                with tpu_semaphore(self.metrics):
+                    with timed(self.metrics, "scan.decode"):
+                        batch, fallbacks = self._decode_chunk(
+                            fctx, rg, file_schema, file_cols)
+                    self.metrics.add_extra("fallbackColumns", len(fallbacks))
+                    names = list(batch.names)
+                    cols = list(batch.columns)
+                    for c in part_cols:
+                        names.append(c)
+                        cols.append(_const_column(
+                            self.part_fields[c], pv.get(c), batch.capacity,
+                            int(batch.num_rows), self.device))
+                    # restore the requested column order
+                    order = [names.index(c) for c in wanted]
+                    out = DeviceBatch([names[i] for i in order],
+                                      [cols[i] for i in order],
+                                      batch.num_rows, self.device)
+                    self.metrics.add_rows(int(out.num_rows))
+                    self.metrics.add_batches()
+                    yield out
         finally:
             fctx[1].close()
 
@@ -206,6 +231,7 @@ class TpuParquetScanExec(TpuExec):
         return groups
 
     def _execute_fused(self) -> List[Iterator[DeviceBatch]]:
+        from spark_rapids_tpu_torch.exec.scans import ScanPrefetcher
         from spark_rapids_tpu_torch.io import parquet_fused as pqf
         from spark_rapids_tpu_torch.io import scan_cache as sc
 
@@ -215,38 +241,105 @@ class TpuParquetScanExec(TpuExec):
         file_schema = Schema([self._schema.field(c) for c in file_cols])
         host_threads = max(1, int(self.conf.get(
             cfg.SCAN_HOST_PREP_THREADS)))
+        depth = max(0, int(self.conf.get(cfg.SCAN_PREFETCH_DEPTH)))
         # ordinals of the pushed condition index `wanted`
         pushed = self._pushed_filter
+        groups = self._fused_groups()
+        if self.device.type == "cuda" and self.copy_stream is None:
+            from spark_rapids_tpu_torch.columnar.transfer import CopyStream
+            self.copy_stream = CopyStream(self.device)
+        copy_stream = self.copy_stream
 
-        def group_part(path_rgs, pv) -> Iterator[DeviceBatch]:
+        def prepare(path_rgs):
+            """Host prep + packed-page upload for one batch (no device
+            read: safe on the prefetch thread)."""
             handles = {p: sc.open_source(p, metrics=self.metrics)
                        for p in {p for p, _ in path_rgs}}
             try:
-                prep = pqf.prepare_fused(
+                return pqf.prepare_fused(
                     [(handles[p], p, rg) for p, rg in path_rgs],
                     file_schema, columns=file_cols,
                     host_threads=host_threads, metrics=self.metrics,
                     pushed_filter=pushed, scan_names=wanted,
-                    device=self.device)
+                    device=self.device, copy_stream=copy_stream), handles
+            except BaseException:
+                for h in handles.values():
+                    h.close()
+                raise
+
+        def finish(prepared, pv) -> DeviceBatch:
+            """Dispatch the prepared batch (the caller holds the device
+            semaphore)."""
+            prep, handles = prepared
+            try:
                 with timed(self.metrics, "scan.dispatch"):
                     batch, fallbacks = pqf.finish_fused(prep)
+                self.metrics.add_extra("fallbackColumns", len(fallbacks))
+                names = list(batch.names)
+                cols = list(batch.columns)
+                for c in part_cols:
+                    names.append(c)
+                    cols.append(_const_column(
+                        self.part_fields[c], pv.get(c), batch.capacity,
+                        int(batch.num_rows), self.device))
+                order = [names.index(c) for c in wanted]
+                out = DeviceBatch([names[i] for i in order],
+                                  [cols[i] for i in order], batch.num_rows,
+                                  self.device)
+                # the reference reads the row count here too: the one
+                # device read per batch, where the consumer waits
+                self.metrics.add_rows(int(out.num_rows))
+                self.metrics.add_batches()
+                return out
             finally:
                 for h in handles.values():
                     h.close()
-            self.metrics.add_extra("fallbackColumns", len(fallbacks))
-            names = list(batch.names)
-            cols = list(batch.columns)
-            for c in part_cols:
-                names.append(c)
-                cols.append(_const_column(self.part_fields[c], pv.get(c),
-                                          batch.capacity,
-                                          int(batch.num_rows), self.device))
-            order = [names.index(c) for c in wanted]
-            out = DeviceBatch([names[i] for i in order],
-                              [cols[i] for i in order], batch.num_rows,
-                              self.device)
-            self.metrics.add_rows(int(out.num_rows))
-            self.metrics.add_batches()
-            yield out
 
-        return [group_part(srcs, pv) for srcs, pv in self._fused_groups()]
+        # Scan sharing is left out (reference :232-247 and the "lead" and
+        # "join" markers of :295-368): it multicasts a batch across
+        # concurrent queries, and waits for the query scheduler.  Every
+        # prepared batch is the reference's "solo" marker.
+        def _prep(path_rgs):
+            return ("solo", None, prepare(path_rgs))
+
+        def _cleanup(marker) -> None:
+            _kind, _entry, prepared = marker
+            if prepared is not None:
+                for h in prepared[1].values():
+                    h.close()
+
+        prefetcher = None
+        if depth > 0 and len(groups) > 1:
+            # bounded look-ahead: host prep + upload of batch k+1
+            # overlaps the dispatch-only decode of batch k
+            prefetcher = ScanPrefetcher(
+                [(lambda prgs=srcs: _prep(prgs)) for srcs, _pv in groups],
+                depth=depth, metrics=self.metrics, cleanup=_cleanup,
+                labels=[_group_label(srcs) for srcs, _pv in groups])
+
+        def group_part(idx, path_rgs, pv) -> Iterator[DeviceBatch]:
+            from spark_rapids_tpu_torch.exec.context import set_input_file
+            try:
+                if prefetcher is not None:
+                    marker = prefetcher.get(idx)
+                    with tpu_semaphore(self.metrics):
+                        out = finish(marker[2], pv)
+                else:
+                    # no pipelining: the whole prep + upload + dispatch
+                    # runs under the semaphore
+                    with tpu_semaphore(self.metrics):
+                        out = finish(_prep(path_rgs)[2], pv)
+                paths = {p for p, _ in path_rgs}
+                # set right before the yield so the consumer evaluates
+                # input_file_name() against THIS batch's file
+                set_input_file(paths.pop() if len(paths) == 1 else "")
+                yield out
+            finally:
+                set_input_file("")
+                if prefetcher is not None:
+                    # once every partition has finished (or failed),
+                    # unconsumed prepared batches release immediately
+                    prefetcher.part_done()
+
+        return [group_part(i, srcs, pv)
+                for i, (srcs, pv) in enumerate(groups)]

@@ -59,14 +59,15 @@ from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
                                                    from_arrow,
                                                    resolve_device)
 from spark_rapids_tpu_torch.columnar.interop import fused_arrays_to_torch
-from spark_rapids_tpu_torch.exec.base import timed
+from spark_rapids_tpu_torch.columnar.transfer import (PinnedStage,
+                                                      PinnedUpload)
+from spark_rapids_tpu_torch.exec.base import timed_extra
 from spark_rapids_tpu_torch.expr import ir
 from spark_rapids_tpu_torch.io import parquet_meta as pm
 from spark_rapids_tpu_torch.io.device_parquet import (ChunkPlan, RunTable,
                                                       UnsupportedChunk,
                                                       _cast_one,
                                                       _decode_list_plan,
-                                                      _pad_np,
                                                       _plan_list_chunk,
                                                       leaf_map)
 from spark_rapids_tpu_torch.kernels import backend as kb
@@ -163,42 +164,171 @@ def _column_vbits(out_dtype: dt.DType,
 def _all_valid(runs: RunTable) -> bool:
     """True when a def-level stream encodes zero nulls (every run is an
     RLE run of 1) — pyarrow writes exactly this for null-free pages."""
-    return all(r and v == 1
-               for r, v in zip(runs.is_rle, runs.values))
+    return bool((runs.is_rle & (runs.values == 1)).all())
 
 
-def _stream_quads(runs: RunTable, packed: bytes,
-                  add_region) -> List[Tuple[int, int, Any, int]]:
-    """Per-run (start, end, A, C) for one stream.
+def _int32(a: np.ndarray, what: str) -> np.ndarray:
+    """``a`` as int32; a value outside int32 raises, as the reference's
+    assignment of a Python int into its int32 matrix does."""
+    if a.size and (a.min() < -(1 << 31) or a.max() >= (1 << 31)):
+        raise OverflowError(f"fused stream {what} out of bounds for int32")
+    return a.astype(np.int32)
 
-    A = dense index of the run's first value minus the run's start (so
-    element i of the run reads dense_all[A + i]), here still as (width,
-    offset in that width's values); C packs the RLE value and flag as
-    value*2+is_rle.  ``add_region(w, bytes) -> value offset`` appends a
-    bit-packed byte region to the width-w buffer."""
-    n = len(runs.counts)
-    bp = [i for i in range(n) if not runs.is_rle[i]]
-    region_end = {}
-    for j, i in enumerate(bp):
-        b1 = runs.bit_bases[bp[j + 1]] // 8 if j + 1 < len(bp) \
-            else len(packed)
-        region_end[i] = b1
-    quads = []
-    pos = 0
-    for i in range(n):
-        c = runs.counts[i]
-        start, end = pos, pos + c
-        pos = end
-        if runs.is_rle[i]:
-            # A is not read for RLE elements; the delta chain
-            # re-telescopes through whatever value carries
-            quads.append((start, end, None, (runs.values[i] << 1) | 1))
-        else:
-            w = runs.widths[i]
-            b0 = runs.bit_bases[i] // 8
-            off = add_region(w, packed[b0:region_end[i]])
-            quads.append((start, end, (w, off - start), 0))
-    return quads
+
+def _resolve_streams(streams: List[Tuple[RunTable, bytes]], vcap: int,
+                     alloc=np.empty):
+    """Phase 1's host tables for every stream of a batch, over the run
+    tables' arrays (the reference's ``_stream_quads``, its region
+    bookkeeping, the run resolution and the matrix fill, with no Python
+    loop over runs).
+
+    Each bit-packed run's byte region reaches to the next bit-packed run
+    of its stream (or the stream's end); a width's regions concatenate,
+    in stream order, into that width's buffer, so a run's value offset
+    there is a cumulative sum of ``len(region) * 8 // w`` per width.  The
+    buffers lie in one dense array, widths ascending, after a front pad
+    of vcap.  A run's A (dense index of its first value minus its start)
+    is set by its bit-packed runs and carried forward through RLE runs; C
+    packs an RLE value and flag as value*2+1.  Streams of at most
+    ``_SLICE_MAX_RUNS`` runs take the slice path, one (start, end, A, C)
+    row per run; the others take the general path, one (start, dA, dC)
+    row per run.  The width buffers are ``alloc``-ated.
+
+    Returns (w_caps, bits arrays, stream_path, nslcap, sruns, gruns)."""
+    ns = np.array([rt.counts.shape[0] for rt, _ in streams], dtype=np.int64)
+    n_streams = len(streams)
+    first = np.zeros(n_streams, dtype=np.int64)
+    np.cumsum(ns[:-1], out=first[1:])
+    sid = np.repeat(np.arange(n_streams), ns)
+    local = np.arange(int(ns.sum())) - np.repeat(first, ns)
+
+    def cat(field, dtype):
+        parts = [getattr(rt, field) for rt, _ in streams]
+        return np.concatenate(parts) if parts else np.zeros(0, dtype)
+    counts = cat("counts", np.int64)
+    is_rle = cat("is_rle", bool)
+    values = cat("values", np.int64)
+    bit_bases = cat("bit_bases", np.int64)
+    widths = cat("widths", np.int32).astype(np.int64)
+
+    # run starts within their stream
+    ends = np.cumsum(counts)
+    starts = ends - counts
+    base = np.zeros(n_streams, dtype=np.int64)
+    has = ns > 0
+    base[has] = starts[first[has]]
+    starts -= np.repeat(base, ns)
+    ends = starts + counts
+
+    # bit-packed runs: byte regions, value counts, per-width offsets
+    bp = np.flatnonzero(~is_rle)
+    w_bp = widths[bp]
+    if (w_bp == 0).any():
+        raise UnsupportedChunk("fused decode: bit-packed run of width 0")
+    plen = np.array([len(pk) for _, pk in streams], dtype=np.int64)
+    s_bp = sid[bp]
+    b0 = np.minimum(bit_bases[bp] // 8, plen[s_bp])
+    b1 = np.empty_like(b0)
+    b1[:-1] = b0[1:]
+    last_of_stream = np.ones(bp.shape[0], dtype=bool)
+    last_of_stream[:-1] = s_bp[1:] != s_bp[:-1]
+    b1[last_of_stream] = plen[s_bp[last_of_stream]]
+    region = np.maximum(np.minimum(b1, plen[s_bp]) - b0, 0)
+    nvals = region * 8 // np.maximum(w_bp, 1)
+    voff = np.zeros(bp.shape[0], dtype=np.int64)
+    width_vals: Dict[int, int] = {}
+    for w in np.unique(w_bp).tolist():
+        m = np.flatnonzero(w_bp == w)
+        c = np.cumsum(nvals[m])
+        voff[m] = c - nvals[m]
+        width_vals[w] = int(c[-1])
+
+    # width layout: one dense value array, front-padded by vcap so a
+    # run's slice start is never negative, and tail-padded by vcap so a
+    # slice near the end of the last width section fits without clamping
+    w_caps = []
+    dense_off: Dict[int, int] = {}
+    off = vcap
+    for w in sorted(width_vals):
+        ncap = bucket_rows(width_vals[w], 16)   # multiple of 8
+        dense_off[w] = off
+        off += ncap
+        w_caps.append((w, ncap))
+    if off + vcap > int(_BIG):
+        raise UnsupportedChunk("packed streams too long for fused decode")
+
+    # each width's buffer: its regions in stream order, copied in spans
+    # of regions that lie back to back in one stream's packed bytes
+    bits: Dict[str, np.ndarray] = {}
+    for w, ncap in w_caps:
+        m = np.flatnonzero(w_bp == w)
+        new = np.ones(m.shape[0], dtype=bool)
+        new[1:] = (s_bp[m][1:] != s_bp[m][:-1]) | \
+            (b0[m][1:] != b0[m][:-1] + region[m][:-1])
+        span = np.cumsum(new) - 1
+        span_len = np.bincount(span, weights=region[m]).astype(np.int64)
+        span_first = m[new]
+        buf = alloc(ncap * w // 8, np.uint8)
+        dst = 0
+        for j, ln in zip(span_first.tolist(), span_len.tolist()):
+            if ln:
+                buf[dst:dst + ln] = np.frombuffer(
+                    streams[int(s_bp[j])][1], dtype=np.uint8, count=ln,
+                    offset=int(b0[j]))
+            dst += ln
+        buf[dst:] = 0
+        bits[f"bits_{w}"] = buf
+
+    # A: set by bit-packed runs, carried through RLE runs from 0 at each
+    # stream's start; C: value*2+1 for RLE runs, 0 for bit-packed ones
+    a_own = np.zeros(counts.shape[0], dtype=np.int64)
+    dense_bp = np.zeros(bp.shape[0], dtype=np.int64)
+    for w, o in dense_off.items():
+        dense_bp[w_bp == w] = o
+    a_own[bp] = dense_bp + voff - starts[bp]
+    anchor = ~is_rle
+    anchor[first[has]] = True
+    last = np.maximum.accumulate(
+        np.where(anchor, np.arange(counts.shape[0]), -1))
+    a = a_own[np.maximum(last, 0)]
+    c = np.where(is_rle, (values << 1) | 1, 0)
+
+    # slice path vs general path, and each stream's row in its matrix
+    is_slice = ns <= _SLICE_MAX_RUNS
+    rank = np.where(is_slice, np.cumsum(is_slice) - 1,
+                    np.cumsum(~is_slice) - 1)
+    stream_path = [("slice" if sl else "general", int(r))
+                   for sl, r in zip(is_slice.tolist(), rank.tolist())]
+    nslcap = _bucket_strlen(int(np.maximum(ns[is_slice], 1).max(initial=1)))
+    rcap = bucket_rows(int(ns[~is_slice].max(initial=1)), 8)
+
+    run_slice = is_slice[sid]
+    n_slice = int(is_slice.sum())
+    if n_slice:
+        sruns = np.zeros((n_slice, nslcap, 4), dtype=np.int32)
+        sruns[:, :, :2] = _BIG   # empty range: start == end == BIG
+        r = np.flatnonzero(run_slice)
+        sruns[rank[sid[r]], local[r]] = np.stack(
+            [_int32(starts[r], "start"), _int32(ends[r], "end"),
+             _int32(a[r], "A"), _int32(c[r], "C")], axis=1)
+    else:
+        sruns = np.zeros((1, nslcap, 4), dtype=np.int32)
+    n_general = n_streams - n_slice
+    if n_general:
+        gruns = np.zeros((n_general, rcap, 3), dtype=np.int32)
+        gruns[:, :, 0] = _BIG    # scatter target past vcap: dropped
+        prev_a = np.zeros_like(a)
+        prev_c = np.zeros_like(c)
+        prev_a[1:], prev_c[1:] = a[:-1], c[:-1]
+        prev_a[local == 0] = 0
+        prev_c[local == 0] = 0
+        r = np.flatnonzero(~run_slice)
+        gruns[rank[sid[r]], local[r]] = np.stack(
+            [_int32(starts[r], "start"), _int32(a[r] - prev_a[r], "dA"),
+             _int32(c[r] - prev_c[r], "dC")], axis=1)
+    else:
+        gruns = np.zeros((1, rcap, 3), dtype=np.int32)
+    return tuple(w_caps), bits, stream_path, nslcap, sruns, gruns
 
 
 def _defer_candidates(plans, names, pushed_filter, scan_names) -> set:
@@ -229,11 +359,23 @@ def _defer_candidates(plans, names, pushed_filter, scan_names) -> set:
     return defer_cols
 
 
+def _packed(parts: List[np.ndarray], size: int, alloc) -> np.ndarray:
+    """``parts`` back to back in one ``alloc``-ated buffer of ``size``
+    elements, zero past them: the one host copy of the values."""
+    buf = alloc(size, parts[0].dtype)
+    off = 0
+    for a in parts:
+        buf[off:off + a.shape[0]] = a
+        off += a.shape[0]
+    buf[off:] = 0
+    return buf
+
+
 def assemble(plans: List[List[Optional[ChunkPlan]]],
              out_dtypes: List[dt.DType], names: List[str],
              n_rows: List[int], pushed_filter=None,
              scan_names: Optional[List[str]] = None,
-             device="cuda") -> _FusedPlan:
+             device="cuda", alloc=np.empty) -> _FusedPlan:
     """Pack every segment's host structures into the fused upload set.
 
     plans[col][rg] is a ChunkPlan, or None for a column missing from
@@ -245,7 +387,12 @@ def assemble(plans: List[List[Optional[ChunkPlan]]],
     known.  ``device`` is where the batch will decode: for CPU tensors
     the reference's kernel gates (kernels/filter_decode.supported,
     str_supported) decide the deferral as the reference decides it; on
-    the card every deferrable column defers."""
+    the card every deferrable column defers.
+
+    The large buffers of the upload set (packed bits, plain and dictionary
+    values) are ``alloc``-ated (``np.empty``'s signature) and filled in
+    place: on the card ``prepare_fused`` passes pinned memory, so the
+    page bytes are copied once on the host."""
     from spark_rapids_tpu_torch.kernels import filter_decode as kfd
     vcap = bucket_rows(max(max(n_rows, default=1), 1))
     total = sum(n_rows)
@@ -255,16 +402,7 @@ def assemble(plans: List[List[Optional[ChunkPlan]]],
                                    scan_names) \
         if pushed_filter is not None else set()
 
-    width_bytes: Dict[int, List[bytes]] = {}
-    width_vals: Dict[int, int] = {}
-
-    def add_region(w: int, b: bytes) -> int:
-        off = width_vals.get(w, 0)
-        width_bytes.setdefault(w, []).append(b)
-        width_vals[w] = off + len(b) * 8 // w
-        return off
-
-    stream_quads: List[List[Tuple]] = []
+    streams: List[Tuple[RunTable, bytes]] = []
     meta: List[int] = []
     specs: List[List[_SegSpec]] = []
 
@@ -288,13 +426,11 @@ def assemble(plans: List[List[Optional[ChunkPlan]]],
                          defer=(ci in defer_cols and
                                 p.mode in ("dict", "dict_str")))
             if nullable:
-                s.def_stream = len(stream_quads)
-                stream_quads.append(_stream_quads(
-                    p.def_runs, p.def_packed, add_region))
+                s.def_stream = len(streams)
+                streams.append((p.def_runs, p.def_packed))
             if p.mode in ("dict", "dict_str", "bool"):
-                s.val_stream = len(stream_quads)
-                stream_quads.append(_stream_quads(
-                    p.val_runs, p.val_packed, add_region))
+                s.val_stream = len(streams)
+                streams.append((p.val_runs, p.val_packed))
             if p.mode == "plain":
                 key = str(p.plain_np.dtype)
                 s.plain_key = key
@@ -332,91 +468,24 @@ def assemble(plans: List[List[Optional[ChunkPlan]]],
             col_specs.append(s)
         specs.append(col_specs)
 
-    # -- width layout: one dense value array, front-padded by vcap so a
-    # -- run's slice start is never negative
-    widths = tuple(sorted(width_vals))
-    w_caps = []
-    dense_off: Dict[int, int] = {}
-    off = vcap
-    for w in widths:
-        ncap = bucket_rows(width_vals[w], 16)   # multiple of 8
-        dense_off[w] = off
-        off += ncap
-        w_caps.append((w, ncap))
-    # tail pad of vcap: a slice near the end of the last width section
-    # must fit without clamping
-    dense_len = off + vcap
-    if dense_len > int(_BIG):
-        raise UnsupportedChunk("packed streams too long for fused decode")
-
-    # -- resolve stream runs to (start, end, A, C) with global A, and
-    # -- split them into the slice path and the general path
-    stream_path: List[Tuple[str, int]] = []
-    n_slice = n_general = 0
-    max_slice_runs = 1
-    max_gen_runs = 1
-    resolved: List[List[Tuple[int, int, int, int]]] = []
-    for quads in stream_quads:
-        rs = []
-        a_carry = 0
-        for (start, end, pv, c) in quads:
-            if pv is not None:
-                w, rel = pv
-                a_carry = dense_off[w] + rel
-            rs.append((start, end, a_carry, c))
-        resolved.append(rs)
-        if len(rs) <= _SLICE_MAX_RUNS:
-            stream_path.append(("slice", n_slice))
-            n_slice += 1
-            max_slice_runs = max(max_slice_runs, len(rs) or 1)
-        else:
-            stream_path.append(("general", n_general))
-            n_general += 1
-            max_gen_runs = max(max_gen_runs, len(rs))
-
-    nslcap = _bucket_strlen(max_slice_runs)
-    rcap = bucket_rows(max_gen_runs, 8)
-    sruns_rows: List[np.ndarray] = []
-    gruns_rows: List[np.ndarray] = []
-    for si, rs in enumerate(resolved):
-        if stream_path[si][0] == "slice":
-            mat = np.zeros((nslcap, 4), dtype=np.int32)
-            mat[:, 0] = _BIG        # empty range: start == end == BIG
-            mat[:, 1] = _BIG
-            for r, (st, en, a, c) in enumerate(rs):
-                mat[r] = (st, en, a, c)
-            sruns_rows.append(mat)
-        else:
-            mat = np.zeros((rcap, 3), dtype=np.int32)
-            mat[:, 0] = _BIG        # scatter target past vcap: dropped
-            prev_a = prev_c = 0
-            for r, (st, en, a, c) in enumerate(rs):
-                mat[r] = (st, a - prev_a, c - prev_c)
-                prev_a, prev_c = a, c
-            gruns_rows.append(mat)
-
+    w_caps, bits, stream_path, nslcap, sruns, gruns = _resolve_streams(
+        streams, vcap, alloc)
     arrays: Dict[str, np.ndarray] = {
         "nrows": np.asarray(n_rows, dtype=np.int32),
         "meta": np.asarray(meta or [0], dtype=np.int32),
-        "sruns": np.stack(sruns_rows) if sruns_rows else
-        np.zeros((1, nslcap, 4), dtype=np.int32),
-        "gruns": np.stack(gruns_rows) if gruns_rows else
-        np.zeros((1, rcap, 3), dtype=np.int32),
+        "sruns": sruns,
+        "gruns": gruns,
+        **bits,
     }
-    for w, ncap in w_caps:
-        buf = np.frombuffer(b"".join(width_bytes[w]), dtype=np.uint8)
-        arrays[f"bits_{w}"] = _pad_np(buf, ncap * w // 8)
     for key, parts in plain_parts.items():
-        buf = np.concatenate(parts) if len(parts) > 1 else parts[0]
         # slack so a slice of vcap values never walks off the end
-        arrays["plain_" + key] = _pad_np(
-            buf, bucket_rows(buf.shape[0] + vcap, 64))
+        arrays["plain_" + key] = _packed(
+            parts, bucket_rows(plain_sizes[key] + vcap, 64), alloc)
     for key, parts in dict_parts.items():
-        buf = np.concatenate(parts) if len(parts) > 1 else parts[0]
         pad = max((s.dcap * max(s.dlen, 1)
                    for row in specs for s in row), default=64)
-        arrays["dict_" + key] = _pad_np(
-            buf, bucket_rows(buf.shape[0] + pad, 64))
+        arrays["dict_" + key] = _packed(
+            parts, bucket_rows(dict_sizes[key] + pad, 64), alloc)
 
     # -- the reference's kernel gates, for batches decoding on the CPU
     if torch.device(device).type == "cpu":
@@ -447,7 +516,7 @@ def assemble(plans: List[List[Optional[ChunkPlan]]],
     return _FusedPlan(specs=specs, out_dtypes=out_dtypes,
                       names=names, arrays=arrays, n_rows=list(n_rows),
                       cap=cap, vcap=vcap, stream_path=stream_path,
-                      nslcap=nslcap, widths=tuple(w_caps),
+                      nslcap=nslcap, widths=w_caps,
                       col_vbits=col_vbits, pushed=pushed)
 
 
@@ -758,7 +827,10 @@ class PreparedScan:
     """Everything a fused scan batch needs except the device decode: the
     assembled plan, its upload set on the device, the list columns
     (already decoded) and the host-decoded fallback columns (already
-    uploaded)."""
+    uploaded).  On the card the upload set is a
+    :class:`~spark_rapids_tpu_torch.columnar.transfer.PinnedUpload`: its
+    copies may still be in flight on the scan's copy stream, and it
+    carries their event and the pinned buffers they read."""
     wanted: List[str]
     total: int
     cap: int
@@ -838,7 +910,8 @@ def _collect_plans(sources, schema, wanted, host_threads: int,
 
 
 def _host_fallback(sources, schema, fallbacks: List[str], cap: int,
-                   dev: torch.device) -> Dict[str, DeviceColumn]:
+                   dev: torch.device, copy_stream=None
+                   ) -> Dict[str, DeviceColumn]:
     """Host Arrow decode of the fallback columns of every row group,
     uploaded at the batch capacity."""
     import pyarrow.parquet as papq
@@ -873,7 +946,8 @@ def _host_fallback(sources, schema, fallbacks: List[str], cap: int,
     finally:
         for f in opened.values():
             f.close()
-    fb = from_arrow(pa.concat_tables(tables), capacity=cap, device=dev)
+    fb = from_arrow(pa.concat_tables(tables), capacity=cap, device=dev,
+                    copy_stream=copy_stream)
     return dict(zip(fb.names, fb.columns))
 
 
@@ -884,10 +958,12 @@ def prepare_fused(sources: Sequence[Tuple[Any, str, int]],
                   metrics=None,
                   pushed_filter=None,
                   scan_names: Optional[List[str]] = None,
-                  device="cuda") -> PreparedScan:
+                  device="cuda", copy_stream=None) -> PreparedScan:
     """Host half of the fused decode: page walks (through the scan-plan
-    cache), fused-plan assembly, the upload to ``device``, and the
-    host-Arrow fallback decode.  It never reads device memory.
+    cache), fused-plan assembly, the upload to ``device`` (on the card
+    through pinned memory on ``copy_stream``, without waiting for the
+    copies), and the host-Arrow fallback decode.  It never reads device
+    memory, so it may run on a prefetch thread.
 
     ``pushed_filter``/``scan_names`` arm the deferred dictionary decode
     (see :func:`assemble`): a hint checked per batch, never a contract —
@@ -895,7 +971,9 @@ def prepare_fused(sources: Sequence[Tuple[Any, str, int]],
     dev = resolve_device(device)
 
     def phase(key):
-        return timed(metrics, key) if metrics is not None \
+        # the phases may overlap the consumer's decode on a prefetch
+        # thread: sections only, not the exec's total time
+        return timed_extra(metrics, key) if metrics is not None \
             else contextlib.nullcontext()
 
     wanted = columns or [f.name for f in schema.fields]
@@ -924,21 +1002,26 @@ def prepare_fused(sources: Sequence[Tuple[Any, str, int]],
             else:
                 kb.record_fallback("scan.filterDecode", "condition_columns")
 
+        # on the card the upload set is packed straight into pinned memory
+        stage = PinnedStage() if dev.type == "cuda" else None
         fp = assemble(dev_plans, dev_dtypes, dev_cols, n_rows,
                       pushed_filter=pushed, scan_names=scan_names,
-                      device=dev) if dev_plans else None
+                      device=dev,
+                      alloc=stage.empty if stage is not None else np.empty
+                      ) if dev_plans else None
 
     with phase("scan.uploadTime"):
         dev_arrays = None
         if fp is not None:
-            dev_arrays = fused_arrays_to_torch(fp.arrays, dev)
+            dev_arrays = fused_arrays_to_torch(fp.arrays, dev, copy_stream,
+                                               stage)
             if metrics is not None:
                 metrics.add_extra("scan.bytesUploaded", sum(
                     int(v.nbytes) for v in fp.arrays.values()))
         extra_cols = dict(list_cols)
         if fallbacks:
             extra_cols.update(_host_fallback(sources, schema, fallbacks, cap,
-                                             dev))
+                                             dev, copy_stream))
 
     return PreparedScan(wanted=wanted, total=total, cap=cap, fp=fp,
                         dev_arrays=dev_arrays, dev_cols=dev_cols,
@@ -951,6 +1034,8 @@ def finish_fused(prep: PreparedScan) -> Tuple[DeviceBatch, List[str]]:
     Returns (batch, fallback column names)."""
     cols_by_name: Dict[str, DeviceColumn] = dict(prep.extra_cols)
     if prep.fp is not None:
+        if isinstance(prep.dev_arrays, PinnedUpload):
+            prep.dev_arrays.wait()     # the decode reads the copies
         out_cols, _ = _make_kernel(prep.fp)(prep.dev_arrays)
         cols_by_name.update(zip(prep.dev_cols, out_cols))
     out = DeviceBatch(prep.wanted, [cols_by_name[c] for c in prep.wanted],

@@ -242,8 +242,8 @@ def _account_locked(entry: "_FileEntry", delta: int) -> None:
 
 
 def _plan_nbytes(plan) -> int:
-    """Byte cost of one cached ChunkPlan (packed streams + value
-    buffers dominate; run-table python lists cost ~40 B/run)."""
+    """Byte cost of one cached ChunkPlan: packed streams, value buffers
+    and the run tables' arrays."""
     if isinstance(plan, Exception):
         return 256
     n = 512
@@ -254,7 +254,8 @@ def _plan_nbytes(plan) -> int:
             n += int(a.nbytes)
     for rt in (plan.def_runs, plan.val_runs):
         if rt is not None:
-            n += 40 * len(rt.counts)
+            n += sum(int(a.nbytes) for a in (rt.counts, rt.is_rle, rt.values,
+                                             rt.bit_bases, rt.widths))
     return n
 
 

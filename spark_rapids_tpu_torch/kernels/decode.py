@@ -213,56 +213,49 @@ def stream_width(runs) -> Tuple[bool, int, str]:
     dictionary) hold zero packed bytes and decode to 0, so they do not
     constrain the width: :func:`_dense_meta` rewrites them as RLE-0 runs
     (mapping one through ``bit_base // w`` would alias the next run's
-    values)."""
-    w = 0
-    for i in range(len(runs.counts)):
-        if runs.is_rle[i]:
-            continue
-        wi = int(runs.widths[i])
-        if wi == 0:
-            continue        # zero packed bytes; rewritten to RLE-0
-        if w and wi != w:
-            return False, 0, "mixed_widths"
-        w = wi
-        if wi > 32:
-            return False, 0, "width"
+    values).  The reference walks the runs in order and stops at the
+    first width that differs from the one before it or passes 32; over
+    the table's arrays that is the first width's test, then whether any
+    other differs from it."""
+    ws = runs.widths[~runs.is_rle & (runs.widths != 0)]
+    if ws.size == 0:
+        return True, 0, ""
+    w = int(ws[0])
+    if w > 32:
+        return False, 0, "width"
+    if (ws != w).any():
+        return False, 0, "mixed_widths"
     return True, w, ""
 
 
 def _dense_meta(runs, w: int, rcap: int) -> np.ndarray:
     """Per-run (start, dA, dC) deltas, ``[rcap, 3]``: the coefficients
-    phase 1 scatters (O(runs) host work).  A carries through RLE runs so
-    the deltas telescope.  The matrix widens to int64 when a wide RLE
-    payload overflows int32 deltas; padding rows start at 2^30 and
-    drop."""
-    n = len(runs.counts)
-    rows = []
-    pos = 0
-    prev_a = prev_c = 0
-    lo = hi = 0
-    for i in range(n):
-        start = pos
-        pos += int(runs.counts[i])
-        if runs.is_rle[i]:
-            a = prev_a
-            c = (int(runs.values[i]) << 1) | 1
-        elif int(runs.widths[i]) == 0:
-            # width-0 bit-pack: zero packed bytes, every value 0
-            a = prev_a
-            c = 1
-        else:
-            valoff = int(runs.bit_bases[i]) // w if w else 0
-            a = valoff - start
-            c = 0
-        rows.append((start, a - prev_a, c - prev_c))
-        lo = min(lo, rows[-1][1], rows[-1][2])
-        hi = max(hi, rows[-1][1], rows[-1][2])
-        prev_a, prev_c = a, c
+    phase 1 scatters, from the run table's arrays.  Starts are a cumsum
+    of the counts; A (dense index of the run's first value minus its
+    start) is set by the bit-packed runs of nonzero width and carried
+    forward through RLE and width-0 runs, so the deltas (``np.diff`` of A
+    and C) telescope.  The matrix widens to int64 when a wide RLE payload
+    overflows int32 deltas; padding rows start at 2^30 and drop."""
+    n = runs.counts.shape[0]
+    starts = np.zeros(n, dtype=np.int64)
+    np.cumsum(runs.counts[:-1], out=starts[1:])
+    sets_a = ~runs.is_rle & (runs.widths != 0)
+    a_own = (runs.bit_bases // w if w else 0) - starts
+    last = np.maximum.accumulate(np.where(sets_a, np.arange(n), -1))
+    a = np.where(last >= 0, a_own[np.maximum(last, 0)], 0)
+    # RLE: value * 2 + 1; width-0 bit-pack: every value 0, an RLE-0 run
+    c = np.where(runs.is_rle, (runs.values << 1) | 1,
+                 np.where(sets_a, 0, 1))
+    da = np.diff(a, prepend=0)
+    dc = np.diff(c, prepend=0)
+    lo = min(0, int(da.min(initial=0)), int(dc.min(initial=0)))
+    hi = max(0, int(da.max(initial=0)), int(dc.max(initial=0)))
     np_t = np.int32 if -(1 << 31) <= lo and hi < (1 << 31) else np.int64
     mat = np.zeros((rcap, 3), dtype=np_t)
     mat[n:, 0] = np_t(1 << 30)
-    if rows:
-        mat[:n] = np.asarray(rows, dtype=np_t)
+    mat[:n, 0] = starts
+    mat[:n, 1] = da
+    mat[:n, 2] = dc
     return mat
 
 
@@ -274,10 +267,12 @@ def _dense_extent(runs, w: int) -> int:
     reference sizes the array from the count alone and, where the padding
     carries the last run past the capacity tier, reads clipped values
     there: ROADMAP Queue C.)"""
-    nvals = sum(int(c) for c, r in zip(runs.counts, runs.is_rle) if not r)
-    end = max((int(b) // w + int(c) for c, r, b, wi in zip(
-        runs.counts, runs.is_rle, runs.bit_bases, runs.widths)
-        if not r and int(wi)), default=0) if w else 0
+    bp = ~runs.is_rle
+    nvals = int(runs.counts[bp].sum())
+    if not w:
+        return nvals
+    m = bp & (runs.widths != 0)
+    end = int((runs.bit_bases[m] // w + runs.counts[m]).max(initial=0))
     return max(nvals, end)
 
 
@@ -420,10 +415,10 @@ def expand_stream(runs, packed: bytes, cap: int,
     ncap = bucket_rows(max(_dense_extent(runs, w), 1), 32)
     if dev.type == "cpu" and not _expand_supported(w, ncap, cap):
         kb.record_fallback("decode.expand", "shape")
-    rcap = bucket_rows(max(len(runs.counts), 1), 8)
+    rcap = bucket_rows(max(runs.counts.shape[0], 1), 8)
     table = run_table(_dense_meta(runs, w, rcap))
-    pbytes = dp._pad_np(np.frombuffer(bytes(packed), dtype=np.uint8),
-                        max(ncap * w // 8, 4))
+    pbytes = np.zeros(max(ncap * w // 8, 4), dtype=np.uint8)
+    src = np.frombuffer(packed, dtype=np.uint8)[:pbytes.shape[0]]
+    pbytes[:src.shape[0]] = src
     return expand_device(torch.from_numpy(table).to(dev),
-                         torch.from_numpy(pbytes.copy()).to(dev),
-                         w, ncap, cap)
+                         torch.from_numpy(pbytes).to(dev), w, ncap, cap)

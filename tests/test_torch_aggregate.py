@@ -42,6 +42,8 @@ from spark_rapids_tpu_torch.expr.eval_tpu import ColVal as TColVal
 from spark_rapids_tpu_torch.kernels import backend as kb
 from spark_rapids_tpu_torch.plan.logical import Schema as TSchema
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 REL = 1e-12
 
 
@@ -284,7 +286,7 @@ def _all_aggs(ir, schema):
 @pytest.fixture(scope="module")
 def all_aggs_run():
     rng = np.random.default_rng(23)
-    n = 600
+    n = 240
     words = np.array(["", "a", "ab", "b", "zz", "abc", "abé", "m"])
     d = rng.normal(0, 10, n)
     d[rng.random(n) < 0.05] = np.nan
@@ -304,8 +306,8 @@ def all_aggs_run():
     tspecs = [tagg.make_spec(a) for a in ta]
     jps, tps = [], []
     jupdate = jax.jit(lambda b: jagg.update_aggregate(b, jk, ja, jspecs))
-    for lo in (0, 250):
-        jb = jbatch.from_arrow(t.slice(lo, 350))
+    for lo in (0, 100):              # two overlapping slices of 140
+        jb = jbatch.from_arrow(t.slice(lo, 140))
         tb = batch_from_numpy(jax_leaves(jb), "cpu")
         jps.append(jupdate(jb))
         tps.append(tagg.update_aggregate(tb, tk, ta, tspecs))

@@ -43,6 +43,7 @@ from spark_rapids_tpu_torch.plan.logical import Schema as TSchema
 
 from tests import data_gen as g
 from tests.parity import assert_tables_equal
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 _DT = {jir: jdt, tir: tdt}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -25,6 +25,8 @@ from spark_rapids_tpu.kernels import decode as jdec
 from spark_rapids_tpu_torch.kernels import backend as kb
 from spark_rapids_tpu_torch.kernels import decode as tdec
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 def _golden(raw: np.ndarray, w: int, ncap: int) -> np.ndarray:
     bits = np.unpackbits(raw, bitorder="little")[:ncap * w]

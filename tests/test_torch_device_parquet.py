@@ -8,6 +8,9 @@ mixed dictionary + PLAIN pages, a dotted column name) plus a column
 missing from the file and an in-memory blob, decode row group by row group
 through the reference's ``decode_row_group`` (its Pallas kernels in
 interpret mode) and the port's (the plain torch versions of its kernels).
+On the same cases, the run matrix and padded packed bytes that the port's
+``_upload_runs`` fills from its array run tables are held against the
+reference's ``_upload_runs`` (which converts lists) for every stream.
 
 Tolerance: the decode moves data and does no arithmetic, so every array of
 every column (data, validity, lengths, element validity), the row counts,
@@ -32,6 +35,7 @@ from spark_rapids_tpu_torch.io import parquet_meta as tpm
 from spark_rapids_tpu_torch.plan.logical import Schema as TSchema
 
 from tests.parity import assert_tables_equal
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _list_table(n=200, seed=5, with_nulls=True):
@@ -290,3 +294,55 @@ def test_decode_chunk_and_list_chunk_match_reference(tmp_path):
     jl = jdp.decode_list_chunk(jch, jdt.list_of(jdt.INT64), 1024, True)
     assert_batches_equal(tbatch.DeviceBatch(["l"], [tl], 300),
                          jbatch.DeviceBatch(["l"], [jl], 300))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_upload_runs_matches_reference(tmp_path, case):
+    """The run matrix and the padded packed bytes that ``_upload_runs``
+    fills from the run table's arrays, against the reference's (which
+    converts its lists on every call), for every stream of every flat
+    column chunk of every decode mode."""
+    table, kw, _ = _case(case)
+    path = str(tmp_path / "t.parquet")
+    papq.write_table(table, path, **kw)
+    pf = papq.ParquetFile(path)
+    schema = TSchema.from_arrow(table.schema)
+    jschema = JSchema.from_arrow(table.schema)
+    n_streams = 0
+    for rg in range(pf.metadata.num_row_groups):
+        for name, leaf in tdp.leaf_map(pf).items():
+            chunk = tpm.read_chunk_pages(path, rg, leaf, parquet_file=pf)
+            tf, jf = schema.field(name), jschema.field(name)
+            try:
+                if tf.dtype.is_list:
+                    # a list's dictionary index stream: the reference
+                    # builds it inside its list decode, so its table is
+                    # the port's runs as the reference's lists
+                    tp = tdp._plan_list_chunk(chunk, tf.dtype, tf.nullable)
+                    r = tp.idx_runs
+                    pairs = [] if r is None else [(
+                        (r, tp.idx_packed),
+                        (jdp.RunTable(r.counts.tolist(), r.is_rle.tolist(),
+                                      r.values.tolist(),
+                                      r.bit_bases.tolist(),
+                                      r.widths.tolist()), tp.idx_packed))]
+                else:
+                    jp = jdp.plan_chunk(chunk, jf.dtype, True)
+                    tp = tdp.plan_chunk(chunk, tf.dtype, True)
+                    pairs = [((getattr(tp, f"{k}_runs"),
+                               getattr(tp, f"{k}_packed")),
+                              (getattr(jp, f"{k}_runs"),
+                               getattr(jp, f"{k}_packed")))
+                             for k in ("def", "val")]
+            except jdp.UnsupportedChunk:
+                continue
+            for (t_runs, t_packed), (j_runs, j_packed) in pairs:
+                got = tdp._upload_runs(t_runs, t_packed, "cpu")
+                want = jdp._upload_runs(j_runs, j_packed)
+                for k in ("runs_mat", "packed"):
+                    w = np.asarray(want[k])
+                    assert got[k].numpy().dtype == w.dtype, (name, k)
+                    np.testing.assert_array_equal(got[k].numpy(), w,
+                                                  err_msg=f"{name} {k}")
+                n_streams += 1
+    assert n_streams > 0

@@ -26,6 +26,7 @@ from spark_rapids_tpu_torch.expr import ir as tir
 from spark_rapids_tpu_torch.plan.logical import Schema as TSchema
 
 from tests import data_gen as g
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 COLS = {"i": g.int_gen, "l": g.long_gen, "s16": g.short_gen,
         "d": g.double_gen, "f": g.float_gen, "b": g.boolean_gen,

@@ -23,7 +23,11 @@ pinned to the golden values); every
 width 0-32 goes through the table path; and a Python model of the
 kernel's tile decomposition (narrowing rounds, staged and in-place row
 searches) is held against ``plain_expand_device`` on short runs, one RLE
-run, shared starts, the trimmed-runs input and 32-bit values.
+run, shared starts, the trimmed-runs input and 32-bit values.  The
+host helpers over the port's array run tables (``stream_width``,
+``_dense_meta``, ``_dense_extent``) are held to the reference's loops
+(and ``_dense_extent`` to its loop form) on random tables with width-0
+runs, mixed widths and matrices that widen to int64.
 
 The CUDA kernel itself only runs on a GPU: the ``cuda``-marked test skips
 without one.
@@ -41,9 +45,12 @@ from spark_rapids_tpu.kernels import decode as jdec
 from spark_rapids_tpu.kernels import tiling as jtiling
 from spark_rapids_tpu.obs import registry as obsreg
 
+from spark_rapids_tpu_torch.columnar.batch import bucket_rows
 from spark_rapids_tpu_torch.io import device_parquet as tdp
 from spark_rapids_tpu_torch.kernels import backend as kb
 from spark_rapids_tpu_torch.kernels import decode as tdec
+
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -94,12 +101,12 @@ def _concat(a, b):
     (ja, ta, pa_, ea), (jb, tb, pb, eb) = a, b
     out = []
     for ra, rb in ((ja, jb), (ta, tb)):
-        rt = type(ra).empty()
-        for k in ("counts", "is_rle", "values", "widths"):
-            getattr(rt, k).extend(getattr(ra, k) + getattr(rb, k))
-        rt.bit_bases.extend(ra.bit_bases +
-                            [x + len(pa_) * 8 for x in rb.bit_bases])
-        out.append(rt)
+        # the reference's table holds lists, the port's numpy arrays
+        cols = {k: list(getattr(ra, k)) + list(getattr(rb, k))
+                for k in ("counts", "is_rle", "values", "widths")}
+        cols["bit_bases"] = list(ra.bit_bases) + [
+            int(x) + len(pa_) * 8 for x in rb.bit_bases]
+        out.append(type(ra)(**cols))
     return out[0], out[1], pa_ + pb, np.concatenate([ea, eb])
 
 
@@ -160,6 +167,57 @@ def test_dense_meta_matches_reference(w):
     t = tdec._dense_meta(tr, w, rcap)
     assert t.dtype == j.dtype == (np.int64 if w == 32 else np.int32)
     np.testing.assert_array_equal(t, j)
+
+
+def _random_table(seed: int):
+    """Reference and port run tables of the same random runs: RLE and
+    bit-packed runs of widths 0 (no bytes), w and, from seed 3 on, a
+    second width; RLE values up to 2^32 - 1 on seeds 3 and 7, so their
+    matrices widen."""
+    rng = np.random.default_rng(seed)
+    w = int(rng.integers(1, 33))
+    cols = {k: [] for k in ("counts", "is_rle", "values", "bit_bases",
+                            "widths")}
+    bits = 0
+    for k in range(int(rng.integers(0, 60))):
+        kind = rng.integers(0, 3)
+        wi = w if kind or seed < 3 else int(rng.integers(1, 33))
+        if k % 2 == 0:
+            row = (int(rng.integers(0, 50)), True, int(rng.integers(
+                0, 1 << (32 if seed % 4 == 3 else min(w, 29)))), 0, wi)
+        else:
+            g = int(rng.integers(0, 6))
+            wi = 0 if kind == 0 and seed % 2 else wi
+            row = (max(8 * g - int(rng.integers(0, 8)), 0), False, 0, bits,
+                   wi)
+            bits += 8 * g * wi
+        for key, v in zip(cols, row):
+            cols[key].append(v)
+    return (jdp.RunTable(**cols), tdp.RunTable(**cols), w)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_run_helpers_match_reference_on_random_tables(seed):
+    """stream_width, _dense_extent and _dense_meta over the run table's
+    arrays against the reference's loops, dtype for dtype (int64 where a
+    wide RLE payload widens the deltas)."""
+    jr, tr, w = _random_table(seed)
+    assert tdec.stream_width(tr) == jdec.stream_width(jr)
+    ok, sw, _ = jdec.stream_width(jr)
+    for width in {sw, w} if ok else {w}:
+        rcap = bucket_rows(max(len(jr.counts), 1), 8)
+        j = jdec._dense_meta(jr, width, rcap)
+        t = tdec._dense_meta(tr, width, rcap)
+        assert t.dtype == j.dtype
+        np.testing.assert_array_equal(t, j)
+    # _dense_extent is the port's own (the reference sizes by the count):
+    # its loop form, run by run
+    nvals = sum(c for c, r in zip(jr.counts, jr.is_rle) if not r)
+    end = max((b // w + c for c, r, b, wi in zip(
+        jr.counts, jr.is_rle, jr.bit_bases, jr.widths) if not r and wi),
+        default=0)
+    assert tdec._dense_extent(tr, w) == max(nvals, end)
+    assert tdec._dense_extent(tr, 0) == nvals
 
 
 def test_expand_stream_zero_then_wider_width():

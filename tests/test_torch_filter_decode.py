@@ -32,6 +32,8 @@ from spark_rapids_tpu.kernels import filter_decode as jfd
 from spark_rapids_tpu_torch.kernels import backend as kb
 from spark_rapids_tpu_torch.kernels import filter_decode as tfd
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 
 def _dict(np_t, n, rng):
     if np.dtype(np_t).kind == "f":

@@ -21,6 +21,7 @@ from spark_rapids_tpu_torch.api import functions as TF
 from spark_rapids_tpu_torch.entry import write_store_sales
 
 from tests.parity import assert_tables_equal
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CONF = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
         "spark.rapids.tpu.sql.test.enabled": True}

@@ -10,7 +10,11 @@ versions of its kernels).  The files cover nulls, a one-entry dictionary,
 decimal column that takes the host fallback, and a pushed filter that
 defers an int and a string dictionary column.  pyarrow writes a one-entry
 dictionary's codes 1 bit wide, so a crafted width-0 stream covers
-width 0.  Last, the q6 and q6s
+width 0, and crafted streams hold the vectorised ``assemble`` to the
+reference's loops on the general path (more than ``_SLICE_MAX_RUNS``
+runs), two widths in one stream, trimmed page-end runs and width-0
+pages.  The port's run tables are numpy arrays of fixed dtypes, held to
+the reference's lists value for value.  Last, the q6 and q6s
 plans against a reference session running the bench's q6 and against
 pyarrow.
 
@@ -54,6 +58,8 @@ from spark_rapids_tpu_torch.io import scan_cache as tsc
 from spark_rapids_tpu_torch.kernels import backend as kb
 from spark_rapids_tpu_torch.plan.logical import Field as TField
 from spark_rapids_tpu_torch.plan.logical import Schema as TSchema
+
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-9
 
@@ -143,18 +149,29 @@ def _conditions(names):
 # the host page walk
 # ---------------------------------------------------------------------------
 
+RUN_FIELDS = {"counts": np.int64, "is_rle": np.bool_, "values": np.int64,
+              "bit_bases": np.int64, "widths": np.int32}
+
+
 def _plan_fields(p):
-    runs = ("counts", "is_rle", "values", "bit_bases", "widths")
     out = {k: getattr(p, k) for k in ("n_rows", "nullable", "mode",
                                       "def_packed", "val_packed",
                                       "page_segs")}
     out["out_dtype"] = p.out_dtype.name
-    for rt in ("def_runs", "val_runs"):
-        out[rt] = {k: list(getattr(getattr(p, rt), k)) for k in runs}
     for a in ("plain_np", "dict_np", "dict_lens"):
         v = getattr(p, a)
         out[a] = None if v is None else (str(v.dtype), v.tolist())
     return out
+
+
+def _assert_runs_equal(t_runs, j_runs):
+    """The port's run table holds numpy arrays of fixed dtypes; the
+    reference's holds lists: compare values as arrays."""
+    for k, dtype in RUN_FIELDS.items():
+        got = getattr(t_runs, k)
+        assert isinstance(got, np.ndarray) and got.dtype == dtype, k
+        np.testing.assert_array_equal(
+            got, np.asarray(getattr(j_runs, k), dtype=dtype), err_msg=k)
 
 
 @pytest.mark.parametrize("column", list(COLUMNS))
@@ -182,6 +199,8 @@ def test_plan_chunk_matches_reference(files, column):
                 continue
             tp = tdp.plan_chunk(tch, t.field(column).dtype, mixed)
             assert _plan_fields(tp) == _plan_fields(jp)
+            _assert_runs_equal(tp.def_runs, jp.def_runs)
+            _assert_runs_equal(tp.val_runs, jp.val_runs)
     assert tpm.walk_count() == walks + n_chunks
     assert tpm.bytes_walked() == walked + n_bytes
 
@@ -242,16 +261,94 @@ def test_assemble_matches_reference(files, pushed):
     assert tfp.widths[0][0] == 1 and len(tfp.widths) >= 4
 
 
+def _crafted_runs(rng, pages):
+    """(rows, packed) of one hybrid stream walked page by page: each page
+    ``(w, n_runs, trim)`` alternates RLE runs and bit-packed groups of
+    width w over random bytes, the page's last bit-packed run trimmed by
+    ``trim`` values (its padding stays in the packed bytes).  A width-0
+    page holds RLE runs only, with no value bytes."""
+    rows, packed = [], bytearray()
+    for w, n_runs, trim in pages:
+        last_bp = None
+        for k in range(n_runs):
+            if k % 2 == 0 or not w:
+                v = int(rng.integers(0, 1 << w)) if w else 0
+                rows.append([int(rng.integers(1, 40)), True, v, 0, w])
+            else:
+                g = int(rng.integers(1, 5))
+                rows.append([8 * g, False, 0, len(packed) * 8, w])
+                packed += rng.integers(0, 256, g * w, np.uint8).tobytes()
+                last_bp = len(rows) - 1
+        if trim and last_bp is not None:
+            rows[last_bp][0] -= trim
+    return rows, bytes(packed)
+
+
+def _crafted_plans():
+    """Both packages' ChunkPlans of two dictionary columns over two row
+    groups: nullable segments whose def-level streams hold more than
+    ``_SLICE_MAX_RUNS`` runs (the general path), index streams mixing
+    widths 3 and 5 across pages with trimmed page-end runs, and width-0
+    pages (RLE runs of no value bytes) before a 3-bit page."""
+    rng = np.random.default_rng(77)
+    out = {"t": [[], []], "j": [[], []]}
+    n_rows = []
+    for rg in range(2):
+        d_rows, d_packed = _crafted_runs(rng, [(1, 13, 3), (1, 6, 0)])
+        n = sum(r[0] for r in d_rows)
+        n_rows.append(n)
+        for ci, pages in enumerate(([(3, 9, 5), (5, 7, 2)],
+                                    [(0, 3, 0), (3, 4, 1)])):
+            v_rows, v_packed = _crafted_runs(rng, pages)
+            for name, pkg_dp, pkg_dt in (("t", tdp, tdt), ("j", jdp, jdt)):
+                def table(rows):
+                    cols = list(zip(*rows)) if rows else [[]] * 5
+                    return pkg_dp.RunTable(*[list(c) for c in cols])
+                out[name][ci].append(pkg_dp.ChunkPlan(
+                    n_rows=n, nullable=True, out_dtype=pkg_dt.INT64,
+                    mode="dict", def_runs=table(d_rows),
+                    def_packed=d_packed, val_runs=table(v_rows),
+                    val_packed=v_packed,
+                    dict_np=np.arange(40, dtype=np.int64)))
+    return out, n_rows
+
+
+def test_assemble_matches_reference_on_crafted_streams():
+    """The vectorised assembly against the reference's loops on streams
+    the files above do not all give: the general path, mixed widths in
+    one stream, trimmed page-end runs, width-0 pages and nulls."""
+    plans, n_rows = _crafted_plans()
+    tfp = tpf.assemble(plans["t"], [tdt.INT64] * 2, ["a", "b"], n_rows,
+                       device="cpu")
+    jfp = jpf.assemble(plans["j"], [jdt.INT64] * 2, ["a", "b"], n_rows,
+                       backend="pallas")
+    assert sorted(tfp.arrays) == sorted(jfp.arrays)
+    for k, v in jfp.arrays.items():
+        assert tfp.arrays[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(tfp.arrays[k], v, err_msg=k)
+    assert tfp.stream_path == jfp.stream_path
+    assert {p for p, _ in tfp.stream_path} == {"slice", "general"}
+    assert (tfp.widths, tfp.nslcap, tfp.cap, tfp.vcap) == \
+        (jfp.widths, jfp.nslcap, jfp.cap, jfp.vcap)
+    assert [w for w, _ in tfp.widths] == [1, 3, 5]
+    assert [[dataclasses.asdict(s) for s in row] for row in tfp.specs] == \
+        [[dataclasses.asdict(s) for s in row] for row in jfp.specs]
+
+
 def test_width_zero_stream_matches_reference():
     """A dictionary page whose codes are 0 bits wide: RLE runs with no
     value bytes, across two pages."""
     page = bytes([0xD0, 0x0F])               # RLE run of 1000, no value
     plans = {}
     for name, pkg_dp in (("t", tdp), ("j", jdp)):
-        runs, packed = pkg_dp.RunTable.empty(), bytearray()
+        # the port walks into RunBuilder lists and freezes them into arrays
+        runs = tdp.RunBuilder() if name == "t" else jdp.RunTable.empty()
+        packed = bytearray()
         for _ in range(2):
             assert pkg_dp.walk_hybrid(page, 0, 2, 0, packed, runs) == 1000
         assert runs.values == [0, 0] and runs.widths == [0, 0]
+        if name == "t":
+            runs = runs.table()
         dtype = (tdt if name == "t" else jdt).INT64
         plans[name] = pkg_dp.ChunkPlan(
             n_rows=2000, nullable=False, out_dtype=dtype, mode="dict",

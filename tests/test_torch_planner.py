@@ -32,6 +32,7 @@ from spark_rapids_tpu_torch.plan import overrides as tov
 from spark_rapids_tpu_torch.plan.optimizer import prune_columns as tprune
 
 from tests.parity import assert_tables_equal
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CONF = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
 # side -> (session class, col, functions, Window, logical module, prune)

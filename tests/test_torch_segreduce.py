@@ -33,6 +33,8 @@ from spark_rapids_tpu.kernels import segreduce as jseg
 from spark_rapids_tpu_torch.exec import scans as tscans
 from spark_rapids_tpu_torch.kernels import segreduce as tseg
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 # float64 second: its cap-2^16 case is the blocked float add
 _DTYPES = [np.int32, np.float64, np.int64, np.uint64]
 _OPS = ["add", "min", "max"]

@@ -29,6 +29,7 @@ from spark_rapids_tpu_torch.api import functions as TF
 from spark_rapids_tpu_torch.entry import gen_store_sales, write_store_sales
 
 from tests.parity import assert_tables_equal
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROWS = 12_000
 FILES = 2
