@@ -75,8 +75,10 @@ Phases (any failure exits non-zero):
                pinned bytes held at most; one ``torch.profiler`` trace per
                form (the device's busy share: the union of kernel and
                memcpy intervals over the wall; the ten device operations
-               that took the most time; the five longest idle gaps, each
-               named by the host spans it fell in); the sections of a
+               that took the most time; the copies by kind, with no
+               pageable host-to-device copy in any form; the five longest
+               idle gaps, each named by the host spans it fell in); the
+               sections of a
                median of 5 warm runs, with the fused host prep split into
                ``_collect_plans`` and ``assemble``, the PERFILE decode's
                O(runs) Python and the in-memory upload's host work
@@ -84,26 +86,45 @@ Phases (any failure exits non-zero):
                checkout, for runs in turns with it);
   8. q6s-parquet — q6's filter grouped by the string key ss_item_id over 4
                files of 2^20 rows (the string kernel's path, cut for time);
+  8b. star   — the star-join reporting queries q3, q42, q52 and q55 of the
+               port's ``bench/tpcds.py`` at SF10: date_dim, item (1,800,000
+               rows) and store_sales (28,800,000 rows, every generator
+               column) from the port's table builders, store_sales as 8
+               Parquet files and each dimension as one, on port sessions on
+               cuda with a 2 GiB broadcast threshold.  Each query prints its
+               physical plan, which must hold two TpuBroadcastHashJoinExec,
+               the device sort and limit, the filters pushed into the
+               filtered dimensions' scans and no host node but the
+               transitions; must match an independent pyarrow computation
+               (integers, strings and row order exact, float sums to
+               tests/parity.py's tolerance); with the counts set to 0
+               before it, must launch every kernel of its path with no
+               fallback but the pinned filterDecode ones, and give each
+               join pair the route the reference's rule gives it; then its
+               cold wall, 5 warm walls with sections, one profiler trace
+               and its peak device memory, host syncs and hash rounds;
   9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
                a dictionary that overflows into PLAIN pages, a 16-character
                string dictionary and a list<int32>, through the PERFILE
                reader, each row group checked against pyarrow;
  10. timing  — per kernel at the shapes and on the inputs the q6 paths
-               gave it (segreduce from every q6 run; later runs' entries are
-               named ``name@q6-parquet`` and ``name@q6-perfile``): a check
+               and the star queries' cold runs gave it (segreduce from every
+               run; later runs' entries are named ``name@q6-parquet``,
+               ``name@q6-perfile`` and ``name@star``): a check
                against the plain version, its time (CUDA events, L2
                flushed), its bytes bound, the plain version's time and a
                library call's where one computes the same function.
 
-Before each q6 path the kernel launch counts are set to 0, and they are
-read just after it: every kernel of the path must have launched, with no
-fallback but the PERFILE path's predicted mixed-width ones.  The line
+Before each q6 path and each star query the kernel launch counts are set
+to 0, and they are read just after it: every kernel of the path must
+have launched, with no fallback but the PERFILE path's predicted
+mixed-width ones and the star queries' pinned filterDecode ones.  The line
 before the last carries the kernel table as JSON, the line before it the
 card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
-q6p, q6pf, session, pipeline, q6s, modes) runs only those phases and
-prints no kernel table; ``session`` alone writes the files and counts the
+q6p, q6pf, session, pipeline, q6s, star, modes) runs only those phases
+and prints no kernel table; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
 makes the in-memory table itself.
 """
@@ -879,6 +900,27 @@ class ShapeRecorder:
             setattr(mod, attr, fn)
 
 
+class DownloadCounter:
+    """Records each ``CopyStream.download`` (the collect's packed
+    download: one wait per call) and the wire dtypes of every batch it
+    copies, one pinned copy each."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.columnar import transfer
+        self._cls = transfer.CopyStream
+        self._orig = orig = self._cls.download
+        self.calls = []
+
+        def download(stream, buffers):
+            self.calls.append([sorted(b) for b in buffers])
+            return orig(stream, buffers)
+        self._cls.download = download
+        return self
+
+    def __exit__(self, *a):
+        self._cls.download = self._orig
+
+
 def q6_reference(table: pa.Table) -> pa.Table:
     f = table.filter(pc.greater(table["ss_sales_price"], 150.0))
     return f.group_by("ss_item_sk").aggregate(
@@ -976,16 +1018,16 @@ TIME_SECTIONS = ("transition.upload", "scan.hostPrepTime", "scan.uploadTime",
                  "scan.dispatch", "scan.decode", "agg.update", "agg.merge")
 
 
-def _sections(plan) -> dict:
-    """Host seconds per exec section of one q6 run: the upload (Arrow ->
-    device in memory; host prep, upload and the fused decode's dispatch
-    for Parquet), the aggregate's update and merge; the rest of the wall
-    is the scan's slicing, finalize and the download."""
+def _sections(plan, keys=TIME_SECTIONS) -> dict:
+    """Host seconds per exec section of one run (``keys``; for q6: the
+    upload (Arrow -> device in memory; host prep, upload and the fused
+    decode's dispatch for Parquet), the aggregate's update and merge; the
+    rest of the wall is the scan's slicing, finalize and the download)."""
     out = {}
 
     def one(node):
         for k, ns in node.metrics.extra.items():
-            if k in TIME_SECTIONS:
+            if k in keys:
                 out[k] = out.get(k, 0.0) + ns / 1e9
     plan.foreach(one)
     return out
@@ -1176,6 +1218,10 @@ HOST_FNS = {
     "perfile": (("spark_rapids_tpu_torch.kernels.decode", "stream_width"),
                 ("spark_rapids_tpu_torch.kernels.decode", "_dense_extent"),
                 ("spark_rapids_tpu_torch.kernels.decode", "_dense_meta"),
+                # the run matrix of a mixed-width stream: built for the
+                # row group's one upload, or uploaded on its own (a
+                # checkout that uploads column by column)
+                ("spark_rapids_tpu_torch.io.device_parquet", "_runs_arrays"),
                 ("spark_rapids_tpu_torch.io.device_parquet", "_upload_runs")),
     "memory": (("spark_rapids_tpu_torch.columnar.batch",
                 "_np_column_from_arrow"),
@@ -1185,12 +1231,15 @@ HOST_FNS = {
 
 class FnTimer:
     """Adds up the host time of module functions while entered, over
-    every thread (the prefetch threads call the fused host prep)."""
+    every thread (the prefetch threads call the fused host prep).  A
+    function the checkout does not have is left out (pipeline_profile.py
+    times another checkout with this script's targets)."""
 
     def __init__(self, targets):
         import importlib
         import threading
-        self.targets = [(importlib.import_module(m), a) for m, a in targets]
+        mods = [(importlib.import_module(m), a) for m, a in targets]
+        self.targets = [(m, a) for m, a in mods if hasattr(m, a)]
         self.seconds = {a: 0.0 for _, a in self.targets}
         self._lock = threading.Lock()
 
@@ -1696,7 +1745,7 @@ def _merge(ivs):
     return out
 
 
-def trace_form(tag: str, run, conf: dict) -> dict:
+def trace_form(tag: str, run, conf: dict, label: str = "pipeline") -> dict:
     """One warm query under torch.profiler (CPU and CUDA) with the span
     tracer on.  The device's busy share is the union of its kernel and
     memcpy/memset intervals over the query's wall; prints the ten device
@@ -1727,7 +1776,7 @@ def trace_form(tag: str, run, conf: dict) -> dict:
     align = [e for e in events if e.name == "pipeline.align"]
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     if not align or not dev:
-        fail(f"pipeline trace {tag}: the profiler recorded "
+        fail(f"{label} trace {tag}: the profiler recorded "
              f"{len(dev)} device operations and {len(align)} markers")
     # profiler microseconds -> host perf_counter nanoseconds
     off_ns = t_align - align[0].time_range.start * 1e3
@@ -1743,6 +1792,8 @@ def trace_form(tag: str, run, conf: dict) -> dict:
         by_name[e.name] = (tot + e.time_range.end - e.time_range.start,
                            n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    copies = {k: v for k, v in sorted(by_name.items())
+              if k.startswith("Memcpy")}
     gaps, prev = [], t0
     for a, b in busy + [(t1, t1)]:
         if a > prev:
@@ -1759,17 +1810,21 @@ def trace_form(tag: str, run, conf: dict) -> dict:
         best = sorted(over.items(), key=lambda kv: -kv[1])[:3]
         return ", ".join(f"{n} ({ov / 1e6:.1f} ms)" for n, ov in best) \
             or "no span"
-    log(f"pipeline trace {tag}: wall {wall_ns / 1e6:.1f} ms, device busy "
+    log(f"{label} trace {tag}: wall {wall_ns / 1e6:.1f} ms, device busy "
         f"{busy_ns / 1e6:.1f} ms = {busy_ns / wall_ns:.1%} of the wall "
         f"(union of {len(dev)} kernel and memcpy/memset intervals; the "
         f"profiler's own host cost is in the wall)")
-    log(f"pipeline trace {tag}: top device operations: " + "; ".join(
+    log(f"{label} trace {tag}: top device operations: " + "; ".join(
         f"{name[:60]} {tot / 1e3:.2f} ms x{n}" for name, (tot, n) in top))
-    log(f"pipeline trace {tag}: longest idle gaps: " + "; ".join(
+    log(f"{label} trace {tag}: copies by kind: " + ("; ".join(
+        f"{name} {tot / 1e3:.3f} ms x{n}"
+        for name, (tot, n) in copies.items()) or "none"))
+    log(f"{label} trace {tag}: longest idle gaps: " + "; ".join(
         f"{(b - a) / 1e6:.2f} ms at +{(a - t0) / 1e6:.1f} ms in "
         f"[{named(a, b)}]" for a, b in gaps))
     return {"wall_ms": wall_ns / 1e6, "busy_ms": busy_ns / 1e6,
-            "busy_share": busy_ns / wall_ns}
+            "busy_share": busy_ns / wall_ns,
+            "copies": {k: n for k, (_t, n) in copies.items()}}
 
 
 def _pinned_peak() -> str:
@@ -1828,6 +1883,13 @@ def phase_pipeline(root: str, table: pa.Table, ref: pa.Table,
                          "is 0: the look-ahead overlapped nothing")
             out[(form, depth)] = counters
     busy = {form: trace_form(form, run, {}) for form, run in forms.items()}
+    # every upload goes through pinned memory on the copy stream, the
+    # PERFILE reader's included
+    for form, b in busy.items():
+        n = b["copies"].get("Memcpy HtoD (Pageable -> Device)", 0)
+        if n:
+            fail(f"pipeline trace {form}: {n} pageable host-to-device "
+                 f"copies")
     for form, run in forms.items():
         depths = (2, 0) if form == "fused" else (2,)
         for depth in depths:
@@ -1837,6 +1899,323 @@ def phase_pipeline(root: str, table: pa.Table, ref: pa.Table,
                 f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
                 + _fmt_ms(sec))
     return busy
+
+
+# ---------------------------------------------------------------------------
+# 8b. the star-join reporting queries at SF10
+# ---------------------------------------------------------------------------
+
+STAR_SF = 10
+STAR_SEED = 7
+STAR_FILES = 8
+STAR_QUERIES = ("q3", "q42", "q52", "q55")
+STAR_TABLES = ("date_dim", "item", "store_sales")
+STAR_CONF = dict(SCAN_CONF, **{
+    "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+    "spark.rapids.tpu.sql.test.enabled": True,
+    # item's size estimate (file bytes x 3) is far over the 10 MiB
+    # default; without a broadcast the planner needs the shuffled join
+    "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 2 << 30})
+# the kernel launches of each star query, pinned from its first run on
+# the H100: the fused scan's unpack, the dictionary gathers the filters
+# pushed into the dimension scans defer (date_dim's ints everywhere;
+# item's i_brand where item is filtered), and the aggregate's gathered
+# segmented scan (each query sums one float64 column; seg_scan_sorted
+# serves COUNT(*), min/max and first/last, which none of them computes)
+STAR_COUNTS = {
+    "q3": {"decode.unpack_bits": 18, "filter_decode.decode": 4,
+           "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 34},
+    "q42": {"decode.unpack_bits": 18, "filter_decode.decode": 1,
+            "segreduce.gather_seg_scan": 34},
+    "q52": {"decode.unpack_bits": 18, "filter_decode.decode": 1,
+            "segreduce.gather_seg_scan": 34},
+    "q55": {"decode.unpack_bits": 19, "filter_decode.decode": 3,
+            "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 34},
+}
+# the pushed filter's own dictionary columns decode eagerly (its operands
+# must exist before the mask does) and the reference counts each as a
+# scan.filterDecode.condition_column fallback of the deferred gathers, once
+# per dimension batch: d_moy (and d_year where the query filters on it),
+# i_manufact_id / i_manager_id where item is filtered.  No kernel falls
+# back to its plain version.
+STAR_FALLBACKS = {q: {"scan.filterDecode.condition_column": n}
+                  for q, n in (("q3", 2), ("q42", 2), ("q52", 2),
+                               ("q55", 3))}
+# the dimension each star query filters in front of its join with it
+STAR_FILTERED = {"q3": ("date_dim", "item"), "q42": ("date_dim",),
+                 "q52": ("date_dim",), "q55": ("date_dim", "item")}
+STAR_SECTIONS = ("scan.hostPrepTime", "scan.uploadTime", "scan.dispatch",
+                 "join.count", "join.emit", "join.probeCount",
+                 "join.probeEmit", "agg.update", "agg.merge", "sort.exec",
+                 "transition.download")
+STAR_COUNTERS = ("join.route.probe", "join.route.sort", "join.hostSyncs",
+                 "join.hashRounds")
+
+
+def star_routes(name: str, batches: int) -> dict:
+    """The routes the reference's rule (tpu_join._probe_code_bits) gives
+    the star query's join pairs, one pair per store_sales batch per join.
+    A filtered dimension's compaction drops its scan's value-range hints:
+    that join takes the sort route (through hash_group_ids, having no
+    narrow code).  An unfiltered item keeps them: the probe route when
+    i_item_sk's bucketed hint plus the null flag fits the direct table
+    (22 bits), else the sort route on the narrow code (at SF10, items
+    1..1.8M take 24 bits, bucketed to 32: 33 bits)."""
+    from spark_rapids_tpu_torch.bench.tpcds import _Sizes
+    from spark_rapids_tpu_torch.columnar.batch import bits_for_range
+    from spark_rapids_tpu_torch.exec import kernel_abi
+    from spark_rapids_tpu_torch.exec.tpu_join import _PROBE_MAX_BITS
+    routes = {"join.route.probe": 0, "join.route.sort": 0}
+    routes["join.route.sort"] += batches           # the date join
+    vb = kernel_abi.bucket_vbits(bits_for_range(1, _Sizes(STAR_SF).ni))
+    probe = "item" not in STAR_FILTERED[name] and vb is not None and \
+        vb + 1 <= _PROBE_MAX_BITS
+    routes["join.route.probe" if probe else "join.route.sort"] += batches
+    return routes
+
+
+def write_star_files(root: str) -> dict:
+    """date_dim, item and store_sales at SF10 from the port's builders
+    (every generator column), store_sales as 8 Parquet files and each
+    dimension as one; returns the tables."""
+    from spark_rapids_tpu_torch.bench import tpcds
+    t0 = time.perf_counter()
+    tables = tpcds.build_tables(STAR_TABLES, STAR_SF, STAR_SEED)
+    t1 = time.perf_counter()
+    for name, t in tables.items():
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        n = STAR_FILES if name == "store_sales" else 1
+        step = -(-t.num_rows // n)
+        for i in range(n):
+            papq.write_table(t.slice(i * step, step),
+                             os.path.join(d, f"part-{i:04d}.parquet"))
+    nbytes = {name: sum(os.path.getsize(os.path.join(root, name, f))
+                        for f in os.listdir(os.path.join(root, name)))
+              for name in tables}
+    log(f"star files: generated {', '.join(f'{k} {v.num_rows} rows' for k, v in tables.items())} "
+        f"at SF{STAR_SF} in {t1 - t0:.1f} s, wrote them in "
+        f"{time.perf_counter() - t1:.1f} s ("
+        + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in nbytes.items())
+        + f"; store_sales in {STAR_FILES} files)")
+    return tables
+
+
+def star_reference(name: str, t: dict) -> pa.Table:
+    """q3/q42/q52/q55 computed with pyarrow alone (Table.join, group_by,
+    sort_by, slice), independent of both engines."""
+    dd, item = t["date_dim"], t["item"]
+    ss = t["store_sales"].select(["ss_sold_date_sk", "ss_item_sk",
+                                  "ss_ext_sales_price"])
+    moy, year = {"q3": (11, None), "q42": (11, 2000), "q52": (12, 1998),
+                 "q55": (11, 1999)}[name]
+    m = pc.equal(dd["d_moy"], moy)
+    if year is not None:
+        m = pc.and_(m, pc.equal(dd["d_year"], year))
+    dd = dd.filter(m).select(["d_date_sk", "d_year"])
+    if name == "q3":
+        item = item.filter(pc.less_equal(item["i_manufact_id"], 100))
+    elif name == "q55":
+        item = item.filter(pc.equal(item["i_manager_id"], 28))
+    j = ss.join(dd, keys="ss_sold_date_sk", right_keys="d_date_sk",
+                join_type="inner", use_threads=True)
+    j = j.join(item.select(["i_item_sk", "i_brand", "i_brand_id",
+                            "i_category_id", "i_category"]),
+               keys="ss_item_sk", right_keys="i_item_sk", join_type="inner")
+    if name == "q42":
+        g = j.group_by(["d_year", "i_category_id", "i_category"]).aggregate(
+            [("ss_ext_sales_price", "sum")])
+        g = g.rename_columns({"ss_ext_sales_price_sum": "total"})
+        g = g.sort_by([("total", "descending"), ("d_year", "ascending"),
+                       ("i_category_id", "ascending"),
+                       ("i_category", "ascending")])
+        out = g.select(["d_year", "i_category_id", "i_category", "total"])
+    elif name == "q55":
+        g = j.group_by(["i_brand", "i_brand_id"]).aggregate(
+            [("ss_ext_sales_price", "sum")])
+        g = g.rename_columns({"ss_ext_sales_price_sum": "ext_price",
+                              "i_brand_id": "brand_id",
+                              "i_brand": "brand"})
+        g = g.sort_by([("ext_price", "descending"), ("brand_id", "ascending")])
+        out = g.select(["brand_id", "brand", "ext_price"])
+    else:
+        agg = "sum_agg" if name == "q3" else "ext_price"
+        g = j.group_by(["d_year", "i_brand", "i_brand_id"]).aggregate(
+            [("ss_ext_sales_price", "sum")])
+        g = g.rename_columns({"ss_ext_sales_price_sum": agg,
+                              "i_brand_id": "brand_id", "i_brand": "brand"})
+        g = g.sort_by([("d_year", "ascending"), (agg, "descending"),
+                       ("brand_id", "ascending")])
+        out = g.select(["d_year", "brand_id", "brand", agg])
+    return out.slice(0, 100)
+
+
+def check_star(name: str, out: pa.Table, ref: pa.Table) -> float:
+    """Integers, strings and row order exact; float sums to
+    tests/parity.py's tolerance (rel 1e-9, abs 1e-11).  Returns the
+    largest relative float difference."""
+    if out.column_names != ref.column_names or out.num_rows != ref.num_rows:
+        fail(f"star {name}: {out.column_names} x {out.num_rows} rows != "
+             f"pyarrow {ref.column_names} x {ref.num_rows}")
+    worst = 0.0
+    for c in ref.column_names:
+        a, b = out[c].to_pylist(), ref[c].to_pylist()
+        if pa.types.is_floating(ref.schema.field(c).type):
+            for x, y in zip(a, b):
+                if not (x is not None and y is not None and
+                        abs(x - y) <= max(1e-9 * max(abs(x), abs(y)),
+                                          1e-11)):
+                    fail(f"star {name}: column {c} {x!r} != pyarrow {y!r}")
+                worst = max(worst, abs(x - y) / max(abs(y), 1e-300))
+        elif a != b:
+            fail(f"star {name}: column {c} differs from pyarrow")
+    if ref.num_rows == 0:
+        fail(f"star {name}: pyarrow's result is empty")
+    return worst
+
+
+def star_run(name: str, root: str):
+    """run(conf) -> (Arrow output, planned plan) of one star query on a
+    fresh port session on cuda over the files."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.bench import tpcds
+
+    def run(conf):
+        s = TpuSparkSession(dict(STAR_CONF, **conf), device="cuda")
+        plans = []
+        s.add_plan_listener(lambda r: plans.append(r.plan))
+        t = {n: s.read.parquet(os.path.join(root, n)) for n in STAR_TABLES}
+        out = tpcds.QUERIES[name](t).collect()
+        return out, plans[-1]
+    return run
+
+
+def _check_star_plan(name: str, plan) -> None:
+    """Both joins broadcast hash joins, the device sort and limit, the
+    filters pushed into the dimension scans, no host node but the
+    transitions."""
+    from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+    nodes = _plan_nodes(plan)
+    names = [type(n).__name__ for n in nodes]
+    if names.count("TpuBroadcastHashJoinExec") != 2:
+        fail(f"star {name}: not two TpuBroadcastHashJoinExec: {names}")
+    for want in ("TpuSortExec", "TpuGlobalLimitExec"):
+        if want not in names:
+            fail(f"star {name}: no {want}: {names}")
+    host = [n for n in names if n not in HOST_OK and
+            not n.startswith("Tpu")]
+    if host:
+        fail(f"star {name}: host nodes {host}")
+    pushed = {n._schema.names[0][:2]: n._pushed_filter is not None
+              for n in nodes if isinstance(n, TpuParquetScanExec)}
+    want = {"d_": True, "i_": "item" in STAR_FILTERED[name], "ss": False}
+    if pushed != want:
+        fail(f"star {name}: filters pushed into the scans {pushed} != "
+             f"{want}")
+
+
+def phase_star():
+    """q3/q42/q52/q55 at SF10 over Parquet on port sessions: plan checks,
+    rows against pyarrow, kernels and routes with the counts set to 0
+    before each query, then the cold wall, 5 warm walls with sections,
+    one profiler trace and the peak device memory per query.  Returns
+    (launches over the four queries, recorded classes, kernel names)."""
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    root = _parquet_dir("star")
+    try:
+        tables = write_star_files(root)
+        t0 = time.perf_counter()
+        refs = {q: star_reference(q, tables) for q in STAR_QUERIES}
+        log(f"star: pyarrow references in {time.perf_counter() - t0:.1f} s")
+        del tables
+        total, names = {}, []
+        # the recorder keeps the inputs of the cold runs' kernel calls
+        shapes = ShapeRecorder()
+        for q in STAR_QUERIES:
+            run = star_run(q, root)
+            view = obsreg.get_registry().view()
+            torch.cuda.reset_peak_memory_stats()
+            kb.reset_counts()
+            t0 = time.perf_counter()
+            with shapes, DownloadCounter() as dl:
+                out, plan = run({})
+                torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            log(f"star {q}: the collect's download: {len(dl.calls)} "
+                f"wait(s); pinned copies per batch, one per wire dtype: "
+                f"{dl.calls}")
+            if len(dl.calls) != 1:
+                fail(f"star {q}: {len(dl.calls)} downloads in one collect")
+            launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+            counters = view.delta()["counters"]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"star {q} plan:\n{plan.tree_string()}")
+            log(f"star {q} cold sections: " + _fmt_ms(
+                _sections(plan, STAR_SECTIONS)))
+            _check_star_plan(q, plan)
+            rel = check_star(q, out, refs[q])
+            batches = len(_scan_of_table(plan, "ss_").
+                          _fused_groups())
+            log(f"star {q}: {out.num_rows} rows match pyarrow (float "
+                f"max rel {rel:.3g}); cold wall {cold * 1e3:.1f} ms; "
+                f"launches {launches}; fallbacks {fallbacks}; "
+                + ", ".join(f"{k} {counters.get(k, 0):.0f}"
+                            for k in STAR_COUNTERS)
+                + f" over {batches} store_sales batches; peak device "
+                f"memory {peak:.2f} GiB")
+            if (launches, fallbacks) != (STAR_COUNTS[q], STAR_FALLBACKS[q]):
+                fail(f"star {q}: launches/fallbacks {launches} {fallbacks} "
+                     f"!= the pinned {STAR_COUNTS[q]} {STAR_FALLBACKS[q]}")
+            if counters.get("join.hostSyncs", 0) != 3 * batches:
+                fail(f"star {q}: {counters.get('join.hostSyncs', 0)} join "
+                     f"host syncs, want 3 per store_sales batch (two counts, "
+                     f"one row-count read)")
+            routes = {k: counters.get(k, 0) for k in STAR_COUNTERS[:2]}
+            want = star_routes(q, batches)
+            if routes != want:
+                fail(f"star {q}: routes {routes} != the reference "
+                     f"rule's {want}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            names += [k for k in STAR_COUNTS[q] if k not in names]
+            sec = _star_sections(run)
+            log(f"star {q} sections (host clock, median of 5 warm "
+                f"runs; runs ms "
+                f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
+                + _fmt_ms(sec))
+            busy = trace_form(f"star {q}", run, {}, label="star")
+            log(f"star {q}: device busy {busy['busy_share']:.1%} of "
+                f"{busy['wall_ms']:.1f} ms")
+        return total, shapes.classes, names
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _scan_of_table(plan, prefix: str):
+    from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+    for n in _plan_nodes(plan):
+        if isinstance(n, TpuParquetScanExec) and \
+                n._schema.names[0].startswith(prefix):
+            return n
+    fail(f"no scan of {prefix}* in the plan")
+
+
+def _star_sections(run, reps: int = 5) -> dict:
+    """Median of ``reps`` warm runs: the wall and every STAR_SECTIONS
+    section (host clock)."""
+    walls, secs = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        _out, plan = run({})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        secs.append(_sections(plan, STAR_SECTIONS))
+    out = {"wall": statistics.median(walls)}
+    for k in sorted({k for s in secs for k in s}):
+        out[k] = statistics.median(s.get(k, 0.0) for s in secs)
+    out["walls"] = walls
+    return out
+
 
 
 # ---------------------------------------------------------------------------
@@ -2023,7 +2402,7 @@ def phase_timing(paths):
 
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
-              "pipeline", "q6s", "modes"]
+              "pipeline", "q6s", "star", "modes"]
 
 
 def main() -> int:
@@ -2069,12 +2448,14 @@ def main() -> int:
     if "q6s" in phases:
         runs["q6s"] = ("q6s-parquet", *phase_q6s_parquet(),
                        ["filter_decode.decode_str"])
+    if "star" in phases:
+        runs["star"] = ("star", *phase_star())
     if "modes" in phases:
         phase_perfile_modes()
     kernels = None
     if set(ALL_PHASES) <= set(phases):
         kernels = phase_timing([runs[k] for k in ("q6", "q6p", "q6s",
-                                                  "q6pf")])
+                                                  "q6pf", "star")])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -18,8 +18,10 @@ runs after a warm-up, on the host clock, of the wall, every exec section
 ``scan.decode``, ``transition.upload``, ``agg.update``, ``agg.merge``)
 and the host functions that split them (the fused host prep's
 ``_collect_plans`` and ``assemble``; the PERFILE decode's O(runs)
-Python: ``stream_width``, ``_dense_extent``, ``_dense_meta``,
-``_upload_runs``; the in-memory upload's ``_np_column_from_arrow`` and
+Python: ``stream_width``, ``_dense_extent``, ``_dense_meta`` and the
+run matrix's ``_runs_arrays`` (``_upload_runs`` in a checkout that
+uploads column by column); the in-memory upload's
+``_np_column_from_arrow`` and
 ``_upload_hints``).  ``DEPTHS`` (default ``2``) lists the
 ``sql.scan.prefetch.depth`` values the fused q6 runs at; a checkout
 that has no prefetcher ignores the key.  Every output is checked

@@ -34,6 +34,7 @@ from spark_rapids_tpu_torch import config as cfg
 from spark_rapids_tpu_torch.api.dataframe import DataFrame
 from spark_rapids_tpu_torch.columnar.batch import resolve_device
 from spark_rapids_tpu_torch.config import RapidsTpuConf
+from spark_rapids_tpu_torch.exec.base import timed
 from spark_rapids_tpu_torch.exec.cpu import concat_tables
 from spark_rapids_tpu_torch.mem import device as devmgr
 from spark_rapids_tpu_torch.plan import logical as lp
@@ -108,8 +109,8 @@ class TpuSparkSession:
         cpu_plan = plan_cpu(plan, self.conf)
         result = TpuOverrides.apply(cpu_plan, self.conf, device=self.device)
         if self.copy_stream is not None:
-            # the uploading execs (HostToDeviceExec, the Parquet scan)
-            # copy on the session's stream
+            # the transfer execs (HostToDeviceExec, DeviceToHostExec,
+            # the Parquet scan) copy on the session's stream
             result.plan.foreach(
                 lambda n: setattr(n, "copy_stream", self.copy_stream)
                 if hasattr(n, "copy_stream") else None)
@@ -156,17 +157,19 @@ class TpuSparkSession:
 
     def _execute_inner(self, plan: lp.LogicalPlan):
         """(planned result, Arrow table) of one query."""
-        from spark_rapids_tpu_torch.columnar.batch import to_arrow
+        from spark_rapids_tpu_torch.columnar.batch import to_arrow_all
         from spark_rapids_tpu_torch.exec.context import set_input_file
         from spark_rapids_tpu_torch.exec.tpu_basic import DeviceToHostExec
         set_input_file("")  # fresh query: no stale input_file_name()
         result = self._plan_physical(plan)
         p = result.plan
         if isinstance(p, DeviceToHostExec):
-            # drain the device plan first, then download batch by batch
-            # (the reference downloads behind one barrier, to_arrow_all)
+            # drain the device plan first, then download every batch
+            # behind one barrier: one packed copy per wire dtype, one
+            # wait for all of them
             batches = self._drain_partitions(p.children[0].execute())
-            tables = [to_arrow(b) for b in batches]
+            with timed(p.metrics, "transition.download"):
+                tables = to_arrow_all(batches, self.copy_stream)
             table = concat_tables(tables, p.schema)
             # the terminal download exec never ran execute(); stamp it
             # with the collected result

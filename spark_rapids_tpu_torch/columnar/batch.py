@@ -20,7 +20,7 @@ else follows the device of the tensors it is given.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -168,6 +168,13 @@ class DeviceBatch:
     @property
     def capacity(self) -> int:
         return self._capacity
+
+    @property
+    def num_cols(self) -> int:
+        return len(self.columns)
+
+    def column(self, name: str) -> DeviceColumn:
+        return self.columns[self.names.index(name)]
 
     def row_mask(self) -> torch.Tensor:
         return torch.arange(self._capacity, device=self.device) < \
@@ -374,24 +381,181 @@ def _strings_to_arrow(data: np.ndarray, lengths: np.ndarray,
          pa.py_buffer(offsets.tobytes()), pa.py_buffer(flat.tobytes())])
 
 
-def _host(a: Optional[torch.Tensor], n: int) -> Optional[np.ndarray]:
-    return None if a is None else a[:n].cpu().numpy()
+# ---------------------------------------------------------------------------
+# Packed download
+# ---------------------------------------------------------------------------
+
+def _pack_wire_key(d: torch.Tensor) -> str:
+    if d.dtype == torch.bool:
+        return "uint8"
+    return str(d.dtype).replace("torch.", "")
+
+
+def _pack_batch_impl(batch: DeviceBatch) -> Dict[str, torch.Tensor]:
+    """One buffer per wire dtype holding the row count and every column's
+    data/validity/lengths/elem_validity at FULL capacity, each a flat
+    view, concatenated on the batch's device."""
+    bufs: Dict[str, List[torch.Tensor]] = {}
+
+    def put(key: str, arr: torch.Tensor) -> None:
+        bufs.setdefault(key, []).append(arr.reshape(-1))
+
+    n = batch.num_rows
+    put("int32", n.reshape(1).to(torch.int32) if isinstance(n, torch.Tensor)
+        else torch.full((1,), int(n), dtype=torch.int32,
+                        device=batch.device))
+    for c in batch.columns:
+        d = c.data
+        put(_pack_wire_key(d), d.to(torch.uint8) if d.dtype == torch.bool
+            else d)
+        put("uint8", c.validity.to(torch.uint8))
+        if c.lengths is not None:
+            put("int32", c.lengths.to(torch.int32))
+        if c.elem_validity is not None:
+            put("uint8", c.elem_validity.to(torch.uint8))
+    return {k: (v[0] if len(v) == 1 else torch.cat(v))
+            for k, v in bufs.items()}
+
+
+def _dispatch_pack(batch: DeviceBatch):
+    """(layout, packed buffers) of one batch; no host read.  The layout is
+    the batch's erased key (exec/kernel_abi.erased_key): the capacity and
+    each column's dtype, width and element-validity flag, from which the
+    host epilogue cuts the packed buffers back into columns."""
+    from spark_rapids_tpu_torch.exec import kernel_abi
+    return kernel_abi.erased_key(batch), _pack_batch_impl(batch)
+
+
+def _download_batch(batch: DeviceBatch, layout,
+                    host: Dict[str, np.ndarray]):
+    """Cut one batch's downloaded buffers back into columns, at the
+    capacity and widths its pack layout recorded.  Returns (num_rows,
+    [(data, validity, lengths, ev), ...]) as numpy arrays at full
+    capacity."""
+    cap, cols_layout = layout[1]
+    pos = {k: 0 for k in host}
+
+    def take(key: str, count: int):
+        off = pos[key]
+        pos[key] = off + count
+        return host[key][off:off + count]
+
+    n = int(take("int32", 1)[0])
+    cols = []
+    for c, (_name, width, has_ev) in zip(batch.columns, cols_layout):
+        shape = (cap, width) if c.dtype.has_lengths else (cap,)
+        count = int(np.prod(shape))
+        data = take(_pack_wire_key(c.data), count).reshape(shape)
+        if c.data.dtype == torch.bool:
+            data = data.astype(bool)
+        validity = take("uint8", cap).astype(bool)
+        lengths = take("int32", cap) if c.lengths is not None else None
+        ev = take("uint8", count).reshape(shape).astype(bool) \
+            if has_ev else None
+        cols.append((data, validity, lengths, ev))
+    return n, cols
+
+
+# Fixed compaction tiers: a batch with a huge capacity but few rows
+# compacts to the smallest tier >= its row count, so the download moves
+# rows, not padding.
+_DL_TIERS = (4096, 65536, 1048576)
+
+
+def _dl_tier(n: int, capacity: int):
+    for t in _DL_TIERS:
+        if n <= t and capacity > 4 * t:
+            return t
+    return None
+
+
+def _read_counts(batches: Sequence[DeviceBatch]) -> None:
+    """Resolve every device row count of ``batches`` with one read."""
+    traced = [b for b in batches
+              if not isinstance(b.num_rows, (int, np.integer))]
+    if traced:
+        counts = torch.stack([b.num_rows.to(torch.int64).reshape(())
+                              for b in traced]).tolist()
+        for b, n in zip(traced, counts):
+            b.num_rows = int(n)
+
+
+def _compact_for_download(batches: Sequence[DeviceBatch]):
+    """Re-bucket batches whose capacity vastly exceeds their row count
+    (an aggregate output that inherited a multi-million-row capacity) so
+    the download moves rows, not padding: each slices to the smallest
+    tier that holds its rows.  The row counts are read once for all
+    batches; then every batch is packed.  (The reference builds one
+    slice and one pack program per tier first; eager torch needs none.)
+
+    Returns (batches, (layout, packed) per batch)."""
+    if any(b.capacity > 4 * _DL_TIERS[0] for b in batches):
+        _read_counts(batches)
+    out, out_packed = [], []
+    for b in batches:
+        tier = _dl_tier(int(b.num_rows), b.capacity) \
+            if isinstance(b.num_rows, (int, np.integer)) else None
+        if tier is not None:
+            b = _slice_head(b, tier)
+        out.append(b)
+        out_packed.append(_dispatch_pack(b))
+    return out, out_packed
+
+
+def _slice_head(batch: DeviceBatch, cap: int) -> DeviceBatch:
+    idx = torch.arange(cap, device=batch.device)
+    valid = idx < batch.num_rows
+    idx = torch.clamp(idx, 0, batch.capacity - 1)
+    cols = [c.gather(idx, valid) for c in batch.columns]
+    return DeviceBatch(batch.names, cols, batch.num_rows, batch.device)
+
+
+def _download_all(packed: Sequence[Dict[str, torch.Tensor]],
+                  copy_stream=None) -> List[Dict[str, np.ndarray]]:
+    """Every packed buffer to the host: on the card one pinned copy per
+    buffer on ``copy_stream`` (a ``columnar/transfer.CopyStream``; a
+    fresh one when None) and one wait on its event; on the CPU the
+    buffers are read in place."""
+    devs = {t.device for p in packed for t in p.values()}
+    if not devs or all(d.type == "cpu" for d in devs):
+        return [{k: t.numpy() for k, t in p.items()} for p in packed]
+    from spark_rapids_tpu_torch.columnar import transfer
+    dev = next(iter(devs))
+    if copy_stream is None:
+        copy_stream = transfer.CopyStream(dev)
+    return copy_stream.download(packed)
+
+
+def to_arrow_all(batches: Sequence[DeviceBatch],
+                 copy_stream=None) -> List[pa.Table]:
+    """Convert many batches: every batch is packed before the first copy,
+    and the host waits once for all copies."""
+    batches, packed = _compact_for_download(batches)
+    host = _download_all([p for _, p in packed], copy_stream)
+    return [_to_arrow_host(b, layout, h)
+            for b, (layout, _), h in zip(batches, packed, host)]
 
 
 def to_arrow(batch: DeviceBatch) -> pa.Table:
-    """Download a DeviceBatch to an Arrow table (strips padding).  The
-    row count is read first, so only live rows cross to the host."""
-    n = int(batch.num_rows)
+    """Download a DeviceBatch to an Arrow table (strips padding), through
+    one packed copy per wire dtype."""
+    return to_arrow_all([batch])[0]
+
+
+def _to_arrow_host(batch: DeviceBatch, layout,
+                   host: Dict[str, np.ndarray]) -> pa.Table:
+    n, host_cols = _download_batch(batch, layout, host)
     arrays, fields = [], []
-    for name, col in zip(batch.names, batch.columns):
-        validity = _host(col.validity, n)
-        data, lengths = _host(col.data, n), _host(col.lengths, n)
+    for name, col, (data, validity, lengths, ev) in zip(
+            batch.names, batch.columns, host_cols):
+        validity = validity[:n]
         mask = ~validity
         if col.dtype.is_string:
             arr = _strings_to_arrow(data, lengths, validity, n)
         elif col.dtype.is_list:
-            ev = np.ones(data.shape, dtype=bool) \
-                if col.elem_validity is None else _host(col.elem_validity, n)
+            data = data[:n]
+            lengths = lengths[:n]
+            ev = np.ones(data.shape, dtype=bool) if ev is None else ev[:n]
             py = []
             for i in range(n):
                 if not validity[i]:
@@ -401,13 +565,13 @@ def to_arrow(batch: DeviceBatch) -> pa.Table:
                                for j in range(lengths[i])])
             arr = pa.array(py, type=col.dtype.to_arrow())
         elif col.dtype.id == dt.TypeId.TIMESTAMP_US:
-            arr = pa.array(data.astype("datetime64[us]"),
+            arr = pa.array(data[:n].astype("datetime64[us]"),
                            type=pa.timestamp("us", tz="UTC"), mask=mask)
         elif col.dtype.id == dt.TypeId.DATE32:
-            arr = pa.array(data.astype("datetime64[D]"), type=pa.date32(),
-                           mask=mask)
+            arr = pa.array(data[:n].astype("datetime64[D]"),
+                           type=pa.date32(), mask=mask)
         else:
-            arr = pa.array(data, mask=mask)
+            arr = pa.array(data[:n], mask=mask)
         arrays.append(arr)
         fields.append(pa.field(name, arr.type))
     return pa.Table.from_arrays(arrays, schema=pa.schema(fields))

@@ -1,4 +1,5 @@
-"""Host-to-device uploads through pinned memory on a copy stream.
+"""Host-to-device uploads and device-to-host downloads through pinned
+memory on a copy stream.
 
 The port's own module: the reference hands its numpy arrays to
 ``jax.device_put``.  On the card an upload here is three steps:
@@ -19,6 +20,11 @@ A pinned buffer is released only after its copy's event has completed:
 the copy stream holds the buffers of each upload until then.  Any
 failure to pin, copy or record raises; nothing falls back to a pageable
 copy.
+
+A download (:meth:`CopyStream.download`, the collect's
+``columnar/batch.to_arrow_all``) goes the other way: the copy stream
+waits for the work already enqueued, copies each packed buffer once into
+pinned host memory, and the host waits on one event for all of them.
 """
 
 from __future__ import annotations
@@ -119,9 +125,51 @@ class CopyStream:
             self.peak_held_bytes = max(self.peak_held_bytes, held)
         return PinnedUpload(out, self.device, event, stage.tensors)
 
+    def download(self, buffers: Sequence[Dict[str, torch.Tensor]]
+                 ) -> List[Dict[str, np.ndarray]]:
+        """Copy every device tensor of ``buffers`` into pinned host memory
+        on this stream (after the work the calling stream has enqueued)
+        and wait once, on one event, for all of them."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        out: List[Dict[str, np.ndarray]] = []
+        with torch.cuda.stream(self.stream):
+            for bufs in buffers:
+                host = {}
+                for k, t in bufs.items():
+                    pinned = torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True)
+                    pinned.copy_(t, non_blocking=True)
+                    t.record_stream(self.stream)
+                    host[k] = pinned
+                out.append(host)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        event.synchronize()
+        return [{k: t.numpy() for k, t in h.items()} for h in out]
+
     def sweep(self) -> None:
         """Release the pinned buffers of every upload whose copies have
         completed (events complete in order on one stream)."""
         with self._lock:
             while self._held and self._held[0][0].query():
                 self._held.popleft()
+
+
+def upload_arrays(arrays: Dict[str, np.ndarray], device,
+                  copy_stream=None) -> Dict[str, torch.Tensor]:
+    """``arrays`` as tensors on ``device``, key by key.  On the CPU they
+    are the arrays themselves (a copy only of a read-only or strided
+    one).  On the card they are written once into one pinned stage and
+    copied in one upload on ``copy_stream`` (a fresh one when None); the
+    calling thread's stream waits for the copies."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {k: torch.from_numpy(
+            a if a.flags.writeable and a.flags.c_contiguous
+            else np.array(a)) for k, a in arrays.items()}
+    stream = copy_stream if copy_stream is not None else CopyStream(dev)
+    stage = PinnedStage()
+    up = stream.upload(stage, {k: stage.put(a) for k, a in arrays.items()})
+    up.wait()
+    return up

@@ -141,11 +141,17 @@ SORT_EXCHANGE = conf(
     "Plan global ORDER BY as a range exchange followed by per-partition "
     "sorts (needs shuffle/exchange.py, not ported yet).", bool)
 
+ENABLE_FLOAT_SORT = conf(
+    "spark.rapids.tpu.sql.sort.float.enabled", True,
+    "Enable sorting on float columns (NaN ordering matches Spark: NaN sorts "
+    "greatest).", bool)
+
 SHUFFLE_TRANSPORT = conf(
     "spark.rapids.tpu.shuffle.transport", "local",
     "Shuffle transport of the reference ('local', 'device', 'manager', "
     "'ici', 'ici_ring', 'process').  The planner reads it to choose the "
-    "two-stage aggregate; the port has no shuffle yet.")
+    "two-stage aggregate; a broadcast join under 'ici'/'ici_ring' raises "
+    "(shuffle/ici.py is not ported yet).")
 
 SHUFFLE_PARTITIONS = conf(
     "spark.rapids.tpu.sql.shuffle.partitions", 8,

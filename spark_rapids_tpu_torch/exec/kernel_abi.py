@@ -11,7 +11,7 @@ aggregate's capacity ladder picks its rung from the capacity.
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import List, Optional
+from typing import Any, List, Optional, Tuple
 
 _enabled = True          # kernel.abi.enabled default
 _tier_stride = 2         # capacity ladder: every 2**stride-th pow2 rung
@@ -133,3 +133,23 @@ def erase(batch):
     out._capacity = cols[0].capacity if cols else batch._capacity
     out.device = batch.device
     return out
+
+
+def layout_key(batch) -> Tuple:
+    """Positional physical layout of a batch: the capacity and, per
+    column, (dtype name, var-len width, has-elem-validity).  No names."""
+    return (batch._capacity,
+            tuple((c.dtype.name,
+                   c.max_len if c.dtype.has_lengths else 0,
+                   c.elem_validity is not None)
+                  for c in batch.columns))
+
+
+def erased_key(batch) -> Any:
+    """The layout under the ABI; with the ABI off, the layout with the
+    batch's names (the reference's named key), so a key taken under one
+    setting never matches one taken under the other.  The layout is
+    always element 1."""
+    if _enabled:
+        return ("abi", layout_key(batch))
+    return ("named", layout_key(batch), tuple(batch.names))

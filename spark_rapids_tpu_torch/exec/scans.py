@@ -286,7 +286,8 @@ def _fold_carries(op, tail_f: torch.Tensor, tail_v: torch.Tensor,
     cf = torch.empty_like(tail_f)
     cv = torch.empty_like(tail_v)
     c_f = torch.zeros((), dtype=torch.bool, device=tail_f.device)
-    c_v = torch.tensor(identity, dtype=tail_v.dtype, device=tail_v.device)
+    c_v = torch.full((), identity, dtype=tail_v.dtype,
+                     device=tail_v.device)
     for i in range(tail_v.shape[0]):
         cf[i], cv[i] = c_f, c_v
         c_v = torch.where(tail_f[i], tail_v[i], op(c_v, tail_v[i]))

@@ -216,3 +216,178 @@ def radix_order_digits(digits: torch.Tensor) -> torch.Tensor:
         _, p = torch.sort(digits[di][perm], stable=True)
         perm = perm[p]
     return perm
+
+
+def radix_order(wm: torch.Tensor) -> torch.Tensor:
+    """Stable lexicographic order of a [m, cap] word matrix (uint64 keys
+    carried in int64, row 0 most significant): one stable sort per word,
+    least significant first, each ordering by the word's unsigned value
+    (:func:`signed_order`)."""
+    cap = wm.shape[1]
+    perm = torch.arange(cap, dtype=torch.int64, device=wm.device)
+    for i in range(wm.shape[0] - 1, -1, -1):
+        _, p = torch.sort(signed_order(wm[i][perm]), stable=True)
+        perm = perm[p]
+    return perm
+
+
+def lexsort_indices(key_groups: List[List[torch.Tensor]],
+                    row_mask: torch.Tensor) -> torch.Tensor:
+    """Stable sort indices; padding rows always sort to the end.
+
+    key_groups: per sort column (primary first), the encode_keys output.
+    """
+    return radix_order(stack_sort_words(key_groups, row_mask))
+
+
+def _starts(x: torch.Tensor) -> torch.Tensor:
+    """True at row 0 and wherever a row differs from the one before."""
+    return torch.cat([torch.ones(1, dtype=torch.bool, device=x.device),
+                      x[1:] != x[:-1]])
+
+
+def group_boundaries(key_groups: List[List[torch.Tensor]],
+                     order: torch.Tensor,
+                     row_mask: torch.Tensor) -> torch.Tensor:
+    """After sorting with `order`, mark rows that start a new key group.
+
+    Null keys compare equal (SQL GROUP BY semantics).  Padding rows always
+    start their own group so they never merge into the last real group.
+    """
+    new_group = _starts(row_mask[order])
+    for group in key_groups:
+        for k in group:
+            new_group = new_group | _starts(k[order])
+    return new_group
+
+
+# ---------------------------------------------------------------------------
+# Standalone sorts shared by the sort, the joins and the aggregate
+# ---------------------------------------------------------------------------
+#
+# The reference runs these as standalone jitted kernels keyed on (word or
+# digit count, capacity) so that XLA compiles each sort once per process;
+# here they are eager torch sorts.
+
+def stack_sort_words(key_groups: List[List[torch.Tensor]],
+                     row_mask: torch.Tensor) -> torch.Tensor:
+    """[m, cap] word matrix, most-significant first, with the padding key
+    leading so padding rows always sort last."""
+    flat: List[torch.Tensor] = []
+    for group in key_groups:
+        flat.extend(group)
+    pad_key = (~row_mask).to(torch.int64)
+    return torch.stack([pad_key] + flat)
+
+
+def stack_sort_digits(field_groups: List[List[Tuple[int, torch.Tensor]]],
+                      row_mask: torch.Tensor) -> torch.Tensor:
+    """Bit-width-aware u32 digit matrix for a full sort spec: the padding
+    flag leads (so padding rows always sort last), then each column's
+    encode_fields output in priority order."""
+    fields: List[Tuple[int, torch.Tensor]] = [
+        (1, (~row_mask).to(torch.int64))]
+    for g in field_groups:
+        fields.extend(g)
+    return fields_to_digits(fields)
+
+
+def shared_digit_sort(digits: torch.Tensor) -> torch.Tensor:
+    """Stable order for a [d, cap] digit matrix (LSB digit first)."""
+    if digits.shape[0] == 1:
+        # everything fits one u32: a single stable sort
+        return torch.sort(digits[0], stable=True)[1]
+    return radix_order_digits(digits)
+
+
+def digit_boundaries(digits: torch.Tensor, order: torch.Tensor,
+                     row_mask: torch.Tensor) -> torch.Tensor:
+    """After sorting with ``order``, mark rows whose key differs from the
+    previous row's (group starts) — the digits analog of
+    group_boundaries.  Padding rows always start their own group."""
+    new_group = _starts(row_mask[order])
+    for di in range(digits.shape[0]):
+        new_group = new_group | _starts(digits[di][order])
+    return new_group
+
+
+def shared_lexsort(wm: torch.Tensor) -> torch.Tensor:
+    """Stable sort order for a [m, cap] word matrix."""
+    return radix_order(wm)
+
+
+DUMP_SLOTS = 1 << 16
+
+
+def dump_where(keep: torch.Tensor, idx: torch.Tensor, n: int
+               ) -> torch.Tensor:
+    """Scatter targets for a reducing scatter into a buffer of
+    ``n + DUMP_SLOTS``: ``idx`` where ``keep``, else one of the spare
+    slots past ``n``, chosen by row.  A row that only drops (a padding
+    row, one that claims nothing) must not land on one shared slot: the
+    scatter's atomics on a single address serialize, which took hundreds
+    of milliseconds per call on the H100 at 2^24 rows."""
+    spare = torch.arange(idx.shape[0], device=idx.device) & (DUMP_SLOTS - 1)
+    return torch.where(keep, idx, n + spare)
+
+
+def hash_group_ids(words: List[torch.Tensor], row_mask: torch.Tensor):
+    """Dense group ids for equal-key rows WITHOUT sorting: linear-probe
+    hash build with scatter claims (the cudf hash-groupby analog).
+
+    Returns (seg, n_groups): seg[i] in [0, n_groups) for real rows —
+    equal keys share an id — and cap-1 for padding rows (safe: padding
+    implies n_groups < cap).  Ids are dense but hash-ordered, and equal
+    the reference's id for id: the FNV-1a hash is the reference's uint32
+    arithmetic in int64 masked to 32 bits, and each claim round takes
+    the smallest claiming row per slot, as its scatter-min does.
+
+    Each round reads whether any row is unresolved (one host sync, the
+    reference's ``while_loop`` condition); the rounds are counted in the
+    ``join.hashRounds`` registry counter."""
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    cap = int(row_mask.shape[0])
+    dev = row_mask.device
+    wm = torch.stack(words)                    # [W, cap] int64-carried u64
+    h = torch.full((cap,), 2166136261, dtype=torch.int64, device=dev)
+    for i in range(wm.shape[0]):
+        for part in (wm[i] & _MASK32, (wm[i] >> 32) & _MASK32):
+            h = ((h ^ part) * 16777619) & _MASK32
+    # the probe wraparound is a bitmask, so the table size is a power of
+    # two whatever the batch capacity
+    T = 1
+    while T < 2 * cap:
+        T <<= 1
+    tmask = T - 1
+    maxi = int(np.iinfo(np.int32).max)
+    row_idx = torch.arange(cap, dtype=torch.int64, device=dev)
+    slot = torch.where(row_mask, h & tmask, 0)
+    resolved = ~row_mask
+    owner = torch.full((T,), -1, dtype=torch.int64, device=dev)
+    rounds = 0
+    while bool((~resolved).any()):
+        rounds += 1
+        unres = ~resolved
+        own = owner[slot]
+        cand = torch.where(unres & (own < 0), row_idx, maxi)
+        claimed = torch.full((T + DUMP_SLOTS,), maxi, dtype=torch.int64,
+                             device=dev)
+        claimed.scatter_reduce_(0, dump_where(cand < maxi, slot, T),
+                                cand, "amin")
+        claimed = claimed[:T]
+        owner = torch.where((owner < 0) & (claimed < maxi), claimed, owner)
+        own2 = owner[slot]
+        ref = torch.clamp(own2, 0, cap - 1)
+        eq = own2 >= 0
+        for i in range(wm.shape[0]):
+            eq = eq & (wm[i] == wm[i][ref])
+        done = (own2 == row_idx) | eq
+        resolved = resolved | (unres & done)
+        slot = torch.where(resolved, slot, (slot + 1) & tmask)
+    obsreg.get_registry().inc("join.hashRounds", rounds)
+    used = owner >= 0
+    dense = torch.cumsum(used.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_groups = used.to(torch.int32).sum()
+    seg = torch.where(row_mask, dense[slot],
+                      torch.full((), cap - 1, dtype=torch.int32, device=dev))
+    return seg, n_groups

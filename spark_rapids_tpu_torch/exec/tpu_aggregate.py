@@ -164,8 +164,8 @@ class _SortedCtx:
         return self._seg_extreme(x, mask, fill, torch.maximum)
 
     def _seg_extreme(self, x, mask, fill, op) -> torch.Tensor:
-        xm = torch.where(mask, x, torch.tensor(fill, dtype=x.dtype,
-                                               device=x.device))
+        xm = torch.where(mask, x, torch.full((), fill, dtype=x.dtype,
+                                             device=x.device))
         name = self._kernel_op(op, x.dtype, xm.dim())
         if name:
             s = kseg.gather_seg_scan(xm, self.order, self.new, name, fill)
@@ -466,7 +466,7 @@ def _group_ctx(key_vals: List[ColVal], cap: int, n_rows,
         return _SortedCtx(
             order=i32, new=(i32 == 0), gid_sorted=zeros, start_pos=zeros,
             end_pos=end, sorted_mask=row_mask, cap=cap, row_mask=row_mask,
-            n_groups=torch.tensor(1, device=device))
+            n_groups=torch.ones((), dtype=torch.int64, device=device))
 
     fields = [(1, (~row_mask).to(torch.int64))]  # padding sorts last
     total_bits = 1

@@ -22,7 +22,7 @@ from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
                                                    compact_arrays,
                                                    concat_batches,
                                                    from_arrow,
-                                                   resolve_device, to_arrow)
+                                                   resolve_device, to_arrow_all)
 from spark_rapids_tpu_torch.exec.base import (CoalesceGoal, PhysicalPlan,
                                               RequireSingleBatch, TargetSize,
                                               TpuExec, timed)
@@ -91,11 +91,16 @@ class HostToDeviceExec(TpuExec):
 
 
 class DeviceToHostExec(PhysicalPlan):
-    """Download DeviceBatches to host Arrow (the terminal transition)."""
+    """Download DeviceBatches to host Arrow (the terminal transition).
+
+    Each partition's batches download together through
+    ``columnar/batch.to_arrow_all``: one packed copy per wire dtype, on
+    ``copy_stream`` (the session's; a fresh one when None)."""
 
     def __init__(self, child: PhysicalPlan):
         super().__init__()
         self.children = (child,)
+        self.copy_stream = None
 
     @property
     def schema(self) -> Schema:
@@ -103,8 +108,10 @@ class DeviceToHostExec(PhysicalPlan):
 
     def execute(self):
         def run(it):
-            for b in it:
-                yield to_arrow(b)
+            batches = list(it)
+            with timed(self.metrics, "transition.download"):
+                tables = to_arrow_all(batches, self.copy_stream)
+            yield from tables
         return [run(it) for it in self.children[0].execute()]
 
 

@@ -270,10 +270,10 @@ def _float_to_int(x: torch.Tensor, tgt: dt.DType) -> torch.Tensor:
     hi = x >= float(info.max) + 1.0
     lo = x <= float(info.min)
     inner = torch.where(hi | lo, 0.0, x).to(t)
-    return torch.where(hi, torch.tensor(int(info.max), dtype=t,
-                                        device=x.device),
-                       torch.where(lo, torch.tensor(int(info.min), dtype=t,
-                                                    device=x.device),
+    return torch.where(hi, torch.full((), int(info.max), dtype=t,
+                                      device=x.device),
+                       torch.where(lo, torch.full((), int(info.min), dtype=t,
+                                                  device=x.device),
                                    inner))
 
 

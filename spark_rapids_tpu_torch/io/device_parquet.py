@@ -45,6 +45,7 @@ from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
                                                    bucket_rows, from_arrow,
                                                    resolve_device,
                                                    scatter_drop)
+from spark_rapids_tpu_torch.columnar.transfer import upload_arrays
 from spark_rapids_tpu_torch.io import parquet_meta as pm
 from spark_rapids_tpu_torch.kernels.decode import _as_int32
 from spark_rapids_tpu_torch.plan.logical import Schema
@@ -242,12 +243,11 @@ def expand_runs_matrix(runs_mat: torch.Tensor, packed: torch.Tensor,
                                  unpacked) & 0xFFFFFFFF)
 
 
-def _upload_runs(runs: "RunTable", packed: bytes, device) -> dict:
-    """A run table as two device tensors: the ``[rcap, 5]`` int64 run
-    matrix (padding rows end at 2^62) and the packed bytes, padded to a
+def _runs_arrays(runs: "RunTable", packed: bytes) -> dict:
+    """A run table as two host arrays: the ``[rcap, 5]`` int64 run matrix
+    (padding rows end at 2^62) and the packed bytes, padded to a
     64-byte-tier length.  The matrix fills column by column from the
     table's arrays."""
-    dev = torch.device(device)
     n = runs.counts.shape[0]
     rcap = bucket_rows(max(n, 1), 8)
     mat = np.zeros((rcap, 5), dtype=np.int64)
@@ -261,21 +261,19 @@ def _upload_runs(runs: "RunTable", packed: bytes, device) -> dict:
         mat[0, 0] = 0      # the cumulative end of the empty table
     pk = np.zeros(bucket_rows(max(len(packed), 4), 64), dtype=np.uint8)
     pk[:len(packed)] = np.frombuffer(packed, dtype=np.uint8)
-    return dict(runs_mat=torch.from_numpy(mat).to(dev),
-                packed=torch.from_numpy(pk).to(dev))
+    return dict(runs_mat=mat, packed=pk)
 
 
-def expand_runs(runs: "RunTable", packed: bytes, cap: int,
-                device) -> torch.Tensor:
-    """The window-gather expansion of one stream (the reference's XLA
-    path of ``expand_stream``): raises :class:`UnsupportedChunk` for a
-    bit-packed width past ``_MAX_W``, so the column takes the host
-    fallback as in the reference."""
+def expand_runs_arrays(runs: "RunTable", packed: bytes) -> dict:
+    """The arrays the window-gather expansion (:func:`expand_runs_matrix`,
+    the reference's XLA path of ``expand_stream``) uploads for one
+    stream; raises :class:`UnsupportedChunk` for a bit-packed width past
+    ``_MAX_W``, so the column takes the host fallback as in the
+    reference."""
     wmax = int(runs.widths[~runs.is_rle].max(initial=0))
     if wmax > _MAX_W:
         raise UnsupportedChunk(f"dict bit width {wmax}")
-    d = _upload_runs(runs, packed, device)
-    return expand_runs_matrix(d["runs_mat"], d["packed"], cap)
+    return _runs_arrays(runs, packed)
 
 
 def _def_expand(levels: torch.Tensor, values: torch.Tensor, n_rows: int,
@@ -518,61 +516,109 @@ def decode_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType, cap: int,
                        device=device)
 
 
-def decode_plan(p: ChunkPlan, cap: int, device="cuda") -> DeviceColumn:
+def decode_plan(p: ChunkPlan, cap: int, device="cuda",
+                copy_stream=None) -> DeviceColumn:
     """Decode one host-walked ChunkPlan (possibly from the scan-plan
     cache, io/scan_cache.py) into a DeviceColumn of capacity cap on
-    ``device``.  The plan is shared across queries and threads and is
-    not modified."""
-    from spark_rapids_tpu_torch.kernels import decode as kdec
+    ``device``: its host arrays upload together (on the card through one
+    pinned stage on ``copy_stream``).  The plan is shared across queries
+    and threads and is not modified."""
     dev = resolve_device(device)
+    preps, arrays = _plan_host(p, dev)
+    return _plan_device(p, preps, upload_arrays(arrays, dev, copy_stream),
+                        cap, dev)
+
+
+def _sub(tensors: dict, prefix: str) -> dict:
+    """The entries of ``tensors`` under ``prefix.``, without it."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in tensors.items()
+            if k.startswith(prefix + ".")}
+
+
+def _plan_host(p: ChunkPlan, dev: torch.device):
+    """The host half of :func:`decode_plan`: the stream preps
+    (kernels/decode.stream_prep) and every array the decode uploads,
+    keyed ``<stream>.<array>`` for the streams."""
+    from spark_rapids_tpu_torch.kernels import decode as kdec
+    out_dtype = p.out_dtype
+    vcap = bucket_rows(max(p.n_rows, 1))
+    preps, arrays = {}, {}
+
+    def stream(name, runs, packed):
+        preps[name] = kdec.stream_prep(runs, packed, vcap, dev)
+        arrays.update({f"{name}.{k}": a
+                       for k, a in preps[name][2].items()})
+
+    if p.nullable:
+        stream("def", p.def_runs, p.def_packed)
+    np_t = out_dtype.to_np() if not out_dtype.is_string else None
+    if p.mode in ("dict", "dict_str"):
+        stream("idx", p.val_runs, p.val_packed)
+        if out_dtype.is_string:
+            arrays["dict"] = p.dict_np
+            arrays["dict_lens"] = p.dict_lens
+        else:
+            arrays["dict"] = p.dict_np.astype(np_t, copy=False)
+    elif p.mode == "bool":
+        stream("val", p.val_runs, p.val_packed)
+    elif p.mode == "mixed":
+        # dict-coded and PLAIN page segments merge in page order through
+        # per-value source selectors built on the host
+        stream("idx", p.val_runs, p.val_packed)
+        arrays["dict"] = p.dict_np.astype(np_t, copy=False)
+        arrays["plain"] = _pad_np(p.plain_np.astype(np_t, copy=False), vcap)
+        kinds = np.array([k == "dict" for k, _ in p.page_segs])
+        counts = np.array([c for _, c in p.page_segs], dtype=np.int64)
+        sel = np.repeat(kinds, counts)
+        arrays["sel"] = _pad_np(sel, vcap)
+        arrays["di"] = _pad_np((np.cumsum(sel) - 1).astype(np.int32), vcap)
+        arrays["pi"] = _pad_np((np.cumsum(~sel) - 1).astype(np.int32), vcap)
+    else:
+        arrays["plain"] = _pad_np(p.plain_np, vcap)
+    return preps, arrays
+
+
+def _plan_device(p: ChunkPlan, preps: dict, t: dict, cap: int,
+                 dev: torch.device) -> DeviceColumn:
+    """The device half of :func:`decode_plan`, over the uploaded arrays
+    ``t``."""
+    from spark_rapids_tpu_torch.kernels import decode as kdec
     out_dtype = p.out_dtype
     n_rows = p.n_rows
-
-    def upload(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
     vcap = bucket_rows(max(n_rows, 1))
-    levels = kdec.expand_stream(p.def_runs, p.def_packed, vcap, dev) \
-        if p.nullable else None
-    np_t = out_dtype.to_np() if not out_dtype.is_string else None
+
+    def expand(name):
+        return kdec.stream_expand(preps[name], _sub(t, name), vcap)
+
+    levels = expand("def") if p.nullable else None
     live = torch.arange(vcap, device=dev) < n_rows
 
     if p.mode in ("dict", "dict_str"):
-        indices = kdec.expand_stream(p.val_runs, p.val_packed, vcap, dev)
+        indices = expand("idx")
         valid = live
         if p.nullable:
             indices, valid = _def_expand(levels, indices, n_rows, vcap)
         if out_dtype.is_string:
-            data = _dict_gather(indices, upload(p.dict_np), valid)
-            lengths = _dict_gather(indices, upload(p.dict_lens), valid)
+            data = _dict_gather(indices, t["dict"], valid)
+            lengths = _dict_gather(indices, t["dict_lens"], valid)
             return _to_cap(DeviceColumn(out_dtype, data, valid,
                                         lengths.to(torch.int32)), cap)
-        data = _dict_gather(indices, upload(p.dict_np.astype(
-            np_t, copy=False)), valid)
+        data = _dict_gather(indices, t["dict"], valid)
         return _to_cap(DeviceColumn(out_dtype, data, valid), cap)
 
     if p.mode == "bool":
-        vals = kdec.expand_stream(p.val_runs, p.val_packed, vcap, dev) != 0
+        vals = expand("val") != 0
     elif p.mode == "mixed":
-        # dict-coded and PLAIN page segments merge in page order through
-        # per-value source selectors built on the host
-        indices = kdec.expand_stream(p.val_runs, p.val_packed, vcap, dev)
-        dvals = upload(p.dict_np.astype(np_t, copy=False))
+        indices = expand("idx")
+        dvals = t["dict"]
         d_vals = dvals[torch.clamp(indices, 0, dvals.shape[0] - 1).long()]
-        p_vals = upload(_pad_np(p.plain_np.astype(np_t, copy=True), vcap))
-        kinds = np.array([k == "dict" for k, _ in p.page_segs])
-        counts = np.array([c for _, c in p.page_segs], dtype=np.int64)
-        sel = np.repeat(kinds, counts)
-        di = np.cumsum(sel) - 1
-        pi = np.cumsum(~sel) - 1
-        sel_d = upload(_pad_np(sel, vcap))
-        di_d = upload(_pad_np(di.astype(np.int32), vcap))
-        pi_d = upload(_pad_np(pi.astype(np.int32), vcap))
-        vals = torch.where(sel_d,
-                           d_vals[torch.clamp(di_d, 0, vcap - 1).long()],
-                           p_vals[torch.clamp(pi_d, 0, vcap - 1).long()])
+        vals = torch.where(
+            t["sel"],
+            d_vals[torch.clamp(t["di"], 0, vcap - 1).long()],
+            t["plain"][torch.clamp(t["pi"], 0, vcap - 1).long()])
     else:
-        vals = upload(_pad_np(p.plain_np.copy(), vcap))
+        vals = t["plain"]
 
     if p.nullable:
         data, valid = _def_expand(levels, vals, n_rows, vcap)
@@ -648,16 +694,20 @@ def decode_row_group(path, row_group: int, schema: Schema,
                      parquet_file=None,
                      source_key: Optional[tuple] = None,
                      metrics=None,
-                     device="cuda") -> Tuple[DeviceBatch, List[str]]:
-    """Decode one row group to a DeviceBatch on ``device``.
+                     device="cuda",
+                     copy_stream=None) -> Tuple[DeviceBatch, List[str]]:
+    """Decode one row group to a DeviceBatch on ``device``.  The host
+    arrays of every device-decoded column upload together: on the card
+    through one pinned stage on ``copy_stream`` (a
+    ``columnar/transfer.CopyStream``; a fresh one when None).
 
     Returns (batch, fallback_columns): fallback columns were decoded on
     the host by Arrow because their chunks use encodings or types the
     device path does not cover.  The host walk of a chunk may fail in any
     way (an unsupported chunk, a malformed page) and its column falls
-    back alone; the device half raises only ``UnsupportedChunk`` for a
-    fallback (a mixed-width stream past 24 bits) and lets every other
-    error through.
+    back alone; preparing its arrays raises only ``UnsupportedChunk``
+    for a fallback (a stream past 24 bits), and the device half lets
+    every error through.
 
     ``path`` may also be an in-memory Parquet blob (bytes).
     ``source_key`` (io/scan_cache.handle_key) enables the scan-plan cache
@@ -675,9 +725,13 @@ def decode_row_group(path, row_group: int, schema: Schema,
     n_rows = md.row_group(row_group).num_rows
     cap = bucket_rows(max(n_rows, 1))
 
-    cols: List[DeviceColumn] = []
+    cols: List[Optional[DeviceColumn]] = []
     fallbacks: List[str] = []
     fb_pf = None    # one transient open shared by all fallback columns
+    # (column index, plan, stream preps) of each device-decoded column;
+    # their host arrays upload together, keyed "<column index>.<array>"
+    decodes = []
+    arrays = {}
 
     def fb_reader():
         nonlocal fb_pf
@@ -705,24 +759,35 @@ def decode_row_group(path, row_group: int, schema: Schema,
                                              metrics=metrics)
             except Exception:
                 plan = None
-            col = None
+            host = None
             if plan is not None:
                 try:
-                    col = _decode_list_plan(plan, cap, dev) \
-                        if f.dtype.is_list else decode_plan(plan, cap, dev)
+                    host = (None, _list_host(plan, cap)) \
+                        if f.dtype.is_list else _plan_host(plan, dev)
                 except UnsupportedChunk:
-                    col = None
-            if col is None:
+                    host = None
+            if host is None:
                 fallbacks.append(name)
                 t = fb_reader().read_row_group(row_group, columns=[name])
-                col = from_arrow(_cast_one(t, f), capacity=cap,
-                                 device=dev).columns[0]
-            cols.append(col)
+                cols.append(from_arrow(_cast_one(t, f), capacity=cap,
+                                       device=dev,
+                                       copy_stream=copy_stream).columns[0])
+                continue
+            k = len(cols)
+            decodes.append((k, plan, host[0]))
+            arrays.update({f"{k}.{a}": v for a, v in host[1].items()})
+            cols.append(None)
     finally:
         if fb_pf is not None and fb_pf is not pf:
             fb_pf.close()
         if opened:
             pf.close()
+    if decodes:
+        t = upload_arrays(arrays, dev, copy_stream)
+        for k, plan, preps in decodes:
+            mine = _sub(t, str(k))
+            cols[k] = _list_device(plan, mine, cap, dev) if preps is None \
+                else _plan_device(plan, preps, mine, cap, dev)
     return DeviceBatch(list(wanted), cols, n_rows, dev), fallbacks
 
 
@@ -922,50 +987,73 @@ def _plan_list_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType,
         plain_np=plain_np)
 
 
-def _decode_list_plan(lp: ListPlan, cap: int, device) -> DeviceColumn:
-    """Device half of the list decode: element values (dictionary
-    indices through the window-gather expansion, as in the reference),
-    then the scatters into the ``[cap, L]`` data and element-validity
-    matrices."""
+def _decode_list_plan(lp: ListPlan, cap: int, device,
+                      copy_stream=None) -> DeviceColumn:
+    """Decode a list plan: its host arrays upload together (on the card
+    through one pinned stage on ``copy_stream``), then the device half."""
     dev = torch.device(device)
+    arrays = _list_host(lp, cap)
+    return _list_device(lp, upload_arrays(arrays, dev, copy_stream), cap,
+                        dev)
+
+
+def _list_host(lp: ListPlan, cap: int) -> dict:
+    """The host arrays of a list decode: the dictionary indices' run
+    matrix and bytes (or the PLAIN values), the element scatter targets
+    and the row validity and lengths."""
     L = lp.L
-    el_t = lp.out_dtype.element.to_torch()
     el_np = lp.out_dtype.element.to_np()
-    vcap = bucket_rows(max(lp.n_vals, 1))
+    arrays = {}
     if lp.idx_runs is not None:
-        d = _upload_runs(lp.idx_runs, lp.idx_packed, dev)
-        indices = expand_runs_matrix(d["runs_mat"], d["packed"], vcap)
-        d_vals = torch.from_numpy(lp.dict_np.astype(el_np)).to(dev)
-        vals = d_vals[torch.clamp(indices, 0, d_vals.shape[0] - 1).long()]
+        arrays.update({f"idx.{k}": a for k, a in
+                       _runs_arrays(lp.idx_runs, lp.idx_packed).items()})
+        arrays["dict"] = lp.dict_np.astype(el_np)
     else:
-        vals = torch.from_numpy(_pad_np(lp.plain_np.astype(el_np,
-                                                           copy=True),
-                                        vcap)).to(dev)
-
-    nv = lp.flat_val.shape[0]
-    fcap = bucket_rows(max(nv, 1))
-    fidx = torch.from_numpy(_pad_np(lp.flat_val.astype(np.int64), fcap,
-                                    fill=cap * L)).to(dev)
-    src = vals[:fcap] if vals.shape[0] >= fcap else torch.cat(
-        [vals, vals.new_zeros(fcap - vals.shape[0])])
-    src = torch.where(torch.arange(fcap, device=dev) < nv, src,
-                      torch.zeros((), dtype=el_t, device=dev))
-    data = scatter_drop(fidx, src, cap * L).reshape(cap, L)
-
+        arrays["plain"] = _pad_np(lp.plain_np.astype(el_np),
+                                  bucket_rows(max(lp.n_vals, 1)))
+    fcap = bucket_rows(max(lp.flat_val.shape[0], 1))
+    arrays["fidx"] = _pad_np(lp.flat_val.astype(np.int64), fcap,
+                             fill=cap * L)
     acap = bucket_rows(max(lp.flat_all.shape[0], 1))
-    aidx = torch.from_numpy(_pad_np(lp.flat_all.astype(np.int64), acap,
-                                    fill=cap * L)).to(dev)
-    ev_src = torch.from_numpy(_pad_np(lp.has_val_slot.astype(bool),
-                                      acap)).to(dev)
-    ev = scatter_drop(aidx, ev_src, cap * L).reshape(cap, L)
-
+    arrays["aidx"] = _pad_np(lp.flat_all.astype(np.int64), acap,
+                             fill=cap * L)
+    arrays["ev_src"] = _pad_np(lp.has_val_slot.astype(bool), acap)
     n_rows = lp.n_rows
     validity = np.zeros(cap, dtype=bool)
     validity[:n_rows] = lp.row_valid
     lens_full = np.zeros(cap, dtype=np.int32)
     lens_full[:n_rows] = np.where(lp.row_valid, lp.lengths[:n_rows], 0)
-    return DeviceColumn(lp.out_dtype, data, torch.from_numpy(validity).to(dev),
-                        torch.from_numpy(lens_full).to(dev), ev)
+    arrays["validity"] = validity
+    arrays["lengths"] = lens_full
+    return arrays
+
+
+def _list_device(lp: ListPlan, t: dict, cap: int,
+                 dev: torch.device) -> DeviceColumn:
+    """Device half of the list decode: element values (dictionary
+    indices through the window-gather expansion, as in the reference),
+    then the scatters into the ``[cap, L]`` data and element-validity
+    matrices."""
+    L = lp.L
+    el_t = lp.out_dtype.element.to_torch()
+    vcap = bucket_rows(max(lp.n_vals, 1))
+    if lp.idx_runs is not None:
+        d = _sub(t, "idx")
+        indices = expand_runs_matrix(d["runs_mat"], d["packed"], vcap)
+        d_vals = t["dict"]
+        vals = d_vals[torch.clamp(indices, 0, d_vals.shape[0] - 1).long()]
+    else:
+        vals = t["plain"]
+
+    nv = lp.flat_val.shape[0]
+    fcap = t["fidx"].shape[0]
+    src = vals[:fcap] if vals.shape[0] >= fcap else torch.cat(
+        [vals, vals.new_zeros(fcap - vals.shape[0])])
+    src = torch.where(torch.arange(fcap, device=dev) < nv, src,
+                      torch.zeros((), dtype=el_t, device=dev))
+    data = scatter_drop(t["fidx"], src, cap * L).reshape(cap, L)
+    ev = scatter_drop(t["aidx"], t["ev_src"], cap * L).reshape(cap, L)
+    return DeviceColumn(lp.out_dtype, data, t["validity"], t["lengths"], ev)
 
 
 def decode_list_chunk(chunk: pm.ChunkPages, out_dtype: dt.DType, cap: int,

@@ -188,10 +188,13 @@ class TpuParquetScanExec(TpuExec):
         from spark_rapids_tpu_torch.io import device_parquet as devpq
         from spark_rapids_tpu_torch.io import scan_cache as sc
         path, pf = fctx
+        if self.device.type == "cuda" and self.copy_stream is None:
+            from spark_rapids_tpu_torch.columnar.transfer import CopyStream
+            self.copy_stream = CopyStream(self.device)
         return devpq.decode_row_group(
             path, idx, file_schema, columns=file_cols, parquet_file=pf,
             source_key=sc.handle_key(pf, path), metrics=self.metrics,
-            device=self.device)
+            device=self.device, copy_stream=self.copy_stream)
 
     # -- fused coalescing reader -------------------------------------------
 

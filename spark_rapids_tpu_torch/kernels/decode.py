@@ -401,17 +401,18 @@ def expand_device(table: torch.Tensor, packed: torch.Tensor, w: int,
     return kernel_expand(table, packed, w, ncap, cap)
 
 
-def expand_stream(runs, packed: bytes, cap: int,
-                  device="cuda") -> torch.Tensor:
-    """Expand one hybrid RLE / bit-packed stream to ``[cap]`` values on
-    ``device`` (int32 bit patterns of the reference's uint32): the run
-    table and the packed bytes are the two uploads."""
+def stream_prep(runs, packed: bytes, cap: int, dev: torch.device):
+    """The host half of :func:`expand_stream`: ``(width, ncap, arrays)``
+    for the kernel route, whose arrays are the run table and the packed
+    bytes, or ``(None, None, arrays)`` for the window-gather composition
+    (``io/device_parquet.expand_runs_matrix``), whose arrays are its run
+    matrix and bytes.  The route is chosen (and a fallback counted)
+    here."""
     from spark_rapids_tpu_torch.columnar.batch import bucket_rows
     from spark_rapids_tpu_torch.io import device_parquet as dp
-    dev = torch.device(device)
     ok, w, reason = stream_width(runs)
     if kb.choose("decode.expand", ok, reason) == kb.XLA:
-        return dp.expand_runs(runs, packed, cap, dev)
+        return None, None, dp.expand_runs_arrays(runs, packed)
     ncap = bucket_rows(max(_dense_extent(runs, w), 1), 32)
     if dev.type == "cpu" and not _expand_supported(w, ncap, cap):
         kb.record_fallback("decode.expand", "shape")
@@ -420,5 +421,26 @@ def expand_stream(runs, packed: bytes, cap: int,
     pbytes = np.zeros(max(ncap * w // 8, 4), dtype=np.uint8)
     src = np.frombuffer(packed, dtype=np.uint8)[:pbytes.shape[0]]
     pbytes[:src.shape[0]] = src
-    return expand_device(torch.from_numpy(table).to(dev),
-                         torch.from_numpy(pbytes).to(dev), w, ncap, cap)
+    return w, ncap, {"table": table, "packed": pbytes}
+
+
+def stream_expand(prep, tensors, cap: int) -> torch.Tensor:
+    """The device half of :func:`expand_stream`, from :func:`stream_prep`'s
+    result and its arrays uploaded under the same keys."""
+    from spark_rapids_tpu_torch.io import device_parquet as dp
+    w, ncap, _ = prep
+    if w is None:
+        return dp.expand_runs_matrix(tensors["runs_mat"], tensors["packed"],
+                                     cap)
+    return expand_device(tensors["table"], tensors["packed"], w, ncap, cap)
+
+
+def expand_stream(runs, packed: bytes, cap: int,
+                  device="cuda") -> torch.Tensor:
+    """Expand one hybrid RLE / bit-packed stream to ``[cap]`` values on
+    ``device`` (int32 bit patterns of the reference's uint32): the run
+    table and the packed bytes are the two uploads."""
+    dev = torch.device(device)
+    prep = stream_prep(runs, packed, cap, dev)
+    return stream_expand(prep, {k: torch.from_numpy(a).to(dev)
+                                for k, a in prep[2].items()}, cap)

@@ -20,11 +20,12 @@ reference's:
      (``spark.rapids.tpu.sql.explain=NOT_ON_TPU|ALL``).
 
 Rules exist for the execs the port has: Project, Filter, HashAggregate,
-Range, Union, GlobalLimit, Expand and the Parquet file scan (the
-in-memory scan stays a host node under its HostToDevice transition).
-Sort, the joins, Window, Generate, the exchanges and cache scans have no
+Range, Union, GlobalLimit, Expand, Sort, the broadcast hash join, the
+broadcast nested-loop join, the cartesian product and the Parquet file
+scan (the in-memory scan stays a host node under its HostToDevice
+transition).  Window, Generate, the exchanges and cache scans have no
 rule yet: they plan as CPU nodes with the reference's reason "no TPU
-replacement for ...".
+replacement for ...", and the planner raises for the shuffled join.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from spark_rapids_tpu_torch.exec import cpu as cpux
 from spark_rapids_tpu_torch.exec import tpu_basic as tpub
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan
 from spark_rapids_tpu_torch.exec.tpu_aggregate import TpuHashAggregateExec
+from spark_rapids_tpu_torch.exec.tpu_sort import TpuSortExec
 from spark_rapids_tpu_torch.expr import eval_tpu, ir
 
 
@@ -136,6 +138,16 @@ def register_exec_rule(cpu_cls: Type[PhysicalPlan], rule: ExecRule) -> None:
     _EXEC_RULES[cpu_cls] = rule
 
 
+def _sort_unsupported_types(n: cpux.CpuSortExec, conf) -> List[str]:
+    out = []
+    for o in n.orders:
+        if o.expr.dtype is not None and o.expr.dtype.is_floating and \
+                not conf.get(cfg.ENABLE_FLOAT_SORT):
+            out.append("float sort disabled")
+    out.extend(_nested_key_reasons((o.expr for o in n.orders), "sort"))
+    return out
+
+
 def _nested_key_reasons(exprs, role: str) -> List[str]:
     out = []
     for e in exprs:
@@ -181,6 +193,13 @@ register_exec_rule(cpux.CpuLimitExec, ExecRule(
     convert=lambda n, ch, conf, device: tpub.TpuGlobalLimitExec(ch[0],
                                                                 n.n)))
 
+register_exec_rule(cpux.CpuSortExec, ExecRule(
+    "SortExec", "device total sort (total-order key encode + lexsort)",
+    lambda n: [o.expr for o in n.orders],
+    convert=lambda n, ch, conf, device: TpuSortExec(ch[0], n.orders,
+                                                    n.partitionwise),
+    extra_tag=_sort_unsupported_types))
+
 register_exec_rule(cpux.CpuHashAggregateExec, ExecRule(
     "HashAggregateExec",
     "device hash aggregate (sort-based segmented reduction)",
@@ -195,6 +214,57 @@ register_exec_rule(cpux.CpuExpandExec, ExecRule(
     lambda n: [e for p in n.projections for e in p],
     convert=lambda n, ch, conf, device: tpub.TpuExpandExec(
         ch[0], n.projections, n.schema)))
+
+
+def _tag_join(n: cpux.CpuJoinExec, conf) -> List[str]:
+    out = []
+    if n.how != "cross" and not n.left_keys:
+        out.append("non-equi join without keys requires nested loop "
+                   "(only cross supported on TPU)")
+    for kd in (n.key_dtypes or []):
+        if kd is not None and kd.is_nested:
+            out.append(f"nested type {kd.name} not supported as a join "
+                       f"key on TPU")
+    return out
+
+
+def _join_exprs(n: cpux.CpuJoinExec) -> List[ir.Expression]:
+    return [n.condition] if n.condition is not None else []
+
+
+def _register_join_strategy_rules():
+    from spark_rapids_tpu_torch.exec.tpu_join import (
+        TpuBroadcastHashJoinExec, TpuBroadcastNestedLoopJoinExec,
+        TpuCartesianProductExec)
+
+    register_exec_rule(cpux.CpuBroadcastHashJoinExec, ExecRule(
+        "BroadcastHashJoinExec",
+        "device broadcast equi-join (build side gathered once, stream "
+        "side stays partitioned)",
+        _join_exprs,
+        convert=lambda n, ch, conf, device: TpuBroadcastHashJoinExec(
+            ch[0], ch[1], n.left_keys, n.right_keys, n.how, n.condition,
+            n.schema, build_side=n.build_side,
+            transport=conf.get(cfg.SHUFFLE_TRANSPORT)),
+        extra_tag=_tag_join))
+
+    register_exec_rule(cpux.CpuBroadcastNestedLoopJoinExec, ExecRule(
+        "BroadcastNestedLoopJoinExec",
+        "device broadcast nested-loop join (cross product + filter)",
+        _join_exprs,
+        convert=lambda n, ch, conf, device: TpuBroadcastNestedLoopJoinExec(
+            ch[0], ch[1], n.condition, n.schema,
+            build_side=n.build_side)))
+
+    register_exec_rule(cpux.CpuCartesianProductExec, ExecRule(
+        "CartesianProductExec",
+        "device partition-pairwise cartesian product",
+        _join_exprs,
+        convert=lambda n, ch, conf, device: TpuCartesianProductExec(
+            ch[0], ch[1], n.condition, n.schema)))
+
+
+_register_join_strategy_rules()
 
 
 def _register_file_scan_rule():

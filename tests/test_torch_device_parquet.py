@@ -9,7 +9,7 @@ missing from the file and an in-memory blob, decode row group by row group
 through the reference's ``decode_row_group`` (its Pallas kernels in
 interpret mode) and the port's (the plain torch versions of its kernels).
 On the same cases, the run matrix and padded packed bytes that the port's
-``_upload_runs`` fills from its array run tables are held against the
+``_runs_arrays`` fills from its array run tables are held against the
 reference's ``_upload_runs`` (which converts lists) for every stream.
 
 Tolerance: the decode moves data and does no arithmetic, so every array of
@@ -298,10 +298,11 @@ def test_decode_chunk_and_list_chunk_match_reference(tmp_path):
 
 @pytest.mark.parametrize("case", CASES)
 def test_upload_runs_matches_reference(tmp_path, case):
-    """The run matrix and the padded packed bytes that ``_upload_runs``
-    fills from the run table's arrays, against the reference's (which
-    converts its lists on every call), for every stream of every flat
-    column chunk of every decode mode."""
+    """The run matrix and the padded packed bytes that ``_runs_arrays``
+    fills from the run table's arrays for the upload, against the
+    reference's ``_upload_runs`` (which converts its lists on every
+    call), for every stream of every flat column chunk of every decode
+    mode."""
     table, kw, _ = _case(case)
     path = str(tmp_path / "t.parquet")
     papq.write_table(table, path, **kw)
@@ -337,12 +338,12 @@ def test_upload_runs_matches_reference(tmp_path, case):
             except jdp.UnsupportedChunk:
                 continue
             for (t_runs, t_packed), (j_runs, j_packed) in pairs:
-                got = tdp._upload_runs(t_runs, t_packed, "cpu")
+                got = tdp._runs_arrays(t_runs, t_packed)
                 want = jdp._upload_runs(j_runs, j_packed)
                 for k in ("runs_mat", "packed"):
                     w = np.asarray(want[k])
-                    assert got[k].numpy().dtype == w.dtype, (name, k)
-                    np.testing.assert_array_equal(got[k].numpy(), w,
+                    assert got[k].dtype == w.dtype, (name, k)
+                    np.testing.assert_array_equal(got[k], w,
                                                   err_msg=f"{name} {k}")
                 n_streams += 1
     assert n_streams > 0
