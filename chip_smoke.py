@@ -103,28 +103,55 @@ Phases (any failure exits non-zero):
                join pair the route the reference's rule gives it; then its
                cold wall, 5 warm walls with sections, one profiler trace
                and its peak device memory, host syncs and hash rounds;
+  8c. window — the windowed reporting queries q98 and q47 at SF10 over the
+               star phase's files and ``store`` (12,000 rows, one file,
+               from a generator of its own), on port sessions on cuda
+               with the same threshold.  Each prints its physical plan,
+               which must hold a TpuWindowExec and no CpuWindowExec, the
+               device sort (and limit: q98 has none), the filters pushed
+               into the filtered dimensions' scans (q98's item by its
+               IN) and no host node but the transitions; must match an
+               independent pyarrow/numpy computation (q98's class totals
+               by a group_by joined back; q47's partition average the same
+               way, its lag/lead by shifting each partition sorted on
+               d_moy); with the counts set to 0 before it, must launch
+               and fall back as pinned (WINDOW_COUNTS, WINDOW_FALLBACKS);
+               then its cold wall, 5 warm walls with sections
+               (``window.eval`` among them), one profiler trace and its
+               peak device memory;
   9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
                a dictionary that overflows into PLAIN pages, a 16-character
                string dictionary and a list<int32>, through the PERFILE
                reader, each row group checked against pyarrow;
+  9b. window-modes — every window function and frame kind of
+               tests/test_window.py (row_number, rank, dense_rank, lead/lag
+               with and without a default; running, whole-partition,
+               sliding ROWS and finite RANGE frames in both directions;
+               sum, count, avg, min and max over int64, double with NaN and
+               bool) over a 2^20-row table with about 5% nulls and one
+               partition of half the rows, on a port session on cuda
+               against the same DataFrame on one on the CPU: exactly,
+               floats bit for bit; untimed;
  10. timing  — per kernel at the shapes and on the inputs the q6 paths
-               and the star queries' cold runs gave it (segreduce from every
-               run; later runs' entries are named ``name@q6-parquet``,
-               ``name@q6-perfile`` and ``name@star``): a check
+               and the star and window queries' cold runs gave it
+               (segreduce from every run; later runs' entries are named
+               ``name@q6-parquet``, ``name@q6-perfile``, ``name@star`` and
+               ``name@window``): a check
                against the plain version, its time (CUDA events, L2
                flushed), its bytes bound, the plain version's time and a
                library call's where one computes the same function.
 
-Before each q6 path and each star query the kernel launch counts are set
-to 0, and they are read just after it: every kernel of the path must
-have launched, with no fallback but the PERFILE path's predicted
-mixed-width ones and the star queries' pinned filterDecode ones.  The line
+Before each q6 path and each star and window query the kernel launch
+counts are set to 0, and they are read just after it: every kernel of
+the path must have launched, with no fallback but the PERFILE path's
+predicted mixed-width ones and the star and window queries' pinned
+filterDecode ones.  The line
 before the last carries the kernel table as JSON, the line before it the
 card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
-q6p, q6pf, session, pipeline, q6s, star, modes) runs only those phases
-and prints no kernel table; ``session`` alone writes the files and counts the
+q6p, q6pf, session, pipeline, q6s, star, window, modes, window-modes)
+runs only those phases and prints no kernel table; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
 makes the in-memory table itself.
 """
@@ -2050,41 +2077,43 @@ def star_reference(name: str, t: dict) -> pa.Table:
     return out.slice(0, 100)
 
 
-def check_star(name: str, out: pa.Table, ref: pa.Table) -> float:
-    """Integers, strings and row order exact; float sums to
+def check_rows(tag: str, out: pa.Table, ref: pa.Table) -> float:
+    """Integers, strings, nulls and row order exact; floats to
     tests/parity.py's tolerance (rel 1e-9, abs 1e-11).  Returns the
     largest relative float difference."""
     if out.column_names != ref.column_names or out.num_rows != ref.num_rows:
-        fail(f"star {name}: {out.column_names} x {out.num_rows} rows != "
+        fail(f"{tag}: {out.column_names} x {out.num_rows} rows != "
              f"pyarrow {ref.column_names} x {ref.num_rows}")
     worst = 0.0
     for c in ref.column_names:
         a, b = out[c].to_pylist(), ref[c].to_pylist()
         if pa.types.is_floating(ref.schema.field(c).type):
             for x, y in zip(a, b):
+                if x is None and y is None:
+                    continue
                 if not (x is not None and y is not None and
                         abs(x - y) <= max(1e-9 * max(abs(x), abs(y)),
                                           1e-11)):
-                    fail(f"star {name}: column {c} {x!r} != pyarrow {y!r}")
+                    fail(f"{tag}: column {c} {x!r} != pyarrow {y!r}")
                 worst = max(worst, abs(x - y) / max(abs(y), 1e-300))
         elif a != b:
-            fail(f"star {name}: column {c} differs from pyarrow")
+            fail(f"{tag}: column {c} differs from pyarrow")
     if ref.num_rows == 0:
-        fail(f"star {name}: pyarrow's result is empty")
+        fail(f"{tag}: pyarrow's result is empty")
     return worst
 
 
-def star_run(name: str, root: str):
-    """run(conf) -> (Arrow output, planned plan) of one star query on a
-    fresh port session on cuda over the files."""
+def query_run(name: str, root: str, table_names, conf0: dict):
+    """run(conf) -> (Arrow output, planned plan) of one TPC-DS query on a
+    fresh port session on cuda over the files of ``table_names``."""
     from spark_rapids_tpu_torch.api import TpuSparkSession
     from spark_rapids_tpu_torch.bench import tpcds
 
     def run(conf):
-        s = TpuSparkSession(dict(STAR_CONF, **conf), device="cuda")
+        s = TpuSparkSession(dict(conf0, **conf), device="cuda")
         plans = []
         s.add_plan_listener(lambda r: plans.append(r.plan))
-        t = {n: s.read.parquet(os.path.join(root, n)) for n in STAR_TABLES}
+        t = {n: s.read.parquet(os.path.join(root, n)) for n in table_names}
         out = tpcds.QUERIES[name](t).collect()
         return out, plans[-1]
     return run
@@ -2114,81 +2143,75 @@ def _check_star_plan(name: str, plan) -> None:
              f"{want}")
 
 
-def phase_star():
+def phase_star(root: str, tables: dict):
     """q3/q42/q52/q55 at SF10 over Parquet on port sessions: plan checks,
     rows against pyarrow, kernels and routes with the counts set to 0
     before each query, then the cold wall, 5 warm walls with sections,
     one profiler trace and the peak device memory per query.  Returns
     (launches over the four queries, recorded classes, kernel names)."""
     from spark_rapids_tpu_torch.obs import registry as obsreg
-    root = _parquet_dir("star")
-    try:
-        tables = write_star_files(root)
+    t0 = time.perf_counter()
+    refs = {q: star_reference(q, tables) for q in STAR_QUERIES}
+    log(f"star: pyarrow references in {time.perf_counter() - t0:.1f} s")
+    total, names = {}, []
+    # the recorder keeps the inputs of the cold runs' kernel calls
+    shapes = ShapeRecorder()
+    for q in STAR_QUERIES:
+        run = query_run(q, root, STAR_TABLES, STAR_CONF)
+        view = obsreg.get_registry().view()
+        torch.cuda.reset_peak_memory_stats()
+        kb.reset_counts()
         t0 = time.perf_counter()
-        refs = {q: star_reference(q, tables) for q in STAR_QUERIES}
-        log(f"star: pyarrow references in {time.perf_counter() - t0:.1f} s")
-        del tables
-        total, names = {}, []
-        # the recorder keeps the inputs of the cold runs' kernel calls
-        shapes = ShapeRecorder()
-        for q in STAR_QUERIES:
-            run = star_run(q, root)
-            view = obsreg.get_registry().view()
-            torch.cuda.reset_peak_memory_stats()
-            kb.reset_counts()
-            t0 = time.perf_counter()
-            with shapes, DownloadCounter() as dl:
-                out, plan = run({})
-                torch.cuda.synchronize()
-            cold = time.perf_counter() - t0
-            log(f"star {q}: the collect's download: {len(dl.calls)} "
-                f"wait(s); pinned copies per batch, one per wire dtype: "
-                f"{dl.calls}")
-            if len(dl.calls) != 1:
-                fail(f"star {q}: {len(dl.calls)} downloads in one collect")
-            launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
-            counters = view.delta()["counters"]
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            log(f"star {q} plan:\n{plan.tree_string()}")
-            log(f"star {q} cold sections: " + _fmt_ms(
-                _sections(plan, STAR_SECTIONS)))
-            _check_star_plan(q, plan)
-            rel = check_star(q, out, refs[q])
-            batches = len(_scan_of_table(plan, "ss_").
-                          _fused_groups())
-            log(f"star {q}: {out.num_rows} rows match pyarrow (float "
-                f"max rel {rel:.3g}); cold wall {cold * 1e3:.1f} ms; "
-                f"launches {launches}; fallbacks {fallbacks}; "
-                + ", ".join(f"{k} {counters.get(k, 0):.0f}"
-                            for k in STAR_COUNTERS)
-                + f" over {batches} store_sales batches; peak device "
-                f"memory {peak:.2f} GiB")
-            if (launches, fallbacks) != (STAR_COUNTS[q], STAR_FALLBACKS[q]):
-                fail(f"star {q}: launches/fallbacks {launches} {fallbacks} "
-                     f"!= the pinned {STAR_COUNTS[q]} {STAR_FALLBACKS[q]}")
-            if counters.get("join.hostSyncs", 0) != 3 * batches:
-                fail(f"star {q}: {counters.get('join.hostSyncs', 0)} join "
-                     f"host syncs, want 3 per store_sales batch (two counts, "
-                     f"one row-count read)")
-            routes = {k: counters.get(k, 0) for k in STAR_COUNTERS[:2]}
-            want = star_routes(q, batches)
-            if routes != want:
-                fail(f"star {q}: routes {routes} != the reference "
-                     f"rule's {want}")
-            for k, v in launches.items():
-                total[k] = total.get(k, 0) + v
-            names += [k for k in STAR_COUNTS[q] if k not in names]
-            sec = _star_sections(run)
-            log(f"star {q} sections (host clock, median of 5 warm "
-                f"runs; runs ms "
-                f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
-                + _fmt_ms(sec))
-            busy = trace_form(f"star {q}", run, {}, label="star")
-            log(f"star {q}: device busy {busy['busy_share']:.1%} of "
-                f"{busy['wall_ms']:.1f} ms")
-        return total, shapes.classes, names
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+        with shapes, DownloadCounter() as dl:
+            out, plan = run({})
+            torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        log(f"star {q}: the collect's download: {len(dl.calls)} "
+            f"wait(s); pinned copies per batch, one per wire dtype: "
+            f"{dl.calls}")
+        if len(dl.calls) != 1:
+            fail(f"star {q}: {len(dl.calls)} downloads in one collect")
+        launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+        counters = view.delta()["counters"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"star {q} plan:\n{plan.tree_string()}")
+        log(f"star {q} cold sections: " + _fmt_ms(
+            _sections(plan, STAR_SECTIONS)))
+        _check_star_plan(q, plan)
+        rel = check_rows(f"star {q}", out, refs[q])
+        batches = len(_scan_of_table(plan, "ss_").
+                      _fused_groups())
+        log(f"star {q}: {out.num_rows} rows match pyarrow (float "
+            f"max rel {rel:.3g}); cold wall {cold * 1e3:.1f} ms; "
+            f"launches {launches}; fallbacks {fallbacks}; "
+            + ", ".join(f"{k} {counters.get(k, 0):.0f}"
+                        for k in STAR_COUNTERS)
+            + f" over {batches} store_sales batches; peak device "
+            f"memory {peak:.2f} GiB")
+        if (launches, fallbacks) != (STAR_COUNTS[q], STAR_FALLBACKS[q]):
+            fail(f"star {q}: launches/fallbacks {launches} {fallbacks} "
+                 f"!= the pinned {STAR_COUNTS[q]} {STAR_FALLBACKS[q]}")
+        if counters.get("join.hostSyncs", 0) != 3 * batches:
+            fail(f"star {q}: {counters.get('join.hostSyncs', 0)} join "
+                 f"host syncs, want 3 per store_sales batch (two counts, "
+                 f"one row-count read)")
+        routes = {k: counters.get(k, 0) for k in STAR_COUNTERS[:2]}
+        want = star_routes(q, batches)
+        if routes != want:
+            fail(f"star {q}: routes {routes} != the reference "
+                 f"rule's {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        names += [k for k in STAR_COUNTS[q] if k not in names]
+        sec = _star_sections(run)
+        log(f"star {q} sections (host clock, median of 5 warm "
+            f"runs; runs ms "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
+            + _fmt_ms(sec))
+        busy = trace_form(f"star {q}", run, {}, label="star")
+        log(f"star {q}: device busy {busy['busy_share']:.1%} of "
+            f"{busy['wall_ms']:.1f} ms")
+    return total, shapes.classes, names
 
 
 def _scan_of_table(plan, prefix: str):
@@ -2200,22 +2223,377 @@ def _scan_of_table(plan, prefix: str):
     fail(f"no scan of {prefix}* in the plan")
 
 
-def _star_sections(run, reps: int = 5) -> dict:
-    """Median of ``reps`` warm runs: the wall and every STAR_SECTIONS
-    section (host clock)."""
+def _star_sections(run, reps: int = 5, keys=STAR_SECTIONS) -> dict:
+    """Median of ``reps`` warm runs: the wall and every section of
+    ``keys`` (host clock)."""
     walls, secs = [], []
     for _ in range(reps):
         t0 = time.perf_counter()
         _out, plan = run({})
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        secs.append(_sections(plan, STAR_SECTIONS))
+        secs.append(_sections(plan, keys))
     out = {"wall": statistics.median(walls)}
     for k in sorted({k for s in secs for k in s}):
         out[k] = statistics.median(s.get(k, 0.0) for s in secs)
     out["walls"] = walls
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# 8c. the windowed reporting queries at SF10, and the window modes
+# ---------------------------------------------------------------------------
+
+WINDOW_QUERIES = ("q98", "q47")
+# q47 reads store too: built on a generator of its own, so the star
+# tables (and STAR_COUNTS) stay as they were
+WINDOW_TABLES = STAR_TABLES + ("store",)
+# the kernel launches of each windowed query, pinned from its first run
+# on the H100: the fused scans' unpack and deferred dictionary gathers
+# (q98: item's i_class string and i_current_price behind the pushed
+# IN filter, date_dim's columns behind the date range; q47: date_dim's
+# behind d_year) and the aggregate's gathered segmented scan.  The
+# window stage itself launches no kernel: the reference computes it with
+# XLA ops, the port with torch ops.
+WINDOW_COUNTS = {
+    "q98": {"decode.unpack_bits": 20, "filter_decode.decode": 3,
+            "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 34},
+    "q47": {"decode.unpack_bits": 52, "filter_decode.decode": 2,
+            "segreduce.gather_seg_scan": 34},
+}
+# the pushed filters' own dictionary columns (i_category; d_date; d_year)
+# are scan.filterDecode.condition_column fallbacks, once per dimension
+# batch, as in the reference; no kernel falls back
+WINDOW_FALLBACKS = {
+    "q98": {"scan.filterDecode.condition_column": 2},
+    "q47": {"scan.filterDecode.condition_column": 1},
+}
+# the tables whose scans take a pushed filter
+WINDOW_FILTERED = {"q98": ("date_dim", "item"), "q47": ("date_dim",)}
+WINDOW_SECTIONS = STAR_SECTIONS + ("window.eval",)
+
+
+def write_store_file(root: str) -> pa.Table:
+    """store at SF10 (12,000 rows) from the port's builders, one file."""
+    from spark_rapids_tpu_torch.bench import tpcds
+    store = tpcds.build_tables(("store",), STAR_SF, STAR_SEED)["store"]
+    os.makedirs(os.path.join(root, "store"))
+    papq.write_table(store, os.path.join(root, "store", "part-0000.parquet"))
+    log(f"window files: store {store.num_rows} rows at SF{STAR_SF}, one "
+        f"file")
+    return store
+
+
+def _same_as_previous(t: pa.Table, cols) -> np.ndarray:
+    """Row i (i > 0) has the same values of ``cols`` as row i - 1."""
+    same = np.ones(t.num_rows, dtype=bool)
+    same[0] = False
+    for c in cols:
+        idx = t[c].combine_chunks().dictionary_encode().indices
+        v = idx.to_numpy(zero_copy_only=False)
+        same[1:] &= v[1:] == v[:-1]
+    return same
+
+
+def window_reference(name: str, t: dict) -> pa.Table:
+    """q98 and q47 computed with pyarrow and numpy alone (joins,
+    group_by, the window values by a group_by joined back or by shifting
+    within each partition sorted on its order key), independent of both
+    engines."""
+    import datetime as dtm
+    dd, item = t["date_dim"], t["item"]
+    if name == "q98":
+        item = item.filter(pc.is_in(item["i_category"], value_set=pa.array(
+            ["Sports", "Books", "Home"])))
+        dd = dd.filter(pc.and_(
+            pc.greater_equal(dd["d_date"], pa.scalar(dtm.date(1999, 2, 22))),
+            pc.less_equal(dd["d_date"], pa.scalar(dtm.date(1999, 3, 24)))))
+        keys = ["i_item_id", "i_item_desc", "i_category", "i_class",
+                "i_current_price"]
+        j = t["store_sales"].select(
+            ["ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price"]).join(
+            item.select(["i_item_sk"] + keys), keys="ss_item_sk",
+            right_keys="i_item_sk", join_type="inner")
+        j = j.join(dd.select(["d_date_sk"]), keys="ss_sold_date_sk",
+                   right_keys="d_date_sk", join_type="inner")
+        g = j.group_by(keys).aggregate([("ss_ext_sales_price", "sum")])
+        g = g.rename_columns({"ss_ext_sales_price_sum": "itemrevenue"})
+        cls = g.group_by(["i_class"]).aggregate([("itemrevenue", "sum")])
+        g = g.join(cls, keys="i_class", join_type="inner")
+        ratio = pc.divide(pc.multiply(g["itemrevenue"], 100.0),
+                          g["itemrevenue_sum"])
+        g = g.append_column("revenueratio", ratio)
+        out = g.select(keys + ["itemrevenue", "revenueratio"])
+        return out.sort_by([(c, "ascending") for c in
+                            ("i_category", "i_class", "i_item_id",
+                             "i_item_desc", "revenueratio")])
+    part = ["i_category", "i_brand", "s_store_name", "s_company_name"]
+    dd = dd.filter(pc.equal(dd["d_year"], 2000)).select(
+        ["d_date_sk", "d_year", "d_moy"])
+    j = t["store_sales"].select(
+        ["ss_sold_date_sk", "ss_item_sk", "ss_store_sk",
+         "ss_sales_price"]).join(
+        item.select(["i_item_sk", "i_category", "i_brand"]),
+        keys="ss_item_sk", right_keys="i_item_sk", join_type="inner")
+    j = j.join(dd, keys="ss_sold_date_sk", right_keys="d_date_sk",
+               join_type="inner")
+    j = j.join(t["store"].select(["s_store_sk", "s_store_name",
+                                  "s_company_name"]),
+               keys="ss_store_sk", right_keys="s_store_sk",
+               join_type="inner")
+    g = j.group_by(part + ["d_year", "d_moy"]).aggregate(
+        [("ss_sales_price", "sum")])
+    g = g.rename_columns({"ss_sales_price_sum": "sum_sales"})
+    avg = g.group_by(part).aggregate([("sum_sales", "mean")]).rename_columns(
+        {"sum_sales_mean": "avg_monthly_sales"})
+    g = g.join(avg, keys=part, join_type="inner")
+    # lag/lead: each partition sorted on d_moy, shifted by one
+    g = g.sort_by([(c, "ascending") for c in part + ["d_moy"]])
+    same = _same_as_previous(g, part)
+    v = g["sum_sales"].to_numpy()
+    n = g.num_rows
+    prev = np.zeros(n)
+    prev[1:] = v[:-1]
+    nxt = np.zeros(n)
+    nxt[:-1] = v[1:]
+    has_next = np.zeros(n, dtype=bool)
+    has_next[:-1] = same[1:]
+    g = g.append_column("psum", pa.array(prev, mask=~same))
+    g = g.append_column("nsum", pa.array(nxt, mask=~has_next))
+    a, s = g["avg_monthly_sales"], g["sum_sales"]
+    keep = pc.and_(pc.greater(a, 0.0), pc.greater(
+        pc.divide(pc.abs(pc.subtract(s, a)), a), 0.1))
+    g = g.filter(keep)
+    g = g.append_column("dev", pc.subtract(g["sum_sales"],
+                                           g["avg_monthly_sales"]))
+    g = g.sort_by([("dev", "ascending"), ("s_store_name", "ascending"),
+                   ("d_moy", "ascending")])
+    return g.select(["i_category", "i_brand", "s_store_name", "d_year",
+                     "d_moy", "sum_sales", "avg_monthly_sales", "psum",
+                     "nsum"]).slice(0, 100)
+
+
+def _check_window_plan(name: str, plan) -> None:
+    """A TpuWindowExec and no CpuWindowExec, the device sort (and limit
+    where the query has one), the filters pushed into the filtered
+    dimensions' scans, no host node but the transitions."""
+    from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+    nodes = _plan_nodes(plan)
+    names = [type(n).__name__ for n in nodes]
+    want = ["TpuWindowExec", "TpuSortExec"] + \
+        (["TpuGlobalLimitExec"] if name == "q47" else [])
+    for w in want:
+        if w not in names:
+            fail(f"window {name}: no {w}: {names}")
+    host = [n for n in names if n not in HOST_OK and
+            not n.startswith("Tpu")]
+    if host:
+        fail(f"window {name}: host nodes {host}")
+    pushed = {n._schema.names[0][:2]: n._pushed_filter is not None
+              for n in nodes if isinstance(n, TpuParquetScanExec)}
+    want = {"d_": True, "i_": "item" in WINDOW_FILTERED[name],
+            "ss": False}
+    if name == "q47":
+        want["s_"] = False
+    if pushed != want:
+        fail(f"window {name}: filters pushed into the scans {pushed} != "
+             f"{want}")
+
+
+def phase_window(root: str, tables: dict):
+    """q98 and q47 at SF10 over Parquet on port sessions: the plan
+    checks, rows against pyarrow and numpy, the kernels with the counts
+    set to 0 before each query, then the cold wall, 5 warm walls with
+    sections, one profiler trace and the peak device memory per query.
+    Returns (launches over both queries, recorded classes, kernel
+    names)."""
+    tables = dict(tables, store=write_store_file(root))
+    t0 = time.perf_counter()
+    refs = {q: window_reference(q, tables) for q in WINDOW_QUERIES}
+    log(f"window: pyarrow references in {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(f'{q} {r.num_rows} rows' for q, r in refs.items())})")
+    total, names, pinned = {}, [], []
+    shapes = ShapeRecorder()
+    for q in WINDOW_QUERIES:
+        run = query_run(q, root, WINDOW_TABLES, STAR_CONF)
+        torch.cuda.reset_peak_memory_stats()
+        kb.reset_counts()
+        t0 = time.perf_counter()
+        with shapes:
+            out, plan = run({})
+            torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"window {q} plan:\n{plan.tree_string()}")
+        log(f"window {q} cold sections: " + _fmt_ms(
+            _sections(plan, WINDOW_SECTIONS)))
+        _check_window_plan(q, plan)
+        rel = check_rows(f"window {q}", out, refs[q])
+        win_rows = sum(n.metrics.num_output_rows for n in _plan_nodes(plan)
+                       if type(n).__name__ == "TpuWindowExec")
+        log(f"window {q}: {out.num_rows} rows match pyarrow (float max "
+            f"rel {rel:.3g}); {win_rows} rows through the window; cold "
+            f"wall {cold * 1e3:.1f} ms; launches "
+            f"{launches}; fallbacks {fallbacks}; peak device memory "
+            f"{peak:.2f} GiB")
+        for k in ("decode.unpack_bits", "segreduce.gather_seg_scan"):
+            if launches.get(k, 0) <= 0:
+                fail(f"window {q} did not launch {k}")
+        if (launches, fallbacks) != (WINDOW_COUNTS[q], WINDOW_FALLBACKS[q]):
+            pinned.append(f"window {q}: launches/fallbacks {launches} "
+                          f"{fallbacks} != the pinned {WINDOW_COUNTS[q]} "
+                          f"{WINDOW_FALLBACKS[q]}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        names += [k for k in launches if k not in names]
+        sec = _star_sections(run, keys=WINDOW_SECTIONS)
+        log(f"window {q} sections (host clock, median of 5 warm runs; "
+            f"runs ms {', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}"
+            f"): " + _fmt_ms(sec))
+        busy = trace_form(f"window {q}", run, {}, label="window")
+        log(f"window {q}: device busy {busy['busy_share']:.1%} of "
+            f"{busy['wall_ms']:.1f} ms")
+    if pinned:
+        fail("; ".join(pinned))
+    return total, shapes.classes, names
+
+
+MODES_WINDOW_ROWS = 1 << 20
+
+
+def window_modes_table(n: int, seed: int) -> pa.Table:
+    """``n`` rows, about 5% nulls per column: a partition key with one
+    partition over half the rows, int and double order keys, int64,
+    double (with NaN) and bool values."""
+    rng = np.random.default_rng(seed)
+
+    def nulls():
+        return rng.random(n) < 0.05
+    k = np.where(rng.random(n) < 0.5, 0, rng.integers(1, 4000, n))
+    f = rng.normal(0, 1e3, n)
+    f[rng.random(n) < 0.02] = np.nan
+    return pa.table({
+        "k": pa.array(k.astype(np.int32), mask=nulls()),
+        "o": pa.array(rng.integers(0, 400, n).astype(np.int32),
+                      mask=nulls()),
+        "od": pa.array(np.round(rng.uniform(-50, 50, n), 1),
+                       mask=nulls()),
+        "vi": pa.array(rng.integers(-10 ** 6, 10 ** 6, n), mask=nulls()),
+        "vf": pa.array(f, mask=nulls()),
+        "vb": pa.array(rng.random(n) < 0.5, mask=nulls()),
+    })
+
+
+def window_modes_frames(col, F, W):
+    """(tag, [(alias, window column)]) of every window function and frame
+    kind of tests/test_window.py."""
+    part = W.partition_by("k")
+    asc = part.order_by("o")
+    desc = part.order_by(col("o").desc())
+
+    def aggs(w, prefix, bools=True):
+        out = []
+        for v in ("vi", "vf"):
+            out += [(f"{prefix}_sum_{v}", F.sum(v).over(w)),
+                    (f"{prefix}_cnt_{v}", F.count(v).over(w)),
+                    (f"{prefix}_avg_{v}", F.avg(v).over(w)),
+                    (f"{prefix}_min_{v}", F.min(v).over(w)),
+                    (f"{prefix}_max_{v}", F.max(v).over(w))]
+        if bools:
+            out += [(f"{prefix}_min_vb", F.min("vb").over(w)),
+                    (f"{prefix}_max_vb", F.max("vb").over(w)),
+                    (f"{prefix}_cnt_vb", F.count("vb").over(w))]
+        return out
+    return [
+        ("ranking", [
+            ("rn", F.row_number().over(asc)), ("rk", F.rank().over(asc)),
+            ("dr", F.dense_rank().over(asc)),
+            ("ld", F.lead("vi").over(asc)),
+            ("lg2", F.lag("vf", 2).over(asc)),
+            ("ldd", F.lead("vi", 1, -99).over(asc)),
+            ("lgb", F.lag("vb", 1, True).over(asc))]),
+        ("ranking desc", [
+            ("rn", F.row_number().over(desc)), ("rk", F.rank().over(desc)),
+            ("dr", F.dense_rank().over(desc)),
+            ("lg", F.lag("vi").over(desc))]),
+        ("running", aggs(asc, "run")),
+        ("running desc", aggs(desc, "rund", bools=False)),
+        ("whole partition", aggs(part, "part") +
+         [("part_cnt_all", F.count("*").over(part))]),
+        ("rows -3..2", aggs(asc.rows_between(-3, 2), "rows")),
+        ("rows -5..0 desc", aggs(desc.rows_between(-5, 0), "rowsd")),
+        ("rows -2..unbounded", aggs(
+            asc.rows_between(-2, W.unbounded_following), "rowsu")),
+        ("range -10..10", aggs(asc.range_between(-10, 10), "rng")),
+        ("range -10..10 desc", aggs(desc.range_between(-10, 10),
+                                          "rngd")),
+        ("range unbounded..5", aggs(
+            asc.range_between(W.unbounded_preceding, 5), "rngu",
+            bools=False)),
+        ("range double -1.5..1.5 desc", aggs(
+            part.order_by(col("od").desc()).range_between(-1.5, 1.5),
+            "rngf", bools=False)),
+    ]
+
+
+def _bit_equal(tag: str, got: pa.Table, want: pa.Table) -> None:
+    """Same names, rows, order, nulls and values; floats by their bit
+    patterns (NaN and -0.0 included)."""
+    if got.column_names != want.column_names or \
+            got.num_rows != want.num_rows:
+        fail(f"{tag}: {got.column_names} x {got.num_rows} != "
+             f"{want.column_names} x {want.num_rows}")
+    for c in want.column_names:
+        a, b = got[c].combine_chunks(), want[c].combine_chunks()
+        if not a.is_valid().equals(b.is_valid()):
+            fail(f"{tag}: column {c}: nulls differ")
+        av = a.fill_null(False if pa.types.is_boolean(a.type) else 0)
+        bv = b.fill_null(False if pa.types.is_boolean(b.type) else 0)
+        x = av.to_numpy(zero_copy_only=False)
+        y = bv.to_numpy(zero_copy_only=False)
+        if x.dtype.kind == "f":
+            x, y = x.view(np.int64), y.view(np.int64)
+        if not np.array_equal(x, y):
+            bad = int(np.flatnonzero(x != y)[0])
+            fail(f"{tag}: column {c} differs at row {bad}: "
+                 f"{a[bad]} != {b[bad]}")
+
+
+def phase_window_modes() -> None:
+    """Every window function and frame kind on the card against the same
+    DataFrame on a port session on the CPU, over a 2^20-row table:
+    exactly, float sums bit for bit (the adds are the same on identical
+    input).  Untimed."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession, col
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.window import Window
+    conf = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+            "spark.rapids.tpu.sql.test.enabled": True}
+    t0 = time.perf_counter()
+    table = window_modes_table(MODES_WINDOW_ROWS, 17)
+    sessions = {d: TpuSparkSession(conf, device=d) for d in ("cuda", "cpu")}
+    frames = window_modes_frames(col, F, Window)
+    nexprs = 0
+    for tag, exprs in frames:
+        outs = {}
+        for d, s in sessions.items():
+            df = s.create_dataframe(table).select(
+                "k", "o", "od", "vi", "vf", "vb",
+                *[e.alias(a) for a, e in exprs])
+            if d == "cuda":
+                plan = df.explain_string("physical")
+                if "TpuWindowExec" not in plan or "CpuWindowExec" in plan:
+                    fail(f"window-modes {tag}: not a device window:\n"
+                         f"{plan}")
+            outs[d] = df.collect()
+        _bit_equal(f"window-modes {tag}", outs["cuda"], outs["cpu"])
+        nexprs += len(exprs)
+    log(f"window-modes: {nexprs} window expressions in {len(frames)} "
+        f"frame kinds over {MODES_WINDOW_ROWS} rows (nulls ~5%, NaN in vf, "
+        f"one partition of half the rows) equal the CPU session's bit for "
+        f"bit in {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2402,7 +2780,7 @@ def phase_timing(paths):
 
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
-              "pipeline", "q6s", "star", "modes"]
+              "pipeline", "q6s", "star", "window", "modes", "window-modes"]
 
 
 def main() -> int:
@@ -2448,14 +2826,27 @@ def main() -> int:
     if "q6s" in phases:
         runs["q6s"] = ("q6s-parquet", *phase_q6s_parquet(),
                        ["filter_decode.decode_str"])
-    if "star" in phases:
-        runs["star"] = ("star", *phase_star())
+    if {"star", "window"} & set(phases):
+        # the star and window phases share the SF10 files
+        root = _parquet_dir("star")
+        try:
+            tables = write_star_files(root)
+            if "star" in phases:
+                runs["star"] = ("star", *phase_star(root, tables))
+            if "window" in phases:
+                runs["window"] = ("window", *phase_window(root, tables))
+            del tables
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
     if "modes" in phases:
         phase_perfile_modes()
+    if "window-modes" in phases:
+        phase_window_modes()
     kernels = None
     if set(ALL_PHASES) <= set(phases):
         kernels = phase_timing([runs[k] for k in ("q6", "q6p", "q6s",
-                                                  "q6pf", "star")])
+                                                  "q6pf", "star",
+                                                  "window")])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,8 @@
 """Window specification API (pyspark.sql.Window analog).
 
 The port's copy of ``spark_rapids_tpu/api/window.py``, with its imports
-retargeted.  A window plans only once ``exec/cpu_window.py`` is ported.
+retargeted.  Windows plan as ``exec/tpu_window.py``'s ``TpuWindowExec``, or
+``exec/cpu_window.py``'s ``CpuWindowExec`` where the window rule refuses.
 """
 
 from __future__ import annotations

@@ -16,9 +16,10 @@ a generator of their own: a cheap way to make the few tables a star
 query reads at a large scale factor (their values differ from
 ``generate``'s, which draws the other tables in between).
 
-Queries: the reference module's own ``QUERIES`` (q3, q7, q19, q42, q52,
-q55, q68-lite, q73, q96, q98).  The 89 queries the reference merges in
-from ``tpcds_queries_a/b/c.py`` are not ported yet.
+Queries: the reference module's own (q3, q7, q19, q42, q52, q55,
+q68-lite, q73, q96, q98), then the 89 others merged in from
+``tpcds_queries_a/b/c.py`` as the reference merges them: ``QUERIES``
+holds all 99.
 """
 
 from __future__ import annotations
@@ -949,3 +950,18 @@ def q98(t):
 
 QUERIES = {"q3": q3, "q7": q7, "q19": q19, "q42": q42, "q52": q52,
            "q55": q55, "q68": q68, "q73": q73, "q96": q96, "q98": q98}
+
+
+def _collect_extended():
+    """Merge q1-q99 from the three query modules (all 99 present)."""
+    from spark_rapids_tpu_torch.bench import (tpcds_queries_a,
+                                              tpcds_queries_b,
+                                              tpcds_queries_c)
+    for mod in (tpcds_queries_a, tpcds_queries_b, tpcds_queries_c):
+        for name, fn in vars(mod).items():
+            if name.startswith("q") and name[1:].isdigit():
+                QUERIES.setdefault(name, fn)
+
+
+_collect_extended()
+assert len(QUERIES) == 99, f"expected 99 TPC-DS queries, {len(QUERIES)}"

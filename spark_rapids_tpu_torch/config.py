@@ -141,6 +141,13 @@ SORT_EXCHANGE = conf(
     "Plan global ORDER BY as a range exchange followed by per-partition "
     "sorts (needs shuffle/exchange.py, not ported yet).", bool)
 
+WINDOW_EXCHANGE = conf(
+    "spark.rapids.tpu.sql.window.exchange.enabled", False,
+    "Plan window functions over PARTITION BY keys as a hash exchange on "
+    "those keys followed by per-partition window evaluation "
+    "(auto-enabled when shuffle.transport=ici/ici_ring; needs "
+    "shuffle/exchange.py, not ported yet).", bool)
+
 ENABLE_FLOAT_SORT = conf(
     "spark.rapids.tpu.sql.sort.float.enabled", True,
     "Enable sorting on float columns (NaN ordering matches Spark: NaN sorts "

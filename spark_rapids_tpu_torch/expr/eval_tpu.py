@@ -1,19 +1,23 @@
 """Device columnar expression evaluator on torch tensors.
 
-Ported from ``spark_rapids_tpu/expr/eval_tpu.py`` for the expressions of
-the q6 path and ``__graft_entry__.entry``: bound references, literals,
-aliases, comparisons (Spark's total order for floats: NaN greatest, NaN ==
-NaN),
-AND/OR three-valued logic, NOT, ``+ - * /`` with Spark's null rules
-(x / 0 is NULL; integer overflow wraps), casts between numeric, boolean
-and temporal types, and IS [NOT] NULL.  The planner keeps every other
-node on the CPU (:func:`supported_on_tpu`, read by plan/overrides.py), so
-a planned query never reaches the ``NotImplementedError(<node name>)``
-that evaluating one raises.
+Ported from ``spark_rapids_tpu/expr/eval_tpu.py``: bound references,
+literals, aliases, comparisons (Spark's total order for floats: NaN
+greatest, NaN == NaN), AND/OR three-valued logic, NOT, IN (a null in the
+list makes a miss NULL), ``+ - * /``, ``div``, ``%``, ``pmod``, unary
+minus/plus and ``abs`` with Spark's null rules (x / 0 and x % 0 are
+NULL; integer overflow wraps), IS [NOT] NULL, ``isnan``,
+``coalesce``, ``nanvl``, ``if`` / ``CASE WHEN``, the double math
+functions (``log`` of x <= 0 is NULL; ``ceil``/``floor`` saturate to
+int64), the three shifts, and casts between numeric, boolean and
+temporal types.  The planner keeps every other node on the CPU
+(:func:`supported_on_tpu`, read by plan/overrides.py), so a planned query
+never reaches the ``NotImplementedError(<node name>)`` that evaluating
+one raises.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -67,12 +71,13 @@ def _const(batch: DeviceBatch, value, dtype: dt.DType) -> ColVal:
     if dtype.is_string:
         b = (value or "").encode("utf-8")
         max_len = max(1, 1 << (len(b) - 1).bit_length() if b else 1)
-        data = np.zeros((cap, max_len), dtype=np.uint8)
-        if b:
-            data[:, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+        row = np.zeros(max_len, dtype=np.uint8)
+        row[:len(b)] = np.frombuffer(b, dtype=np.uint8)
+        # one row goes to the device; the matrix is filled there
+        data = torch.from_numpy(row).to(dev).expand(cap, max_len)
         lengths = torch.full((cap,), len(b), dtype=torch.int32, device=dev)
         valid = torch.full((cap,), value is not None, device=dev)
-        return ColVal(dtype, torch.from_numpy(data).to(dev), valid, lengths)
+        return ColVal(dtype, data.contiguous(), valid, lengths)
     if value is None:
         t = dtype.to_torch() if dtype != dt.NULL else torch.bool
         return ColVal(dtype, torch.zeros((cap,), dtype=t, device=dev),
@@ -101,6 +106,12 @@ def f64_bits(x: torch.Tensor) -> torch.Tensor:
 
 def _binary_null(l: ColVal, r: ColVal):
     return l.validity & r.validity
+
+
+def _is_nan(v: ColVal) -> torch.Tensor:
+    if v.dtype.is_floating:
+        return torch.isnan(v.data)
+    return torch.zeros_like(v.validity)
 
 
 def _promote_pair(e, l: ColVal, r: ColVal):
@@ -155,6 +166,70 @@ def _eval_div(e, batch):
     nz = b != 0.0
     out = torch.where(nz, a / torch.where(nz, b, 1.0), 0.0)
     return ColVal(e.dtype, out, _binary_null(l, r) & nz)
+
+
+def _floor_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Integer floor division of ``a`` by a nonzero ``b`` that wraps
+    MIN // -1 to MIN (as XLA does) instead of trapping."""
+    neg1 = b == -1
+    q = torch.div(a, torch.where(neg1, 1, b), rounding_mode="floor")
+    return torch.where(neg1, -a, q)
+
+
+def _eval_idiv(e, batch):
+    l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+    a = l.data.to(torch.int64)
+    b = r.data.to(torch.int64)
+    nz = b != 0
+    bb = torch.where(nz, b, 1)
+    # Spark `div` truncates toward zero; the floor quotient is fixed up
+    q = _floor_div(a, bb)
+    rem = a - q * bb
+    q = torch.where((rem != 0) & ((a < 0) != (b < 0)), q + 1, q)
+    return ColVal(e.dtype, torch.where(nz, q, 0), _binary_null(l, r) & nz)
+
+
+def _trunc_mod(a, b, floating):
+    if floating:
+        nz = b != 0.0
+        bb = torch.where(nz, b, 1.0)
+        return torch.fmod(a, bb), nz  # fmod truncates like Spark's %
+    nz = b != 0
+    bb = torch.where(nz, b, 1)
+    q = _floor_div(a, bb)
+    rem = a - q * bb
+    # floored remainder -> truncated remainder
+    fix = (rem != 0) & ((a < 0) != (b < 0))
+    return torch.where(fix, rem - b, rem), nz
+
+
+def _eval_mod(e, batch):
+    l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+    a, b = _promote_pair(e, l, r)
+    m, nz = _trunc_mod(a, b, e.dtype.is_floating)
+    return ColVal(e.dtype, torch.where(nz, m, 0), _binary_null(l, r) & nz)
+
+
+def _eval_pmod(e, batch):
+    l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+    a, b = _promote_pair(e, l, r)
+    m, nz = _trunc_mod(a, b, e.dtype.is_floating)
+    m = torch.where((m != 0) & ((m < 0) != (b < 0)), m + b, m)
+    return ColVal(e.dtype, torch.where(nz, m, 0), _binary_null(l, r) & nz)
+
+
+def _eval_neg(e, batch):
+    c = evaluate(e.child, batch)
+    return ColVal(e.dtype, -c.data, c.validity)
+
+
+def _eval_pos(e, batch):
+    return evaluate(e.child, batch)
+
+
+def _eval_abs(e, batch):
+    c = evaluate(e.child, batch)
+    return ColVal(e.dtype, torch.abs(c.data), c.validity)
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +315,18 @@ def _eval_not(e, batch):
     return ColVal(dt.BOOL, ~c.data, c.validity)
 
 
+def _eval_in(e, batch):
+    v = evaluate(e.children[0], batch)
+    hit = torch.zeros_like(v.validity)
+    has_null_item = any(i is None for i in e.items)
+    for item in e.items:
+        if item is not None:
+            hit = hit | _cmp_vals(v, _const(batch, item, v.dtype), "eq")
+    # Spark: no match in a list that holds a null -> NULL
+    valid = v.validity & (hit | (not has_null_item))
+    return ColVal(dt.BOOL, hit, valid)
+
+
 def _eval_isnull(e, batch):
     c = evaluate(e.child, batch)
     return ColVal(dt.BOOL, ~c.validity & batch.row_mask(),
@@ -249,6 +336,194 @@ def _eval_isnull(e, batch):
 def _eval_isnotnull(e, batch):
     c = evaluate(e.child, batch)
     return ColVal(dt.BOOL, c.validity, torch.ones_like(c.validity))
+
+
+# ---------------------------------------------------------------------------
+# nulls & conditionals
+# ---------------------------------------------------------------------------
+
+def _eval_isnan(e, batch):
+    c = evaluate(e.child, batch)
+    return ColVal(dt.BOOL, _is_nan(c) & c.validity,
+                  torch.ones_like(c.validity))
+
+
+def _eval_at_least_n_non_nulls(e, batch):
+    count = torch.zeros((batch.capacity,), dtype=torch.int32,
+                        device=batch.device)
+    for c in e.children:
+        v = evaluate(c, batch)
+        count = count + (v.validity & ~_is_nan(v)).to(torch.int32)
+    return ColVal(dt.BOOL, count >= e.n, torch.ones_like(count,
+                                                        dtype=torch.bool))
+
+
+def _pad_width(a: torch.Tensor, w: int) -> torch.Tensor:
+    return torch.nn.functional.pad(a, (0, w - a.shape[1]))
+
+
+def _merge_branch(dtype, data, lengths, valid, cond, v: ColVal):
+    """where(cond) take branch value v."""
+    if dtype.is_string:
+        w = max(data.shape[1], v.data.shape[1])
+        data = torch.where(cond[:, None], _pad_width(v.data, w),
+                           _pad_width(data, w))
+        lengths = torch.where(cond, v.lengths, lengths)
+    else:
+        data = torch.where(cond, v.data.to(data.dtype), data)
+    valid = torch.where(cond, v.validity, valid)
+    return data, lengths, valid
+
+
+def _eval_coalesce(e, batch):
+    vals = [evaluate(c, batch) for c in e.children]
+    out = vals[0]
+    data = out.data if e.dtype.is_string else out.data.to(e.dtype.to_torch())
+    valid, lengths = out.validity, out.lengths
+    for v in vals[1:]:
+        data, lengths, _ = _merge_branch(e.dtype, data, lengths, valid,
+                                         ~valid & v.validity, v)
+        valid = valid | v.validity
+    return ColVal(e.dtype, data, valid, lengths)
+
+
+def _eval_nanvl(e, batch):
+    l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+    a, b = _promote_pair(e, l, r)
+    use_b = torch.isnan(a)
+    return ColVal(e.dtype, torch.where(use_b, b, a),
+                  torch.where(use_b, r.validity, l.validity))
+
+
+def _eval_if(e, batch):
+    p = evaluate(e.children[0], batch)
+    t = evaluate(e.children[1], batch)
+    f = evaluate(e.children[2], batch)
+    cond = p.data & p.validity
+    if e.dtype.is_string:
+        data, lengths, valid = _merge_branch(e.dtype, f.data, f.lengths,
+                                             f.validity, cond, t)
+        return ColVal(e.dtype, data, valid, lengths)
+    tgt = e.dtype.to_torch()
+    return ColVal(e.dtype, torch.where(cond, t.data.to(tgt), f.data.to(tgt)),
+                  torch.where(cond, t.validity, f.validity))
+
+
+def _eval_casewhen(e, batch):
+    els = e.else_value()
+    cur = evaluate(els, batch) if els is not None else \
+        _const(batch, None, e.dtype)
+    data = cur.data if e.dtype.is_string else cur.data.to(e.dtype.to_torch())
+    lengths, valid = cur.lengths, cur.validity
+    undecided = torch.ones((batch.capacity,), dtype=torch.bool,
+                           device=batch.device)
+    # first match wins, walking the branches in order
+    for cond_e, val_e in e.branches():
+        c = evaluate(cond_e, batch)
+        v = evaluate(val_e, batch)
+        hit = c.data & c.validity
+        data, lengths, valid = _merge_branch(e.dtype, data, lengths, valid,
+                                             undecided & hit, v)
+        undecided = undecided & ~hit
+    return ColVal(e.dtype, data, valid, lengths)
+
+
+# ---------------------------------------------------------------------------
+# math
+# ---------------------------------------------------------------------------
+
+def _mk_double_unary(fn):
+    def f(e, batch):
+        c = evaluate(e.child, batch)
+        return ColVal(e.dtype, fn(c.data.to(torch.float64)), c.validity)
+    return f
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Real cube root (torch has no cbrt): |x|^(1/3) with the sign, one
+    Newton step to the last ulps; 0, inf and NaN pass through."""
+    y = torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+    ok = torch.isfinite(y) & (y != 0)
+    ys = torch.where(ok, y, 1.0)
+    # y - (y^3 - x) / (3 y^2), arranged so that no power of y overflows
+    return torch.where(ok, ys + (x / (ys * ys) - ys) / 3.0, x)
+
+
+def _signum(x: torch.Tensor) -> torch.Tensor:
+    """Math.signum: NaN and signed zeros are their own sign (torch.sign
+    maps NaN to 0)."""
+    return torch.where(torch.isnan(x) | (x == 0), x, torch.sign(x))
+
+
+def _mk_log(base_log: float, lower: float, log_fn=torch.log):
+    """Spark's log family: NULL outside the domain (x <= ``lower``)."""
+    def f(e, batch):
+        c = evaluate(e.child, batch)
+        x = c.data.to(torch.float64)
+        ok = x > lower
+        out = log_fn(torch.where(ok, x, lower + 1.0))
+        if base_log != 1.0:
+            out = out / base_log
+        return ColVal(e.dtype, torch.where(ok, out, 0.0), c.validity & ok)
+    return f
+
+
+def _f64_to_i64(x: torch.Tensor) -> torch.Tensor:
+    """Java (long) cast semantics: NaN -> 0, saturate exactly at the
+    int64 bounds (float64 cannot represent INT64_MAX)."""
+    imin, imax = int(np.iinfo(np.int64).min), int(np.iinfo(np.int64).max)
+    x = torch.nan_to_num(x, nan=0.0, posinf=float("inf"),
+                         neginf=float("-inf"))
+    hi = x >= 2.0 ** 63
+    lo = x <= -(2.0 ** 63)
+    safe = torch.clamp(x, -(2.0 ** 63),
+                       float(np.nextafter(2.0 ** 63, 0))).to(torch.int64)
+    return torch.where(hi, imax, torch.where(lo, imin, safe))
+
+
+def _mk_round_to_long(fn):
+    def f(e, batch):
+        c = evaluate(e.child, batch)
+        return ColVal(e.dtype, _f64_to_i64(fn(c.data.to(torch.float64))),
+                      c.validity)
+    return f
+
+
+def _mk_double_binary(fn):
+    def f(e, batch):
+        l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+        return ColVal(e.dtype, fn(l.data.to(torch.float64),
+                                  r.data.to(torch.float64)),
+                      _binary_null(l, r))
+    return f
+
+
+def _shift_amount(l: ColVal, r: ColVal) -> torch.Tensor:
+    return (r.data.to(torch.int32) % (l.data.element_size() * 8)).to(
+        l.data.dtype)
+
+
+def _eval_shiftleft(e, batch):
+    l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+    return ColVal(e.dtype, l.data << _shift_amount(l, r), _binary_null(l, r))
+
+
+def _eval_shiftright(e, batch):
+    l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+    return ColVal(e.dtype, l.data >> _shift_amount(l, r), _binary_null(l, r))
+
+
+def _eval_shiftright_unsigned(e, batch):
+    """Logical right shift: the arithmetic shift with the copies of the
+    sign bit masked off (torch has no unsigned 64-bit shift on every
+    device)."""
+    l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+    nbits = l.data.element_size() * 8
+    sh = _shift_amount(l, r)
+    # (1 << (nbits - sh)) - 1, wrapping at sh == 1; unused at sh == 0
+    mask = (torch.ones_like(sh) << (nbits - sh)) - 1
+    out = torch.where(sh == 0, l.data, (l.data >> sh) & mask)
+    return ColVal(e.dtype, out, _binary_null(l, r))
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +605,12 @@ _DISPATCH = {
     ir.Subtract: _eval_sub,
     ir.Multiply: _eval_mul,
     ir.Divide: _eval_div,
+    ir.IntegralDivide: _eval_idiv,
+    ir.Remainder: _eval_mod,
+    ir.Pmod: _eval_pmod,
+    ir.UnaryMinus: _eval_neg,
+    ir.UnaryPositive: _eval_pos,
+    ir.Abs: _eval_abs,
     ir.EqualTo: _mk_cmp("eq"),
     ir.LessThan: _mk_cmp("lt"),
     ir.LessThanOrEqual: _mk_cmp("le"),
@@ -338,8 +619,43 @@ _DISPATCH = {
     ir.And: _eval_and,
     ir.Or: _eval_or,
     ir.Not: _eval_not,
+    ir.In: _eval_in,
     ir.IsNull: _eval_isnull,
     ir.IsNotNull: _eval_isnotnull,
+    ir.IsNan: _eval_isnan,
+    ir.Coalesce: _eval_coalesce,
+    ir.AtLeastNNonNulls: _eval_at_least_n_non_nulls,
+    ir.NaNvl: _eval_nanvl,
+    ir.If: _eval_if,
+    ir.CaseWhen: _eval_casewhen,
+    ir.Sqrt: _mk_double_unary(torch.sqrt),
+    ir.Exp: _mk_double_unary(torch.exp),
+    ir.Log: _mk_log(1.0, 0.0),
+    ir.Log2: _mk_log(math.log(2.0), 0.0),
+    ir.Log10: _mk_log(math.log(10.0), 0.0),
+    ir.Log1p: _mk_log(1.0, -1.0, torch.log1p),
+    ir.Expm1: _mk_double_unary(torch.expm1),
+    ir.Sin: _mk_double_unary(torch.sin),
+    ir.Cos: _mk_double_unary(torch.cos),
+    ir.Tan: _mk_double_unary(torch.tan),
+    ir.Sinh: _mk_double_unary(torch.sinh),
+    ir.Cosh: _mk_double_unary(torch.cosh),
+    ir.Tanh: _mk_double_unary(torch.tanh),
+    ir.Asin: _mk_double_unary(torch.asin),
+    ir.Acos: _mk_double_unary(torch.acos),
+    ir.Atan: _mk_double_unary(torch.atan),
+    ir.Cbrt: _mk_double_unary(_cbrt),
+    ir.ToDegrees: _mk_double_unary(torch.rad2deg),
+    ir.ToRadians: _mk_double_unary(torch.deg2rad),
+    ir.Rint: _mk_double_unary(torch.round),
+    ir.Signum: _mk_double_unary(_signum),
+    ir.Ceil: _mk_round_to_long(torch.ceil),
+    ir.Floor: _mk_round_to_long(torch.floor),
+    ir.Pow: _mk_double_binary(torch.pow),
+    ir.Atan2: _mk_double_binary(torch.atan2),
+    ir.ShiftLeft: _eval_shiftleft,
+    ir.ShiftRight: _eval_shiftright,
+    ir.ShiftRightUnsigned: _eval_shiftright_unsigned,
     ir.Cast: _eval_cast,
 }
 

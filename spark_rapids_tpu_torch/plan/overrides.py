@@ -20,12 +20,12 @@ reference's:
      (``spark.rapids.tpu.sql.explain=NOT_ON_TPU|ALL``).
 
 Rules exist for the execs the port has: Project, Filter, HashAggregate,
-Range, Union, GlobalLimit, Expand, Sort, the broadcast hash join, the
-broadcast nested-loop join, the cartesian product and the Parquet file
-scan (the in-memory scan stays a host node under its HostToDevice
-transition).  Window, Generate, the exchanges and cache scans have no
-rule yet: they plan as CPU nodes with the reference's reason "no TPU
-replacement for ...", and the planner raises for the shuffled join.
+Range, Union, GlobalLimit, Expand, Sort, Window, the broadcast hash
+join, the broadcast nested-loop join, the cartesian product and the
+Parquet file scan (the in-memory scan stays a host node under its
+HostToDevice transition).  Generate, the exchanges and cache scans have
+no rule yet: the planner raises for them, naming the module each waits
+for.
 """
 
 from __future__ import annotations
@@ -214,6 +214,71 @@ register_exec_rule(cpux.CpuExpandExec, ExecRule(
     lambda n: [e for p in n.projections for e in p],
     convert=lambda n, ch, conf, device: tpub.TpuExpandExec(
         ch[0], n.projections, n.schema)))
+
+
+def _tag_window(n, conf) -> List[str]:
+    out = []
+    for we in n.window_exprs:
+        out.extend(_nested_key_reasons(we.partition_exprs,
+                                       "window partition"))
+        out.extend(_nested_key_reasons(we.order_exprs, "window order"))
+        out.extend(_nested_key_reasons(we.function.children,
+                                       "window input"))
+        fn = we.function
+        fr = we.frame
+        finite_range = fr.kind == "range" and not (
+            fr.start is None and fr.end in (0, None))
+        if finite_range:
+            # device range frames binary-search the single numeric/
+            # temporal order key
+            if len(we.order_exprs) != 1:
+                out.append("finite RANGE frames require exactly one "
+                           "ORDER BY expression")
+            else:
+                od = we.order_exprs[0].dtype
+                if od is not None and not (od.is_numeric or od.is_temporal):
+                    out.append(f"finite RANGE frames need a numeric or "
+                               f"temporal order key, got {od.name}")
+        if isinstance(fn, ir.AggregateExpression):
+            if not isinstance(fn, (ir.Count, ir.Sum, ir.Average, ir.Min,
+                                   ir.Max)):
+                out.append(f"window aggregate {type(fn).__name__} not "
+                           f"supported on TPU")
+            if fn.child is not None and fn.child.dtype is not None and \
+                    fn.child.dtype.is_string:
+                out.append("string window aggregates not supported on TPU")
+        elif not isinstance(fn, (ir.RowNumber, ir.Rank, ir.DenseRank,
+                                 ir.Lead, ir.Lag)):
+            out.append(f"window function {type(fn).__name__} not "
+                       f"supported on TPU")
+    return out
+
+
+def _register_window_rule():
+    from spark_rapids_tpu_torch.exec.cpu_window import CpuWindowExec
+    from spark_rapids_tpu_torch.exec.tpu_window import TpuWindowExec
+
+    def _win_exprs(n) -> List[ir.Expression]:
+        # partition/order exprs and the function's inputs; the window
+        # function node itself is vetted by _tag_window
+        out: List[ir.Expression] = []
+        for we in n.window_exprs:
+            out.extend(we.partition_exprs)
+            out.extend(we.order_exprs)
+            out.extend(we.function.children)
+        return out
+
+    register_exec_rule(CpuWindowExec, ExecRule(
+        "WindowExec",
+        "device window functions (one stable sort + segmented scans/"
+        "prefix sums)",
+        _win_exprs,
+        convert=lambda n, ch, conf, device: TpuWindowExec(
+            ch[0], n.window_exprs, n.out_names, n.schema, n.partitionwise),
+        extra_tag=_tag_window))
+
+
+_register_window_rule()
 
 
 def _tag_join(n: cpux.CpuJoinExec, conf) -> List[str]:

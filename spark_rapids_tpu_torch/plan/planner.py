@@ -9,9 +9,9 @@ the whole-stage fusion pass (plan/fusion.py).
 
 A node whose exec lives in a module the port has not ported yet raises
 ``NotImplementedError`` naming that module: the hash exchange of the
-two-stage aggregate, the range exchange of a distributed sort, shuffled
-joins and repartitioning (``shuffle/exchange.py``), windows
-(``exec/cpu_window.py``), generators (``exec/generate.py``), cached
+two-stage aggregate and of the partitionwise window, the range exchange
+of a distributed sort, shuffled joins and repartitioning
+(``shuffle/exchange.py``), generators (``exec/generate.py``), cached
 relations (``exec/cache.py``) and pandas UDFs (``pyworker/execs.py``).
 """
 
@@ -92,7 +92,24 @@ def plan_cpu(node: lp.LogicalPlan, conf: RapidsTpuConf) -> PhysicalPlan:
     if isinstance(node, lp.Generate):
         raise _not_ported("explode/posexplode", "exec/generate.py")
     if isinstance(node, lp.Window):
-        raise _not_ported("a window", "exec/cpu_window.py")
+        from spark_rapids_tpu_torch.exec.cpu_window import CpuWindowExec
+        child = plan_cpu(node.children[0], conf)
+        # distributed plan shape: every window spec shares one non-empty
+        # PARTITION BY -> hash exchange on those keys, then the window per
+        # partition
+        dist = conf.get(cfg.WINDOW_EXCHANGE) or \
+            str(conf.get(cfg.SHUFFLE_TRANSPORT)) in ("ici", "ici_ring")
+        if dist and node.window_exprs:
+            psigs = {tuple(e.sql() for e in we.partition_exprs)
+                     for we in node.window_exprs}
+            pk = list(node.window_exprs[0].partition_exprs)
+            if len(psigs) == 1 and pk and \
+                    all(e.dtype is not None and not e.dtype.is_nested
+                        for e in pk):
+                raise _not_ported("the partitionwise window's hash "
+                                  "exchange", "shuffle/exchange.py")
+        return CpuWindowExec(child, node.window_exprs, node.out_names,
+                             node.schema)
     if isinstance(node, (lp.MapInPandas, lp.FlatMapGroupsInPandas,
                          lp.CoGroupedMapInPandas, lp.AggregateInPandas,
                          lp.WindowInPandas)):

@@ -123,6 +123,28 @@ def test_from_arrow_matches_reference(name, n):
     assert_leaves_equal(batch_to_numpy(batch_from_numpy(ref, "cpu")), ref)
 
 
+@pytest.mark.parametrize("form", ["plain", "sliced", "chunked", "large",
+                                  "all_null", "empty_strings"])
+def test_string_upload_matches_reference(form):
+    """Strings copied from the Arrow offsets and bytes: multi-byte UTF-8,
+    nulls, a sliced array, several chunks and large_string give the
+    reference's matrix and lengths."""
+    rng = np.random.default_rng(3)
+    words = ["", "a", "h\u00e9llo", "\u65e5\u672c\u8a9e", "x" * 33, None]
+    vals = [words[i] for i in rng.integers(0, len(words), 200)]
+    arr = {"plain": pa.array(vals),
+           "sliced": pa.array(vals).slice(7, 150),
+           "chunked": pa.chunked_array([pa.array(vals[:90]),
+                                        pa.array(vals[90:])]),
+           "large": pa.array(vals, pa.large_string()),
+           "all_null": pa.array([None] * 9, pa.string()),
+           "empty_strings": pa.array([""] * 9)}[form]
+    t = pa.table({"s": arr.cast(pa.string())})
+    ref = jax_leaves(jbatch.from_arrow(t))
+    port = tbatch.from_arrow(pa.table({"s": arr}), device="cpu")
+    assert_leaves_equal(batch_to_numpy(port), ref)
+
+
 @pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 63, 64, 65, 1000, 4096,
                                262145, 1 << 20, 28_800_991])
 @pytest.mark.parametrize("min_bucket", [1, 16, 32])

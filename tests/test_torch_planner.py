@@ -119,7 +119,7 @@ def test_prune_columns_matches_reference(roots, name):
 
 
 @pytest.mark.parametrize("name", ["filter_agg", "count_star", "join",
-                                  "union"])
+                                  "window", "union"])
 def test_pruned_plans_match_reference_rows(roots, name):
     outs = {}
     for side, (_, col, F, W, _lp, _p) in SIDES.items():
@@ -129,8 +129,9 @@ def test_pruned_plans_match_reference_rows(roots, name):
 
 
 def test_unported_exec_raises_naming_its_module(roots):
-    df = _window(session("port", CONF), tcol, TF, TWindow, *roots)
-    with pytest.raises(NotImplementedError, match="exec/cpu_window.py"):
+    a = session("port", CONF).read.parquet(roots[0])
+    df = a.select("k", TF.explode(TF.array(tcol("k"), tcol("x"))).alias("e"))
+    with pytest.raises(NotImplementedError, match="exec/generate.py"):
         df.collect()
     agg = _count_star(session("port", dict(CONF, **{
         "spark.rapids.tpu.sql.agg.exchange.enabled": True})), tcol, TF,

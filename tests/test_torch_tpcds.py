@@ -1,13 +1,14 @@
 """The port's TPC-DS-like module and its queries vs the reference's.
 
 ``generate`` must equal the reference's table for table.  Every query of
-the module's ``QUERIES`` that the port can plan runs on a port session
-(``device="cpu"``) and a reference session over the same tables and is
-compared as ``tests/test_tpcds.py`` compares the reference's sessions;
-each one it cannot plan raises ``NotImplementedError`` naming the module
-it waits for.  The star queries (q3/q42/q52/q55) are compared row for
-row, must plan with no host node but the transitions, and each of their
-joins must take the reference's route.
+the module's own ten (``OWN``) runs on a port session (``device="cpu"``)
+and a reference session over the same tables and is compared as
+``tests/test_tpcds.py`` compares the reference's sessions (the 89
+merged in from ``tpcds_queries_a/b/c.py`` are in
+``tests/test_torch_tpcds_windows.py``).  The star queries
+(q3/q42/q52/q55) are compared row for row, must plan with no host node
+but the transitions, and each of their joins must take the reference's
+route.
 """
 
 import pytest
@@ -26,13 +27,14 @@ from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SF = 0.002
 STAR = ("q3", "q42", "q52", "q55")
-# queries the port cannot plan yet, and the module each one waits for
-NOT_PLANNED = {"q98": "exec/cpu_window.py"}
+# the reference module's own queries (its QUERIES literal, before it
+# merges in tpcds_queries_a/b/c.py)
+OWN = ("q3", "q7", "q19", "q42", "q52", "q55", "q68", "q73", "q96", "q98")
 CONF = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
         "spark.rapids.tpu.sql.test.enabled": True}
-# q19's substring and q68/q73's IN evaluate on the host until the rest of
-# expr/eval_tpu.py is ported: their filters are the port's one allowed
-# host node
+# IN runs on the card; q19's substring still evaluates on the host until
+# the string evaluators of expr/eval_tpu.py are ported: its filter is the
+# port's one allowed host node
 HOST_FILTER_CONF = dict(CONF, **{
     "spark.rapids.tpu.sql.test.allowedNonTpu": "CpuFilterExec"})
 
@@ -104,10 +106,11 @@ def test_build_tables_runs_only_the_named_builders():
 
 
 def test_queries_are_the_reference_modules():
-    """The reference module's own ten queries (its QUERIES literal, before
-    it merges in tpcds_queries_a/b/c.py)."""
-    assert sorted(ttpcds.QUERIES, key=lambda q: int(q[1:])) == [
-        "q3", "q7", "q19", "q42", "q52", "q55", "q68", "q73", "q96", "q98"]
+    """All 99 of the reference's queries: the module's own ten first, in
+    its order, then those of tpcds_queries_a/b/c.py."""
+    assert list(ttpcds.QUERIES)[:len(OWN)] == list(OWN)
+    assert list(ttpcds.QUERIES) == list(jtpcds.QUERIES)
+    assert len(ttpcds.QUERIES) == 99
     for name, fn in ttpcds.QUERIES.items():
         assert jtpcds.QUERIES[name].__doc__ == fn.__doc__
 
@@ -141,9 +144,7 @@ def test_star_query_row_for_row(name, sessions, ref_routes):
                for h in hosts), plan
 
 
-@pytest.mark.parametrize("name", sorted(
-    set(ttpcds.QUERIES) - set(STAR) - set(NOT_PLANNED),
-    key=lambda q: int(q[1:])))
+@pytest.mark.parametrize("name", [q for q in OWN if q not in STAR])
 def test_query_matches_reference(name, sessions, host_filter_tables):
     jt, _ = sessions
     ref = jtpcds.QUERIES[name](jt).collect()
@@ -151,10 +152,3 @@ def test_query_matches_reference(name, sessions, host_filter_tables):
     problems = CompareResults(epsilon=1e-4,
                               ignore_ordering=True).compare(ref, got)
     assert not problems, f"{name}: {problems}"
-
-
-@pytest.mark.parametrize("name", sorted(NOT_PLANNED))
-def test_unplanned_query_names_its_module(name, sessions):
-    _, tt = sessions
-    with pytest.raises(NotImplementedError, match=NOT_PLANNED[name]):
-        ttpcds.QUERIES[name](tt).collect()
