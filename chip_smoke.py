@@ -119,6 +119,26 @@ Phases (any failure exits non-zero):
                then its cold wall, 5 warm walls with sections
                (``window.eval`` among them), one profiler trace and its
                peak device memory;
+  8d. shuffle — the shuffle exchange over the star phase's files and
+               ``catalog_sales`` (14,400,000 rows, 8 files, from its
+               builder on a generator of its own), on port sessions on cuda
+               at the default 10 MiB broadcast threshold: q97 under the
+               ``local`` and then the ``device`` transport (its plan must
+               hold two TpuShuffleExchangeExec under a full
+               TpuShuffledHashJoinExec and no host node but the
+               transitions; its row must match an independent pyarrow
+               count of the channels' distinct customer-item pairs, and
+               the two transports must agree), then q3/q42/q52/q55, whose
+               join with item is now a shuffled hash join (rows against
+               the star phase's pyarrow references).  With the counts set
+               to 0 before each, its launches, fallbacks and (for the star
+               queries) join routes must equal the pinned SHUFFLE_COUNTS,
+               SHUFFLE_FALLBACKS and SHUFFLE_ROUTES; then its cold wall, 5
+               warm walls with sections (``exchange.partition``,
+               ``exchange.upload`` or ``exchange.concat``, the joins, the
+               aggregate and the scan), the rows and ``bytes_written``
+               through its exchanges, one profiler trace and its peak
+               device memory;
   9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
                a dictionary that overflows into PLAIN pages, a 16-character
                string dictionary and a list<int32>, through the PERFILE
@@ -132,26 +152,38 @@ Phases (any failure exits non-zero):
                partition of half the rows, on a port session on cuda
                against the same DataFrame on one on the CPU: exactly,
                floats bit for bit; untimed;
+  9c. shuffle-modes — over 2^20 rows with about 5% nulls (int32, int64,
+               float64 with NaN and -0.0, bool, date and strings of byte
+               widths 0-33 with multi-byte tails): repartition by hash,
+               round robin, range and single, a coalesce, the shuffled
+               join for every how (and on string keys), the two-stage
+               aggregate, the partitionwise window and the range-exchange
+               sort on cuda (the repartitions under both transports, the
+               rest under the default ``local``) against the same
+               DataFrame on a port session on the CPU: the repartitions
+               partition by partition, the rest whole; exactly, floats bit
+               for bit; untimed;
  10. timing  — per kernel at the shapes and on the inputs the q6 paths
                and the star and window queries' cold runs gave it
                (segreduce from every run; later runs' entries are named
-               ``name@q6-parquet``, ``name@q6-perfile``, ``name@star`` and
-               ``name@window``): a check
+               ``name@q6-parquet``, ``name@q6-perfile``, ``name@star``,
+               ``name@window`` and ``name@shuffle``, the last from q97's
+               run on the local transport): a check
                against the plain version, its time (CUDA events, L2
                flushed), its bytes bound, the plain version's time and a
                library call's where one computes the same function.
 
-Before each q6 path and each star and window query the kernel launch
-counts are set to 0, and they are read just after it: every kernel of
-the path must have launched, with no fallback but the PERFILE path's
-predicted mixed-width ones and the star and window queries' pinned
-filterDecode ones.  The line
+Before each q6 path and each star, window and shuffle query the kernel
+launch counts are set to 0, and they are read just after it: every
+kernel of the path must have launched, with no fallback but the PERFILE
+path's predicted mixed-width ones and the star, window and shuffle
+queries' pinned filterDecode ones.  The line
 before the last carries the kernel table as JSON, the line before it the
 card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
-q6p, q6pf, session, pipeline, q6s, star, window, modes, window-modes)
-runs only those phases and prints no kernel table; ``session`` alone writes the files and counts the
+q6p, q6pf, session, pipeline, q6s, star, window, shuffle, modes,
+window-modes, shuffle-modes) runs only those phases and prints no kernel table; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
 makes the in-memory table itself.
 """
@@ -1772,6 +1804,16 @@ def _merge(ivs):
     return out
 
 
+def _profiler_events(prof) -> list:
+    """(name, device type, start ns, end ns) of every event the profiler
+    kept, read from its kineto results as torch's own event list reads
+    them (hidden events left out).  Building that list of FunctionEvents
+    instead took seconds per traced query of ~30,000 kernels."""
+    return [(e.name(), e.device_type(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def trace_form(tag: str, run, conf: dict, label: str = "pipeline") -> dict:
     """One warm query under torch.profiler (CPU and CUDA) with the span
     tracer on.  The device's busy share is the union of its kernel and
@@ -1799,25 +1841,25 @@ def trace_form(tag: str, run, conf: dict, label: str = "pipeline") -> dict:
     finally:
         obstrace.configure(False)
     spans = obstrace.spans_since(mark)
-    events = prof.events()
-    align = [e for e in events if e.name == "pipeline.align"]
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    events = _profiler_events(prof)
+    align = [a for name, d, a, _b in events
+             if name == "pipeline.align" and d == DeviceType.CPU]
+    dev = [(name, a, b) for name, d, a, b in events
+           if d == DeviceType.CUDA]
     if not align or not dev:
         fail(f"{label} trace {tag}: the profiler recorded "
              f"{len(dev)} device operations and {len(align)} markers")
-    # profiler microseconds -> host perf_counter nanoseconds
-    off_ns = t_align - align[0].time_range.start * 1e3
-    ivs = [(e.time_range.start * 1e3 + off_ns,
-            e.time_range.end * 1e3 + off_ns) for e in dev]
+    # profiler nanoseconds -> host perf_counter nanoseconds
+    off_ns = t_align - align[0]
+    ivs = [(a + off_ns, b + off_ns) for _name, a, b in dev]
     busy = [(max(a, t0), min(b, t1)) for a, b in _merge(ivs)
             if b > t0 and a < t1]
     busy_ns = sum(b - a for a, b in busy)
     wall_ns = t1 - t0
-    by_name = {}
-    for e in dev:
-        tot, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.end - e.time_range.start,
-                           n + 1)
+    by_name = {}      # name -> (device microseconds, operations)
+    for name, a, b in dev:
+        tot, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + (b - a) / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     copies = {k: v for k, v in sorted(by_name.items())
               if k.startswith("Memcpy")}
@@ -2538,9 +2580,15 @@ def window_modes_frames(col, F, W):
     ]
 
 
-def _bit_equal(tag: str, got: pa.Table, want: pa.Table) -> None:
+def _bit_equal(tag: str, got, want) -> None:
     """Same names, rows, order, nulls and values; floats by their bit
-    patterns (NaN and -0.0 included)."""
+    patterns (NaN and -0.0 included).  None (an empty partition) equals
+    only None."""
+    if got is None or want is None:
+        if got is not want:
+            fail(f"{tag}: {'no' if got is None else 'some'} rows where "
+                 f"the CPU session has {'no' if want is None else 'some'}")
+        return
     if got.column_names != want.column_names or \
             got.num_rows != want.num_rows:
         fail(f"{tag}: {got.column_names} x {got.num_rows} != "
@@ -2549,12 +2597,20 @@ def _bit_equal(tag: str, got: pa.Table, want: pa.Table) -> None:
         a, b = got[c].combine_chunks(), want[c].combine_chunks()
         if not a.is_valid().equals(b.is_valid()):
             fail(f"{tag}: column {c}: nulls differ")
+        if not (pa.types.is_floating(b.type) or pa.types.is_integer(b.type)
+                or pa.types.is_boolean(b.type)):
+            if not a.equals(b):
+                bad = next(i for i, (x, y) in enumerate(
+                    zip(a.to_pylist(), b.to_pylist())) if x != y)
+                fail(f"{tag}: column {c} differs at row {bad}: "
+                     f"{a[bad]} != {b[bad]}")
+            continue
         av = a.fill_null(False if pa.types.is_boolean(a.type) else 0)
         bv = b.fill_null(False if pa.types.is_boolean(b.type) else 0)
         x = av.to_numpy(zero_copy_only=False)
         y = bv.to_numpy(zero_copy_only=False)
         if x.dtype.kind == "f":
-            x, y = x.view(np.int64), y.view(np.int64)
+            x, y = x.view(f"i{x.itemsize}"), y.view(f"i{y.itemsize}")
         if not np.array_equal(x, y):
             bad = int(np.flatnonzero(x != y)[0])
             fail(f"{tag}: column {c} differs at row {bad}: "
@@ -2594,6 +2650,406 @@ def phase_window_modes() -> None:
         f"frame kinds over {MODES_WINDOW_ROWS} rows (nulls ~5%, NaN in vf, "
         f"one partition of half the rows) equal the CPU session's bit for "
         f"bit in {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 8d. the shuffle exchange at SF10, and the shuffle modes
+# ---------------------------------------------------------------------------
+
+# catalog_sales draws from a generator of its own (its builder alone:
+# the correlation step of build_tables reads store_returns), so the star
+# tables and every earlier pin stay as they were
+SHUFFLE_SEED = 11
+SHUFFLE_TABLES = STAR_TABLES + ("catalog_sales",)
+TRANSPORT_KEY = "spark.rapids.tpu.shuffle.transport"
+SHUFFLE_TRANSPORTS = ("local", "device")
+# the default broadcast threshold (10 MiB) and the default
+# sql.adaptive.enabled (accepted, unread by the port)
+SHUFFLE_CONF = dict(SCAN_CONF, **{
+    "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+    "spark.rapids.tpu.sql.test.enabled": True})
+# the kernel launches and fallbacks of each run, pinned from the first run
+# on the H100 (q97 per transport; the star queries on the default
+# transport): the fused scans' unpack, date_dim's deferred dictionary
+# gathers (and item's where it is filtered), and the aggregates' gathered
+# segmented scans (q97: the two distinct aggregates and its three sums;
+# a star query's aggregate now runs over the 8 joined partitions, not the
+# 16 store_sales batches).  The exchange launches no kernel: the
+# reference does its work with XLA ops, the port with torch ops.
+_Q97_COUNTS = {"decode.unpack_bits": 26, "filter_decode.decode": 2,
+               "segreduce.gather_seg_scan": 54}
+SHUFFLE_COUNTS = {
+    "q97/local": _Q97_COUNTS, "q97/device": _Q97_COUNTS,
+    "q3": {"decode.unpack_bits": 18, "filter_decode.decode": 4,
+           "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 18},
+    "q42": {"decode.unpack_bits": 18, "filter_decode.decode": 1,
+            "segreduce.gather_seg_scan": 18},
+    "q52": {"decode.unpack_bits": 18, "filter_decode.decode": 1,
+            "segreduce.gather_seg_scan": 18},
+    "q55": {"decode.unpack_bits": 19, "filter_decode.decode": 3,
+            "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 18},
+}
+# the pushed filters' own dictionary columns, as in the star phase
+SHUFFLE_FALLBACKS = {
+    q: {"scan.filterDecode.condition_column": n}
+    for q, n in (("q97/local", 2), ("q97/device", 2), ("q3", 2), ("q42", 2),
+                 ("q52", 2), ("q55", 3))}
+# the join routes, pinned from the first run on the H100: every pair on
+# the sort route.  q97: its two date joins, one pair per store_sales and
+# catalog_sales batch (a filtered date_dim carries no hints), and the full
+# outer join's 8 partition pairs (the probe route serves inner and left
+# only).  A star query: the date join, one pair per store_sales batch,
+# and the item join's 8 partition pairs (the exchange's upload hints
+# i_item_sk at 33 bits with the null flag, past the direct table's 22).
+_SORT = {"join.route.probe": 0}
+SHUFFLE_ROUTES = dict({"q97/local": dict(_SORT, **{"join.route.sort": 32}),
+                       "q97/device": dict(_SORT, **{"join.route.sort": 32})},
+                      **{q: dict(_SORT, **{"join.route.sort": 24})
+                         for q in STAR_QUERIES})
+SHUFFLE_SECTIONS = ("scan.hostPrepTime", "scan.uploadTime", "scan.dispatch",
+                    "exchange.partition", "exchange.upload",
+                    "exchange.concat", "join.count", "join.emit",
+                    "join.probeCount", "join.probeEmit", "agg.update",
+                    "agg.merge", "sort.exec", "transition.download")
+
+
+def write_catalog_sales(root: str) -> pa.Table:
+    """catalog_sales at SF10 (14,400,000 rows, every generator column) as
+    8 Parquet files."""
+    from spark_rapids_tpu_torch.bench import tpcds
+    t0 = time.perf_counter()
+    cs = tpcds._catalog_sales(np.random.default_rng(SHUFFLE_SEED),
+                              tpcds._Sizes(STAR_SF), {})
+    t1 = time.perf_counter()
+    d = os.path.join(root, "catalog_sales")
+    os.makedirs(d)
+    step = -(-cs.num_rows // STAR_FILES)
+    for i in range(STAR_FILES):
+        papq.write_table(cs.slice(i * step, step),
+                         os.path.join(d, f"part-{i:04d}.parquet"))
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"shuffle files: catalog_sales {cs.num_rows} rows at SF{STAR_SF} "
+        f"generated in {t1 - t0:.1f} s, written in "
+        f"{time.perf_counter() - t1:.1f} s ({nbytes / 2**20:.1f} MiB in "
+        f"{STAR_FILES} files)")
+    return cs
+
+
+def q97_reference(t: dict) -> pa.Table:
+    """q97 with pyarrow alone: the distinct (customer, item) pairs of each
+    channel in d_month_seq 120..131; a pair with a null key never matches.
+    The full outer join's rows: one per matched pair (both sides set), one
+    per unmatched pair of either side (the other side null).  A row counts
+    as store_only when its catalog customer is null and as catalog_only
+    when its store customer is null, so an unmatched pair whose own
+    customer is null counts on both."""
+    dd = t["date_dim"]
+    m = pc.and_(pc.greater_equal(dd["d_month_seq"], 120),
+                pc.less_equal(dd["d_month_seq"], 131))
+    dates = dd.filter(m)["d_date_sk"].combine_chunks()
+
+    def pairs(table, date, cust, item):
+        x = table.select([date, cust, item])
+        x = x.filter(pc.is_in(x[date], value_set=dates))
+        return x.group_by([cust, item]).aggregate([]).rename_columns(
+            ["c", "i"])
+    s = pairs(t["store_sales"], "ss_sold_date_sk", "ss_customer_sk",
+              "ss_item_sk")
+    c = pairs(t["catalog_sales"], "cs_sold_date_sk", "cs_bill_customer_sk",
+              "cs_item_sk")
+
+    def keyed(x):
+        return x.filter(pc.and_(pc.is_valid(x["c"]), pc.is_valid(x["i"])))
+    both = keyed(s).join(keyed(c), keys=["c", "i"],
+                         join_type="inner").num_rows
+    s_null = pc.sum(pc.is_null(s["c"]).cast(pa.int64())).as_py() or 0
+    c_null = pc.sum(pc.is_null(c["c"]).cast(pa.int64())).as_py() or 0
+    return pa.table({
+        "store_only": pa.array([s.num_rows - both + c_null], pa.int64()),
+        "catalog_only": pa.array([c.num_rows - both + s_null], pa.int64()),
+        "store_and_catalog": pa.array([both], pa.int64())})
+
+
+def _check_shuffle_plan(tag: str, plan, shuffled_how: str,
+                        broadcasts: int) -> None:
+    """One TpuShuffledHashJoinExec of ``shuffled_how`` over two
+    TpuShuffleExchangeExec, ``broadcasts`` broadcast hash joins and no
+    host node but the transitions."""
+    nodes = _plan_nodes(plan)
+    names = [type(n).__name__ for n in nodes]
+    joins = [n for n in nodes if type(n).__name__ ==
+             "TpuShuffledHashJoinExec"]
+    if len(joins) != 1 or joins[0].how != shuffled_how:
+        fail(f"{tag}: not one {shuffled_how} TpuShuffledHashJoinExec: "
+             f"{names}")
+    kids = [type(c).__name__ for c in joins[0].children]
+    if kids != ["TpuShuffleExchangeExec"] * 2:
+        fail(f"{tag}: the shuffled join's children are {kids}")
+    if names.count("TpuBroadcastHashJoinExec") != broadcasts:
+        fail(f"{tag}: not {broadcasts} TpuBroadcastHashJoinExec: {names}")
+    host = [n for n in names if n not in HOST_OK and
+            not n.startswith("Tpu")]
+    if host:
+        fail(f"{tag}: host nodes {host}")
+
+
+def _exchange_extras(plan) -> dict:
+    """Rows and bytes through the plan's exchanges (bytes only on the
+    local transport)."""
+    out = {"rows": 0, "bytes_written": 0, "exchanges": 0}
+    for n in _plan_nodes(plan):
+        if type(n).__name__ == "TpuShuffleExchangeExec":
+            out["exchanges"] += 1
+            out["rows"] += n.metrics.num_output_rows
+            out["bytes_written"] += int(n.metrics.extra.get(
+                "bytes_written", 0))
+    return out
+
+
+def _pinned(tag: str, got, pins: dict, key: str, errors: list) -> None:
+    """Hold ``got`` to ``pins[key]``; a key with no pin yet is printed for
+    pinning."""
+    if key not in pins:
+        log(f"{tag}: UNPINNED {key} = {got!r}")
+    elif got != pins[key]:
+        errors.append(f"{tag}: {got} != the pinned {pins[key]}")
+
+
+def _shuffle_query(tag: str, run, ref, shuffled_how: str, broadcasts: int,
+                   key: str, errors: list, shapes=None):
+    """One query: a cold run with the counts set to 0 before it (the
+    inputs of its kernel calls recorded when ``shapes`` is given), plan,
+    rows, launches and fallbacks; then 5 warm walls with sections, one
+    trace and the peak device memory.  Returns (output, launches)."""
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    view = obsreg.get_registry().view()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    if shapes is not None:
+        with shapes:
+            out, plan = run({})
+            torch.cuda.synchronize()
+    else:
+        out, plan = run({})
+        torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+    counters = view.delta()["counters"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{tag} plan:\n{plan.tree_string()}")
+    _check_shuffle_plan(tag, plan, shuffled_how, broadcasts)
+    rel = check_rows(tag, out, ref)
+    xch = _exchange_extras(plan)
+    routes = {k: int(counters.get(k, 0)) for k in STAR_COUNTERS}
+    log(f"{tag}: {out.num_rows} rows match pyarrow (float max rel "
+        f"{rel:.3g}): {out.to_pylist()[:3]}; cold wall {cold * 1e3:.1f} "
+        f"ms; {xch['rows']} rows through {xch['exchanges']} exchanges, "
+        f"bytes_written {xch['bytes_written']}; launches {launches}; "
+        f"fallbacks {fallbacks}; {routes}; peak device memory "
+        f"{peak:.2f} GiB")
+    log(f"{tag} cold sections: " + _fmt_ms(_sections(plan,
+                                                     SHUFFLE_SECTIONS)))
+    if launches.get("decode.unpack_bits", 0) <= 0:
+        fail(f"{tag} did not launch decode.unpack_bits")
+    _pinned(tag, launches, SHUFFLE_COUNTS, key, errors)
+    _pinned(tag, fallbacks, SHUFFLE_FALLBACKS, key, errors)
+    if broadcasts:
+        _pinned(tag, {k: routes[k] for k in STAR_COUNTERS[:2]},
+                SHUFFLE_ROUTES, key, errors)
+    sec = _star_sections(run, keys=SHUFFLE_SECTIONS)
+    log(f"{tag} sections (host clock, median of 5 warm runs; runs ms "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
+        + _fmt_ms(sec))
+    busy = trace_form(tag, run, {}, label="shuffle")
+    log(f"{tag}: device busy {busy['busy_share']:.1%} of "
+        f"{busy['wall_ms']:.1f} ms")
+    return out, launches
+
+
+def phase_shuffle(root: str, tables: dict):
+    """q97 at SF10 under the local and the device transport, then
+    q3/q42/q52/q55 at the default broadcast threshold, on port sessions
+    on cuda.  Returns (q97's launches on the local transport, its recorded
+    classes, the kernels it launched)."""
+    tables = dict(tables, catalog_sales=write_catalog_sales(root))
+    t0 = time.perf_counter()
+    ref97 = q97_reference(tables)
+    refs = {q: star_reference(q, tables) for q in STAR_QUERIES}
+    log(f"shuffle: pyarrow references in {time.perf_counter() - t0:.1f} s;"
+        f" q97 {ref97.to_pylist()}")
+    errors, rows = [], {}
+    shapes = ShapeRecorder()
+    launches97 = None
+    for transport in SHUFFLE_TRANSPORTS:
+        run = query_run("q97", root, SHUFFLE_TABLES,
+                        dict(SHUFFLE_CONF, **{TRANSPORT_KEY: transport}))
+        out, launches = _shuffle_query(
+            f"shuffle q97/{transport}", run, ref97, "full", 2,
+            f"q97/{transport}", errors,
+            shapes if transport == "local" else None)
+        rows[transport] = out.to_pylist()
+        if launches97 is None:
+            launches97 = launches
+    if rows["local"] != rows["device"]:
+        fail(f"shuffle q97: the transports disagree: {rows}")
+    for q in STAR_QUERIES:
+        run = query_run(q, root, STAR_TABLES, SHUFFLE_CONF)
+        _shuffle_query(f"shuffle {q}", run, refs[q], "inner", 1, q, errors)
+    if errors:
+        fail("; ".join(errors))
+    return launches97, shapes.classes, sorted(launches97)
+
+
+MODES_SHUFFLE_ROWS = 1 << 20
+# string keys: a pool of byte widths 0-33, most ending in a multi-byte
+# character (tail bytes >= 0x80)
+_WIDE = ("é", "中", "\U0001f600", "ÿ")
+
+
+def _string_pool(rng, n: int) -> list:
+    out = []
+    for i in range(n):
+        width = i % 34
+        c = _WIDE[i % len(_WIDE)] if i % 5 else ""
+        if len(c.encode()) > width:
+            c = ""
+        fill = width - len(c.encode())
+        out.append("".join(chr(int(x)) for x in rng.integers(32, 127, fill))
+                   + c)
+    return out
+
+
+def shuffle_modes_table(n: int, seed: int) -> pa.Table:
+    """``n`` rows, about 5% nulls per column: int32 keys over 2^16 values,
+    int64, float64 with NaN, -0.0 and 0.0, bool, date32, and strings from
+    a pool of 4,096 of byte widths 0-33."""
+    rng = np.random.default_rng(seed)
+
+    def nulls():
+        return rng.random(n) < 0.05
+    f = rng.normal(0, 1e3, n)
+    f[rng.random(n) < 0.02] = np.nan
+    f[rng.random(n) < 0.02] = -0.0
+    f[rng.random(n) < 0.02] = 0.0
+    pool = pa.array(_string_pool(rng, 4096))
+    s = pool.take(pa.array(rng.integers(0, 4096, n)))
+    return pa.table({
+        "k": pa.array(rng.integers(0, 1 << 16, n).astype(np.int32),
+                      mask=nulls()),
+        "i64": pa.array(rng.integers(-2**62, 2**62, n), mask=nulls()),
+        "f": pa.array(f, mask=nulls()),
+        "b": pa.array(rng.random(n) < 0.5, mask=nulls()),
+        "d": pa.array(rng.integers(-20000, 30000, n).astype(np.int32),
+                      mask=nulls()).cast(pa.date32()),
+        "s": pa.array(s.to_pylist(), type=pa.string(), mask=nulls()),
+    })
+
+
+def _partitions_of(session, df) -> list:
+    """Per output partition, its rows as one Arrow table."""
+    out = []
+    for it in session._plan_physical(df.plan).plan.execute():
+        tables = [t for t in it if t.num_rows]
+        out.append(pa.concat_tables(tables) if tables else None)
+    return out
+
+
+def shuffle_modes_queries(table: pa.Table, col, F, W):
+    """(tag, conf, df builder, per-partition) of every shuffle mode."""
+    right = table.slice(0, 1 << 16).select(["k", "i64", "s"]) \
+        .rename_columns(["rk", "ri", "rs"])
+    pool = pa.table({"ps": pa.array(sorted(
+        {v for v in table["s"].to_pylist() if v is not None}))})
+    agg_on = {"spark.rapids.tpu.sql.agg.exchange.enabled": True}
+    win_on = {"spark.rapids.tpu.sql.window.exchange.enabled": True}
+    sort_on = {"spark.rapids.tpu.sql.sort.exchange.enabled": True}
+    out = [
+        ("hash", {}, lambda s: s.create_dataframe(table, num_partitions=4)
+         .repartition(8, "k", "s"), True),
+        ("round robin", {}, lambda s: s.create_dataframe(
+            table, num_partitions=4).repartition(8), True),
+        ("range", {}, lambda s: s.create_dataframe(
+            table, num_partitions=4).repartition_by_range(
+            8, col("k"), col("f").desc(), col("s")), True),
+        ("single", {}, lambda s: s.create_dataframe(
+            table, num_partitions=4).repartition(1), True),
+        ("coalesce", {}, lambda s: s.create_dataframe(
+            table, num_partitions=4).repartition(8, "i64").coalesce(3),
+         True),
+        ("two-stage aggregate", agg_on, lambda s: s.create_dataframe(
+            table, num_partitions=4).group_by("k", "s").agg(
+            F.sum("i64").alias("si"), F.count("*").alias("c"),
+            F.min("f").alias("mnf"), F.max("f").alias("mxf"),
+            F.max("d").alias("md")), False),
+        ("partitionwise window", win_on, lambda s: s.create_dataframe(
+            table, num_partitions=4).select(
+            "k", "i64", "f", F.row_number().over(
+                W.partition_by("k").order_by("i64")).alias("rn"),
+            F.sum("f").over(W.partition_by("k").order_by("i64"))
+            .alias("sf")), False),
+        ("range-exchange sort", sort_on, lambda s: s.create_dataframe(
+            table, num_partitions=4).sort(col("f").desc(), col("k"),
+                                          col("i64")), False),
+    ]
+    no_bcast = {"spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1}
+    for how in ("inner", "left", "right", "full", "semi", "anti"):
+        out.append((f"join {how}", no_bcast, partial(
+            lambda s, how: s.create_dataframe(table, num_partitions=4).join(
+                s.create_dataframe(right), col("k") == col("rk"), how=how),
+            how=how), False))
+    out.append(("join string keys", no_bcast, lambda s: s.create_dataframe(
+        table, num_partitions=4).join(s.create_dataframe(pool),
+                                      col("s") == col("ps")), False))
+    return out
+
+
+def phase_shuffle_modes() -> None:
+    """Every repartition kind and the coalesce under both transports,
+    and the shuffled join for every how, the two-stage aggregate, the
+    partitionwise window and the range-exchange sort under the default
+    one, on the card against the same DataFrame on a port session on the
+    CPU: the repartitions partition by partition, the rest whole;
+    exactly, floats bit for bit
+    (the aggregate takes no float sum: the card's segmented scan adds in
+    another tree than the CPU's, which the parity phase holds to a
+    tolerance).  Untimed."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession, col
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.window import Window as W
+    base = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+            "spark.rapids.tpu.sql.test.enabled": True}
+    t0 = time.perf_counter()
+    table = shuffle_modes_table(MODES_SHUFFLE_ROWS, 19)
+    n = 0
+    for tag, conf, make, per_part in shuffle_modes_queries(table, col, F,
+                                                           W):
+        cpu = TpuSparkSession(dict(base, **conf), device="cpu")
+        want = make(cpu)
+        want = _partitions_of(cpu, want) if per_part else [want.collect()]
+        # the repartitions take both transports; the plans above an
+        # exchange take the default one, which they share with the
+        # repartitions' byte round trip
+        for transport in SHUFFLE_TRANSPORTS if per_part else ("local",):
+            s = TpuSparkSession(dict(base, **conf,
+                                     **{TRANSPORT_KEY: transport}),
+                                device="cuda")
+            df = make(s)
+            plan = df.explain_string("physical")
+            if "TpuShuffleExchangeExec" not in plan:
+                fail(f"shuffle-modes {tag}: no device exchange:\n{plan}")
+            got = _partitions_of(s, df) if per_part else [df.collect()]
+            if len(got) != len(want):
+                fail(f"shuffle-modes {tag}/{transport}: {len(got)} "
+                     f"partitions != the CPU session's {len(want)}")
+            for p, (g, w) in enumerate(zip(got, want)):
+                _bit_equal(f"shuffle-modes {tag}/{transport} partition {p}",
+                           g, w)
+            n += 1
+    log(f"shuffle-modes: {n} mode/transport runs over "
+        f"{MODES_SHUFFLE_ROWS} rows (nulls ~5%; NaN, -0.0 and strings of "
+        f"byte widths 0-33 with multi-byte tails) equal the CPU session's "
+        f"exactly in {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2780,7 +3236,8 @@ def phase_timing(paths):
 
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
-              "pipeline", "q6s", "star", "window", "modes", "window-modes"]
+              "pipeline", "q6s", "star", "window", "shuffle", "modes",
+              "window-modes", "shuffle-modes"]
 
 
 def main() -> int:
@@ -2792,15 +3249,21 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} pyarrow "
         f"{pa.__version__} on {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+
+    def done(name: str) -> None:
+        log(f"phase {name} done at {time.perf_counter() - t_start:.1f} s")
     phase_build()
+    done("build")
     if "parity" in phases:
         phase_parity()
         phase_parity_decode()
+        done("parity")
     if "entry" in phases:
         phase_entry()
     runs, counts = {}, {}
     if "q6" in phases:
         runs["q6"] = ("q6", *phase_q6(), SEGREDUCE)
+        done("q6")
     if {"q6p", "q6pf", "session", "pipeline"} & set(phases):
         root = _parquet_dir("q6-parquet")
         try:
@@ -2823,18 +3286,25 @@ def main() -> int:
                     for k, v in busy.items()))
         finally:
             shutil.rmtree(root, ignore_errors=True)
+        done("q6p/q6pf/session/pipeline")
     if "q6s" in phases:
         runs["q6s"] = ("q6s-parquet", *phase_q6s_parquet(),
                        ["filter_decode.decode_str"])
-    if {"star", "window"} & set(phases):
-        # the star and window phases share the SF10 files
+    if {"star", "window", "shuffle"} & set(phases):
+        # the star, window and shuffle phases share the SF10 files
         root = _parquet_dir("star")
         try:
             tables = write_star_files(root)
+            done("star files")
             if "star" in phases:
                 runs["star"] = ("star", *phase_star(root, tables))
+                done("star")
             if "window" in phases:
                 runs["window"] = ("window", *phase_window(root, tables))
+                done("window")
+            if "shuffle" in phases:
+                runs["shuffle"] = ("shuffle", *phase_shuffle(root, tables))
+                done("shuffle")
             del tables
         finally:
             shutil.rmtree(root, ignore_errors=True)
@@ -2842,11 +3312,14 @@ def main() -> int:
         phase_perfile_modes()
     if "window-modes" in phases:
         phase_window_modes()
+    if "shuffle-modes" in phases:
+        phase_shuffle_modes()
+        done("shuffle-modes")
     kernels = None
     if set(ALL_PHASES) <= set(phases):
         kernels = phase_timing([runs[k] for k in ("q6", "q6p", "q6s",
                                                   "q6pf", "star",
-                                                  "window")])
+                                                  "window", "shuffle")])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

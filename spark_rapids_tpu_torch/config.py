@@ -133,20 +133,18 @@ FUSION_MAX_EXPRS = conf(
 AGG_EXCHANGE = conf(
     "spark.rapids.tpu.sql.agg.exchange.enabled", False,
     "Plan grouped aggregates as a hash exchange on the grouping keys "
-    "followed by a per-partition aggregate (needs shuffle/exchange.py, "
-    "not ported yet).", bool)
+    "followed by a per-partition aggregate.", bool)
 
 SORT_EXCHANGE = conf(
     "spark.rapids.tpu.sql.sort.exchange.enabled", False,
     "Plan global ORDER BY as a range exchange followed by per-partition "
-    "sorts (needs shuffle/exchange.py, not ported yet).", bool)
+    "sorts.", bool)
 
 WINDOW_EXCHANGE = conf(
     "spark.rapids.tpu.sql.window.exchange.enabled", False,
     "Plan window functions over PARTITION BY keys as a hash exchange on "
     "those keys followed by per-partition window evaluation "
-    "(auto-enabled when shuffle.transport=ici/ici_ring; needs "
-    "shuffle/exchange.py, not ported yet).", bool)
+    "(auto-enabled when shuffle.transport=ici/ici_ring).", bool)
 
 ENABLE_FLOAT_SORT = conf(
     "spark.rapids.tpu.sql.sort.float.enabled", True,
@@ -156,9 +154,18 @@ ENABLE_FLOAT_SORT = conf(
 SHUFFLE_TRANSPORT = conf(
     "spark.rapids.tpu.shuffle.transport", "local",
     "Shuffle transport of the reference ('local', 'device', 'manager', "
-    "'ici', 'ici_ring', 'process').  The planner reads it to choose the "
-    "two-stage aggregate; a broadcast join under 'ici'/'ici_ring' raises "
-    "(shuffle/ici.py is not ported yet).")
+    "'ici', 'ici_ring', 'process').  The exchange runs 'local' (slices "
+    "downloaded, Arrow-IPC-serialized into an in-process block store, "
+    "re-uploaded once per reducer) and 'device' (slices stay on the "
+    "card); the others raise naming the reference module that serves "
+    "them (shuffle/manager.py, shuffle/executor_proc.py, shuffle/ici.py), "
+    "as does a broadcast join under 'ici'/'ici_ring'.")
+
+SHUFFLE_COMPRESSION_CODEC = conf(
+    "spark.rapids.tpu.shuffle.compression.codec", "none",
+    "Codec of the 'local' transport's serialized blocks: none (copy), "
+    "lz4, zstd, or zlib (accepted; Arrow IPC has no zlib buffer "
+    "compression, so those blocks are stored uncompressed).")
 
 SHUFFLE_PARTITIONS = conf(
     "spark.rapids.tpu.sql.shuffle.partitions", 8,

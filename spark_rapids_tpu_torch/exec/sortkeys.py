@@ -316,6 +316,15 @@ def shared_lexsort(wm: torch.Tensor) -> torch.Tensor:
     return radix_order(wm)
 
 
+
+def shared_partition_order(targets: torch.Tensor) -> torch.Tensor:
+    """Stable order grouping rows by non-negative int32 target id: rows
+    of one target keep their input order (the reference sorts
+    ``target << 32 | row`` as u64; a stable sort of the targets is the
+    same permutation)."""
+    return torch.sort(targets, stable=True)[1]
+
+
 DUMP_SLOTS = 1 << 16
 
 

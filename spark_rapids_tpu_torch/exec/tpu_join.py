@@ -30,9 +30,16 @@ rounds; both are counted in the process registry
 The reference's kernel-cache keys and erased dispatch exist to bound XLA
 compiles; the port runs eagerly, and computes each route's tables once
 per pair where the reference's count and emit kernels each recompute
-them.  Left out until ``shuffle/exchange.py`` and the spill catalog are
-ported: ``TpuShuffledHashJoinExec``, full outer joins and the grace
-joins of ``exec/join_partition.py``.
+them.
+
+``TpuShuffledHashJoinExec`` joins co-partitioned exchange outputs
+partition by partition: inner/left/semi/anti gather the build partition
+once and probe it per stream batch; right and full outer joins gather
+both partitions, and a full outer join takes the sort route, appending
+its unmatched build rows after the pairs.  Left out until the spill
+catalog is ported: the grace joins of ``exec/join_partition.py`` (the
+planner never stamps ``_oocore``: the reference's unconditional
+gather).
 """
 
 from __future__ import annotations
@@ -248,8 +255,15 @@ class _JoinCtx:
             torch.where(match_build, pos, _BIG32), _BIG32)
         self.build_start = run_min[end_pos]
         match_stream = self.is_stream & ~self.sorted_null_key
+        self.s_count = per_group_count(match_stream)
         # per sorted-row match count (stream rows only)
         self.m = torch.where(match_stream, self.b_count[seg.long()], 0)
+
+    def unmatched_build(self) -> torch.Tensor:
+        """Sorted build rows no stream row matches (a full outer join
+        emits them after the pairs); a null-key build row never
+        matches."""
+        return self.is_build & (self.s_count[self.seg.long()] == 0)
 
 
 def _pairs_layout(ctx: _JoinCtx, outer: bool):
@@ -263,8 +277,10 @@ def _pairs_layout(ctx: _JoinCtx, outer: bool):
 
 def _emit(build: DeviceBatch, stream: DeviceBatch, ctx: _JoinCtx,
           m_out: torch.Tensor, incl: torch.Tensor, out_cap: int,
-          build_first: bool) -> DeviceBatch:
-    """Pass 2 of the sort route: the joined batch at capacity out_cap."""
+          build_first: bool, full: bool = False) -> DeviceBatch:
+    """Pass 2 of the sort route: the joined batch at capacity out_cap.
+    A full outer join appends the unmatched build rows after the pairs,
+    in sorted-build order (a cumsum and a scatter, no sort)."""
     dev = incl.device
     total_pairs = incl[-1]
     k = torch.arange(out_cap, dtype=torch.int64, device=dev)
@@ -287,11 +303,27 @@ def _emit(build: DeviceBatch, stream: DeviceBatch, ctx: _JoinCtx,
     bpos = torch.clamp(ctx.build_start[ctx.seg[r].long()] + j, 0,
                        ctx.cap - 1)
     build_orig = torch.clamp(ctx.order[bpos], 0, ctx.cap_b - 1)
+    build_valid = valid_pair & has_match
+    num_rows = total_pairs
+    if full:
+        unmatched = ctx.unmatched_build()
+        u_count = unmatched.to(torch.int64).sum()
+        u_dest = torch.where(
+            unmatched, torch.cumsum(unmatched.to(torch.int32), 0) - 1,
+            ctx.cap)
+        u_order = scatter_drop(u_dest, torch.arange(
+            ctx.cap, dtype=torch.int32, device=dev), ctx.cap)
+        tail_pos = u_order[torch.clamp(k - total_pairs, 0,
+                                       ctx.cap - 1)].long()
+        in_tail = (k >= total_pairs) & (k < total_pairs + u_count)
+        build_orig = torch.where(
+            in_tail, torch.clamp(ctx.order[tail_pos], 0, ctx.cap_b - 1),
+            build_orig)
+        build_valid = build_valid | in_tail
+        num_rows = total_pairs + u_count
     s_cols = [c.gather(stream_orig, valid_pair) for c in stream.columns]
-    b_cols = [c.gather(build_orig, valid_pair & has_match)
-              for c in build.columns]
-    return _assemble(build, stream, b_cols, s_cols, total_pairs,
-                     build_first)
+    b_cols = [c.gather(build_orig, build_valid) for c in build.columns]
+    return _assemble(build, stream, b_cols, s_cols, num_rows, build_first)
 
 
 def _assemble(build, stream, b_cols, s_cols, num_rows,
@@ -590,26 +622,25 @@ class _HashJoinBase(TpuExec):
             bkeys, skeys = rkeys, lkeys
             emit_how = how
             build_first = False
-        if emit_how not in ("inner", "left"):
-            raise NotImplementedError(
-                f"a {how} join needs spark_rapids_tpu/shuffle/exchange.py "
-                f"(a shuffled hash join), which the torch port has not "
-                f"ported yet")
-
+        full = emit_how == "full"
+        # the probe route serves inner and left only
         bits = _probe_code_bits(build, stream, bkeys, skeys)
-        if bits is not None and bits <= _PROBE_MAX_BITS:
+        if bits is not None and bits <= _PROBE_MAX_BITS and not full:
             yield from self._probe_pair(build, stream, bkeys, skeys,
                                         emit_how, build_first, bits)
             return
         self._route("join.route.sort")
         with timed(self.metrics, "join.count"):
             ctx = _JoinCtx(build, stream, bkeys, skeys)
-            m_out, incl = _pairs_layout(ctx, emit_how == "left")
-            (total,) = _host_ints(incl[-1])
+            m_out, incl = _pairs_layout(ctx, emit_how in ("left", "full"))
+            n_out = incl[-1]
+            if full:
+                n_out = n_out + ctx.unmatched_build().to(torch.int64).sum()
+            (total,) = _host_ints(n_out)
         _check_total(total)
         with timed(self.metrics, "join.emit"):
             out = _emit(build, stream, ctx, m_out, incl, bucket_rows(total),
-                        build_first)
+                        build_first, full)
         yield self._finish(out)
 
 
@@ -655,6 +686,57 @@ class TpuBroadcastHashJoinExec(_BroadcastBuildMixin, _HashJoinBase):
                     yield from self._join_pair(b, sb, "left")
 
         return [run(it) for it in sits]
+
+
+class TpuShuffledHashJoinExec(_HashJoinBase):
+    """Equi-join over co-partitioned children (the hash exchanges the
+    planner put on both sides): each partition pair joins on its own."""
+
+    def execute(self):
+        from spark_rapids_tpu_torch.mem.spill import register_or_hold
+        lits = self.children[0].execute()
+        rits = self.children[1].execute()
+        if len(lits) != len(rits):
+            raise ValueError(f"join children not co-partitioned: "
+                             f"{len(lits)} vs {len(rits)}")
+
+        def run_streamed(lit, rit):
+            """inner/left/semi/anti: the build partition gathered once and
+            held while each stream batch probes it."""
+            right = _gather_partition(rit)
+            if right is None and self.how == "inner":
+                for _ in lit:       # nothing can match; drain the stream
+                    pass
+                return
+            rh = None if right is None else register_or_hold(right)
+            try:
+                for lb in lit:
+                    if not _live(lb):
+                        continue
+                    build = rh.get() if rh is not None else _empty_like(
+                        self.children[1].schema, lb.device)
+                    yield from self._join_pair(lb, build)
+            finally:
+                if rh is not None:
+                    rh.close()
+
+        def run_gathered(lit, rit):
+            """right/full: unmatched rows need every batch of the pair, so
+            both partitions join as single batches."""
+            left = _gather_partition(lit)
+            right = _gather_partition(rit)
+            if left is None and right is None:
+                return
+            dev = (left if left is not None else right).device
+            if left is None:
+                left = _empty_like(self.children[0].schema, dev)
+            if right is None:
+                right = _empty_like(self.children[1].schema, dev)
+            yield from self._join_pair(left, right)
+
+        run = run_gathered if self.how in ("right", "full") \
+            else run_streamed
+        return [run(lit, rit) for lit, rit in zip(lits, rits)]
 
 
 def _empty_like(schema: Schema, device) -> DeviceBatch:

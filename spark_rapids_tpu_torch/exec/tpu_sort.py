@@ -61,8 +61,7 @@ class TpuSortExec(TpuExec):
         self.orders = list(orders)
         # partitionwise: sort each child partition on its own (a range
         # exchange below makes the partition-ordered concatenation the
-        # total order; the planner raises for that exchange until
-        # shuffle/exchange.py is ported)
+        # total order)
         self.partitionwise = partitionwise
 
     @property

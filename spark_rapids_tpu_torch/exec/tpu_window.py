@@ -485,8 +485,7 @@ class TpuWindowExec(TpuExec):
         self.out_names = list(out_names)
         self._schema = schema
         # partitionwise: a hash exchange on the PARTITION BY keys below
-        # puts whole window groups in each child partition (the planner
-        # raises for that exchange until shuffle/exchange.py is ported)
+        # puts whole window groups in each child partition
         self.partitionwise = partitionwise
 
     @property

@@ -8,8 +8,10 @@ minus/plus and ``abs`` with Spark's null rules (x / 0 and x % 0 are
 NULL; integer overflow wraps), IS [NOT] NULL, ``isnan``,
 ``coalesce``, ``nanvl``, ``if`` / ``CASE WHEN``, the double math
 functions (``log`` of x <= 0 is NULL; ``ceil``/``floor`` saturate to
-int64), the three shifts, and casts between numeric, boolean and
-temporal types.  The planner keeps every other node on the CPU
+int64), the three shifts, casts between numeric, boolean and
+temporal types, Spark's murmur3 hash (``hash_colval``, the shuffle
+exchange's partition key) and the NaN/-0.0 normalization of float join
+keys.  The planner keeps every other node on the CPU
 (:func:`supported_on_tpu`, read by plan/overrides.py), so a planned query
 never reaches the ``NotImplementedError(<node name>)`` that evaluating
 one raises.
@@ -597,6 +599,141 @@ def _eval_cast(e, batch):
     raise NotImplementedError(f"Cast({src.name}->{tgt.name})")
 
 
+# ---------------------------------------------------------------------------
+# hash: Spark-compatible murmur3_x86_32 (seed 42), vectorized
+# ---------------------------------------------------------------------------
+#
+# The reference computes in wrapping int32 and casts to uint32 for every
+# logical shift.  torch's >> on int32 is arithmetic and its uint32 cover
+# is thin, so here every 32-bit word is held unsigned in int64: products
+# are taken in 16-bit halves (no intermediate leaves int64), shifts are
+# logical because the values are non-negative, and the result is folded
+# back to signed int32 once.
+
+_M32 = 0xFFFFFFFF
+_C1 = 0xCC9E2D51
+_C2 = 0x1B873593
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for a in [0, 2^32) and a constant c < 2^32."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def _mix_k1(k1: torch.Tensor) -> torch.Tensor:
+    return _mul32(_rotl(_mul32(k1, _C1), 15), _C2)
+
+
+def _mix_h1(h1: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
+    h1 = _rotl(h1 ^ k1, 13)
+    return (h1 * 5 + 0xE6546B64) & _M32
+
+
+def _fmix(h1: torch.Tensor, length) -> torch.Tensor:
+    h = h1 ^ length
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """The 32-bit word of an int32 (or the low word of an int64),
+    unsigned, in int64."""
+    return x.to(torch.int64) & _M32
+
+
+def _signed(h: torch.Tensor) -> torch.Tensor:
+    return torch.where(h >= (1 << 31), h - (1 << 32), h).to(torch.int32)
+
+
+def _hash_int(v32: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    return _fmix(_mix_h1(seed, _mix_k1(_u32(v32))), 4)
+
+
+def _hash_long(v64: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    v64 = v64.to(torch.int64)
+    h1 = _mix_h1(seed, _mix_k1(v64 & _M32))
+    h1 = _mix_h1(h1, _mix_k1((v64 >> 32) & _M32))
+    return _fmix(h1, 8)
+
+
+def _hash_bytes(data: torch.Tensor, lengths: torch.Tensor,
+                seed: torch.Tensor) -> torch.Tensor:
+    """Spark hashUnsafeBytes over each row of a ``[rows, w]`` byte
+    matrix: the full 4-byte words little-endian and unsigned, then the
+    (at most three) tail bytes one at a time, each SIGN-extended."""
+    rows, w = data.shape
+    nwords = (w + 3) // 4
+    b = torch.nn.functional.pad(data, (0, nwords * 4 - w)).to(torch.int64)
+    lengths = lengths.to(torch.int64)
+    h1 = seed
+    for wi in range(nwords):
+        word = (b[:, 4 * wi] | (b[:, 4 * wi + 1] << 8) |
+                (b[:, 4 * wi + 2] << 16) | (b[:, 4 * wi + 3] << 24))
+        h1 = torch.where(lengths >= 4 * (wi + 1),
+                         _mix_h1(h1, _mix_k1(word)), h1)
+    # the tail bytes, in ascending position (the reference walks every
+    # position and keeps those past the last full word)
+    tail0 = (lengths // 4) * 4
+    for t in range(3):
+        pos = tail0 + t
+        in_tail = pos < lengths
+        byte = torch.gather(b, 1, torch.clamp(pos, 0, b.shape[1] - 1)
+                            .reshape(-1, 1)).reshape(-1) if b.shape[1] \
+            else torch.zeros_like(lengths)
+        byte = torch.where(byte >= 128, byte | 0xFFFFFF00, byte)
+        h1 = torch.where(in_tail, _mix_h1(h1, _mix_k1(byte)), h1)
+    return _fmix(h1, lengths & _M32)
+
+
+def hash_colval(v: ColVal, seed: torch.Tensor) -> torch.Tensor:
+    """One murmur3 step for one column over int32 seeds; a null keeps the
+    previous seed (Spark skips null columns)."""
+    d = v.dtype
+    s = _u32(seed)
+    if d.is_string:
+        h = _hash_bytes(v.data, v.lengths, s)
+    elif d.id in (dt.TypeId.INT64, dt.TypeId.TIMESTAMP_US):
+        h = _hash_long(v.data, s)
+    elif d.id == dt.TypeId.FLOAT64:
+        x = torch.where(v.data == 0.0, 0.0, v.data)      # -0.0 -> 0.0
+        x = torch.where(torch.isnan(x), math.nan, x)     # canonical NaN
+        h = _hash_long(x.view(torch.int64), s)
+    elif d.id == dt.TypeId.FLOAT32:
+        x = torch.where(v.data == 0.0, 0.0, v.data)
+        x = torch.where(torch.isnan(x), math.nan, x)
+        h = _hash_int(x.view(torch.int32), s)
+    else:  # bool, int8/16/32 and date32 hash as int
+        h = _hash_int(v.data.to(torch.int32), s)
+    return torch.where(v.validity, _signed(h), seed)
+
+
+def _eval_murmur3(e: ir.Murmur3Hash, batch):
+    h = torch.full((batch.capacity,), e.seed, dtype=torch.int32,
+                   device=batch.device)
+    for c in e.children:
+        h = hash_colval(evaluate(c, batch), h)
+    return ColVal(dt.INT32, h, torch.ones(batch.capacity, dtype=torch.bool,
+                                          device=batch.device))
+
+
+def _eval_knownfloat(e, batch):
+    c = evaluate(e.child, batch)
+    if c.dtype.is_floating:
+        x = torch.where(torch.isnan(c.data), math.nan, c.data)
+        x = torch.where(x == 0.0, 0.0, x)                # -0.0 -> +0.0
+        return ColVal(c.dtype, x.to(c.data.dtype), c.validity)
+    return c
+
+
 _DISPATCH = {
     ir.Literal: _eval_literal,
     ir.BoundReference: _eval_bound,
@@ -657,6 +794,8 @@ _DISPATCH = {
     ir.ShiftRight: _eval_shiftright,
     ir.ShiftRightUnsigned: _eval_shiftright_unsigned,
     ir.Cast: _eval_cast,
+    ir.Murmur3Hash: _eval_murmur3,
+    ir.KnownFloatingPointNormalized: _eval_knownfloat,
 }
 
 

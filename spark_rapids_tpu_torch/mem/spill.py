@@ -28,6 +28,12 @@ class PlainBatchHandle:
     def close(self) -> None:
         self._batch = None
 
+    def __enter__(self) -> "PlainBatchHandle":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
 
 def register_or_hold(batch: DeviceBatch) -> PlainBatchHandle:
     """A get()/close() handle for ``batch``.  The reference registers the

@@ -20,12 +20,19 @@ reference's:
      (``spark.rapids.tpu.sql.explain=NOT_ON_TPU|ALL``).
 
 Rules exist for the execs the port has: Project, Filter, HashAggregate,
-Range, Union, GlobalLimit, Expand, Sort, Window, the broadcast hash
-join, the broadcast nested-loop join, the cartesian product and the
-Parquet file scan (the in-memory scan stays a host node under its
-HostToDevice transition).  Generate, the exchanges and cache scans have
-no rule yet: the planner raises for them, naming the module each waits
-for.
+Range, Union, GlobalLimit, Expand, Sort, Window, the shuffle exchange
+and the partition coalesce, the shuffled and the broadcast hash joins,
+the broadcast nested-loop join, the cartesian product and the Parquet
+file scan (the in-memory scan stays a host node under its HostToDevice
+transition).  Generate and cache scans have no rule yet: the planner
+raises for them, naming the module each waits for.
+
+The reference's shuffled-join rule also wraps the join's exchanges in
+adaptive readers (``exec/adaptive.py``, ``sql.adaptive.enabled``) and
+stamps the grace-join budget (``exec/join_partition.py``,
+``sql.join.oocore.enabled``).  The port has neither module yet: it
+builds the join over the bare exchanges, the reference's plan with both
+keys false, and accepts both keys unread.
 """
 
 from __future__ import annotations
@@ -300,7 +307,16 @@ def _join_exprs(n: cpux.CpuJoinExec) -> List[ir.Expression]:
 def _register_join_strategy_rules():
     from spark_rapids_tpu_torch.exec.tpu_join import (
         TpuBroadcastHashJoinExec, TpuBroadcastNestedLoopJoinExec,
-        TpuCartesianProductExec)
+        TpuCartesianProductExec, TpuShuffledHashJoinExec)
+
+    register_exec_rule(cpux.CpuShuffledHashJoinExec, ExecRule(
+        "ShuffledHashJoinExec",
+        "device partitioned equi-join over co-partitioned exchanges",
+        _join_exprs,
+        convert=lambda n, ch, conf, device: TpuShuffledHashJoinExec(
+            ch[0], ch[1], n.left_keys, n.right_keys, n.how, n.condition,
+            n.schema),
+        extra_tag=_tag_join))
 
     register_exec_rule(cpux.CpuBroadcastHashJoinExec, ExecRule(
         "BroadcastHashJoinExec",
@@ -330,6 +346,44 @@ def _register_join_strategy_rules():
 
 
 _register_join_strategy_rules()
+
+
+def _tag_exchange(n, conf) -> List[str]:
+    from spark_rapids_tpu_torch.shuffle import exchange as ex
+    out = []
+    if isinstance(n.partitioning, ex.RangePartitioning):
+        for o in n.partitioning.orders:
+            if o.expr.dtype is not None and o.expr.dtype.is_floating and \
+                    not conf.get(cfg.ENABLE_FLOAT_SORT):
+                out.append("float range partitioning disabled")
+    out.extend(_nested_key_reasons(n.partitioning.exprs(), "partitioning"))
+    return out
+
+
+def _register_exchange_rule():
+    from spark_rapids_tpu_torch.shuffle import exchange as ex
+
+    register_exec_rule(ex.CpuCoalescePartitionsExec, ExecRule(
+        "CoalesceExec",
+        "device partition coalesce (iterator regrouping, no data "
+        "movement)",
+        _no_exprs,
+        convert=lambda n, ch, conf, device: ex.TpuCoalescePartitionsExec(
+            ch[0], n.num_partitions)))
+
+    # a user repartition keeps its exact partition count; the reference
+    # wraps only the planner's join exchanges in adaptive readers
+    register_exec_rule(ex.CpuShuffleExchangeExec, ExecRule(
+        "ShuffleExchangeExec",
+        "device shuffle exchange (on-device partition slicing; local "
+        "Arrow-IPC or device-resident data plane)",
+        lambda n: n.partitioning.exprs(),
+        convert=lambda n, ch, conf, device: ex.TpuShuffleExchangeExec(
+            ch[0], n.partitioning, conf),
+        extra_tag=_tag_exchange))
+
+
+_register_exchange_rule()
 
 
 def _register_file_scan_rule():

@@ -7,12 +7,16 @@ produces the "stock" CPU physical plan that ``TpuOverrides.apply``
 (here) -> ``TpuOverrides.apply``, which converts to device execs and runs
 the whole-stage fusion pass (plan/fusion.py).
 
-A node whose exec lives in a module the port has not ported yet raises
-``NotImplementedError`` naming that module: the hash exchange of the
-two-stage aggregate and of the partitionwise window, the range exchange
-of a distributed sort, shuffled joins and repartitioning
-(``shuffle/exchange.py``), generators (``exec/generate.py``), cached
-relations (``exec/cache.py``) and pandas UDFs (``pyworker/execs.py``).
+The exchanges are planned as the reference plans them
+(``shuffle/exchange.py``): a hash exchange under the two-stage aggregate
+(``sql.agg.exchange.enabled``, or transport ici/ici_ring/process) and the
+partitionwise window (``sql.window.exchange.enabled``, or ici/ici_ring),
+a range exchange under the distributed sort (``sql.sort.exchange.enabled``,
+or ici/ici_ring), repartition/coalesce, and a hash exchange on both sides
+of a shuffled join.  A node whose exec lives in a module the port has not
+ported yet raises ``NotImplementedError`` naming that module: generators
+(``exec/generate.py``), cached relations (``exec/cache.py``) and pandas
+UDFs (``pyworker/execs.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from spark_rapids_tpu_torch.exec import cpu as cpux
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan
 from spark_rapids_tpu_torch.expr import ir
 from spark_rapids_tpu_torch.plan import logical as lp
+from spark_rapids_tpu_torch.shuffle import exchange as ex
 
 
 def _not_ported(what: str, module: str):
@@ -71,8 +76,12 @@ def plan_cpu(node: lp.LogicalPlan, conf: RapidsTpuConf) -> PhysicalPlan:
                                                         "process"))
         if two_stage and all(g.dtype is not None and not g.dtype.is_nested
                              for g in groupings):
-            raise _not_ported("the two-stage aggregate's hash exchange",
-                              "shuffle/exchange.py")
+            child = ex.CpuShuffleExchangeExec(
+                child, ex.HashPartitioning(conf.shuffle_partitions,
+                                           list(groupings)))
+            return cpux.CpuHashAggregateExec(child, groupings, aggs,
+                                             node.schema,
+                                             per_partition=True)
         return cpux.CpuHashAggregateExec(child, groupings, aggs,
                                          node.schema)
     if isinstance(node, lp.Limit):
@@ -81,8 +90,21 @@ def plan_cpu(node: lp.LogicalPlan, conf: RapidsTpuConf) -> PhysicalPlan:
         return cpux.CpuUnionExec([plan_cpu(c, conf) for c in node.children])
     if isinstance(node, lp.Join):
         return _plan_join(node, conf)
-    if isinstance(node, (lp.Repartition, lp.CoalescePartitions)):
-        raise _not_ported(type(node).__name__, "shuffle/exchange.py")
+    if isinstance(node, lp.Repartition):
+        child = plan_cpu(node.children[0], conf)
+        n = node.num_partitions
+        if node.kind == "hash":
+            part = ex.HashPartitioning(n, node.exprs)
+        elif node.kind == "range":
+            part = ex.RangePartitioning(n, node.orders)
+        elif node.kind == "single":
+            part = ex.SinglePartitioning(n)
+        else:
+            part = ex.RoundRobinPartitioning(n)
+        return ex.CpuShuffleExchangeExec(child, part)
+    if isinstance(node, lp.CoalescePartitions):
+        return ex.CpuCoalescePartitionsExec(plan_cpu(node.children[0], conf),
+                                            node.num_partitions)
     if isinstance(node, lp.Range):
         return cpux.CpuRangeExec(node.start, node.end, node.step,
                                  node.num_partitions)
@@ -106,8 +128,12 @@ def plan_cpu(node: lp.LogicalPlan, conf: RapidsTpuConf) -> PhysicalPlan:
             if len(psigs) == 1 and pk and \
                     all(e.dtype is not None and not e.dtype.is_nested
                         for e in pk):
-                raise _not_ported("the partitionwise window's hash "
-                                  "exchange", "shuffle/exchange.py")
+                child = ex.CpuShuffleExchangeExec(
+                    child, ex.HashPartitioning(conf.shuffle_partitions,
+                                               pk))
+                return CpuWindowExec(child, node.window_exprs,
+                                     node.out_names, node.schema,
+                                     partitionwise=True)
         return CpuWindowExec(child, node.window_exprs, node.out_names,
                              node.schema)
     if isinstance(node, (lp.MapInPandas, lp.FlatMapGroupsInPandas,
@@ -134,8 +160,12 @@ def _plan_sort(node: lp.Sort, child: PhysicalPlan,
         or str(conf.get(cfg.SHUFFLE_TRANSPORT)) in ("ici", "ici_ring"))
     if dist and all(o.expr.dtype is not None and not o.expr.dtype.is_nested
                     for o in node.orders):
-        raise _not_ported("the distributed sort's range exchange",
-                          "shuffle/exchange.py")
+        # partition p holds range bucket p, so the partition-ordered
+        # concatenation of the per-partition sorts is the total order
+        exch = ex.CpuShuffleExchangeExec(
+            child, ex.RangePartitioning(conf.shuffle_partitions,
+                                        node.orders))
+        return cpux.CpuSortExec(exch, node.orders, partitionwise=True)
     return cpux.CpuSortExec(child, node.orders)
 
 
@@ -143,7 +173,7 @@ def _plan_join(node, conf: RapidsTpuConf):
     """Join strategy selection, as the reference's: broadcast-hash when a
     side is hinted or estimated under
     spark.rapids.tpu.sql.autoBroadcastJoinThreshold, else shuffled-hash
-    (which needs the hash exchange); cross joins become
+    with a hash exchange on both sides; cross joins become
     broadcast-nested-loop (small side) or a cartesian product."""
     left = plan_cpu(node.children[0], conf)
     right = plan_cpu(node.children[1], conf)
@@ -182,5 +212,26 @@ def _plan_join(node, conf: RapidsTpuConf):
     if build is not None:
         return cpux.CpuBroadcastHashJoinExec(left, right, *args,
                                              build_side=build)
-    raise _not_ported("a shuffled hash join's exchanges",
-                      "shuffle/exchange.py")
+
+    n = conf.shuffle_partitions
+
+    def bound_keys(side, names):
+        s = side.schema
+        out = []
+        for k, kd in zip(names, node.key_dtypes):
+            e = ir.bind(ir.UnresolvedAttribute(k), s.names, s.dtypes,
+                        s.nullables)
+            if e.dtype != kd:
+                # both sides must hash the promoted key type identically
+                e = ir.Cast(e, kd)
+                e.resolve()
+            out.append(e)
+        return out
+
+    lex = ex.CpuShuffleExchangeExec(
+        left, ex.HashPartitioning(n, bound_keys(node.children[0],
+                                                node.left_keys)))
+    rex = ex.CpuShuffleExchangeExec(
+        right, ex.HashPartitioning(n, bound_keys(node.children[1],
+                                                 node.right_keys)))
+    return cpux.CpuShuffledHashJoinExec(lex, rex, *args)

@@ -7,9 +7,9 @@ join adds floats in the same order), and each join's route is the
 reference's: the probe route when both sides' keys carry value-range
 hints (in-memory uploads do), the sort route when a filter in front of
 the join has dropped them ("unhinted"), when the packed code is too wide
-for the direct table, or for float and string keys.  Full outer joins
-and shuffled joins raise ``NotImplementedError`` naming
-``shuffle/exchange.py``.
+for the direct table, or for float and string keys.  A full outer join,
+and any equi-join with broadcasts off, plans as a shuffled hash join
+(``tests/test_torch_exchange.py`` holds those joins in every form).
 """
 
 import numpy as np
@@ -106,19 +106,40 @@ def test_join_parity(how, hinted):
     assert_port_matches(q, route="probe" if hinted else "sort")
 
 
+# the shuffled joins' partitions and row order are compared with the
+# reference's, whose adaptive reader (not ported) would regroup them
+NO_ADAPTIVE = {"spark.rapids.tpu.sql.adaptive.enabled": False}
+
+
 def test_full_outer_raises_naming_the_exchange():
-    (_, _), (ts, api) = _sessions()
-    left, right = _sides(ts, api, True)
-    with pytest.raises(NotImplementedError, match="shuffle/exchange.py"):
-        left.join(right, on="k", how="full").collect()
+    """A full outer join never broadcasts: it plans as a shuffled hash
+    join over two exchanges and matches the reference row for row.  It
+    takes the sort route on every pair, where the reference's rule would
+    allow the probe route to inner and left joins only."""
+    def q(s, api):
+        left, right = _sides(s, api, True)
+        return left.join(right, on="k", how="full")
+    (js, japi), (ts, tapi_) = _sessions(NO_ADAPTIVE)
+    ref, jroutes = _ref_run(q, js, japi)
+    plan = q(ts, tapi_).explain_string("physical")
+    assert "TpuShuffledHashJoinExec" in plan, plan
+    got, troutes = _port_run(q, ts, tapi_)
+    assert_tables_equal(ref, got)
+    assert troutes == ["sort"] * len(jroutes)
 
 
 def test_shuffled_join_raises_naming_the_exchange():
-    (_, _), (ts, api) = _sessions(
-        {"spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1})
-    left, right = _sides(ts, api, True)
-    with pytest.raises(NotImplementedError, match="shuffle/exchange.py"):
-        left.join(right, on="k").collect()
+    """With broadcasts off, an inner join plans as a shuffled hash join
+    and matches the reference row for row and route for route."""
+    def q(s, api):
+        left, right = _sides(s, api, True)
+        return left.join(right, on="k")
+    conf = dict(NO_ADAPTIVE,
+                **{"spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1})
+    (_, _), (ts, api) = _sessions(conf)
+    plan = q(ts, api).explain_string("physical")
+    assert "TpuShuffledHashJoinExec" in plan, plan
+    assert_port_matches(q, conf, route="probe")
 
 
 @pytest.mark.parametrize("hinted", [True, False], ids=["probe", "sort"])

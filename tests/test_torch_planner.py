@@ -129,15 +129,24 @@ def test_pruned_plans_match_reference_rows(roots, name):
 
 
 def test_unported_exec_raises_naming_its_module(roots):
+    """explode waits for exec/generate.py; the two-stage aggregate
+    (``agg.exchange.enabled``) plans as the reference's, a hash exchange
+    under a per-partition aggregate, and gives its rows."""
     a = session("port", CONF).read.parquet(roots[0])
     df = a.select("k", TF.explode(TF.array(tcol("k"), tcol("x"))).alias("e"))
     with pytest.raises(NotImplementedError, match="exec/generate.py"):
         df.collect()
-    agg = _count_star(session("port", dict(CONF, **{
-        "spark.rapids.tpu.sql.agg.exchange.enabled": True})), tcol, TF,
-        TWindow, *roots)
-    with pytest.raises(NotImplementedError, match="shuffle/exchange.py"):
-        agg.collect()
+    conf = dict(CONF, **{"spark.rapids.tpu.sql.agg.exchange.enabled": True,
+                         "spark.rapids.tpu.sql.adaptive.enabled": False})
+    names, outs = {}, {}
+    for side, (_, col, F, W, _lp, _p) in SIDES.items():
+        s = session(side, conf)
+        agg = _count_star(s, col, F, W, *roots)
+        names[side] = [type(n).__name__ for n in _nodes(s, agg)]
+        outs[side] = agg.collect()
+    assert names["port"] == names["ref"]
+    assert "TpuShuffleExchangeExec" in names["port"]
+    assert_tables_equal(outs["ref"], outs["port"])
 
 
 def _nodes(s, df):

@@ -5,7 +5,8 @@ the module's own ten (``OWN``) runs on a port session (``device="cpu"``)
 and a reference session over the same tables and is compared as
 ``tests/test_tpcds.py`` compares the reference's sessions (the 89
 merged in from ``tpcds_queries_a/b/c.py`` are in
-``tests/test_torch_tpcds_windows.py``).  The star queries
+``tests/test_torch_tpcds_windows.py``, the windowed ones, and
+``tests/test_torch_tpcds_all_a.py`` / ``_b.py``, the rest).  The star queries
 (q3/q42/q52/q55) are compared row for row, must plan with no host node
 but the transitions, and each of their joins must take the reference's
 route.

@@ -6,8 +6,7 @@ test mode: no host node but the transitions) and on the reference's CPU
 session over the same SF 0.002 tables: rows and their order exactly,
 floats to ``tests/parity.py``'s tolerance; each plans its windows as
 ``TpuWindowExec``.  The census plans all 99 queries on the port without
-running them and pins which plan and which module each other one waits
-for.
+running them: all 99 plan, and it pins which of them keep a host node.
 """
 
 import re
@@ -28,8 +27,8 @@ CONF = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
 WINDOWED = ("q12", "q20", "q36", "q44", "q47", "q49", "q51", "q53", "q57",
             "q63", "q67", "q70", "q86", "q89")
 # the queries the port cannot plan at SF 0.002, and the module each waits
-# for (q97's full outer join needs the shuffled join's exchanges)
-NOT_PLANNED = {"q97": "shuffle/exchange.py"}
+# for: none (q97's full outer join plans as a shuffled hash join)
+NOT_PLANNED = {}
 # the queries that plan with a host node besides the transitions, and
 # the node: q15/q19/q45/q93 filter, and q8/q84 project, with a string
 # expression the port's device evaluator does not cover yet

@@ -350,10 +350,20 @@ def test_refused_window_stays_on_host_with_reason(name, sessions):
     {"spark.rapids.tpu.sql.window.exchange.enabled": True},
     {"spark.rapids.tpu.shuffle.transport": "ici"}])
 def test_partitionwise_window_raises_naming_exchange(conf):
+    """``window.exchange.enabled`` plans the reference's partitionwise
+    window (a hash exchange on the PARTITION BY keys) and gives its rows;
+    under ``shuffle.transport=ici`` that exchange names shuffle/ici.py."""
     s = TSession(dict(CONF, **conf), device="cpu")
     df = row_number_rank(s, *PORT)
-    with pytest.raises(NotImplementedError, match="shuffle/exchange.py"):
-        df.collect()
+    assert "TpuShuffleExchangeExec" in df.explain_string("physical")
+    if conf.get("spark.rapids.tpu.shuffle.transport") == "ici":
+        with pytest.raises(NotImplementedError, match="shuffle/ici.py"):
+            df.collect()
+    else:
+        ref = row_number_rank(JSession(dict(
+            CONF, **conf, **{"spark.rapids.tpu.sql.adaptive.enabled":
+                             False})), *REF).collect()
+        assert_tables_equal(ref, df.collect())
     # without PARTITION BY there is nothing to exchange on
     assert no_partition_window(s, *PORT).collect().num_rows == 100
 
