@@ -139,6 +139,25 @@ Phases (any failure exits non-zero):
                aggregate and the scan), the rows and ``bytes_written``
                through its exchanges, one profiler trace and its peak
                device memory;
+  8e. strings — the census queries q8, q15, q19, q45, q84 and q93 over the
+               star phase's files, store, catalog_sales and customer
+               (10,000,000 rows), customer_address (5,000,000), web_sales
+               (7,200,000), store_returns (2,880,000, from the star files'
+               store_sales), customer_demographics, household_demographics,
+               income_band and reason at SF10 (their builders on a generator
+               of their own), on port sessions on cuda at the shuffle
+               phase's conf.  Each prints its physical plan, which must hold
+               no host node but the transitions and its string expression
+               (substring, startswith or concat) in a device filter,
+               projection, fused stage or fused aggregate (q93's startswith
+               also pushed into reason's scan); must match an independent
+               pyarrow computation; with the counts set to 0 before it,
+               its launches, fallbacks and join routes must equal the
+               pinned STRINGS_COUNTS, STRINGS_FALLBACKS and STRINGS_ROUTES;
+               then its cold wall, 3 warm walls with sections (the
+               filter's, projection's and fused stage's host eval time
+               among them), one profiler trace with the kernel launches
+               inside those eval spans, and its peak device memory;
   9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
                a dictionary that overflows into PLAIN pages, a 16-character
                string dictionary and a list<int32>, through the PERFILE
@@ -163,27 +182,40 @@ Phases (any failure exits non-zero):
                DataFrame on a port session on the CPU: the repartitions
                partition by partition, the rest whole; exactly, floats bit
                for bit; untimed;
+  9d. string-modes — every string, string-cast and date/time expression
+               of the port (LIKE with %, _ and leading and trailing
+               segments, literal and column needles, negative and zero
+               substring positions, pads longer and shorter than the input)
+               over 2^20 rows with about 5% nulls (strings of byte widths
+               0-256, each function once, and 0-24, the other forms, with
+               whitespace and multi-byte characters; numeric,
+               boolean, date and timestamp text, valid and invalid; dates
+               from 1582 to 9999; negative timestamps) on cuda against the
+               same DataFrame on a port session on the CPU, bit for bit;
+               then the kernel launches, copies and memsets one evaluation
+               of each enqueues; untimed;
  10. timing  — per kernel at the shapes and on the inputs the q6 paths
-               and the star and window queries' cold runs gave it
-               (segreduce from every run; later runs' entries are named
-               ``name@q6-parquet``, ``name@q6-perfile``, ``name@star``,
-               ``name@window`` and ``name@shuffle``, the last from q97's
-               run on the local transport): a check
+               and the star, window, shuffle and strings queries' cold
+               runs gave it (segreduce from every run; later runs' entries
+               are named ``name@q6-parquet``, ``name@q6-perfile``,
+               ``name@star``, ``name@window``, ``name@shuffle`` (from q97's
+               run on the local transport) and ``name@strings``): a check
                against the plain version, its time (CUDA events, L2
                flushed), its bytes bound, the plain version's time and a
                library call's where one computes the same function.
 
-Before each q6 path and each star, window and shuffle query the kernel
-launch counts are set to 0, and they are read just after it: every
-kernel of the path must have launched, with no fallback but the PERFILE
-path's predicted mixed-width ones and the star, window and shuffle
-queries' pinned filterDecode ones.  The line
+Before each q6 path and each star, window, shuffle and strings query the
+kernel launch counts are set to 0, and they are read just after it:
+every kernel of the path must have launched, with no fallback but the
+PERFILE path's predicted mixed-width ones and the star, window, shuffle
+and strings queries' pinned filterDecode ones.  The line
 before the last carries the kernel table as JSON, the line before it the
 card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
-q6p, q6pf, session, pipeline, q6s, star, window, shuffle, modes,
-window-modes, shuffle-modes) runs only those phases and prints no kernel table; ``session`` alone writes the files and counts the
+q6p, q6pf, session, pipeline, q6s, star, window, shuffle, strings,
+modes, window-modes, shuffle-modes, string-modes) runs only those phases
+and prints no kernel table; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
 makes the in-memory table itself.
 """
@@ -1814,20 +1846,25 @@ def _profiler_events(prof) -> list:
             if not getattr(e, "is_hidden_event", lambda: False)()]
 
 
-def trace_form(tag: str, run, conf: dict, label: str = "pipeline") -> dict:
-    """One warm query under torch.profiler (CPU and CUDA) with the span
-    tracer on.  The device's busy share is the union of its kernel and
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+
+
+def trace_form(tag: str, run, conf: dict, label: str = "pipeline",
+               launch_spans=()) -> dict:
+    """One warm query (every caller has just run it) under
+    torch.profiler (CPU and CUDA) with the span tracer on.  The device's busy share is the union of its kernel and
     memcpy/memset intervals over the query's wall; prints the ten device
     operations that took the most time and the five longest idle gaps,
-    each named by the host spans (obs/trace.py) it fell in."""
+    each named by the host spans (obs/trace.py) it fell in.  For each
+    span name in ``launch_spans``, counts the kernel launches the host
+    made inside those spans (the launch calls the profiler records on the
+    CPU; a launch from another thread in that window counts too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from spark_rapids_tpu_torch.obs import trace as obstrace
     # the session switches the span tracer from its conf, as the
     # reference's does
     conf = dict(conf, **{"spark.rapids.tpu.obs.trace.enabled": True})
-    run(conf)
-    torch.cuda.synchronize()
     mark = obstrace.mark()
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -1891,9 +1928,21 @@ def trace_form(tag: str, run, conf: dict, label: str = "pipeline") -> dict:
     log(f"{label} trace {tag}: longest idle gaps: " + "; ".join(
         f"{(b - a) / 1e6:.2f} ms at +{(a - t0) / 1e6:.1f} ms in "
         f"[{named(a, b)}]" for a, b in gaps))
+    launches = {}
+    if launch_spans:
+        calls = [a + off_ns for name, d, a, _b in events
+                 if d == DeviceType.CPU and name.startswith(LAUNCH_CALLS)]
+        for _s, _tid, name, _cat, s0, dur, _d, _args in spans:
+            if name in launch_spans:
+                launches[name] = launches.get(name, 0) + sum(
+                    s0 <= c < s0 + dur for c in calls)
+        log(f"{label} trace {tag}: kernel launches inside "
+            + ", ".join(f"{k} {launches.get(k, 0)}" for k in launch_spans)
+            + f" (of {len(calls)} in the run)")
     return {"wall_ms": wall_ns / 1e6, "busy_ms": busy_ns / 1e6,
             "busy_share": busy_ns / wall_ns,
-            "copies": {k: n for k, (_t, n) in copies.items()}}
+            "copies": {k: n for k, (_t, n) in copies.items()},
+            "launches": launches}
 
 
 def _pinned_peak() -> str:
@@ -2043,6 +2092,25 @@ def star_routes(name: str, batches: int) -> dict:
     return routes
 
 
+def write_parts(root: str, tables: dict, files) -> None:
+    """Each table of ``tables`` as ``files(name, table)`` Parquet files
+    of equal row slices under ``root/<name>/``, written by a pool of
+    threads (the Parquet writer releases the GIL): the same files a
+    serial write gives."""
+    from concurrent.futures import ThreadPoolExecutor
+    jobs = []
+    for name, t in tables.items():
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        n = files(name, t)
+        step = -(-t.num_rows // n)
+        jobs += [(t.slice(i * step, step),
+                  os.path.join(d, f"part-{i:04d}.parquet"))
+                 for i in range(n)]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(lambda job: papq.write_table(*job), jobs))
+
+
 def write_star_files(root: str) -> dict:
     """date_dim, item and store_sales at SF10 from the port's builders
     (every generator column), store_sales as 8 Parquet files and each
@@ -2051,14 +2119,8 @@ def write_star_files(root: str) -> dict:
     t0 = time.perf_counter()
     tables = tpcds.build_tables(STAR_TABLES, STAR_SF, STAR_SEED)
     t1 = time.perf_counter()
-    for name, t in tables.items():
-        d = os.path.join(root, name)
-        os.makedirs(d)
-        n = STAR_FILES if name == "store_sales" else 1
-        step = -(-t.num_rows // n)
-        for i in range(n):
-            papq.write_table(t.slice(i * step, step),
-                             os.path.join(d, f"part-{i:04d}.parquet"))
+    write_parts(root, tables,
+                lambda name, _t: STAR_FILES if name == "store_sales" else 1)
     nbytes = {name: sum(os.path.getsize(os.path.join(root, name, f))
                         for f in os.listdir(os.path.join(root, name)))
               for name in tables}
@@ -2450,7 +2512,6 @@ def phase_window(root: str, tables: dict):
     sections, one profiler trace and the peak device memory per query.
     Returns (launches over both queries, recorded classes, kernel
     names)."""
-    tables = dict(tables, store=write_store_file(root))
     t0 = time.perf_counter()
     refs = {q: window_reference(q, tables) for q in WINDOW_QUERIES}
     log(f"window: pyarrow references in {time.perf_counter() - t0:.1f} s "
@@ -2721,12 +2782,8 @@ def write_catalog_sales(root: str) -> pa.Table:
     cs = tpcds._catalog_sales(np.random.default_rng(SHUFFLE_SEED),
                               tpcds._Sizes(STAR_SF), {})
     t1 = time.perf_counter()
+    write_parts(root, {"catalog_sales": cs}, lambda _n, _t: STAR_FILES)
     d = os.path.join(root, "catalog_sales")
-    os.makedirs(d)
-    step = -(-cs.num_rows // STAR_FILES)
-    for i in range(STAR_FILES):
-        papq.write_table(cs.slice(i * step, step),
-                         os.path.join(d, f"part-{i:04d}.parquet"))
     nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
     log(f"shuffle files: catalog_sales {cs.num_rows} rows at SF{STAR_SF} "
         f"generated in {t1 - t0:.1f} s, written in "
@@ -2872,7 +2929,6 @@ def phase_shuffle(root: str, tables: dict):
     q3/q42/q52/q55 at the default broadcast threshold, on port sessions
     on cuda.  Returns (q97's launches on the local transport, its recorded
     classes, the kernels it launched)."""
-    tables = dict(tables, catalog_sales=write_catalog_sales(root))
     t0 = time.perf_counter()
     ref97 = q97_reference(tables)
     refs = {q: star_reference(q, tables) for q in STAR_QUERIES}
@@ -3050,6 +3106,637 @@ def phase_shuffle_modes() -> None:
         f"{MODES_SHUFFLE_ROWS} rows (nulls ~5%; NaN, -0.0 and strings of "
         f"byte widths 0-33 with multi-byte tails) equal the CPU session's "
         f"exactly in {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 8e. the census queries with string expressions at SF10, and the string
+# modes
+# ---------------------------------------------------------------------------
+
+STRINGS_QUERIES = ("q8", "q15", "q19", "q45", "q84", "q93")
+# the tables each query reads
+STRINGS_READS = {
+    "q8": ("store_sales", "date_dim", "store", "customer",
+           "customer_address"),
+    "q15": ("catalog_sales", "customer", "customer_address", "date_dim"),
+    "q19": ("date_dim", "store_sales", "item", "customer",
+            "customer_address", "store"),
+    "q45": ("web_sales", "customer", "customer_address", "date_dim", "item"),
+    "q84": ("customer", "customer_address", "household_demographics",
+            "income_band", "customer_demographics", "store_returns"),
+    "q93": ("store_sales", "store_returns", "reason"),
+}
+# the string expression that kept each query's host node before the
+# string group was ported, and the kind of node it now sits in
+STRINGS_EXPR = {"q8": "Substring", "q15": "Substring", "q19": "Substring",
+                "q45": "Substring", "q84": "Concat", "q93": "StartsWith"}
+# these tables draw from a generator of their own, in the builders'
+# order, so the star, window and shuffle tables (and their pins) stay as
+# they were; store_returns reads the star files' store_sales
+STRINGS_SEED = 13
+STRINGS_TABLES = ("customer_demographics", "income_band",
+                  "household_demographics", "customer_address", "customer",
+                  "store_returns", "reason", "web_sales")
+# tables over a million rows go to STAR_FILES files, the rest to one
+STRINGS_SPLIT_ROWS = 1 << 20
+# the shuffle phase's conf: the default 10 MiB broadcast threshold and
+# the default local transport
+STRINGS_CONF = SHUFFLE_CONF
+# warm runs per query: 3, not 5, to keep the whole smoke inside its
+# time limit
+STRINGS_WARM = 3
+# the kernel launches of each query, pinned from the first run on the
+# H100: the fused scans' unpack; the dictionary gathers the pushed filters
+# defer (date_dim's everywhere; customer's in q8, item's in q19,
+# customer_address's in q84, reason's in q93), decode_str where a filtered
+# scan defers a string column (q8 and q19); the aggregates' gathered
+# segmented scans, and q8's sorted scans (its COUNT(*) per zip).
+# q84 has no aggregate.  The string expressions launch no hand kernel:
+# the reference computes them with XLA ops, the port with torch ops.
+STRINGS_COUNTS = {
+    "q8": {"decode.unpack_bits": 186, "segreduce.seg_scan_sorted": 8,
+           "segreduce.gather_seg_scan": 19, "filter_decode.decode": 9,
+           "filter_decode.decode_str": 2},
+    "q15": {"decode.unpack_bits": 37, "filter_decode.decode": 1,
+            "segreduce.gather_seg_scan": 18},
+    "q19": {"decode.unpack_bits": 45, "filter_decode.decode": 4,
+            "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 18},
+    "q45": {"decode.unpack_bits": 25, "filter_decode.decode": 1,
+            "segreduce.gather_seg_scan": 18},
+    "q84": {"decode.unpack_bits": 17, "filter_decode.decode": 1},
+    "q93": {"decode.unpack_bits": 53, "filter_decode.decode": 1,
+            "segreduce.gather_seg_scan": 18},
+}
+# the pushed filters' own dictionary columns (condition_column), and the
+# batches of a filtered scan with no dictionary column to defer
+# (no_dict_columns), as the reference counts them
+STRINGS_FALLBACKS = {
+    "q8": {"scan.filterDecode.condition_column": 10,
+           "scan.filterDecode.no_dict_columns": 8},
+    "q15": {"scan.filterDecode.condition_column": 2},
+    "q19": {"scan.filterDecode.condition_column": 3},
+    "q45": {"scan.filterDecode.condition_column": 2},
+    "q84": {"scan.filterDecode.condition_column": 5,
+            "scan.filterDecode.no_dict_columns": 3},
+    "q93": {"scan.filterDecode.condition_column": 1},
+}
+# the join routes, pinned from the first run on the H100: the probe route
+# where both sides keep their value-range hints (unfiltered dimension
+# scans and the exchanges' uploads of narrow keys), else the sort route
+STRINGS_ROUTES = {
+    "q8": {"join.route.probe": 16, "join.route.sort": 32},
+    "q15": {"join.route.probe": 0, "join.route.sort": 24},
+    "q19": {"join.route.probe": 8, "join.route.sort": 40},
+    "q45": {"join.route.probe": 0, "join.route.sort": 32},
+    "q84": {"join.route.probe": 24, "join.route.sort": 16},
+    "q93": {"join.route.probe": 0, "join.route.sort": 10},
+}
+STRINGS_EVAL = ("filter.eval", "project.eval", "fused.eval")
+STRINGS_SECTIONS = SHUFFLE_SECTIONS + STRINGS_EVAL
+
+
+def write_strings_files(root: str, store_sales: pa.Table) -> dict:
+    """The census tables at SF10 from the port's builders (every
+    generator column), on a generator of their own; returns them."""
+    from spark_rapids_tpu_torch.bench import tpcds
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(STRINGS_SEED)
+    sz = tpcds._Sizes(STAR_SF)
+    t = {"store_sales": store_sales}
+    for name, fn in tpcds._BUILDERS:
+        if name in STRINGS_TABLES:
+            t[name] = fn(rng, sz, t)
+    del t["store_sales"]
+    t1 = time.perf_counter()
+    write_parts(root, t, lambda _n, table: STAR_FILES if
+                table.num_rows > STRINGS_SPLIT_ROWS else 1)
+    log(f"strings files: generated "
+        f"{', '.join(f'{k} {v.num_rows} rows' for k, v in t.items())} at "
+        f"SF{STAR_SF} in {t1 - t0:.1f} s, wrote them in "
+        f"{time.perf_counter() - t1:.1f} s")
+    return t
+
+
+def _prefix(a, n: int):
+    return pc.utf8_slice_codeunits(a, 0, n)
+
+
+def _dates(t: dict, qoy: int, year: int) -> pa.Table:
+    dd = t["date_dim"]
+    return dd.filter(pc.and_(pc.equal(dd["d_qoy"], qoy),
+                             pc.equal(dd["d_year"], year))).select(
+        ["d_date_sk"])
+
+
+def _customer_zips(t: dict, sales: pa.Table, cust: str,
+                   ca_cols) -> pa.Table:
+    """``sales`` joined with its customer and the customer's address."""
+    j = sales.join(t["customer"].select(["c_customer_sk",
+                                         "c_current_addr_sk"]),
+                   keys=cust, right_keys="c_customer_sk", join_type="inner")
+    return j.join(t["customer_address"].select(["ca_address_sk"] +
+                                               list(ca_cols)),
+                  keys="c_current_addr_sk", right_keys="ca_address_sk",
+                  join_type="inner")
+
+
+_ZIPS15 = ["85", "86", "88", "89", "80", "81", "30", "31"]
+_ITEMS45 = [f"ITEM{i:012d}" for i in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29)]
+
+
+def strings_reference(name: str, t: dict) -> pa.Table:
+    """q8, q15, q19, q45, q84 and q93 computed with pyarrow alone (joins,
+    utf8_slice_codeunits for substring, starts_with, binary_join for
+    concat, group_by, sort_by), independent of both engines."""
+    if name == "q8":
+        pref = t["customer"].filter(pc.equal(
+            t["customer"]["c_preferred_cust_flag"], "Y")).select(
+            ["c_current_addr_sk"]).join(
+            t["customer_address"].select(["ca_address_sk", "ca_zip"]),
+            keys="c_current_addr_sk", right_keys="ca_address_sk",
+            join_type="inner")
+        cnt = pref.group_by("ca_zip").aggregate([("ca_zip", "count")])
+        zips = pc.unique(_prefix(cnt.filter(pc.greater(
+            cnt["ca_zip_count"], 1))["ca_zip"], 2))
+        j = t["store_sales"].select(
+            ["ss_sold_date_sk", "ss_store_sk", "ss_net_profit"]).join(
+            _dates(t, 2, 1998), keys="ss_sold_date_sk",
+            right_keys="d_date_sk", join_type="inner")
+        j = j.join(t["store"].select(["s_store_sk", "s_store_name",
+                                      "s_zip"]),
+                   keys="ss_store_sk", right_keys="s_store_sk",
+                   join_type="inner")
+        j = j.filter(pc.is_in(_prefix(j["s_zip"], 2), value_set=zips))
+        g = j.group_by("s_store_name").aggregate(
+            [("ss_net_profit", "sum")]).rename_columns(
+            {"ss_net_profit_sum": "profit"})
+        return g.select(["s_store_name", "profit"]).sort_by(
+            "s_store_name").slice(0, 100)
+    if name in ("q15", "q45"):
+        pre = "cs" if name == "q15" else "ws"
+        cols = [f"{pre}_bill_customer_sk", f"{pre}_sold_date_sk",
+                f"{pre}_sales_price"] + (["ws_item_sk"] if pre == "ws"
+                                         else [])
+        table = "catalog_sales" if pre == "cs" else "web_sales"
+        keys = ["ca_zip"] + (["ca_city"] if pre == "ws" else [])
+        ca_cols = ["ca_zip", "ca_state"] if pre == "cs" else ["ca_zip",
+                                                              "ca_city"]
+        j = _customer_zips(t, t[table].select(cols),
+                           f"{pre}_bill_customer_sk", ca_cols)
+        j = j.join(_dates(t, 2, 2001), keys=f"{pre}_sold_date_sk",
+                   right_keys="d_date_sk", join_type="inner")
+        zip2 = _prefix(j["ca_zip"], 2)
+        if pre == "cs":
+            m = pc.or_(pc.or_(pc.is_in(zip2, value_set=pa.array(_ZIPS15)),
+                              pc.is_in(j["ca_state"], value_set=pa.array(
+                                  ["CA", "WA", "GA"]))),
+                       pc.greater(j["cs_sales_price"], 500.0))
+        else:
+            j = j.join(t["item"].select(["i_item_sk", "i_item_id"]),
+                       keys="ws_item_sk", right_keys="i_item_sk",
+                       join_type="inner")
+            zip2 = _prefix(j["ca_zip"], 2)
+            m = pc.or_(pc.is_in(zip2, value_set=pa.array(
+                _ZIPS15 + ["38", "98"])), pc.is_in(
+                j["i_item_id"], value_set=pa.array(_ITEMS45)))
+        g = j.filter(m).group_by(keys).aggregate(
+            [(f"{pre}_sales_price", "sum")]).rename_columns(
+            {f"{pre}_sales_price_sum": "total"})
+        return g.select(keys + ["total"]).sort_by(
+            [(k, "ascending") for k in keys]).slice(0, 100)
+    if name == "q19":
+        j = t["store_sales"].select(
+            ["ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
+             "ss_store_sk", "ss_ext_sales_price"])
+        dd = t["date_dim"]
+        j = j.join(dd.filter(pc.and_(pc.equal(dd["d_moy"], 11),
+                                     pc.equal(dd["d_year"], 1999))).select(
+            ["d_date_sk"]), keys="ss_sold_date_sk", right_keys="d_date_sk",
+            join_type="inner")
+        item = t["item"]
+        j = j.join(item.filter(pc.less_equal(item["i_manager_id"], 20))
+                   .select(["i_item_sk", "i_brand", "i_brand_id",
+                            "i_manufact_id"]),
+                   keys="ss_item_sk", right_keys="i_item_sk",
+                   join_type="inner")
+        j = _customer_zips(t, j, "ss_customer_sk", ["ca_zip"])
+        j = j.join(t["store"].select(["s_store_sk", "s_zip"]),
+                   keys="ss_store_sk", right_keys="s_store_sk",
+                   join_type="inner")
+        j = j.filter(pc.not_equal(_prefix(j["ca_zip"], 5),
+                                  _prefix(j["s_zip"], 5)))
+        g = j.group_by(["i_brand", "i_brand_id", "i_manufact_id"]).aggregate(
+            [("ss_ext_sales_price", "sum")]).rename_columns(
+            {"ss_ext_sales_price_sum": "ext_price", "i_brand": "brand",
+             "i_brand_id": "brand_id"})
+        return g.select(["brand", "brand_id", "i_manufact_id",
+                         "ext_price"]).sort_by(
+            [("ext_price", "descending"), ("brand_id", "ascending"),
+             ("i_manufact_id", "ascending")]).slice(0, 100)
+    if name == "q84":
+        ca = t["customer_address"]
+        j = t["customer"].select(
+            ["c_customer_id", "c_current_addr_sk", "c_current_hdemo_sk",
+             "c_current_cdemo_sk", "c_first_name", "c_last_name"]).join(
+            ca.filter(pc.is_in(ca["ca_city"], value_set=pa.array(
+                ["Midway", "Fairview", "Oakland"]))).select(
+                ["ca_address_sk"]),
+            keys="c_current_addr_sk", right_keys="ca_address_sk",
+            join_type="inner")
+        j = j.join(t["household_demographics"].select(
+            ["hd_demo_sk", "hd_income_band_sk"]),
+            keys="c_current_hdemo_sk", right_keys="hd_demo_sk",
+            join_type="inner")
+        ib = t["income_band"]
+        j = j.join(ib.filter(pc.and_(
+            pc.greater_equal(ib["ib_lower_bound"], 0),
+            pc.less_equal(ib["ib_upper_bound"], 100000))).select(
+            ["ib_income_band_sk"]), keys="hd_income_band_sk",
+            right_keys="ib_income_band_sk", join_type="inner")
+        j = j.join(t["customer_demographics"].select(["cd_demo_sk"]),
+                   keys="c_current_cdemo_sk", right_keys="cd_demo_sk",
+                   join_type="inner")
+        returned = pc.unique(t["store_returns"]["sr_cdemo_sk"])
+        j = j.filter(pc.is_in(j["c_current_cdemo_sk"], value_set=returned))
+        out = pa.table({
+            "customer_id": j["c_customer_id"],
+            "customername": pc.binary_join_element_wise(
+                j["c_last_name"], j["c_first_name"], ", ")})
+        return out.sort_by("customer_id").slice(0, 100)
+    # q93
+    r = t["reason"]
+    sr = t["store_returns"].select(
+        ["sr_reason_sk", "sr_ticket_number", "sr_item_sk",
+         "sr_return_quantity"]).join(
+        r.filter(pc.starts_with(r["r_reason_desc"], "reason 2")).select(
+            ["r_reason_sk"]), keys="sr_reason_sk", right_keys="r_reason_sk",
+        join_type="inner")
+    sr = sr.select(["sr_ticket_number", "sr_item_sk",
+                    "sr_return_quantity"]).rename_columns(
+        ["r_t", "r_i", "r_q"])
+    j = t["store_sales"].select(
+        ["ss_ticket_number", "ss_item_sk", "ss_customer_sk", "ss_quantity",
+         "ss_sales_price"]).join(
+        sr, keys=["ss_ticket_number", "ss_item_sk"], right_keys=["r_t", "r_i"],
+        join_type="left outer")
+    q, rq, price = j["ss_quantity"], j["r_q"], j["ss_sales_price"]
+    act = pc.if_else(
+        pc.is_null(rq), pc.multiply(pc.cast(q, pa.float64()), price),
+        pc.multiply(pc.cast(pc.subtract(q, rq), pa.float64()), price))
+    g = j.append_column("act", act).group_by("ss_customer_sk").aggregate(
+        [("act", "sum")]).rename_columns({"act_sum": "sumsales"})
+    return g.select(["ss_customer_sk", "sumsales"]).sort_by(
+        [("sumsales", "ascending"), ("ss_customer_sk", "ascending")]).slice(
+        0, 100)
+
+
+def _expr_names(node) -> set:
+    """The class names of every expression a plan node holds."""
+    from spark_rapids_tpu_torch.expr import ir
+    out = set()
+    for v in vars(node).values():
+        for e in v if isinstance(v, (list, tuple)) else (v,):
+            if isinstance(e, ir.Expression):
+                out.update(type(x).__name__
+                           for x in ir.collect(e, lambda x: True))
+    return out
+
+
+def _check_strings_plan(name: str, plan) -> str:
+    """No host node but the transitions; the query's string expression
+    sits in a device filter, projection, fused stage or fused aggregate
+    (q93's also pushed into reason's scan).  Returns the holder's name."""
+    from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+    nodes = _plan_nodes(plan)
+    names = [type(n).__name__ for n in nodes]
+    host = [n for n in names if n not in HOST_OK and
+            not n.startswith("Tpu")]
+    if host:
+        fail(f"strings {name}: host nodes {host}")
+    want = STRINGS_EXPR[name]
+    holders = [type(n).__name__ for n in nodes
+               if type(n).__name__ in ("TpuFilterExec", "TpuProjectExec",
+                                       "TpuFusedStageExec",
+                                       "TpuHashAggregateExec")
+               and want in _expr_names(n)]
+    if not holders:
+        fail(f"strings {name}: no device filter, projection or fused node "
+             f"holds {want}: {names}")
+    if name == "q93":
+        pushed = [n for n in nodes if isinstance(n, TpuParquetScanExec)
+                  and n._schema.names[0].startswith("r_")
+                  and n._pushed_filter is not None]
+        if not pushed:
+            fail("strings q93: the startswith filter is not pushed into "
+                 "reason's scan")
+    return ", ".join(sorted(set(holders)))
+
+
+def phase_strings(root: str, tables: dict):
+    """q8, q15, q19, q45, q84 and q93 at SF10 over Parquet on port
+    sessions on cuda at the shuffle phase's conf: the plan checks, rows
+    against pyarrow, the kernels, fallbacks and join routes with the
+    counts set to 0 before each query, then the cold wall, the warm walls
+    with sections, one profiler trace (with the kernel launches inside
+    the string expressions' eval spans) and the peak device memory.
+    Returns (launches over the six queries, recorded classes, kernel
+    names)."""
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    tables = dict(tables, **write_strings_files(root, tables["store_sales"]))
+    t0 = time.perf_counter()
+    refs = {q: strings_reference(q, tables) for q in STRINGS_QUERIES}
+    log(f"strings: pyarrow references in {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(f'{q} {r.num_rows} rows' for q, r in refs.items())})")
+    del tables
+    errors, total, names = [], {}, []
+    shapes = ShapeRecorder()
+    for q in STRINGS_QUERIES:
+        tag = f"strings {q}"
+        run = query_run(q, root, STRINGS_READS[q], STRINGS_CONF)
+        view = obsreg.get_registry().view()
+        torch.cuda.reset_peak_memory_stats()
+        kb.reset_counts()
+        t0 = time.perf_counter()
+        with shapes:
+            out, plan = run({})
+            torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+        counters = view.delta()["counters"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{tag} plan:\n{plan.tree_string()}")
+        holder = _check_strings_plan(q, plan)
+        rel = check_rows(tag, out, refs[q])
+        routes = {k: int(counters.get(k, 0)) for k in STAR_COUNTERS}
+        log(f"{tag}: {out.num_rows} rows match pyarrow (float max rel "
+            f"{rel:.3g}): {out.to_pylist()[:2]}; {STRINGS_EXPR[q]} in "
+            f"{holder}; cold wall {cold * 1e3:.1f} ms; launches {launches}; "
+            f"fallbacks {fallbacks}; {routes}; peak device memory "
+            f"{peak:.2f} GiB")
+        log(f"{tag} cold sections: " + _fmt_ms(_sections(plan,
+                                                         STRINGS_SECTIONS)))
+        if launches.get("decode.unpack_bits", 0) <= 0:
+            fail(f"{tag} did not launch decode.unpack_bits")
+        _pinned(tag, launches, STRINGS_COUNTS, q, errors)
+        _pinned(tag, fallbacks, STRINGS_FALLBACKS, q, errors)
+        _pinned(tag, {k: routes[k] for k in STAR_COUNTERS[:2]},
+                STRINGS_ROUTES, q, errors)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        names += [k for k in launches if k not in names]
+        sec = _star_sections(run, reps=STRINGS_WARM, keys=STRINGS_SECTIONS)
+        log(f"{tag} sections (host clock, median of {STRINGS_WARM} warm "
+            f"runs; runs ms "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
+            + _fmt_ms(sec))
+        busy = trace_form(tag, run, {}, label="strings",
+                          launch_spans=STRINGS_EVAL)
+        log(f"{tag}: device busy {busy['busy_share']:.1%} of "
+            f"{busy['wall_ms']:.1f} ms")
+    if errors:
+        fail("; ".join(errors))
+    return total, shapes.classes, names
+
+
+MODES_STRING_ROWS = 1 << 20
+_ALNUM = "abAB _%"
+
+
+def _string_modes_pool(rng, n: int, widest: int) -> list:
+    """Strings of byte widths 0-``widest``: letters LIKE's patterns find,
+    spaces and wildcard bytes, leading and trailing whitespace, and _WIDE
+    multi-byte characters."""
+    out = []
+    for i in range(n):
+        width = int(rng.integers(0, widest + 1)) if i % 4 == 0 else \
+            int(rng.integers(0, 17))
+        body = "".join(_ALNUM[k] for k in rng.integers(0, len(_ALNUM), width))
+        if i % 3 == 0:
+            body = body + _WIDE[i % len(_WIDE)]
+        if i % 7 == 0:
+            body = "  " + body + "\t "
+        out.append(body.encode()[:widest].decode("utf-8", errors="ignore"))
+    return out
+
+
+def _text_pool(rng, n: int) -> dict:
+    """Numeric, boolean, date and timestamp text, valid and invalid."""
+    ints = [str(int(v)) for v in rng.integers(-10 ** 12, 10 ** 12, n)]
+    ints[:8] = ["9223372036854775807", "-9223372036854775808",
+                "99999999999999999999", "+7", " 12 ", "1.5", "x", ""]
+    floats = [repr(float(v)) for v in rng.normal(0, 1e6, n)]
+    floats[:12] = ["Infinity", "-inf", "NaN", "1e400", "1e-400", "1.2.3",
+                   "+.5", "5.", "1e", " 7.25 ", "123456789012345678901234",
+                   "-0.0"]
+    bools = list(np.array(["true", "FALSE", "y", "N", "1", "0", "yes", "no",
+                           " t ", "maybe", ""])[rng.integers(0, 11, n)])
+    days = rng.integers(_days_of(1582, 1, 1), _days_of(9999, 12, 31), n)
+    dates = [str(np.datetime64(int(v), "D")) for v in days]
+    dates[:8] = ["2024-02-30", "2023-02-29", "2000-02-29", "1969-12-31",
+                 "2024-13-01", "2024-1-1", " 2024-03-05 ", "bad"]
+    us = rng.integers(-10 ** 16, 2 * 10 ** 17, n)
+    stamps = [str(np.datetime64(int(v), "us")).replace("T", " ")
+              for v in us]
+    stamps[:8] = ["2024-03-05T07:08:09", "2024-03-05", "1969-12-31 "
+                  "23:59:59.999999", "2024-03-05 24:00:00", "2024-03-05 12:34",
+                  "2024-03-05 12:34:56.1234567", "1800-01-01 00:00:00.5",
+                  "nope"]
+    return {"it": ints, "ft": floats, "bt": bools, "dtx": dates,
+            "tt": stamps}
+
+
+def _days_of(y: int, m: int, d: int) -> int:
+    return int(np.datetime64(f"{y:04d}-{m:02d}-{d:02d}", "D").astype(
+        np.int64))
+
+
+def string_modes_table(n: int, seed: int) -> pa.Table:
+    """``n`` rows, about 5% nulls per column: strings of byte widths 0-256
+    and of 0-24 (pools of 8,192), a needle column of 0-3 bytes, a
+    substring position,
+    numeric, boolean, date and timestamp text, int64, int32 and bool
+    values, dates from 1582 to 9999 and before the epoch, and timestamps
+    from 1653 to 8307, negative ones among them."""
+    rng = np.random.default_rng(seed)
+
+    def nulls():
+        return rng.random(n) < 0.05
+
+    def take(pool):
+        return pa.array(pool).take(pa.array(rng.integers(0, len(pool), n)))
+    s = take(_string_modes_pool(rng, 8192, 256))
+    m = take(_string_modes_pool(rng, 8192, 24))
+    needle = take(["", "a", "ab", "b ", "é", "ba", "abA", " ", "%", "_"])
+    text = {k: take(v) for k, v in _text_pool(rng, 4096).items()}
+    cols = {
+        "s": pa.array(s.to_pylist(), type=pa.string(), mask=nulls()),
+        "m": pa.array(m.to_pylist(), type=pa.string(), mask=nulls()),
+        "n": pa.array(needle.to_pylist(), type=pa.string(), mask=nulls()),
+        "p": pa.array(rng.integers(-300, 300, n).astype(np.int32),
+                      mask=nulls()),
+        "k": pa.array(rng.integers(-100_000, 100_000, n).astype(np.int32),
+                      mask=nulls()),
+        "i64": pa.array(np.where(rng.random(n) < 0.01, np.iinfo(np.int64).min,
+                                 rng.integers(-2 ** 62, 2 ** 62, n)),
+                        mask=nulls()),
+        "i32": pa.array(rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32),
+                        mask=nulls()),
+        "b": pa.array(rng.random(n) < 0.5, mask=nulls()),
+        "d": pa.array(rng.integers(_days_of(1582, 1, 1), _days_of(
+            9999, 12, 31), n).astype(np.int32), mask=nulls()).cast(
+            pa.date32()),
+        "d2": pa.array(rng.integers(-30_000, 30_000, n).astype(np.int32),
+                       mask=nulls()).cast(pa.date32()),
+        "t": pa.array(rng.integers(-10 ** 16, 2 * 10 ** 17, n),
+                      mask=nulls()).cast(pa.timestamp("us")),
+    }
+    for k, v in text.items():
+        cols[k] = pa.array(v.to_pylist(), type=pa.string(), mask=nulls())
+    return pa.table(cols)
+
+
+def string_modes_exprs(col, lit, F):
+    """(group, [(alias, column)]) of every form this port's string,
+    string-cast and date/time expressions take.  Each function meets the
+    256-byte column ``s`` once; the other forms take the 32-byte column
+    ``m`` (the CPU side's cost grows with the width)."""
+    s, m, n = col("s"), col("m"), col("n")
+    likes = ["a%", "%b", "a_b%", "_%_", "a%b%a", "", "%", "abA", "%é", "_",
+             "% a%", "%%_b%%"]
+    dates = []
+    for f in ("year", "month", "dayofmonth", "dayofyear", "dayofweek",
+              "weekofyear", "quarter"):
+        dates += [(f"{f}_d", getattr(F, f)(col("d"))),
+                  (f"{f}_t", getattr(F, f)(col("t")))]
+    return [
+        ("case, length, reverse, trims", [
+            ("up", F.upper(s)), ("lo", F.lower(s)), ("len", F.length(s)),
+            ("rev", F.reverse(s)), ("tr", F.trim(s)), ("ltr", F.ltrim(s)),
+            ("rtr", F.rtrim(s)), ("ic", F.initcap(s)), ("trm", F.trim(m)),
+            ("icm", F.initcap(m))]),
+        ("substring", [
+            ("s23", F.substring(s, 2, 3)), ("sp", F.substring(s, col("p"),
+                                                              lit(4))),
+            ("sn3", F.substring(m, -3, 2)), ("s05", F.substring(m, 0, 5)),
+            ("sn300", F.substring(m, -300, 10)),
+            ("s10", F.substring(m, 1, 0)), ("s5n", F.substring(m, 5, -1)),
+            ("s20", F.substring(m, 20, 60))]),
+        ("searches", [
+            ("sw", s.startswith("a")), ("ew", s.endswith("b")),
+            ("ct", s.contains("ab")), ("swn", s.startswith(n)),
+            ("ewn", s.endswith(n)), ("ctn", s.contains(n)),
+            ("sw2", m.startswith("ab")), ("swe", m.startswith("")),
+            ("ewm", m.endswith("é")), ("ct2", m.contains("a b")),
+            ("ctm", m.contains(n))]),
+        ("like", [("lks", s.like("%ab%")), ("lks2", s.like("a_%b"))] +
+         [(f"lk{i}", m.like(p)) for i, p in enumerate(likes)]),
+        ("concat, locate, pads", [
+            ("cc", F.concat(s, lit("-"), n)), ("loc", F.locate("a", s)),
+            ("lps", F.lpad(s, 5, "*")), ("rps", F.rpad(s, 3, "ab")),
+            ("cn", F.concat(n, m, n)), ("loc5", F.locate("b", m, 5)),
+            ("loc2", F.locate("ab", m, 0)), ("loce", F.locate("", m, 3)),
+            ("lpl", F.lpad(m, 40, "xy")), ("rpl", F.rpad(m, 40, "*")),
+            ("lpm", F.lpad(m, 5, "*")), ("rpe", F.rpad(m, 20, "")),
+            ("lp0", F.lpad(m, 0, "z"))]),
+        ("casts from string", [
+            ("i", col("it").cast("bigint")), ("i32", col("it").cast("int")),
+            ("f", col("ft").cast("double")), ("f32", col("ft").cast("float")),
+            ("b", col("bt").cast("boolean")), ("d", col("dtx").cast("date")),
+            ("ts", col("tt").cast("timestamp")),
+            ("wi", s.cast("bigint"))]),
+        ("casts to string", [
+            ("si64", col("i64").cast("string")),
+            ("si32", col("i32").cast("string")),
+            ("sb", col("b").cast("string")), ("sd", col("d").cast("string")),
+            ("sd2", col("d2").cast("string")),
+            ("st", col("t").cast("string"))]),
+        ("date/time", dates + [
+            ("hr", F.hour(col("t"))), ("mi", F.minute(col("t"))),
+            ("se", F.second(col("t"))), ("da", F.date_add(col("d"), col("k"))),
+            ("ds", F.date_sub(col("d2"), 7)),
+            ("dd", F.datediff(col("d"), col("d2"))),
+            ("ddt", F.datediff(col("t"), col("d"))),
+            ("ut", F.unix_timestamp(col("t")))]),
+    ]
+
+
+LAUNCH_APIS = LAUNCH_CALLS + ("cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _launches_per_call(calls) -> list:
+    """(label, kernel launches, copies and memsets the host enqueued) of
+    each (label, fn) of ``calls``, from one torch.profiler trace: each
+    call runs inside a ``record_function`` range, and the launch calls
+    the profiler records on the CPU are counted per range.  Each call
+    runs once before the trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for _label, fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, fn in calls:
+            with record_function(f"string-modes:{label}"):
+                fn()
+        torch.cuda.synchronize()
+    events = [(n, a, b) for n, d, a, b in _profiler_events(prof)
+              if d == DeviceType.CPU]
+    api = [a for n, a, _b in events if n.startswith(LAUNCH_APIS)]
+    return [(n.split(":", 1)[1], sum(a <= t < b for t in api))
+            for n, a, b in events if n.startswith("string-modes:")]
+
+
+def phase_string_modes() -> None:
+    """Every string, string-cast and date/time expression this port
+    evaluates, in every form (LIKE with %, _ and leading and trailing
+    segments; literal and column needles; negative and zero substring
+    positions; pads longer and shorter than the input), on the card
+    against the same DataFrame on a port session on the CPU over a
+    2^20-row table: exactly, floats bit for bit.  Then the kernel
+    launches, copies and memsets one evaluation of each expression
+    enqueues over the same table on the card.  Untimed."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession, col, lit
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.columnar.batch import from_arrow
+    from spark_rapids_tpu_torch.expr import eval_tpu, ir
+    from spark_rapids_tpu_torch.plan.logical import Schema
+    conf = {"spark.rapids.tpu.sql.test.enabled": True,
+            "spark.rapids.tpu.sql.castStringToFloat.enabled": True,
+            "spark.rapids.tpu.sql.castStringToTimestamp.enabled": True}
+    t0 = time.perf_counter()
+    table = string_modes_table(MODES_STRING_ROWS, 23)
+    sessions = {d: TpuSparkSession(conf, device=d) for d in ("cuda", "cpu")}
+    groups = string_modes_exprs(col, lit, F)
+    nexprs = 0
+    for tag, exprs in groups:
+        outs = {}
+        for d, s in sessions.items():
+            df = s.create_dataframe(table).select(
+                *[e.alias(a) for a, e in exprs])
+            if d == "cuda":
+                plan = df.explain_string("physical")
+                if "Cpu" in plan.replace("CpuScanExec", ""):
+                    fail(f"string-modes {tag}: a host node:\n{plan}")
+            outs[d] = df.collect()
+        _bit_equal(f"string-modes {tag}", outs["cuda"], outs["cpu"])
+        nexprs += len(exprs)
+    log(f"string-modes: {nexprs} expressions in {len(groups)} groups over "
+        f"{MODES_STRING_ROWS} rows (nulls ~5%; strings of byte widths 0-256 "
+        f"and 0-24 with whitespace and multi-byte characters) equal the CPU "
+        f"session's bit for bit in {time.perf_counter() - t0:.1f} s")
+    schema = Schema.from_arrow(table.schema)
+    batch = from_arrow(table, device="cuda")
+    calls = [(a, partial(eval_tpu.evaluate, ir.bind(
+        e.expr, schema.names, schema.dtypes, schema.nullables), batch))
+        for _tag, exprs in groups for a, e in exprs]
+    ops = _launches_per_call(calls)
+    if len(ops) != len(calls):
+        fail(f"string-modes: {len(ops)} traced evaluations of {len(calls)}")
+    log(f"string-modes: kernel launches, copies and memsets per evaluation "
+        f"over one {batch.capacity}-row batch (s is "
+        f"{batch.column('s').data.shape[1]} bytes wide): "
+        + ", ".join(f"{a} {n}" for a, n in ops))
 
 
 # ---------------------------------------------------------------------------
@@ -3236,8 +3923,8 @@ def phase_timing(paths):
 
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
-              "pipeline", "q6s", "star", "window", "shuffle", "modes",
-              "window-modes", "shuffle-modes"]
+              "pipeline", "q6s", "star", "window", "shuffle", "strings",
+              "modes", "window-modes", "shuffle-modes", "string-modes"]
 
 
 def main() -> int:
@@ -3290,11 +3977,17 @@ def main() -> int:
     if "q6s" in phases:
         runs["q6s"] = ("q6s-parquet", *phase_q6s_parquet(),
                        ["filter_decode.decode_str"])
-    if {"star", "window", "shuffle"} & set(phases):
-        # the star, window and shuffle phases share the SF10 files
+    if {"star", "window", "shuffle", "strings"} & set(phases):
+        # the star, window, shuffle and strings phases share the SF10
+        # files: store for window and strings, catalog_sales for shuffle
+        # and strings
         root = _parquet_dir("star")
         try:
             tables = write_star_files(root)
+            if {"window", "strings"} & set(phases):
+                tables["store"] = write_store_file(root)
+            if {"shuffle", "strings"} & set(phases):
+                tables["catalog_sales"] = write_catalog_sales(root)
             done("star files")
             if "star" in phases:
                 runs["star"] = ("star", *phase_star(root, tables))
@@ -3305,6 +3998,9 @@ def main() -> int:
             if "shuffle" in phases:
                 runs["shuffle"] = ("shuffle", *phase_shuffle(root, tables))
                 done("shuffle")
+            if "strings" in phases:
+                runs["strings"] = ("strings", *phase_strings(root, tables))
+                done("strings")
             del tables
         finally:
             shutil.rmtree(root, ignore_errors=True)
@@ -3315,11 +4011,15 @@ def main() -> int:
     if "shuffle-modes" in phases:
         phase_shuffle_modes()
         done("shuffle-modes")
+    if "string-modes" in phases:
+        phase_string_modes()
+        done("string-modes")
     kernels = None
     if set(ALL_PHASES) <= set(phases):
         kernels = phase_timing([runs[k] for k in ("q6", "q6p", "q6s",
                                                   "q6pf", "star",
-                                                  "window", "shuffle")])
+                                                  "window", "shuffle",
+                                                  "strings")])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -8,11 +8,17 @@ minus/plus and ``abs`` with Spark's null rules (x / 0 and x % 0 are
 NULL; integer overflow wraps), IS [NOT] NULL, ``isnan``,
 ``coalesce``, ``nanvl``, ``if`` / ``CASE WHEN``, the double math
 functions (``log`` of x <= 0 is NULL; ``ceil``/``floor`` saturate to
-int64), the three shifts, casts between numeric, boolean and
-temporal types, Spark's murmur3 hash (``hash_colval``, the shuffle
-exchange's partition key) and the NaN/-0.0 normalization of float join
-keys.  The planner keeps every other node on the CPU
-(:func:`supported_on_tpu`, read by plan/overrides.py), so a planned query
+int64), the three shifts, casts between numeric, boolean, temporal and
+string types (string -> int/float/bool/date/timestamp and
+int/bool/date/timestamp -> string; float -> string waits for
+``expr/ryu.py``), the string functions (case, length, reverse,
+substring, the literal and column-needle searches, LIKE, concat, the
+trims, initcap, locate and the pads) over fixed-width byte matrices, the
+UTC date/time fields and date arithmetic, Spark's murmur3 hash
+(``hash_colval``, the shuffle exchange's partition key) and the
+NaN/-0.0 normalization of float join keys.  The planner keeps every
+other node on the CPU (:func:`supported_on_tpu` and
+:func:`cast_supported`, read by plan/overrides.py), so a planned query
 never reaches the ``NotImplementedError(<node name>)`` that evaluating
 one raises.
 """
@@ -529,7 +535,66 @@ def _eval_shiftright_unsigned(e, batch):
 
 
 # ---------------------------------------------------------------------------
-# cast (numeric, boolean and temporal; strings are not ported yet)
+# byte-matrix helpers
+# ---------------------------------------------------------------------------
+#
+# A string column is a ``[rows, w]`` uint8 matrix, zero past each row's
+# length, with int32 lengths.  The reference's ``jnp.argmax`` over a bool
+# matrix, ``[:, ::-1]`` views and ``take_along_axis`` become the helpers
+# below; a ``[rows]`` position is clipped into the matrix before it is read,
+# as the reference clips it.
+
+def _iota(w: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(w, device=like.device)
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Per row, the index of the first True (0 where there is none):
+    ``jnp.argmax``'s first-maximum rule, through uint8 (torch's argmax
+    takes no bool)."""
+    return torch.argmax(mask.to(torch.uint8), dim=1)
+
+
+def _last_true(mask: torch.Tensor) -> torch.Tensor:
+    """Per row, the index of the last True (w - 1 where there is none)."""
+    return (mask.shape[1] - 1) - _first_true(torch.flip(mask, (1,)))
+
+
+def _at_many(data: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``data[r, clip(pos[r, k], 0, w - 1)]``: a ``[rows, k]`` matrix of
+    positions in one gather."""
+    p = torch.clamp(pos, 0, data.shape[1] - 1).to(torch.int64)
+    return torch.gather(data, 1, p)
+
+
+def _at(data: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``data[r, clip(pos[r], 0, w - 1)]`` per row."""
+    return _at_many(data, pos[:, None])[:, 0]
+
+
+def _offsets_from(start: torch.Tensor, k: int) -> torch.Tensor:
+    """``[rows, k]``: start[r] + 0 .. k - 1."""
+    return start[:, None].to(torch.int64) + _iota(k, start)[None, :]
+
+
+def _word_at(data: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+             words) -> torch.Tensor:
+    """Rows whose span [start, end) is one of ``words``, ASCII case
+    insensitive (the reference matches each word byte by byte from
+    ``start``; here one gather serves every word)."""
+    m = max(len(wd) for wd in words)
+    got = _at_many(data, _offsets_from(start, m)) | 0x20
+    out = torch.zeros_like(start, dtype=torch.bool)
+    for wd in words:
+        want = torch.tensor([b | 0x20 for b in wd], dtype=torch.uint8,
+                            device=data.device)
+        out = out | (((end - start) == len(wd)) &
+                     torch.all(got[:, :len(wd)] == want, dim=1))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cast (numeric, boolean, temporal and string)
 # ---------------------------------------------------------------------------
 
 _US_PER_DAY = 86400 * 1000 * 1000
@@ -556,11 +621,16 @@ def _float_to_int(x: torch.Tensor, tgt: dt.DType) -> torch.Tensor:
 
 def cast_supported(src: dt.DType, tgt: dt.DType) -> bool:
     """Does :func:`_eval_cast` cover ``src -> tgt``?  The planner keeps
-    any other cast on the CPU."""
+    any other cast on the CPU.  Float -> string waits for the port of the
+    reference's shortest-decimal printer (``expr/ryu.py``)."""
     if src == tgt or src == dt.NULL:
         return True
-    if src.is_string or tgt.is_string:
-        return False
+    if src.is_string:
+        return tgt.is_integral or tgt.is_floating or tgt.is_bool or \
+            tgt.id in (dt.TypeId.DATE32, dt.TypeId.TIMESTAMP_US)
+    if tgt.is_string:
+        return src.is_bool or src.is_integral or \
+            src.id in (dt.TypeId.DATE32, dt.TypeId.TIMESTAMP_US)
     return (src.is_temporal and (tgt.is_temporal or tgt.is_numeric)) or \
         ((src.is_bool or src.is_numeric) and (tgt.is_numeric or
                                               tgt.is_bool))
@@ -575,8 +645,26 @@ def _eval_cast(e, batch):
         return ColVal(tgt, c.data, c.validity, c.lengths)
     if src == dt.NULL:
         return _const(batch, None, tgt)
-    if src.is_string or tgt.is_string:
+    if not cast_supported(src, tgt):
         raise NotImplementedError(f"Cast({src.name}->{tgt.name})")
+    if src.is_string:
+        if tgt.is_integral:
+            return _cast_string_to_int(c, tgt)
+        if tgt.is_floating:
+            return _cast_string_to_float(c, tgt)
+        if tgt.is_bool:
+            return _cast_string_to_bool(c)
+        if tgt.id == dt.TypeId.DATE32:
+            return _cast_string_to_date(c)
+        return _cast_string_to_timestamp(c)
+    if tgt.is_string:
+        if src.is_bool:
+            return _cast_bool_to_string(c)
+        if src.is_integral:
+            return _cast_int_to_string(c)
+        if src.id == dt.TypeId.DATE32:
+            return _cast_date_to_string(c)
+        return _cast_timestamp_to_string(c)
     if src.id == dt.TypeId.DATE32 and tgt.id == dt.TypeId.TIMESTAMP_US:
         return ColVal(tgt, c.data.to(torch.int64) * _US_PER_DAY, c.validity)
     if src.id == dt.TypeId.TIMESTAMP_US and tgt.id == dt.TypeId.DATE32:
@@ -591,12 +679,776 @@ def _eval_cast(e, batch):
         return ColVal(tgt, _float_to_int(c.data, tgt), c.validity)
     if src.is_numeric and tgt.is_numeric:
         return ColVal(tgt, c.data.to(tgt.to_torch()), c.validity)
-    if src.is_temporal and tgt.is_numeric:
-        if src.id == dt.TypeId.TIMESTAMP_US and tgt.id == dt.TypeId.INT64:
-            return ColVal(tgt, torch.div(c.data, 1000 * 1000,
-                                         rounding_mode="floor"), c.validity)
-        return ColVal(tgt, c.data.to(tgt.to_torch()), c.validity)
-    raise NotImplementedError(f"Cast({src.name}->{tgt.name})")
+    # temporal -> numeric
+    if src.id == dt.TypeId.TIMESTAMP_US and tgt.id == dt.TypeId.INT64:
+        return ColVal(tgt, torch.div(c.data, 1000 * 1000,
+                                     rounding_mode="floor"), c.validity)
+    return ColVal(tgt, c.data.to(tgt.to_torch()), c.validity)
+
+
+def _pow10_table(n: int, like: torch.Tensor) -> torch.Tensor:
+    """10^0 .. 10^(n-1) mod 2^64, as int64."""
+    vals = [(10 ** k) % (1 << 64) for k in range(n)]
+    return torch.tensor([v - (1 << 64) if v >= (1 << 63) else v
+                         for v in vals], dtype=torch.int64,
+                        device=like.device)
+
+
+_P10_LO, _P10_HI = -400, 400
+
+
+def _pow10_f64(like: torch.Tensor) -> torch.Tensor:
+    """10^k for k in [-400, 400], correctly rounded to float64 (Python's
+    int division and int -> float conversion round exactly): 0 below
+    10^-323, inf above 10^308.  A table read gives the same bits on every
+    device; a device ``pow`` need not (the reference's XLA pow is an ulp
+    off at some exponents, e.g. 10^-5 and 10^23, and flushes 10^-308 and
+    below to 0)."""
+    vals = [1 / 10 ** -k if k < 0 else
+            (float(10 ** k) if k <= 308 else math.inf)
+            for k in range(_P10_LO, _P10_HI + 1)]
+    return torch.tensor(vals, dtype=torch.float64, device=like.device)
+
+
+def _cast_string_to_int(c: ColVal, tgt: dt.DType) -> ColVal:
+    """Optionally signed decimal integers, trimmed of spaces first (the
+    reference trims ' ' only here).  The reference's Horner loop over the
+    width is one sum here: its multiply-adds wrap mod 2^64, so
+    ``sum(d_j * 10^(end - 1 - j))`` equals it bit for bit, overflow
+    included."""
+    data, lengths = c.data, c.lengths
+    w = data.shape[1]
+    idx = _iota(w, data)[None, :]
+    non_space = (idx < lengths[:, None]) & (data != ord(" "))
+    any_ns = torch.any(non_space, dim=1)
+    t_start = torch.where(any_ns, _first_true(non_space), 0)
+    t_end = torch.where(any_ns, _last_true(non_space) + 1, 0)
+    first = _at(data, t_start)
+    neg = first == ord("-")
+    start = t_start + ((first == ord("-")) | (first == ord("+"))).to(
+        t_start.dtype)
+    in_range = (idx >= start[:, None]) & (idx < t_end[:, None])
+    digit = data.to(torch.int64) - ord("0")
+    is_digit = (digit >= 0) & (digit <= 9)
+    ok = torch.all(~in_range | is_digit, dim=1) & (t_end > start)
+    power = _pow10_table(w, data)[torch.clamp(t_end[:, None] - 1 - idx, 0)]
+    acc = torch.where(in_range, digit * power, 0).sum(dim=1)
+    acc = torch.where(neg, -acc, acc)
+    return ColVal(tgt, acc.to(tgt.to_torch()), c.validity & ok)
+
+
+def _trimmed(c: ColVal):
+    """(start, end) of the whitespace-trimmed span per row (ASCII
+    whitespace set of str.strip(): space, \\t, \\n, \\r, \\v, \\f)."""
+    data, lengths = c.data, c.lengths
+    idx = _iota(data.shape[1], data)[None, :]
+    is_ws = (data == 32) | ((data >= 9) & (data <= 13))
+    non_space = (idx < lengths[:, None]) & ~is_ws
+    any_ns = torch.any(non_space, dim=1)
+    start = torch.where(any_ns, _first_true(non_space), 0)
+    end = torch.where(any_ns, _last_true(non_space) + 1, 0)
+    return start, end
+
+
+def _cast_string_to_float(c: ColVal, tgt: dt.DType) -> ColVal:
+    """[+-]digits[.digits][eE[+-]digits], plus Infinity/NaN keywords
+    (invalid -> null).  The mantissa keeps the reference's Horner order
+    (a float sum in another order rounds differently); the fraction's
+    digit count and the exponent are sums; the scale is a correctly
+    rounded power of ten from a table (:func:`_pow10_f64`), where the
+    reference calls pow."""
+    data = c.data
+    w = data.shape[1]
+    idx = _iota(w, data)[None, :]
+    t_start, t_end = _trimmed(c)
+    first = _at(data, t_start)
+    neg = first == ord("-")
+    start = t_start + (neg | (first == ord("+"))).to(t_start.dtype)
+    is_inf = _word_at(data, start, t_end, (b"infinity", b"inf"))
+    is_nan = _word_at(data, t_start, t_end, (b"nan",))
+
+    digit = data.to(torch.int64) - ord("0")
+    is_digit = (digit >= 0) & (digit <= 9)
+    is_dot = data == ord(".")
+    is_e = (data == ord("e")) | (data == ord("E"))
+    in_tok = (idx >= start[:, None]) & (idx < t_end[:, None])
+    e_pos = torch.where(is_e & in_tok, idx, w).amin(dim=1)
+    mant_end = torch.minimum(t_end, e_pos)
+    in_mant = in_tok & (idx < mant_end[:, None])
+    dot_pos = torch.where(is_dot & in_mant, idx, w).amin(dim=1)
+    # exponent part: optional sign then digits
+    es = e_pos + 1
+    efirst = _at(data, es)
+    eneg = efirst == ord("-")
+    es = es + ((efirst == ord("-")) | (efirst == ord("+"))).to(es.dtype)
+    in_exp = (idx >= es[:, None]) & (idx < t_end[:, None])
+
+    legal = ~in_mant | is_digit | is_dot
+    legal_e = ~in_exp | is_digit
+    one_dot = torch.sum(is_dot & in_mant, dim=1) <= 1
+    has_digit = torch.any(is_digit & in_mant, dim=1)
+    has_exp = e_pos < w
+    exp_digits = torch.any(is_digit & in_exp, dim=1)
+    ok = (torch.all(legal, dim=1) & torch.all(legal_e, dim=1) & one_dot &
+          has_digit & (t_end > start) &
+          (~has_exp | (exp_digits & (e_pos < t_end))))
+
+    take = is_digit & in_mant
+    mant = torch.zeros((data.shape[0],), dtype=torch.float64,
+                       device=data.device)
+    dig_f = digit.to(torch.float64)
+    for j in range(w):
+        mant = torch.where(take[:, j], mant * 10 + dig_f[:, j], mant)
+    frac_n = torch.sum(take & (idx > dot_pos[:, None]), dim=1)
+    # the reference's saturating Horner min(e * 10 + d, 99999) is the
+    # exponent's value capped at 99999: a nonzero digit at a power >= 5
+    # caps it, the rest fits in int64
+    te = is_digit & in_exp
+    k = t_end[:, None] - 1 - idx
+    big = torch.any(te & (k >= 5) & (digit > 0), dim=1)
+    small = torch.where(te & (k < 5),
+                        digit * _pow10_table(5, data)[torch.clamp(k, 0, 4)],
+                        0).sum(dim=1)
+    exp_v = torch.where(big, 99999, torch.clamp(small, max=99999))
+    exp_v = torch.where(eneg & has_exp, -exp_v, exp_v)
+    p10 = torch.clamp(exp_v - frac_n, _P10_LO, _P10_HI) - _P10_LO
+    v = mant * _pow10_f64(mant)[p10]
+    v = torch.where(is_inf, math.inf, v)
+    v = torch.where(neg, -v, v)
+    v = torch.where(is_nan, math.nan, v)
+    ok = ok | is_inf | is_nan
+    v = torch.where(ok, v, 0.0)
+    return ColVal(tgt, v.to(tgt.to_torch()), c.validity & ok)
+
+
+def _cast_string_to_bool(c: ColVal) -> ColVal:
+    """Spark StringUtils: t/true/y/yes/1 and f/false/n/no/0."""
+    t_start, t_end = _trimmed(c)
+    is_t = _word_at(c.data, t_start, t_end,
+                    (b"t", b"true", b"y", b"yes", b"1"))
+    is_f = _word_at(c.data, t_start, t_end,
+                    (b"f", b"false", b"n", b"no", b"0"))
+    return ColVal(dt.BOOL, is_t, c.validity & (is_t | is_f))
+
+
+def _digits_value(b: torch.Tensor):
+    """(value, all digits) of a ``[rows, k]`` byte matrix read as one
+    decimal number, in int32 (the reference's Horner loop; k <= 4)."""
+    d = b.to(torch.int32) - ord("0")
+    ok = torch.all((d >= 0) & (d <= 9), dim=1)
+    v = torch.zeros_like(d[:, 0])
+    for j in range(d.shape[1]):
+        v = v * 10 + d[:, j]
+    return v, ok
+
+
+def _parse_ymd(c: ColVal):
+    """'yyyy-MM-dd' (4-2-2 fixed layout) -> (y, m, d, ok, end_pos,
+    t_end), int32."""
+    t_start, t_end = _trimmed(c)
+    b = _at_many(c.data, _offsets_from(t_start, 10))
+    y, ok_y = _digits_value(b[:, 0:4])
+    m, ok_m = _digits_value(b[:, 5:7])
+    d, ok_d = _digits_value(b[:, 8:10])
+    ok = (ok_y & ok_m & ok_d & (b[:, 4] == ord("-")) &
+          (b[:, 7] == ord("-")) & ((t_end - t_start) >= 10) &
+          (m >= 1) & (m <= 12) & (d >= 1) & (d <= 31))
+    # calendar-exact day check (Feb 30, Apr 31, non-leap Feb 29, ...):
+    # round-trip through the civil-days conversion and compare
+    days = _days_from_civil(y, m, d)
+    y2, m2, d2 = _civil_from_days(days)
+    ok = ok & (y2 == y) & (m2 == m) & (d2 == d)
+    return y, m, d, ok, t_start + 10, t_end
+
+
+def _cast_string_to_date(c: ColVal) -> ColVal:
+    y, m, d, ok, end10, t_end = _parse_ymd(c)
+    ok = ok & (t_end == end10)    # exact 'yyyy-MM-dd'
+    days = torch.where(ok, _days_from_civil(y, m, d), 0)
+    return ColVal(dt.DATE32, days.to(torch.int32), c.validity & ok)
+
+
+def _cast_string_to_timestamp(c: ColVal) -> ColVal:
+    """'yyyy-MM-dd[ HH:mm:ss[.f{1..6}]]' in UTC (the incompat UTC-only
+    surface gated by castStringToTimestamp.enabled).  The days take their
+    seconds in int64: the reference multiplies the int32 days by 86400 in
+    int32, which wraps outside 1901-12-14 .. 2038-01-19."""
+    y, m, d, ok, pos10, t_end = _parse_ymd(c)
+    b = _at_many(c.data, _offsets_from(pos10, 16))
+    has_time = t_end > pos10
+    sep_ok = (b[:, 0] == ord(" ")) | (b[:, 0] == ord("T"))
+    hh, ok_h = _digits_value(b[:, 1:3])
+    mm, ok_mi = _digits_value(b[:, 4:6])
+    ss, ok_s = _digits_value(b[:, 7:9])
+    colon_ok = (b[:, 3] == ord(":")) & (b[:, 6] == ord(":"))
+    time_ok = sep_ok & ok_h & ok_mi & ok_s & colon_ok & \
+        (hh < 24) & (mm < 60) & (ss < 60) & ((t_end - pos10) >= 9)
+    # optional .fraction (1-6 digits): every digit before t_end, in order
+    dot_ok = b[:, 9] == ord(".")
+    fd = b[:, 10:16].to(torch.int64) - ord("0")
+    p = pos10[:, None] + 10 + _iota(6, b)[None, :]
+    tk = (p < t_end[:, None]) & (fd >= 0) & (fd <= 9)
+    micros = torch.zeros_like(fd[:, 0])
+    for k in range(6):
+        micros = torch.where(tk[:, k], micros * 10 + fd[:, k], micros)
+    fdigits = torch.sum(tk, dim=1)
+    has_frac = has_time & (t_end > (pos10 + 9))
+    frac_ok = ~has_frac | (dot_ok & (fdigits == (t_end - pos10 - 10)) &
+                           (fdigits >= 1) & (fdigits <= 6))
+    micros = micros * _pow10_table(7, b)[6 - fdigits]
+    hh = torch.where(has_time, hh, 0)
+    mm = torch.where(has_time, mm, 0)
+    ss = torch.where(has_time, ss, 0)
+    micros = torch.where(has_time, micros, 0)
+    ok = ok & (~has_time | (time_ok & frac_ok))
+    days = _days_from_civil(y, m, d).to(torch.int64)
+    us = (days * 86400 + hh.to(torch.int64) * 3600 +
+          mm.to(torch.int64) * 60 + ss.to(torch.int64)) * 1000000 + micros
+    us = torch.where(ok, us, 0)
+    return ColVal(dt.TIMESTAMP_US, us, c.validity & ok)
+
+
+def _digits_matrix(v: torch.Tensor, width: int):
+    """|v| -> right-aligned digit matrix [n, width] + digit count.  The
+    reference takes |v| in uint64 to survive INT64_MIN; here each digit
+    is |trunc(v / 10^k) fmod 10| in int64, exact at INT64_MIN."""
+    powers = _pow10_table(width, v).flip(0)       # 10^(width-1) .. 10^0
+    q = torch.div(v[:, None], powers[None, :], rounding_mode="trunc")
+    mat = (torch.fmod(q, 10).abs() + ord("0")).to(torch.uint8)
+    nz = mat != ord("0")
+    ndig = torch.where(torch.any(nz, dim=1), width - _first_true(nz), 1)
+    return mat, ndig.to(torch.int32)
+
+
+def _left_align(mat: torch.Tensor, start: torch.Tensor,
+                out_w: int) -> torch.Tensor:
+    """Gather columns starting at per-row offset into [n, out_w]."""
+    return _at_many(mat, _offsets_from(start, out_w))
+
+
+def _cast_int_to_string(c: ColVal) -> ColVal:
+    v = c.data.to(torch.int64)
+    mat, ndig = _digits_matrix(v, 19)   # int64 abs max has 19 digits
+    neg = v < 0
+    n, out_w = v.shape[0], 20
+    body = _left_align(mat, mat.shape[1] - ndig, out_w - 1)
+    minus = torch.full((n, 1), ord("-"), dtype=torch.uint8, device=v.device)
+    data = torch.where(neg[:, None], torch.cat([minus, body], dim=1),
+                       _pad_width(body, out_w))
+    lens = ndig + neg.to(torch.int32)
+    keep = _iota(out_w, v)[None, :] < lens[:, None]
+    data = torch.where(keep & c.validity[:, None], data, 0)
+    return ColVal(dt.STRING, data, c.validity,
+                  torch.where(c.validity, lens, 0))
+
+
+def _cast_bool_to_string(c: ColVal) -> ColVal:
+    dev = c.data.device
+    t = torch.tensor(list(b"true\0"), dtype=torch.uint8, device=dev)
+    f = torch.tensor(list(b"false"), dtype=torch.uint8, device=dev)
+    b = c.data.to(torch.bool)
+    data = torch.where(b[:, None], t[None, :], f[None, :])
+    lens = torch.where(b, 4, 5).to(torch.int32)
+    keep = _iota(5, data)[None, :] < lens[:, None]
+    data = torch.where(keep & c.validity[:, None], data, 0)
+    return ColVal(dt.STRING, data, c.validity,
+                  torch.where(c.validity, lens, 0))
+
+
+def _decimal(v: torch.Tensor, n: int) -> torch.Tensor:
+    """The last ``n`` decimal digits of int64 ``v`` (floored, as the
+    reference's ``v // 10^k % 10``) as ``[rows, n]`` ASCII bytes."""
+    powers = _pow10_table(n, v).flip(0)
+    return (v.to(torch.int64)[:, None] // powers[None, :] % 10 +
+            ord("0")).to(torch.uint8)
+
+
+def _cast_date_to_string(c: ColVal) -> ColVal:
+    y, m, d = _civil_from_days(c.data)
+    n = c.data.shape[0]
+    dash = torch.full((n, 1), ord("-"), dtype=torch.uint8,
+                      device=c.data.device)
+    data = torch.cat([_decimal(y, 4), dash, _decimal(m, 2), dash,
+                      _decimal(d, 2)], dim=1)
+    data = torch.where(c.validity[:, None], data, 0)
+    return ColVal(dt.STRING, data, c.validity,
+                  torch.where(c.validity, 10, 0).to(torch.int32))
+
+
+def _cast_timestamp_to_string(c: ColVal) -> ColVal:
+    """'yyyy-MM-dd HH:mm:ss[.ffffff]' with trailing fraction zeros
+    trimmed (Spark timestamp formatting, UTC)."""
+    us = c.data.to(torch.int64)
+    days = torch.where(us >= 0, us // 86400000000,
+                       -((-us + 86399999999) // 86400000000))
+    rem = us - days * 86400000000
+    y, m, d = _civil_from_days(days)
+    hh = rem // 3600000000
+    mm = rem // 60000000 % 60
+    ss = rem // 1000000 % 60
+    n = us.shape[0]
+
+    def sep(ch):
+        return torch.full((n, 1), ord(ch), dtype=torch.uint8, device=us.device)
+    fmat = _decimal(rem % 1000000, 6)
+    data = torch.cat([_decimal(y, 4), sep("-"), _decimal(m, 2), sep("-"),
+                      _decimal(d, 2), sep(" "), _decimal(hh, 2), sep(":"),
+                      _decimal(mm, 2), sep(":"), _decimal(ss, 2), sep("."),
+                      fmat], dim=1)
+    # trim trailing zeros of the fraction; no fraction -> no dot
+    nz = fmat != ord("0")
+    flen = torch.where(torch.any(nz, dim=1), _last_true(nz) + 1, 0)
+    lens = (19 + torch.where(flen > 0, flen + 1, 0)).to(torch.int32)
+    keep = _iota(data.shape[1], data)[None, :] < lens[:, None]
+    data = torch.where(keep & c.validity[:, None], data, 0)
+    return ColVal(dt.STRING, data, c.validity,
+                  torch.where(c.validity, lens, 0))
+
+
+# ---------------------------------------------------------------------------
+# strings (byte-matrix compositions; ASCII case ops like cudf's default)
+# ---------------------------------------------------------------------------
+
+def _eval_upper(e, batch):
+    c = evaluate(e.child, batch)
+    is_lower = (c.data >= ord("a")) & (c.data <= ord("z"))
+    return ColVal(dt.STRING, torch.where(is_lower, c.data - 32, c.data),
+                  c.validity, c.lengths)
+
+
+def _eval_lower(e, batch):
+    c = evaluate(e.child, batch)
+    is_upper = (c.data >= ord("A")) & (c.data <= ord("Z"))
+    return ColVal(dt.STRING, torch.where(is_upper, c.data + 32, c.data),
+                  c.validity, c.lengths)
+
+
+def _eval_reverse(e, batch):
+    c = evaluate(e.child, batch)
+    pos = _iota(c.data.shape[1], c.data)[None, :]
+    out = _at_many(c.data, c.lengths[:, None] - 1 - pos)
+    out = torch.where(pos < c.lengths[:, None], out, 0)
+    return ColVal(dt.STRING, out, c.validity, c.lengths)
+
+
+def _eval_length(e, batch):
+    """The UTF-8 character count: the bytes less the continuation
+    bytes."""
+    c = evaluate(e.child, batch)
+    idx = _iota(c.data.shape[1], c.data)[None, :]
+    cont = ((c.data & 0xC0) == 0x80) & (idx < c.lengths[:, None])
+    return ColVal(dt.INT32, c.lengths - torch.sum(cont, dim=1,
+                                                  dtype=torch.int32),
+                  c.validity)
+
+
+def _eval_substring(e, batch):
+    s = evaluate(e.children[0], batch)
+    pos = evaluate(e.children[1], batch)
+    ln = evaluate(e.children[2], batch)
+    w = s.data.shape[1]
+    p = pos.data.to(torch.int32)
+    n = ln.data.to(torch.int32)
+    slen = s.lengths
+    # Spark: 1-based; pos 0 behaves like 1; negative counts from the end
+    # (int32 throughout, wrapping as the reference's does)
+    start = torch.where(p > 0, p - 1, torch.where(p < 0, slen + p, 0))
+    start = torch.minimum(torch.clamp(start, min=0), slen)
+    end = torch.minimum(torch.clamp(start + torch.clamp(n, min=0), min=0),
+                        slen)
+    out_len = end - start
+    idx = _iota(w, s.data)[None, :]
+    gathered = _at_many(s.data, start[:, None] + idx)
+    data = torch.where(idx < out_len[:, None], gathered, 0)
+    valid = s.validity & pos.validity & ln.validity
+    return ColVal(dt.STRING, data, valid, torch.where(valid, out_len, 0))
+
+
+def _needle_bytes(e_right) -> bytes:
+    if not isinstance(e_right, ir.Literal) or e_right.value is None:
+        raise NotImplementedError("string search needle must be a literal")
+    return e_right.value.encode("utf-8")
+
+
+def _needle_row(needle: bytes, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(list(needle), dtype=torch.uint8, device=like.device)
+
+
+def _match_at(l: ColVal, r: ColVal, offs: torch.Tensor) -> torch.Tensor:
+    """[n] bool: needle column r matches l starting at per-row offset
+    offs (clipped); caller guards length feasibility.  One gather of the
+    needle's width, where the reference loops over it."""
+    wr = r.data.shape[1]
+    got = _at_many(l.data, _offsets_from(offs, wr))
+    in_needle = _iota(wr, l.data)[None, :] < r.lengths[:, None]
+    return torch.all(~in_needle | (got == r.data), dim=1)
+
+
+def _literal_needle(e) -> bool:
+    return isinstance(e.right, ir.Literal) and e.right.value is not None
+
+
+def _eval_startswith(e, batch):
+    l = evaluate(e.left, batch)
+    if _literal_needle(e):
+        needle = _needle_bytes(e.right)
+        m, w = len(needle), l.data.shape[1]
+        ok = l.lengths >= m
+        if m > w:
+            ok = torch.zeros_like(ok)
+        elif m:
+            ok = ok & torch.all(l.data[:, :m] == _needle_row(needle, l.data),
+                                dim=1)
+        return ColVal(dt.BOOL, ok, l.validity)
+    r = evaluate(e.right, batch)     # column needle
+    ok = (l.lengths >= r.lengths) & _match_at(
+        l, r, torch.zeros_like(l.lengths))
+    return ColVal(dt.BOOL, ok, l.validity & r.validity)
+
+
+def _eval_endswith(e, batch):
+    l = evaluate(e.left, batch)
+    if _literal_needle(e):
+        needle = _needle_bytes(e.right)
+        m = len(needle)
+        ok = l.lengths >= m
+        if m:
+            # position from the end: lengths - m + j
+            got = _at_many(l.data, _offsets_from(l.lengths - m, m))
+            ok = ok & torch.all(got == _needle_row(needle, l.data), dim=1)
+        return ColVal(dt.BOOL, ok, l.validity)
+    r = evaluate(e.right, batch)
+    ok = (l.lengths >= r.lengths) & _match_at(
+        l, r, l.lengths - r.lengths)
+    return ColVal(dt.BOOL, ok, l.validity & r.validity)
+
+
+def _window_match(l: ColVal, seg: bytes, wildcard=None) -> torch.Tensor:
+    """[n, w - m + 1] bool: ``seg`` (a byte equal to ``wildcard`` matches
+    any byte) starts at each position p and fits inside the string."""
+    m, w = len(seg), l.data.shape[1]
+    span = w - m + 1
+    match = torch.ones((l.data.shape[0], span), dtype=torch.bool,
+                       device=l.data.device)
+    for j, byte in enumerate(seg):
+        if byte != wildcard:
+            match = match & (l.data[:, j:j + span] == byte)
+    starts = _iota(span, l.data)[None, :]
+    return match & (starts + m <= l.lengths[:, None])
+
+
+def _contains_mask(l: ColVal, needle: bytes) -> torch.Tensor:
+    m, w = len(needle), l.data.shape[1]
+    if m == 0:
+        return torch.ones_like(l.validity)
+    if m > w:
+        return torch.zeros_like(l.validity)
+    return torch.any(_window_match(l, needle), dim=1)
+
+
+def _eval_contains(e, batch):
+    l = evaluate(e.left, batch)
+    if _literal_needle(e):
+        return ColVal(dt.BOOL, _contains_mask(l, _needle_bytes(e.right)),
+                      l.validity)
+    r = evaluate(e.right, batch)     # column needle
+    # every start s at once, one needle byte at a time (the reference
+    # loops over the starts): a start is feasible only where the needle
+    # fits, so the bytes it reads lie inside the string
+    wl, wr = l.data.shape[1], r.data.shape[1]
+    hay = _pad_width(l.data, wl + wr)
+    match = torch.ones((l.data.shape[0], wl), dtype=torch.bool,
+                       device=l.data.device)
+    for j in range(wr):
+        match = match & ((j >= r.lengths[:, None]) |
+                         (hay[:, j:j + wl] == r.data[:, j:j + 1]))
+    starts = _iota(wl, l.data)[None, :]
+    match = match & (starts + r.lengths[:, None] <= l.lengths[:, None])
+    ok = (torch.any(match, dim=1) | (r.lengths == 0)) & \
+        (r.lengths <= l.lengths)
+    return ColVal(dt.BOOL, ok, l.validity & r.validity)
+
+
+def _seg_match_positions(l: ColVal, seg: bytes) -> torch.Tensor:
+    """[n, w] bool: the segment (with '_' single-char wildcards) matches
+    starting at byte position p and fits inside the string."""
+    m, w = len(seg), l.data.shape[1]
+    if m > w:
+        return torch.zeros((l.data.shape[0], w), dtype=torch.bool,
+                           device=l.data.device)
+    return _pad_width(_window_match(l, seg, ord("_")), w)
+
+
+def _eval_like(e, batch):
+    """Full SQL LIKE: literal pattern with '%' multi-char and '_'
+    single-char wildcards, evaluated as a greedy leftmost
+    segment-placement scan over the byte matrix."""
+    l = evaluate(e.left, batch)
+    n, w = l.data.shape
+    if isinstance(e.right, ir.Literal) and e.right.value is None:
+        none = torch.zeros((n,), dtype=torch.bool, device=l.data.device)
+        return ColVal(dt.BOOL, none, none)   # LIKE NULL -> NULL
+    pat = _needle_bytes(e.right)
+    segs = pat.split(b"%")
+    lead = not pat.startswith(b"%")
+    trail = not pat.endswith(b"%")
+    nonempty = [(k, s) for k, s in enumerate(segs) if s]
+    if not nonempty:
+        # '', '%', '%%', ...: an empty pattern matches only the empty string
+        ok = torch.ones_like(l.validity) if b"%" in pat \
+            else (l.lengths == 0)
+        return ColVal(dt.BOOL, ok, l.validity)
+    ok = torch.ones_like(l.validity)
+    pos = torch.zeros_like(l.lengths)
+    for k, seg in nonempty:
+        m = len(seg)
+        is_first = k == 0 and lead
+        is_last = (k == len(segs) - 1) and trail
+        mp = _seg_match_positions(l, seg)
+        if is_first and is_last and len(nonempty) == 1:
+            ok = ok & mp[:, 0] & (l.lengths == m) if m <= w \
+                else torch.zeros_like(ok)
+            break
+        if is_first:
+            ok = ok & (mp[:, 0] if m <= w else torch.zeros_like(ok))
+            pos = torch.full_like(l.lengths, m)
+            continue
+        if is_last:
+            p = l.lengths - m
+            ok = ok & _at(mp, p) & (p >= pos)
+            continue
+        # middle (or leading-%%) segment: leftmost occurrence >= pos
+        cand = mp & (_iota(w, l.data)[None, :] >= pos[:, None])
+        ok = ok & torch.any(cand, dim=1)
+        pos = (_first_true(cand) + m).to(pos.dtype)
+    return ColVal(dt.BOOL, ok, l.validity)
+
+
+def _pow2_width(w: int) -> int:
+    """The output width the reference gives a composed string: the
+    power of two >= w."""
+    return 1 << max(0, w - 1).bit_length()
+
+
+def _eval_concat(e, batch):
+    vals = [evaluate(c, batch) for c in e.children]
+    out_w = _pow2_width(sum(v.data.shape[1] for v in vals))
+    rows, dev = vals[0].data.shape[0], vals[0].data.device
+    out = torch.zeros((rows, out_w), dtype=torch.uint8, device=dev)
+    out_len = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    valid = torch.ones((rows,), dtype=torch.bool, device=dev)
+    idx = _iota(out_w, out)[None, :]
+    for v in vals:
+        # out[i, out_len[i] + j] = v[i, j]
+        sv = _at_many(v.data, idx - out_len[:, None])
+        write = (idx >= out_len[:, None]) & \
+                (idx < (out_len + v.lengths)[:, None])
+        out = torch.where(write, sv, out)
+        out_len = out_len + v.lengths
+        valid = valid & v.validity
+    return ColVal(dt.STRING, out, valid, torch.where(valid, out_len, 0))
+
+
+def _trim_bounds(c: ColVal, left: bool, right: bool):
+    """(start, end) of the span trimmed of ' ' on the chosen sides; an
+    all-space or empty string trims to (0, 0)."""
+    idx = _iota(c.data.shape[1], c.data)[None, :]
+    in_str = idx < c.lengths[:, None]
+    non_space = in_str & (c.data != ord(" "))
+    any_ns = torch.any(non_space, dim=1)
+    start = torch.where(any_ns, _first_true(non_space), 0) if left \
+        else torch.zeros_like(c.lengths)
+    end = _last_true(non_space) + 1 if right else c.lengths
+    end = torch.where(any_ns, end, 0)
+    return start.to(torch.int32), end.to(torch.int32)
+
+
+def _mk_trim(left: bool, right: bool):
+    def f(e, batch):
+        c = evaluate(e.child, batch)
+        start, end = _trim_bounds(c, left, right)
+        out_len = end - start
+        idx = _iota(c.data.shape[1], c.data)[None, :]
+        data = _at_many(c.data, start[:, None] + idx)
+        data = torch.where(idx < out_len[:, None], data, 0)
+        return ColVal(dt.STRING, data, c.validity,
+                      torch.where(c.validity, out_len, 0))
+    return f
+
+
+def _eval_initcap(e, batch):
+    c = evaluate(e.child, batch)
+    prev_is_sep = torch.nn.functional.pad(c.data[:, :-1] == ord(" "),
+                                          (1, 0), value=True)
+    lower = (c.data >= ord("a")) & (c.data <= ord("z"))
+    upper = (c.data >= ord("A")) & (c.data <= ord("Z"))
+    data = torch.where(prev_is_sep & lower, c.data - 32,
+                       torch.where(~prev_is_sep & upper, c.data + 32,
+                                   c.data))
+    return ColVal(dt.STRING, data, c.validity, c.lengths)
+
+
+def _eval_locate(e, batch):
+    sub_e, str_e, start_e = e.children
+    s = evaluate(str_e, batch)
+    needle = _needle_bytes(sub_e)
+    if not isinstance(start_e, ir.Literal):
+        raise NotImplementedError("locate start must be literal")
+    start = int(start_e.value or 1)
+    m, w = len(needle), s.data.shape[1]
+    if m == 0:
+        return ColVal(dt.INT32, torch.full_like(s.lengths, start),
+                      s.validity)
+    if m > w:
+        return ColVal(dt.INT32, torch.zeros_like(s.lengths), s.validity)
+    match = _window_match(s, needle)
+    match = match & (_iota(w - m + 1, s.data)[None, :] >= start - 1)
+    pos = torch.where(torch.any(match, dim=1), _first_true(match) + 1, 0)
+    return ColVal(dt.INT32, pos.to(torch.int32), s.validity)
+
+
+def _mk_pad(left: bool):
+    def f(e, batch):
+        s = evaluate(e.children[0], batch)
+        len_e, pad_e = e.children[1], e.children[2]
+        if not isinstance(len_e, ir.Literal) or \
+           not isinstance(pad_e, ir.Literal):
+            raise NotImplementedError("pad length/fill must be literals")
+        target = max(int(len_e.value), 0)  # Spark: len<=0 -> empty string
+        pad = (pad_e.value or "").encode("utf-8")
+        out_w = _pow2_width(max(target, 1))
+        idx = _iota(out_w, s.data)[None, :]
+        src = _pad_width(s.data, out_w)     # a negative pad crops
+        cur = torch.clamp(s.lengths, max=target)
+        if not pad:
+            # empty pad string: Spark returns the (possibly truncated) input
+            out_len = cur
+            data = torch.where(idx < out_len[:, None], src, 0)
+        else:
+            out_len = torch.full_like(s.lengths, target)
+            if left:
+                n_pad = torch.clamp(target - s.lengths, min=0)
+                body = _at_many(src, idx - n_pad[:, None])
+                fill_pos = idx    # the pad cycles from position 0
+                in_pad = idx < n_pad[:, None]
+            else:
+                body = src
+                fill_pos = torch.clamp(idx - cur[:, None], min=0)
+                in_pad = idx >= cur[:, None]
+            fill = _needle_row(pad, src)[fill_pos % len(pad)]
+            data = torch.where(in_pad, fill, body)
+            data = torch.where(idx < out_len[:, None], data, 0)
+        return ColVal(dt.STRING, data, s.validity,
+                      torch.where(s.validity, out_len, 0))
+    return f
+
+
+# ---------------------------------------------------------------------------
+# date/time (UTC only; civil-calendar math after Howard Hinnant's algorithms)
+# ---------------------------------------------------------------------------
+#
+# The reference defines each conversion twice (:829/:977, then :1417/:1431);
+# Python binds the later pair, so the casts run it too.  These are that pair:
+# days in int64 to int32 (y, m, d), and (y, m, d) back in their own type,
+# both flooring.
+
+def _civil_from_days(days: torch.Tensor):
+    z = days.to(torch.int64) + 719468
+    era = z // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y.to(torch.int32), m.to(torch.int32), d.to(torch.int32)
+
+
+def _days_from_civil(y, m, d):
+    y = y - (m <= 2).to(y.dtype)
+    era = y // 400
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def _to_days(c: ColVal) -> torch.Tensor:
+    if c.dtype.id == dt.TypeId.TIMESTAMP_US:
+        return c.data // _US_PER_DAY
+    return c.data.to(torch.int64)
+
+
+def _mk_datefield(which: str):
+    def f(e, batch):
+        c = evaluate(e.child, batch)
+        days = _to_days(c)
+        y, m, d = _civil_from_days(days)
+        if which == "year":
+            out = y
+        elif which == "month":
+            out = m
+        elif which == "day":
+            out = d
+        elif which == "quarter":
+            out = (m - 1) // 3 + 1
+        elif which == "dayofweek":   # Sun=1..Sat=7
+            out = (days + 4) % 7 + 1
+        elif which == "dayofyear":
+            jan1 = _days_from_civil(y, torch.ones_like(m), torch.ones_like(d))
+            out = days - jan1 + 1
+        elif which == "weekofyear":  # ISO 8601
+            thursday = days - (days + 3) % 7 + 3     # Mon=0..Sun=6
+            ty, tm, td = _civil_from_days(thursday)
+            jan1 = _days_from_civil(ty, torch.ones_like(tm),
+                                    torch.ones_like(td))
+            out = (thursday - jan1) // 7 + 1
+        else:
+            raise AssertionError(which)
+        return ColVal(dt.INT32, out.to(torch.int32), c.validity)
+    return f
+
+
+def _mk_timefield(which: str):
+    def f(e, batch):
+        c = evaluate(e.child, batch)
+        us = c.data.to(torch.int64) % _US_PER_DAY
+        if which == "hour":
+            out = us // (3600 * 1000 * 1000)
+        elif which == "minute":
+            out = (us // (60 * 1000 * 1000)) % 60
+        else:
+            out = (us // (1000 * 1000)) % 60
+        return ColVal(dt.INT32, out.to(torch.int32), c.validity)
+    return f
+
+
+def _eval_dateadd(e, batch):
+    l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+    return ColVal(dt.DATE32, (l.data.to(torch.int64) +
+                              r.data.to(torch.int64)).to(torch.int32),
+                  _binary_null(l, r))
+
+
+def _eval_datesub(e, batch):
+    l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+    return ColVal(dt.DATE32, (l.data.to(torch.int64) -
+                              r.data.to(torch.int64)).to(torch.int32),
+                  _binary_null(l, r))
+
+
+def _eval_datediff(e, batch):
+    l, r = evaluate(e.left, batch), evaluate(e.right, batch)
+    return ColVal(dt.INT32, (_to_days(l) - _to_days(r)).to(torch.int32),
+                  _binary_null(l, r))
+
+
+def _eval_unix_ts(e, batch):
+    c = evaluate(e.child, batch)
+    return ColVal(dt.INT64, c.data // (1000 * 1000), c.validity)
 
 
 # ---------------------------------------------------------------------------
@@ -794,6 +1646,37 @@ _DISPATCH = {
     ir.ShiftRight: _eval_shiftright,
     ir.ShiftRightUnsigned: _eval_shiftright_unsigned,
     ir.Cast: _eval_cast,
+    ir.Upper: _eval_upper,
+    ir.Lower: _eval_lower,
+    ir.Length: _eval_length,
+    ir.Substring: _eval_substring,
+    ir.StartsWith: _eval_startswith,
+    ir.EndsWith: _eval_endswith,
+    ir.Contains: _eval_contains,
+    ir.Like: _eval_like,
+    ir.Concat: _eval_concat,
+    ir.StringTrim: _mk_trim(True, True),
+    ir.StringTrimLeft: _mk_trim(True, False),
+    ir.StringTrimRight: _mk_trim(False, True),
+    ir.InitCap: _eval_initcap,
+    ir.StringLocate: _eval_locate,
+    ir.LPad: _mk_pad(True),
+    ir.RPad: _mk_pad(False),
+    ir.StringReverse: _eval_reverse,
+    ir.Year: _mk_datefield("year"),
+    ir.Month: _mk_datefield("month"),
+    ir.DayOfMonth: _mk_datefield("day"),
+    ir.DayOfYear: _mk_datefield("dayofyear"),
+    ir.DayOfWeek: _mk_datefield("dayofweek"),
+    ir.WeekOfYear: _mk_datefield("weekofyear"),
+    ir.Quarter: _mk_datefield("quarter"),
+    ir.Hour: _mk_timefield("hour"),
+    ir.Minute: _mk_timefield("minute"),
+    ir.Second: _mk_timefield("second"),
+    ir.DateAdd: _eval_dateadd,
+    ir.DateSub: _eval_datesub,
+    ir.DateDiff: _eval_datediff,
+    ir.UnixTimestampFromTs: _eval_unix_ts,
     ir.Murmur3Hash: _eval_murmur3,
     ir.KnownFloatingPointNormalized: _eval_knownfloat,
 }

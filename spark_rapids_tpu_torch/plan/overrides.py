@@ -55,6 +55,14 @@ from spark_rapids_tpu_torch.expr import eval_tpu, ir
 # Expression support checks
 # ---------------------------------------------------------------------------
 
+_LITERAL_ARG_EXPRS = {
+    # the pattern splits into its segments on the host; a per-row pattern
+    # column would need a dynamic matcher -- fall back (the reference's
+    # GpuLike literal-pattern restriction)
+    ir.Like: "LIKE pattern must be a literal",
+}
+
+
 _TPU_AGG_FNS = (ir.Count, ir.Sum, ir.Min, ir.Max, ir.Average, ir.First,
                 ir.Last)
 
@@ -74,6 +82,17 @@ def _check_expr_node(e: ir.Expression, conf: RapidsTpuConf
     if not conf.is_operator_enabled(key, incompat=False,
                                    disabled_by_default=False):
         return f"expression {type(e).__name__} disabled by {key}"
+    if type(e) in _LITERAL_ARG_EXPRS:
+        if not isinstance(e.children[1], ir.Literal):
+            return _LITERAL_ARG_EXPRS[type(e)]
+    if isinstance(e, ir.StringLocate):
+        if not isinstance(e.children[0], ir.Literal) or \
+           not isinstance(e.children[2], ir.Literal):
+            return "locate substr/start must be literals"
+    if isinstance(e, (ir.LPad, ir.RPad)):
+        if not isinstance(e.children[1], ir.Literal) or \
+           not isinstance(e.children[2], ir.Literal):
+            return "pad length/fill must be literals"
     if isinstance(e, ir.Cast):
         src = e.children[0].dtype
         if src is not None and src != e.to and src != dt.NULL:
@@ -87,10 +106,16 @@ def _check_expr_node(e: ir.Expression, conf: RapidsTpuConf
                     not conf.get(cfg.ALLOW_INCOMPAT_UTC_ONLY):
                 return ("cast string->timestamp is UTC-only on TPU; "
                         f"enable {cfg.ALLOW_INCOMPAT_UTC_ONLY.key}")
-            if e.to.is_string and src.is_floating and \
-                    not conf.get(cfg.CAST_FLOAT_TO_STRING):
-                return ("cast float->string disabled; enable "
-                        f"{cfg.CAST_FLOAT_TO_STRING.key}")
+            if src.is_string and not eval_tpu.cast_supported(src, e.to):
+                return f"cast string->{e.to.name} not supported on TPU yet"
+            if e.to.is_string and src.is_floating:
+                if not conf.get(cfg.CAST_FLOAT_TO_STRING):
+                    return ("cast float->string disabled; enable "
+                            f"{cfg.CAST_FLOAT_TO_STRING.key}")
+                return (f"cast {src.name}->string waits for the port of "
+                        "spark_rapids_tpu/expr/ryu.py")
+            if e.to.is_string and not eval_tpu.cast_supported(src, e.to):
+                return f"cast {src.name}->string not supported on TPU yet"
             if not eval_tpu.cast_supported(src, e.to):
                 return f"cast {src.name}->{e.to.name} not supported on TPU yet"
     if isinstance(e, (ir.Sum, ir.Average)) and e.child is not None and \

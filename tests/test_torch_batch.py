@@ -123,12 +123,24 @@ def test_from_arrow_matches_reference(name, n):
     assert_leaves_equal(batch_to_numpy(batch_from_numpy(ref, "cpu")), ref)
 
 
+def _null_rows_spanning_bytes() -> pa.Array:
+    """["ab", null, "", null, "xyz"] whose null rows own bytes of the
+    buffer ("cde", "fgh")."""
+    offsets = np.array([0, 2, 5, 5, 8, 11], np.int32)
+    validity = np.packbits([1, 0, 1, 0, 1], bitorder="little")
+    return pa.Array.from_buffers(
+        pa.string(), 5, [pa.py_buffer(validity.tobytes()),
+                         pa.py_buffer(offsets.tobytes()),
+                         pa.py_buffer(b"abcdefghxyz")])
+
+
 @pytest.mark.parametrize("form", ["plain", "sliced", "chunked", "large",
-                                  "all_null", "empty_strings"])
+                                  "all_null", "empty_strings",
+                                  "null_rows_spanning_bytes"])
 def test_string_upload_matches_reference(form):
     """Strings copied from the Arrow offsets and bytes: multi-byte UTF-8,
-    nulls, a sliced array, several chunks and large_string give the
-    reference's matrix and lengths."""
+    nulls, a sliced array, several chunks, large_string and null rows that
+    span bytes of the buffer give the reference's matrix and lengths."""
     rng = np.random.default_rng(3)
     words = ["", "a", "h\u00e9llo", "\u65e5\u672c\u8a9e", "x" * 33, None]
     vals = [words[i] for i in rng.integers(0, len(words), 200)]
@@ -138,7 +150,8 @@ def test_string_upload_matches_reference(form):
                                         pa.array(vals[90:])]),
            "large": pa.array(vals, pa.large_string()),
            "all_null": pa.array([None] * 9, pa.string()),
-           "empty_strings": pa.array([""] * 9)}[form]
+           "empty_strings": pa.array([""] * 9),
+           "null_rows_spanning_bytes": _null_rows_spanning_bytes()}[form]
     t = pa.table({"s": arr.cast(pa.string())})
     ref = jax_leaves(jbatch.from_arrow(t))
     port = tbatch.from_arrow(pa.table({"s": arr}), device="cpu")
@@ -283,9 +296,9 @@ def test_expression_parity(name, expr_batches):
 def test_unported_expression_names_the_node(expr_batches):
     t, _, tb = expr_batches
     ts = TSchema.from_arrow(t.schema)
-    e = tir.bind(tir.Upper(tir.UnresolvedAttribute("string")), ts.names,
+    e = tir.bind(tir.Md5(tir.UnresolvedAttribute("string")), ts.names,
                  ts.dtypes, ts.nullables)
-    with pytest.raises(NotImplementedError, match="Upper"):
+    with pytest.raises(NotImplementedError, match="Md5"):
         teval.evaluate(e, tb)
 
 

@@ -33,11 +33,6 @@ STAR = ("q3", "q42", "q52", "q55")
 OWN = ("q3", "q7", "q19", "q42", "q52", "q55", "q68", "q73", "q96", "q98")
 CONF = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
         "spark.rapids.tpu.sql.test.enabled": True}
-# IN runs on the card; q19's substring still evaluates on the host until
-# the string evaluators of expr/eval_tpu.py are ported: its filter is the
-# port's one allowed host node
-HOST_FILTER_CONF = dict(CONF, **{
-    "spark.rapids.tpu.sql.test.allowedNonTpu": "CpuFilterExec"})
 
 
 @pytest.fixture(scope="module")
@@ -49,11 +44,6 @@ def data():
 def sessions(data):
     js, ts = JSession(CONF), TSession(CONF, device="cpu")
     return (jtpcds.setup(js, data), ttpcds.setup(ts, data))
-
-
-@pytest.fixture(scope="module")
-def host_filter_tables(data):
-    return ttpcds.setup(TSession(HOST_FILTER_CONF, device="cpu"), data)
 
 
 @pytest.fixture(scope="module")
@@ -146,10 +136,10 @@ def test_star_query_row_for_row(name, sessions, ref_routes):
 
 
 @pytest.mark.parametrize("name", [q for q in OWN if q not in STAR])
-def test_query_matches_reference(name, sessions, host_filter_tables):
-    jt, _ = sessions
+def test_query_matches_reference(name, sessions):
+    jt, tt = sessions
     ref = jtpcds.QUERIES[name](jt).collect()
-    got = ttpcds.QUERIES[name](host_filter_tables).collect()
+    got = ttpcds.QUERIES[name](tt).collect()
     problems = CompareResults(epsilon=1e-4,
                               ignore_ordering=True).compare(ref, got)
     assert not problems, f"{name}: {problems}"

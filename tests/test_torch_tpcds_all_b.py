@@ -18,7 +18,7 @@ def test_query_matches_reference(name, ref_tables, port_tables):
 
 
 def test_q97_plans_a_full_shuffled_join(port_tables):
-    df = ttpcds.QUERIES["q97"](port_tables[0])
+    df = ttpcds.QUERIES["q97"](port_tables)
     nodes = []
     df.session._plan_physical(df.plan).plan.foreach(nodes.append)
     names = [type(n).__name__ for n in nodes]

@@ -6,7 +6,8 @@ test mode: no host node but the transitions) and on the reference's CPU
 session over the same SF 0.002 tables: rows and their order exactly,
 floats to ``tests/parity.py``'s tolerance; each plans its windows as
 ``TpuWindowExec``.  The census plans all 99 queries on the port without
-running them: all 99 plan, and it pins which of them keep a host node.
+running them: all 99 plan, and none keeps a host node besides the
+transitions.
 """
 
 import re
@@ -29,13 +30,10 @@ WINDOWED = ("q12", "q20", "q36", "q44", "q47", "q49", "q51", "q53", "q57",
 # the queries the port cannot plan at SF 0.002, and the module each waits
 # for: none (q97's full outer join plans as a shuffled hash join)
 NOT_PLANNED = {}
-# the queries that plan with a host node besides the transitions, and
-# the node: q15/q19/q45/q93 filter, and q8/q84 project, with a string
-# expression the port's device evaluator does not cover yet
-HOST_NODES = {"q8": ["CpuProjectExec", "CpuProjectExec"],
-              "q15": ["CpuFilterExec"], "q19": ["CpuFilterExec"],
-              "q45": ["CpuFilterExec"], "q84": ["CpuProjectExec"],
-              "q93": ["CpuFilterExec"]}
+# the queries that plan with a host node besides the transitions: none
+# (q8, q15, q19, q45, q84 and q93 evaluate their substring, startswith and
+# concat on the device)
+HOST_NODES = {}
 
 
 @pytest.fixture(scope="module")

@@ -29,10 +29,6 @@ CONF = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
 OWN = ("q3", "q7", "q19", "q42", "q52", "q55", "q68", "q73", "q96", "q98")
 WINDOWED = ("q12", "q20", "q36", "q44", "q47", "q49", "q51", "q53", "q57",
             "q63", "q67", "q70", "q86", "q89")
-# the queries that plan a host filter or projection (a string expression
-# the device evaluator does not cover yet); the census of
-# test_torch_tpcds_windows.py pins which node each has
-HOST_NODE_QUERIES = ("q8", "q15", "q45", "q84", "q93")
 REST = sorted((q for q in ttpcds.QUERIES if q not in OWN + WINDOWED),
               key=lambda q: int(re.sub(r"\D", "", q)))
 HALVES = (REST[:len(REST) // 2], REST[len(REST) // 2:])
@@ -51,18 +47,14 @@ def ref_tables(data):
 
 @pytest.fixture(scope="module")
 def port_tables(data):
-    """(strict tables, tables allowing the host filter/projection)."""
+    """The tables on a port session in test mode: no host node but the
+    transitions."""
     test = dict(CONF, **{"spark.rapids.tpu.sql.test.enabled": True})
-    host = dict(test, **{"spark.rapids.tpu.sql.test.allowedNonTpu":
-                         "CpuFilterExec,CpuProjectExec"})
-    return (ttpcds.setup(TSession(test, device="cpu"), data),
-            ttpcds.setup(TSession(host, device="cpu"), data))
+    return ttpcds.setup(TSession(test, device="cpu"), data)
 
 
 def check_query(name, ref_tables, port_tables):
-    strict, host = port_tables
-    tables = host if name in HOST_NODE_QUERIES else strict
     ref = jtpcds.QUERIES[name](ref_tables).collect()
-    got = ttpcds.QUERIES[name](tables).collect()
+    got = ttpcds.QUERIES[name](port_tables).collect()
     assert_tables_equal(ref, got)
     return got
