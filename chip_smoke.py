@@ -101,7 +101,7 @@ Phases (any failure exits non-zero):
                before it, must launch every kernel of its path with no
                fallback but the pinned filterDecode ones, and give each
                join pair the route the reference's rule gives it; then its
-               cold wall, 5 warm walls with sections, one profiler trace
+               cold wall, 3 warm walls with sections, one profiler trace
                and its peak device memory, host syncs and hash rounds;
   8c. window — the windowed reporting queries q98 and q47 at SF10 over the
                star phase's files and ``store`` (12,000 rows, one file,
@@ -116,7 +116,7 @@ Phases (any failure exits non-zero):
                way, its lag/lead by shifting each partition sorted on
                d_moy); with the counts set to 0 before it, must launch
                and fall back as pinned (WINDOW_COUNTS, WINDOW_FALLBACKS);
-               then its cold wall, 5 warm walls with sections
+               then its cold wall, 3 warm walls with sections
                (``window.eval`` among them), one profiler trace and its
                peak device memory;
   8d. shuffle — the shuffle exchange over the star phase's files and
@@ -133,7 +133,7 @@ Phases (any failure exits non-zero):
                the star phase's pyarrow references).  With the counts set
                to 0 before each, its launches, fallbacks and (for the star
                queries) join routes must equal the pinned SHUFFLE_COUNTS,
-               SHUFFLE_FALLBACKS and SHUFFLE_ROUTES; then its cold wall, 5
+               SHUFFLE_FALLBACKS and SHUFFLE_ROUTES; then its cold wall, 3
                warm walls with sections (``exchange.partition``,
                ``exchange.upload`` or ``exchange.concat``, the joins, the
                aggregate and the scan), the rows and ``bytes_written``
@@ -158,6 +158,35 @@ Phases (any failure exits non-zero):
                filter's, projection's and fused stage's host eval time
                among them), one profiler trace with the kernel launches
                inside those eval spans, and its peak device memory;
+  8f. customer-etl — over the strings phase's customer file (10,000,000
+               rows) on a port session on cuda at the strings phase's conf:
+               an RLIKE filter in the device subset on c_email_address,
+               md5 of the address, a literal and an NFA regexp_replace, a
+               double cast to string, monotonically_increasing_id(),
+               spark_partition_id() and rand(seed).  Prints its plan (no
+               host node but the transitions); must match Python's re,
+               hashlib and repr; the ids must count 0, 1, 2, ... within
+               each partition; the ids, partition ids and rand must equal a
+               port session's on the CPU over the same batches, bit for
+               bit; then the pinned launches and fallbacks, its cold wall,
+               3 warm walls with sections, one profiler trace (with the
+               launches inside the eval spans) and its peak device memory;
+  8g. mortgage — ``bench/mortgage.py``'s ETL (``run``: the per-loan
+               delinquency features, the explode of 0..11 and its
+               re-aggregation, the cleaned acquisitions), ``simple_aggregates``
+               and ``delinquency_rate`` at SF 1 (perf 9,000,000 rows in 8
+               files, acq 500,000 in one; the explode emits 108,000,000
+               rows) on port sessions on cuda at the strings phase's conf
+               with the two-stage aggregate on the device transport
+               (MORT_CONF says why).
+               Each prints its plan (no host node but the transitions and
+               the name mapping's in-memory scan; the ETL's holds a
+               TpuGenerateExec); must match an independent pyarrow/numpy
+               computation (the ETL as row sets); launches, falls back and
+               routes its joins as pinned (MORT_*); then its cold wall, 3
+               warm walls with sections (``generate.count`` and
+               ``generate.emit`` among them), one profiler trace and its
+               peak device memory;
   9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
                a dictionary that overflows into PLAIN pages, a 16-character
                string dictionary and a list<int32>, through the PERFILE
@@ -167,11 +196,11 @@ Phases (any failure exits non-zero):
                with and without a default; running, whole-partition,
                sliding ROWS and finite RANGE frames in both directions;
                sum, count, avg, min and max over int64, double with NaN and
-               bool) over a 2^20-row table with about 5% nulls and one
+               bool) over a 2^18-row table with about 5% nulls and one
                partition of half the rows, on a port session on cuda
                against the same DataFrame on one on the CPU: exactly,
                floats bit for bit; untimed;
-  9c. shuffle-modes — over 2^20 rows with about 5% nulls (int32, int64,
+  9c. shuffle-modes — over 2^18 rows with about 5% nulls (int32, int64,
                float64 with NaN and -0.0, bool, date and strings of byte
                widths 0-33 with multi-byte tails): repartition by hash,
                round robin, range and single, a coalesce, the shuffled
@@ -186,7 +215,7 @@ Phases (any failure exits non-zero):
                of the port (LIKE with %, _ and leading and trailing
                segments, literal and column needles, negative and zero
                substring positions, pads longer and shorter than the input)
-               over 2^20 rows with about 5% nulls (strings of byte widths
+               over 2^18 rows with about 5% nulls (strings of byte widths
                0-256, each function once, and 0-24, the other forms, with
                whitespace and multi-byte characters; numeric,
                boolean, date and timestamp text, valid and invalid; dates
@@ -194,28 +223,47 @@ Phases (any failure exits non-zero):
                same DataFrame on a port session on the CPU, bit for bit;
                then the kernel launches, copies and memsets one evaluation
                of each enqueues; untimed;
+  9e. tail-modes — every expression of the last slice (md5 over byte
+               widths 0-256 and 0-24; double and float -> string with
+               ryu's edges and random bit patterns; RLIKE and the literal
+               and NFA regexp_replace, and three regex forms outside the
+               subset, which both sessions keep on the CPU with the
+               reference's reasons; size, item, contains, element_at and
+               array over lists with null and empty lists and null
+               elements), explode, posexplode and their outer forms, the
+               leaves and rand over 4 partitions of 4 batches each, and a
+               list column written to Parquet and read through the
+               PERFILE reader (expand_stream must launch), over 2^20 rows
+               with about 5% nulls, on cuda against a port session on
+               the CPU, bit for bit; then the kernel launches, copies and
+               memsets one evaluation of each expression (and the
+               explode's two passes) enqueues; untimed;
  10. timing  — per kernel at the shapes and on the inputs the q6 paths
-               and the star, window, shuffle and strings queries' cold
-               runs gave it (segreduce from every run; later runs' entries
-               are named ``name@q6-parquet``, ``name@q6-perfile``,
-               ``name@star``, ``name@window``, ``name@shuffle`` (from q97's
-               run on the local transport) and ``name@strings``): a check
+               and the star, window, shuffle, strings, customer-etl and
+               mortgage queries' cold runs gave it (segreduce from every
+               run; later runs' entries are named ``name@q6-parquet``,
+               ``name@q6-perfile``, ``name@star``, ``name@window``,
+               ``name@shuffle`` (from q97's run on the local transport),
+               ``name@strings``, ``name@customer-etl`` and
+               ``name@mortgage``): a check
                against the plain version, its time (CUDA events, L2
                flushed), its bytes bound, the plain version's time and a
                library call's where one computes the same function.
 
-Before each q6 path and each star, window, shuffle and strings query the
-kernel launch counts are set to 0, and they are read just after it:
-every kernel of the path must have launched, with no fallback but the
-PERFILE path's predicted mixed-width ones and the star, window, shuffle
-and strings queries' pinned filterDecode ones.  The line
+Before each q6 path and each star, window, shuffle, strings,
+customer-etl and mortgage query the kernel launch counts are set to 0,
+and they are read just after it: every kernel of the path must have
+launched, with no fallback but the PERFILE path's predicted mixed-width
+ones and the later queries' pinned filterDecode ones.  The line
 before the last carries the kernel table as JSON, the line before it the
 card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
 q6p, q6pf, session, pipeline, q6s, star, window, shuffle, strings,
-modes, window-modes, shuffle-modes, string-modes) runs only those phases
-and prints no kernel table; ``session`` alone writes the files and counts the
+customer-etl, mortgage, modes, window-modes, shuffle-modes, string-modes,
+tail-modes) runs only those phases and prints no kernel table;
+``customer-etl`` alone writes the star files and the census tables
+itself; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
 makes the in-memory table itself.
 """
@@ -2250,7 +2298,7 @@ def _check_star_plan(name: str, plan) -> None:
 def phase_star(root: str, tables: dict):
     """q3/q42/q52/q55 at SF10 over Parquet on port sessions: plan checks,
     rows against pyarrow, kernels and routes with the counts set to 0
-    before each query, then the cold wall, 5 warm walls with sections,
+    before each query, then the cold wall, 3 warm walls with sections,
     one profiler trace and the peak device memory per query.  Returns
     (launches over the four queries, recorded classes, kernel names)."""
     from spark_rapids_tpu_torch.obs import registry as obsreg
@@ -2308,7 +2356,7 @@ def phase_star(root: str, tables: dict):
             total[k] = total.get(k, 0) + v
         names += [k for k in STAR_COUNTS[q] if k not in names]
         sec = _star_sections(run)
-        log(f"star {q} sections (host clock, median of 5 warm "
+        log(f"star {q} sections (host clock, median of {STAR_WARM} warm "
             f"runs; runs ms "
             f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
             + _fmt_ms(sec))
@@ -2327,7 +2375,13 @@ def _scan_of_table(plan, prefix: str):
     fail(f"no scan of {prefix}* in the plan")
 
 
-def _star_sections(run, reps: int = 5, keys=STAR_SECTIONS) -> dict:
+# warm runs per star, window and shuffle query: 3, as in the strings,
+# customer-etl and mortgage phases, to keep the whole smoke inside its
+# time limit
+STAR_WARM = 3
+
+
+def _star_sections(run, reps: int = STAR_WARM, keys=STAR_SECTIONS) -> dict:
     """Median of ``reps`` warm runs: the wall and every section of
     ``keys`` (host clock)."""
     walls, secs = [], []
@@ -2508,7 +2562,7 @@ def _check_window_plan(name: str, plan) -> None:
 def phase_window(root: str, tables: dict):
     """q98 and q47 at SF10 over Parquet on port sessions: the plan
     checks, rows against pyarrow and numpy, the kernels with the counts
-    set to 0 before each query, then the cold wall, 5 warm walls with
+    set to 0 before each query, then the cold wall, 3 warm walls with
     sections, one profiler trace and the peak device memory per query.
     Returns (launches over both queries, recorded classes, kernel
     names)."""
@@ -2552,7 +2606,8 @@ def phase_window(root: str, tables: dict):
             total[k] = total.get(k, 0) + v
         names += [k for k in launches if k not in names]
         sec = _star_sections(run, keys=WINDOW_SECTIONS)
-        log(f"window {q} sections (host clock, median of 5 warm runs; "
+        log(f"window {q} sections (host clock, median of {STAR_WARM} warm "
+            f"runs; "
             f"runs ms {', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}"
             f"): " + _fmt_ms(sec))
         busy = trace_form(f"window {q}", run, {}, label="window")
@@ -2563,7 +2618,10 @@ def phase_window(root: str, tables: dict):
     return total, shapes.classes, names
 
 
-MODES_WINDOW_ROWS = 1 << 20
+# cut from 2^20 rows to 2^18 when the last slice's phases joined the
+# smoke: the CPU session's side of these comparisons grows with the rows,
+# and the whole smoke must stay inside its time limit
+MODES_WINDOW_ROWS = 1 << 18
 
 
 def window_modes_table(n: int, seed: int) -> pa.Table:
@@ -2655,32 +2713,43 @@ def _bit_equal(tag: str, got, want) -> None:
         fail(f"{tag}: {got.column_names} x {got.num_rows} != "
              f"{want.column_names} x {want.num_rows}")
     for c in want.column_names:
-        a, b = got[c].combine_chunks(), want[c].combine_chunks()
-        if not a.is_valid().equals(b.is_valid()):
-            fail(f"{tag}: column {c}: nulls differ")
-        if not (pa.types.is_floating(b.type) or pa.types.is_integer(b.type)
-                or pa.types.is_boolean(b.type)):
-            if not a.equals(b):
-                bad = next(i for i, (x, y) in enumerate(
-                    zip(a.to_pylist(), b.to_pylist())) if x != y)
-                fail(f"{tag}: column {c} differs at row {bad}: "
-                     f"{a[bad]} != {b[bad]}")
-            continue
-        av = a.fill_null(False if pa.types.is_boolean(a.type) else 0)
-        bv = b.fill_null(False if pa.types.is_boolean(b.type) else 0)
-        x = av.to_numpy(zero_copy_only=False)
-        y = bv.to_numpy(zero_copy_only=False)
-        if x.dtype.kind == "f":
-            x, y = x.view(f"i{x.itemsize}"), y.view(f"i{y.itemsize}")
-        if not np.array_equal(x, y):
-            bad = int(np.flatnonzero(x != y)[0])
+        _bit_equal_array(tag, c, got[c].combine_chunks(),
+                         want[c].combine_chunks())
+
+
+def _bit_equal_array(tag: str, c: str, a: pa.Array, b: pa.Array) -> None:
+    """One column of :func:`_bit_equal`; a list column compares its
+    lengths and then its flattened elements the same way."""
+    if not a.is_valid().equals(b.is_valid()):
+        fail(f"{tag}: column {c}: nulls differ")
+    if pa.types.is_list(b.type):
+        if not pc.list_value_length(a).equals(pc.list_value_length(b)):
+            fail(f"{tag}: column {c}: list lengths differ")
+        _bit_equal_array(tag, f"{c}[]", a.flatten(), b.flatten())
+        return
+    if not (pa.types.is_floating(b.type) or pa.types.is_integer(b.type)
+            or pa.types.is_boolean(b.type)):
+        if not a.equals(b):
+            bad = next(i for i, (x, y) in enumerate(
+                zip(a.to_pylist(), b.to_pylist())) if x != y)
             fail(f"{tag}: column {c} differs at row {bad}: "
                  f"{a[bad]} != {b[bad]}")
+        return
+    av = a.fill_null(False if pa.types.is_boolean(a.type) else 0)
+    bv = b.fill_null(False if pa.types.is_boolean(b.type) else 0)
+    x = av.to_numpy(zero_copy_only=False)
+    y = bv.to_numpy(zero_copy_only=False)
+    if x.dtype.kind == "f":
+        x, y = x.view(f"i{x.itemsize}"), y.view(f"i{y.itemsize}")
+    if not np.array_equal(x, y):
+        bad = int(np.flatnonzero(x != y)[0])
+        fail(f"{tag}: column {c} differs at row {bad}: "
+             f"{a[bad]} != {b[bad]}")
 
 
 def phase_window_modes() -> None:
     """Every window function and frame kind on the card against the same
-    DataFrame on a port session on the CPU, over a 2^20-row table:
+    DataFrame on a port session on the CPU, over a 2^18-row table:
     exactly, float sums bit for bit (the adds are the same on identical
     input).  Untimed."""
     from spark_rapids_tpu_torch.api import TpuSparkSession, col
@@ -2876,7 +2945,7 @@ def _shuffle_query(tag: str, run, ref, shuffled_how: str, broadcasts: int,
                    key: str, errors: list, shapes=None):
     """One query: a cold run with the counts set to 0 before it (the
     inputs of its kernel calls recorded when ``shapes`` is given), plan,
-    rows, launches and fallbacks; then 5 warm walls with sections, one
+    rows, launches and fallbacks; then 3 warm walls with sections, one
     trace and the peak device memory.  Returns (output, launches)."""
     from spark_rapids_tpu_torch.obs import registry as obsreg
     view = obsreg.get_registry().view()
@@ -2915,7 +2984,8 @@ def _shuffle_query(tag: str, run, ref, shuffled_how: str, broadcasts: int,
         _pinned(tag, {k: routes[k] for k in STAR_COUNTERS[:2]},
                 SHUFFLE_ROUTES, key, errors)
     sec = _star_sections(run, keys=SHUFFLE_SECTIONS)
-    log(f"{tag} sections (host clock, median of 5 warm runs; runs ms "
+    log(f"{tag} sections (host clock, median of {STAR_WARM} warm runs; "
+        f"runs ms "
         f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
         + _fmt_ms(sec))
     busy = trace_form(tag, run, {}, label="shuffle")
@@ -2957,7 +3027,10 @@ def phase_shuffle(root: str, tables: dict):
     return launches97, shapes.classes, sorted(launches97)
 
 
-MODES_SHUFFLE_ROWS = 1 << 20
+# cut from 2^20 rows to 2^18 when the last slice's phases joined the
+# smoke: the CPU session's side of these comparisons grows with the rows,
+# and the whole smoke must stay inside its time limit
+MODES_SHUFFLE_ROWS = 1 << 18
 # string keys: a pool of byte widths 0-33, most ending in a multi-byte
 # character (tail bytes >= 0x80)
 _WIDE = ("é", "中", "\U0001f600", "ÿ")
@@ -3142,9 +3215,10 @@ STRINGS_SPLIT_ROWS = 1 << 20
 # the shuffle phase's conf: the default 10 MiB broadcast threshold and
 # the default local transport
 STRINGS_CONF = SHUFFLE_CONF
-# warm runs per query: 3, not 5, to keep the whole smoke inside its
+# warm runs per query: 2 (5 until the strings phase joined the smoke, 3
+# until the last slice's phases did), to keep the whole smoke inside its
 # time limit
-STRINGS_WARM = 3
+STRINGS_WARM = 2
 # the kernel launches of each query, pinned from the first run on the
 # H100: the fused scans' unpack; the dictionary gathers the pushed filters
 # defer (date_dim's everywhere; customer's in q8, item's in q19,
@@ -3442,7 +3516,6 @@ def phase_strings(root: str, tables: dict):
     Returns (launches over the six queries, recorded classes, kernel
     names)."""
     from spark_rapids_tpu_torch.obs import registry as obsreg
-    tables = dict(tables, **write_strings_files(root, tables["store_sales"]))
     t0 = time.perf_counter()
     refs = {q: strings_reference(q, tables) for q in STRINGS_QUERIES}
     log(f"strings: pyarrow references in {time.perf_counter() - t0:.1f} s "
@@ -3498,7 +3571,10 @@ def phase_strings(root: str, tables: dict):
     return total, shapes.classes, names
 
 
-MODES_STRING_ROWS = 1 << 20
+# cut from 2^20 rows to 2^18 when the last slice's phases joined the
+# smoke: the CPU session's side of these comparisons grows with the rows,
+# and the whole smoke must stay inside its time limit
+MODES_STRING_ROWS = 1 << 18
 _ALNUM = "abAB _%"
 
 
@@ -3663,12 +3739,12 @@ def string_modes_exprs(col, lit, F):
 LAUNCH_APIS = LAUNCH_CALLS + ("cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def _launches_per_call(calls) -> list:
+def _launches_per_call(calls, phase: str = "string-modes") -> list:
     """(label, kernel launches, copies and memsets the host enqueued) of
     each (label, fn) of ``calls``, from one torch.profiler trace: each
-    call runs inside a ``record_function`` range, and the launch calls
-    the profiler records on the CPU are counted per range.  Each call
-    runs once before the trace."""
+    call runs inside a ``record_function`` range named after ``phase``,
+    and the launch calls the profiler records on the CPU are counted per
+    range.  Each call runs once before the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     for _label, fn in calls:
@@ -3677,14 +3753,14 @@ def _launches_per_call(calls) -> list:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for label, fn in calls:
-            with record_function(f"string-modes:{label}"):
+            with record_function(f"{phase}:{label}"):
                 fn()
         torch.cuda.synchronize()
     events = [(n, a, b) for n, d, a, b in _profiler_events(prof)
               if d == DeviceType.CPU]
     api = [a for n, a, _b in events if n.startswith(LAUNCH_APIS)]
     return [(n.split(":", 1)[1], sum(a <= t < b for t in api))
-            for n, a, b in events if n.startswith("string-modes:")]
+            for n, a, b in events if n.startswith(f"{phase}:")]
 
 
 def phase_string_modes() -> None:
@@ -3693,7 +3769,7 @@ def phase_string_modes() -> None:
     segments; literal and column needles; negative and zero substring
     positions; pads longer and shorter than the input), on the card
     against the same DataFrame on a port session on the CPU over a
-    2^20-row table: exactly, floats bit for bit.  Then the kernel
+    2^18-row table: exactly, floats bit for bit.  Then the kernel
     launches, copies and memsets one evaluation of each expression
     enqueues over the same table on the card.  Untimed."""
     from spark_rapids_tpu_torch.api import TpuSparkSession, col, lit
@@ -3736,6 +3812,768 @@ def phase_string_modes() -> None:
     log(f"string-modes: kernel launches, copies and memsets per evaluation "
         f"over one {batch.capacity}-row batch (s is "
         f"{batch.column('s').data.shape[1]} bytes wide): "
+        + ", ".join(f"{a} {n}" for a, n in ops))
+
+
+# ---------------------------------------------------------------------------
+# 9e. the mortgage ETL, the customer ETL over the census customer file, and
+# the tail modes
+# ---------------------------------------------------------------------------
+
+# the mortgage ETL at SF 1: 500,000 loans, 9,000,000 performance rows, the
+# explode of 0..11 emitting 108,000,000 rows
+MORT_SF = 1.0
+MORT_SEED = 7
+MORT_PIECES = ("etl", "simple_aggregates", "delinquency_rate")
+MORT_WARM = 3
+# the strings phase's conf (test mode, variableFloatAgg, the default 10 MiB
+# broadcast threshold) with the two-stage aggregate on the device
+# transport.  A single-stage aggregate concatenates every partition's
+# partial at its input capacity (the reference's layout), which for the
+# explode's eight 2^24-row partials is a 2^27-row merge that does not fit
+# the card; the exchange bounds each reducer's merge by its own groups.
+# On the local transport the 108,000,000 exploded rows cross the host
+# through Arrow IPC (exchange.upload 27.9 s of a 61.4 s warm ETL wall on
+# the H100); on the device transport the slices stay on the card.
+MORT_CONF = dict(STRINGS_CONF, **{
+    "spark.rapids.tpu.sql.agg.exchange.enabled": True,
+    TRANSPORT_KEY: "device"})
+# the kernel launches, fallbacks and join routes of each piece, pinned
+# from the first run on the H100 at MORT_CONF: the fused scans' unpack of
+# perf's and acq's dictionary codes, the aggregates' gathered segmented
+# scans (the ETL's per-loan max/min and the exploded rows' max/min) and
+# sorted scans (the COUNT(*)s); no pushed filter, so no dictionary
+# gather; every shuffled join on the sort route (the keys are a string
+# and a long)
+MORT_COUNTS = {
+    "etl": {"decode.unpack_bits": 102, "segreduce.gather_seg_scan": 104},
+    "simple_aggregates": {"decode.unpack_bits": 64,
+                          "segreduce.seg_scan_sorted": 6,
+                          "segreduce.gather_seg_scan": 36},
+    "delinquency_rate": {"decode.unpack_bits": 40,
+                         "segreduce.gather_seg_scan": 28,
+                         "segreduce.seg_scan_sorted": 6},
+}
+MORT_FALLBACKS = {p: {} for p in MORT_PIECES}
+MORT_ROUTES = {
+    "etl": {"join.route.probe": 0, "join.route.sort": 17},
+    "simple_aggregates": {"join.route.probe": 0, "join.route.sort": 6},
+    "delinquency_rate": {"join.route.probe": 0, "join.route.sort": 0},
+}
+GENERATE_SECTIONS = ("generate.count", "generate.emit")
+MORT_SECTIONS = SHUFFLE_SECTIONS + STRINGS_EVAL + GENERATE_SECTIONS
+
+
+def write_mortgage_files(root: str) -> dict:
+    """The port's ``mortgage.generate(MORT_SF, MORT_SEED)``: perf in
+    STAR_FILES files, acq in one, written by 8 threads; returns them."""
+    from spark_rapids_tpu_torch.bench import mortgage
+    t0 = time.perf_counter()
+    t = mortgage.generate(MORT_SF, MORT_SEED)
+    t1 = time.perf_counter()
+    write_parts(root, t, lambda _n, table: STAR_FILES if
+                table.num_rows > STRINGS_SPLIT_ROWS else 1)
+    log(f"mortgage files: generated "
+        f"{', '.join(f'{k} {v.num_rows} rows' for k, v in t.items())} at "
+        f"SF {MORT_SF} in {t1 - t0:.1f} s, wrote them in "
+        f"{time.perf_counter() - t1:.1f} s")
+    return t
+
+
+def _mortgage_etl_reference(t: dict) -> pa.Table:
+    """``mortgage.run`` with pyarrow and numpy: the per-loan worst status
+    and first delinquent dates (group_by), joined back to every
+    performance row, the explode of 0..11 as ``np.repeat`` and a tiled
+    ``month_y``, the re-aggregation over a packed key of all seven group
+    columns, the cleaned acquisition records (seller names through the
+    name mapping) and the final inner join."""
+    from spark_rapids_tpu_torch.bench import mortgage
+    perf, acq = t["perf"], t["acq"]
+    st = perf["current_loan_delinquency_status"]
+    agg = pa.table({"quarter": perf["quarter"], "loan_id": perf["loan_id"],
+                    "s": st}).group_by(["quarter", "loan_id"]).aggregate(
+        [("s", "max")])
+    worst = agg["s_max"]
+    agg = pa.table({"a_quarter": agg["quarter"], "a_loan_id": agg["loan_id"],
+                    "e30": pc.greater_equal(worst, 1),
+                    "e90": pc.greater_equal(worst, 3),
+                    "e180": pc.greater_equal(worst, 6)})
+    date = perf["monthly_reporting_period"]
+    j = pa.table({"quarter": perf["quarter"], "loan_id": perf["loan_id"],
+                  "d12": st, "upb": perf["current_actual_upb"],
+                  "ym": pc.add(pc.multiply(pc.year(date), 12),
+                               pc.month(date))}).join(
+        agg, keys=["loan_id", "quarter"], right_keys=["a_loan_id",
+                                                     "a_quarter"],
+        join_type="left outer")
+    quarters = pc.unique(j["quarter"])
+    qcode = pc.index_in(j["quarter"], value_set=quarters).to_numpy()
+    flags = sum(w * j[c].combine_chunks().to_numpy(
+        zero_copy_only=False).astype(np.int64)
+        for w, c in ((1, "e30"), (2, "e90"), (4, "e180")))
+    n = j.num_rows
+    month_y = np.tile(np.arange(12, dtype=np.int64), n)
+    mody = np.repeat(j["ym"].to_numpy(), 12) - 24000 - month_y
+    josh = np.floor(mody.astype(np.float64) / 12.0).astype(np.int64)
+    if josh.min() < -8 or josh.max() > 7:
+        fail(f"mortgage reference: josh_mody_n {josh.min()}..{josh.max()} "
+             f"outside the packed key's range")
+    # key: loan, quarter, the three flags, josh_mody_n, month_y
+    base = (j["loan_id"].to_numpy() * 16 + qcode) * 8 + flags
+    key = (np.repeat(base, 12) * 16 + (josh + 8)) * 16 + month_y
+    del mody, josh, month_y
+    g = pa.table({"key": key,
+                  "d12": np.repeat(j["d12"].to_numpy(), 12),
+                  "upb": np.repeat(j["upb"].to_numpy(), 12)}).group_by(
+        "key").aggregate([("d12", "max"), ("upb", "min")])
+    del key
+    k = g["key"].to_numpy()
+    month_y, k = k % 16, k // 16
+    josh, k = k % 16 - 8, k // 16
+    flags, k = k % 8, k // 8
+    qcode, loan = k % 16, k // 16
+    ts_base = 24000 + josh * 12 + month_y
+    tmp = ts_base % 12
+    perf_d = pa.table({
+        "loan_id": loan,
+        "quarter": quarters.take(pa.array(qcode)),
+        "timestamp_year": np.floor((ts_base - 1).astype(np.float64) /
+                                   12.0).astype(np.int64),
+        "timestamp_month": np.where(tmp == 0, 12, tmp),
+        "delinquency_12": (
+            (g["d12_max"].to_numpy() > 3).astype(np.int32) +
+            (g["upb_min"].to_numpy() == 0.0).astype(np.int32)),
+        "ever_30": (flags & 1) != 0, "ever_90": (flags & 2) != 0,
+        "ever_180": (flags & 4) != 0})
+    canon = mortgage._CANON
+    to_name = pc.take(pa.array(list(canon.values())), pc.index_in(
+        acq["seller_name"], value_set=pa.array(list(canon.keys()))))
+    acq_c = pa.table({
+        "q_loan_id": acq["loan_id"], "q_quarter": acq["quarter"],
+        "seller": pc.coalesce(to_name, acq["seller_name"]),
+        **{c: acq[c] for c in ("orig_channel", "orig_interest_rate",
+                               "orig_upb", "dti", "borrower_credit_score",
+                               "first_home_buyer")}})
+    out = perf_d.join(acq_c, keys=["loan_id", "quarter"],
+                      right_keys=["q_loan_id", "q_quarter"],
+                      join_type="inner")
+    return out.select(["loan_id", "quarter", "timestamp_year",
+                       "timestamp_month", "delinquency_12", "ever_30",
+                       "ever_90", "ever_180", "seller", "orig_channel",
+                       "orig_interest_rate", "orig_upb", "dti",
+                       "borrower_credit_score", "first_home_buyer"])
+
+
+def mortgage_reference(piece: str, t: dict) -> pa.Table:
+    """The three pieces of ``bench/mortgage.py`` computed with pyarrow
+    (and numpy for the ETL's explode), independent of both engines."""
+    if piece == "etl":
+        return _mortgage_etl_reference(t)
+    perf = t["perf"]
+    st = "current_loan_delinquency_status"
+    if piece == "simple_aggregates":
+        loans = perf.select(["quarter", "loan_id"]).group_by(
+            ["quarter", "loan_id"]).aggregate([]).group_by(
+            "quarter").aggregate([("loan_id", "count")])
+        stats = perf.group_by("quarter").aggregate(
+            [("interest_rate", "mean"), ("current_actual_upb", "sum"),
+             (st, "max")])
+        j = stats.join(loans, keys="quarter", join_type="inner")
+        return pa.table({
+            "quarter": j["quarter"], "loans": j["loan_id_count"],
+            "avg_rate": j["interest_rate_mean"],
+            "total_upb": j["current_actual_upb_sum"],
+            "worst_status": j[f"{st}_max"]}).sort_by("quarter")
+    per_loan = perf.group_by(["quarter", "loan_id"]).aggregate(
+        [(st, "max")])
+    ev = pc.cast(pc.greater_equal(per_loan[f"{st}_max"], 3), pa.int64())
+    g = pa.table({"quarter": per_loan["quarter"], "ev": ev}).group_by(
+        "quarter").aggregate([("ev", "count"), ("ev", "sum")])
+    loans, ev90 = g["ev_count"], g["ev_sum"]
+    return pa.table({
+        "quarter": g["quarter"], "loans": loans, "ever_90": ev90,
+        "rate": pc.divide(pc.cast(ev90, pa.float64()),
+                          pc.cast(loans, pa.float64()))}).sort_by("quarter")
+
+
+def check_rows_unordered(tag: str, out: pa.Table, ref: pa.Table,
+                         key) -> None:
+    """Row sets equal without order: both tables sorted on ``key(table)``
+    (an int64 array unique per row), then every column equal (floats to
+    tests/parity.py's tolerance), nulls included."""
+    if out.column_names != ref.column_names or out.num_rows != ref.num_rows:
+        fail(f"{tag}: {out.column_names} x {out.num_rows} rows != "
+             f"reference {ref.column_names} x {ref.num_rows}")
+    if ref.num_rows == 0:
+        fail(f"{tag}: the reference is empty")
+    ka, kb_ = key(out), key(ref)
+    ia, ib = np.argsort(ka, kind="stable"), np.argsort(kb_, kind="stable")
+    if not np.array_equal(ka[ia], kb_[ib]):
+        fail(f"{tag}: the row keys differ from the reference's")
+    if len(np.unique(kb_)) != len(kb_):
+        fail(f"{tag}: the sort key is not unique")
+    ia, ib = pa.array(ia), pa.array(ib)
+    for c in ref.column_names:
+        a = out[c].combine_chunks().take(ia)
+        b = ref[c].combine_chunks().take(ib)
+        if a.type != b.type:
+            fail(f"{tag}: column {c} is {a.type}, the reference's {b.type}")
+        if not a.is_valid().equals(b.is_valid()):
+            fail(f"{tag}: column {c}: nulls differ")
+        if pa.types.is_floating(b.type):
+            x = a.fill_null(0).to_numpy()
+            y = b.fill_null(0).to_numpy()
+            ok = np.isclose(x, y, rtol=1e-9, atol=1e-11) | (
+                np.isnan(x) & np.isnan(y))
+            if not ok.all():
+                i = int(np.flatnonzero(~ok)[0])
+                fail(f"{tag}: column {c}: {x[i]!r} != {y[i]!r}")
+        elif not a.equals(b):
+            fail(f"{tag}: column {c} differs from the reference")
+
+
+def _etl_key(t: pa.Table) -> np.ndarray:
+    """loan, year, month: one output row each."""
+    return (t["loan_id"].to_numpy() * 4096 +
+            (t["timestamp_year"].to_numpy() - 1990) * 16 +
+            t["timestamp_month"].to_numpy())
+
+
+def mortgage_run(piece: str, root: str):
+    """run(conf) -> (Arrow output, planned plan) of one mortgage piece on a
+    fresh port session on cuda over the perf and acq files."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.bench import mortgage
+
+    def run(conf):
+        s = TpuSparkSession(dict(MORT_CONF, **conf), device="cuda")
+        plans = []
+        s.add_plan_listener(lambda r: plans.append(r.plan))
+        t = {n: s.read.parquet(os.path.join(root, n))
+             for n in ("perf", "acq")}
+        df = mortgage.run(t, s) if piece == "etl" else \
+            getattr(mortgage, piece)(t)
+        return df.collect(), plans[-1]
+    return run
+
+
+def _check_host_free(tag: str, plan, must=()) -> list:
+    """No host node but the transitions and in-memory scans; every name of
+    ``must`` present.  Returns the node names."""
+    names = [type(n).__name__ for n in _plan_nodes(plan)]
+    host = [n for n in names if n not in HOST_OK and
+            not n.startswith("Tpu")]
+    if host:
+        fail(f"{tag}: host nodes {host}")
+    for want in must:
+        if want not in names:
+            fail(f"{tag}: no {want}: {names}")
+    return names
+
+
+def _etl_query(tag: str, run, check, pins, shapes, errors, total, names,
+               warm: int, sections, must=(), launch_spans=STRINGS_EVAL,
+               routes=None):
+    """One query of the mortgage or customer-ETL phase: the cold run with
+    the counts set to 0 just before it (plan, rows, pinned launches,
+    fallbacks and routes, peak memory), then ``warm`` warm walls with
+    sections and one profiler trace."""
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    counts, falls, route_pins = pins
+    view = obsreg.get_registry().view()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    with shapes:
+        out, plan = run({})
+        torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+    counters = view.delta()["counters"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{tag} plan:\n{plan.tree_string()}")
+    _check_host_free(tag, plan, must)
+    t1 = time.perf_counter()
+    what = check(out)
+    jr = {k: int(counters.get(k, 0)) for k in STAR_COUNTERS[:2]}
+    log(f"{tag}: {out.num_rows} rows {what} (checked in "
+        f"{time.perf_counter() - t1:.1f} s); cold wall {cold * 1e3:.1f} ms; "
+        f"launches {launches}; fallbacks {fallbacks}; routes {jr}; peak "
+        f"device memory {peak:.2f} GiB")
+    log(f"{tag} cold sections: " + _fmt_ms(_sections(plan, sections)))
+    key = tag.split(" ", 1)[1]
+    _pinned(tag, launches, counts, key, errors)
+    _pinned(tag, fallbacks, falls, key, errors)
+    if routes:
+        _pinned(tag, jr, route_pins, key, errors)
+    if not launches:
+        fail(f"{tag} launched no kernel")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    names += [k for k in launches if k not in names]
+    del out
+    sec = _star_sections(run, reps=warm, keys=sections)
+    log(f"{tag} sections (host clock, median of {warm} warm runs; runs ms "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
+        + _fmt_ms(sec))
+    busy = trace_form(tag, run, {}, label=tag.split(" ")[0],
+                      launch_spans=launch_spans)
+    log(f"{tag}: device busy {busy['busy_share']:.1%} of "
+        f"{busy['wall_ms']:.1f} ms")
+
+
+def phase_mortgage():
+    """The mortgage ETL (``bench/mortgage.py``: ``run``,
+    ``simple_aggregates``, ``delinquency_rate``) at SF 1 over Parquet on
+    port sessions on cuda.  Each prints its plan (no host node but the
+    transitions and the name mapping's in-memory scan; the ETL's holds a
+    TpuGenerateExec), must match an independent pyarrow/numpy computation
+    (row sets without order for the ETL), launches, falls back and routes
+    its joins as pinned, then its cold wall, 3 warm walls with sections
+    (``generate.count`` and ``generate.emit`` among them), one profiler
+    trace and its peak device memory.  Returns (launches over the three,
+    recorded classes, kernel names)."""
+    root = _parquet_dir("mortgage")
+    try:
+        t = write_mortgage_files(root)
+        t0 = time.perf_counter()
+        refs = {p: mortgage_reference(p, t) for p in MORT_PIECES}
+        log(f"mortgage: references in {time.perf_counter() - t0:.1f} s ("
+            + ", ".join(f"{p} {r.num_rows} rows" for p, r in refs.items())
+            + ")")
+        del t
+        errors, total, names = [], {}, []
+        shapes = ShapeRecorder()
+        for p in MORT_PIECES:
+            tag = f"mortgage {p}"
+            ref = refs.pop(p)
+            if p == "etl":
+                def check(out, ref=ref, tag=tag):
+                    check_rows_unordered(tag, out, ref, _etl_key)
+                    return "match the pyarrow/numpy reference as row sets"
+            else:
+                def check(out, ref=ref, tag=tag):
+                    rel = check_rows(tag, out, ref)
+                    return f"match pyarrow (float max rel {rel:.3g}): " \
+                        f"{out.to_pylist()[:2]}"
+            _etl_query(tag, mortgage_run(p, root), check,
+                       (MORT_COUNTS, MORT_FALLBACKS, MORT_ROUTES), shapes,
+                       errors, total, names, MORT_WARM, MORT_SECTIONS,
+                       must=("TpuGenerateExec",) if p == "etl" else (),
+                       launch_spans=STRINGS_EVAL + GENERATE_SECTIONS,
+                       routes=True)
+        if errors:
+            fail("; ".join(errors))
+        return total, shapes.classes, names
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+CUST_PATTERN = "^c[0-9]*[13579]@example"
+CUST_SEED = 11
+CUST_WARM = 3
+# pinned from the first run on the H100: unpack_bits for the birth year's
+# dictionary codes in each of the 8 fused batches (the key and the
+# address are PLAIN); the RLIKE filter stays a device filter above the
+# scan, which counts the reference's condition_columns fallback per batch
+CUST_COUNTS = {"query": {"decode.unpack_bits": 8}}
+CUST_FALLBACKS = {"query": {"scan.filterDecode.condition_columns": 8}}
+CUST_SECTIONS = ("scan.hostPrepTime", "scan.uploadTime", "scan.dispatch") + \
+    STRINGS_EVAL + ("transition.download",)
+
+
+def customer_etl_query(s, root: str, col, lit, F, full: bool = True):
+    """The census customer file's odd-numbered e-mail addresses (an RLIKE
+    in the device subset), with md5 of the address, a literal and an NFA
+    regexp_replace, a double (the key over the birth year, a dictionary
+    column) cast to string and the two partition leaves and rand.  ``full=False`` keeps the key, the leaves and rand, and
+    selects the same rows by ``c_customer_sk % 2 == 0`` (the address of
+    customer k is ``c{k - 1}@example.com``), so a CPU session gets the
+    same batches without running the NFA on the host."""
+    c = s.read.parquet(os.path.join(root, "customer"))
+    em = col("c_email_address")
+    cols = [col("c_customer_sk")]
+    if full:
+        cols += [F.md5(em).alias("h"),
+                 F.regexp_replace(em, "@example", "@ex").alias("lit"),
+                 F.regexp_replace(em, "[0-9]+", "#").alias("nfa"),
+                 (col("c_customer_sk") / col("c_birth_year")).cast(
+                     "string").alias("ratio")]
+    cols += [F.monotonically_increasing_id().alias("mid"),
+             F.spark_partition_id().alias("pid"),
+             F.rand(CUST_SEED).alias("r")]
+    keep = em.rlike(CUST_PATTERN) if full else \
+        (col("c_customer_sk") % 2 == 0)
+    return c.filter(keep).select(*cols)
+
+
+def _customer_reference_file(path: str) -> dict:
+    """:func:`customer_etl_reference`'s rows of one customer file (run in
+    a pool worker)."""
+    import hashlib
+    import re
+    t = papq.read_table(path, columns=["c_customer_sk", "c_birth_year",
+                                       "c_email_address"])
+    rx = re.compile(CUST_PATTERN)
+    digits = re.compile("[0-9]+")
+    emails = t["c_email_address"].to_pylist()
+    keep = [i for i, e in enumerate(emails)
+            if e is not None and rx.search(e)]
+    sks = t["c_customer_sk"].to_numpy()[keep].tolist()
+    years = t["c_birth_year"].to_numpy()[keep].tolist()
+    em = [emails[i] for i in keep]
+    return {"c_customer_sk": sks,
+            "h": [hashlib.md5(e.encode()).hexdigest() for e in em],
+            "lit": [re.sub("@example", "@ex", e) for e in em],
+            "nfa": [digits.sub("#", e) for e in em],
+            "ratio": [repr(k / y) for k, y in zip(sks, years)]}
+
+
+def customer_etl_reference(root: str) -> pa.Table:
+    """The same rows with Python's ``re``, ``hashlib`` and ``repr``, by
+    c_customer_sk: one spawned worker per customer file."""
+    import multiprocessing
+    d = os.path.join(root, "customer")
+    files = sorted(os.path.join(d, f) for f in os.listdir(d))
+    with multiprocessing.get_context("spawn").Pool(len(files)) as pool:
+        parts = pool.map(_customer_reference_file, files)
+    t = pa.table({k: pa.array(sum((p[k] for p in parts), []),
+                              pa.int64() if k == "c_customer_sk" else
+                              pa.string())
+                  for k in parts[0]})
+    return t.sort_by("c_customer_sk")
+
+
+def _check_leaves(tag: str, out: pa.Table) -> int:
+    """spark_partition_id() is the id's top bits; within each partition,
+    in c_customer_sk order (the scan's order), the id's low 33 bits count
+    0, 1, 2, ...  Returns the partitions seen."""
+    mid = out["mid"].to_numpy()
+    pid = out["pid"].to_numpy()
+    if not np.array_equal(mid >> 33, pid):
+        fail(f"{tag}: monotonically_increasing_id() >> 33 != "
+             f"spark_partition_id()")
+    for p in np.unique(pid):
+        low = mid[pid == p] & ((1 << 33) - 1)
+        if not np.array_equal(low, np.arange(len(low))):
+            fail(f"{tag}: partition {p}'s row offsets do not count 0, 1, "
+                 f"2, ...")
+    return len(np.unique(pid))
+
+
+def phase_customer_etl(root: str, customer: pa.Table):
+    """The customer ETL over the strings phase's customer file (10,000,000
+    rows) on a port session on cuda at the shuffle phase's conf: the plan
+    (no host node but the transitions), the rows against Python's re,
+    hashlib and repr, the leaves' structure, rand and the leaves bit for
+    bit against a port session on the CPU over the same batches; the
+    pinned launches and fallbacks; the cold wall, 3 warm walls with
+    sections, one trace and the peak device memory.  Returns (launches,
+    recorded classes, kernel names)."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession, col, lit
+    from spark_rapids_tpu_torch.api import functions as F
+    t0 = time.perf_counter()
+    ref = customer_etl_reference(root)
+    log(f"customer-etl: the re/hashlib/repr reference in "
+        f"{time.perf_counter() - t0:.1f} s ({ref.num_rows} of "
+        f"{customer.num_rows} rows)")
+    t0 = time.perf_counter()
+    cpu = customer_etl_query(TpuSparkSession(STRINGS_CONF, device="cpu"),
+                             root, col, lit, F, full=False).collect()
+    cpu = cpu.sort_by("c_customer_sk")
+    log(f"customer-etl: the CPU session's leaves and rand in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(conf):
+        s = TpuSparkSession(dict(STRINGS_CONF, **conf), device="cuda")
+        plans = []
+        s.add_plan_listener(lambda r: plans.append(r.plan))
+        return customer_etl_query(s, root, col, lit, F).collect(), plans[-1]
+
+    def check(out):
+        tag = "customer-etl query"
+        out = out.sort_by("c_customer_sk")
+        if out.num_rows != ref.num_rows:
+            fail(f"{tag}: {out.num_rows} rows != the reference's "
+                 f"{ref.num_rows}")
+        for c in ref.column_names:
+            if not out[c].combine_chunks().equals(ref[c].combine_chunks()):
+                a, b = out[c].to_pylist(), ref[c].to_pylist()
+                i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                fail(f"{tag}: column {c} row {i}: {a[i]!r} != {b[i]!r}")
+        _bit_equal(f"{tag} leaves and rand vs the CPU session",
+                   out.select(cpu.column_names), cpu)
+        parts = _check_leaves(tag, out)
+        return (f"match re/hashlib/repr; ids, partition ids ({parts} "
+                f"partitions) and rand equal the CPU session's bit for bit")
+    errors, total, names = [], {}, []
+    shapes = ShapeRecorder()
+    _etl_query("customer-etl query", run, check,
+               (CUST_COUNTS, CUST_FALLBACKS, None), shapes, errors, total,
+               names, CUST_WARM, CUST_SECTIONS)
+    if errors:
+        fail("; ".join(errors))
+    return total, shapes.classes, names
+
+
+MODES_TAIL_ROWS = 1 << 20
+TAIL_FLOATS = [0.0, -0.0, float("nan"), float("inf"), float("-inf"),
+               5e-324, 2.2250738585072014e-308, 1.7976931348623157e308,
+               1e16, 9999999999999998.0, 1e-4, 1e-5, 0.5, 2.5, 4.35, 1.005,
+               2.675, 0.1, 0.3, 1 / 3, 1e22, 1e23, 9.999999999999999e15]
+
+
+def _list_column(rng, n: int, floats: bool) -> pa.Array:
+    """Lists of 0-8 elements, ~5% null lists, ~8% null elements."""
+    lens = rng.integers(0, 9, n)
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    m = int(offsets[-1])
+    vals = rng.integers(-4, 12, m)
+    values = pa.array(vals + 0.5 if floats else vals,
+                      mask=rng.random(m) < 0.08)
+    null = np.concatenate([rng.random(n) < 0.05, [False]])
+    return pa.ListArray.from_arrays(pa.array(offsets, mask=null), values)
+
+
+def tail_modes_table(n: int, seed: int) -> pa.Table:
+    """``n`` rows: strings of byte widths 0-256, 0-24 and 0-12 (pools of
+    8,192, whitespace and multi-byte characters), doubles (the ryu edges, random
+    bit patterns, normal values) and floats, list<int64> and
+    list<double> with null and empty lists and null elements, int32
+    indexes and int64 values; about 5% nulls per column."""
+    rng = np.random.default_rng(seed)
+
+    def nulls():
+        return rng.random(n) < 0.05
+
+    def take(pool):
+        return pa.array(pool).take(pa.array(rng.integers(0, len(pool), n)))
+    bits = rng.integers(0, 2 ** 63, n, dtype=np.int64).view(np.float64)
+    f = np.where(rng.random(n) < 0.5, bits,
+                 rng.normal(0, 1, n) * 10.0 ** rng.integers(-30, 30, n))
+    f[:len(TAIL_FLOATS)] = TAIL_FLOATS
+    return pa.table({
+        "s": pa.array(take(_string_modes_pool(rng, 8192, 256)).to_pylist(),
+                      type=pa.string(), mask=nulls()),
+        "m": pa.array(take(_string_modes_pool(rng, 8192, 24)).to_pylist(),
+                      type=pa.string(), mask=nulls()),
+        "w": pa.array(take(_string_modes_pool(rng, 8192, 12)).to_pylist(),
+                      type=pa.string(), mask=nulls()),
+        "f": pa.array(f, mask=nulls()),
+        "f32": pa.array(np.clip(np.nan_to_num(f), -3e38, 3e38).astype(
+            np.float32), mask=nulls()),
+        "arr": _list_column(rng, n, False),
+        "farr": _list_column(rng, n, True),
+        "k": pa.array(rng.integers(-10, 10, n).astype(np.int32),
+                      mask=nulls()),
+        "x": pa.array(rng.integers(-5, 12, n), mask=nulls()),
+    })
+
+
+def tail_modes_exprs(col, lit, F):
+    """(group, [(alias, column)]) of every form of this slice's
+    expressions: md5 over two widths, float and double -> string, RLIKE
+    and regexp_replace (literal and NFA paths; the NFA replace over the
+    12-byte column, as the CPU side's cost grows with width times
+    starts), and the list group."""
+    s, m, w = col("s"), col("m"), col("w")
+    arr, farr = col("arr"), col("farr")
+    return [
+        ("md5", [("h", F.md5(s)), ("hm", F.md5(m))]),
+        ("float to string", [("fs", col("f").cast("string")),
+                             ("f32s", col("f32").cast("string"))]),
+        ("regex", [
+            ("r1", m.rlike("[ab]+ ")), ("r2", m.rlike("^a")),
+            ("r3", m.rlike("b$")), ("r4", m.rlike("(ab|ba)+")),
+            ("r5", m.rlike(r"\s|_")), ("r6", m.rlike("^[aAbB ]*$")),
+            ("x1", F.regexp_replace(s, "ab", "<>")),
+            ("x2", F.regexp_replace(m, " ", "")),
+            ("x3", F.regexp_replace(w, "a+", "A")),
+            ("x4", F.regexp_replace(w, "[ab]{2,3}", "")),
+            ("x5", F.regexp_replace(w, r"\s+", "_")),
+            ("x6", F.regexp_replace(w, "^[aA]", "^"))]),
+        ("lists", [
+            ("n", F.size(arr)), ("i0", arr[0]), ("i2", farr[2]),
+            ("c3", F.array_contains(arr, 3)),
+            ("cf", F.array_contains(farr, 1.5)),
+            ("cx", F.array_contains(arr, col("x"))),
+            ("e1", F.element_at(arr, 1)), ("en", F.element_at(farr, -1)),
+            ("ek", F.element_at(arr, col("k"))),
+            ("mk", F.array(col("x"), col("k"), lit(3))),
+            ("mkf", F.array(col("f"), col("x")))]),
+    ]
+
+
+# regex forms outside the device subset: (alias, pattern, replacement or
+# None for RLIKE, the reason the plan must name); both sessions keep them
+# on the CPU
+TAIL_FALLBACKS = (("o1", r"(a)\1", None, "outside the device regex subset"),
+                  ("o2", "(a)b", "<$1>", "group/backslash references"),
+                  ("o3", "a{1,2}(ab)?", "X", "may differ from longest-match"))
+
+
+def _tail_generate(s, table, F):
+    """explode, posexplode and their outer forms over the list columns."""
+    df = s.create_dataframe(table).select("k", "arr", "farr")
+    return [("explode", df.select("k", F.explode("arr").alias("v"))),
+            ("explode_outer", df.select("k",
+                                        F.explode_outer("arr").alias("v"))),
+            ("posexplode", df.select("k", F.posexplode("farr"))),
+            ("posexplode_outer", df.select("k",
+                                           F.posexplode_outer("farr")))]
+
+
+def phase_tail_modes() -> None:
+    """Every expression this slice ports, in every form, on cuda against
+    the same DataFrame on a port session on the CPU over a 2^20-row
+    table, bit for bit; the forms outside the regex subset on the CPU in
+    both with the reference's reasons; explode/posexplode and the outer
+    forms; the partition leaves and rand over 4 partitions of 4 batches
+    each; a list column written to Parquet and read through the PERFILE
+    reader (expand_stream must launch) and exploded; then the kernel
+    launches, copies and memsets one evaluation of each expression, and
+    the explode's two passes, enqueue.  Untimed."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession, col, lit
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.columnar.batch import from_arrow
+    from spark_rapids_tpu_torch.exec import generate
+    from spark_rapids_tpu_torch.expr import eval_tpu, ir
+    from spark_rapids_tpu_torch.plan.logical import Schema
+    conf = {"spark.rapids.tpu.sql.test.enabled": True,
+            "spark.rapids.tpu.sql.variableFloatAgg.enabled": True}
+    t0 = time.perf_counter()
+    table = tail_modes_table(MODES_TAIL_ROWS, 29)
+    sessions = {d: TpuSparkSession(conf, device=d) for d in ("cuda", "cpu")}
+    groups = tail_modes_exprs(col, lit, F)
+    nexprs = 0
+
+    def both(tag, make, host_ok=False, must=None):
+        outs = {}
+        for d, s in sessions.items():
+            df = make(s)
+            if d == "cuda":
+                plan = df.explain_string("physical")
+                if not host_ok and "Cpu" in plan.replace("CpuScanExec", ""):
+                    fail(f"tail-modes {tag}: a host node:\n{plan}")
+                if must and must not in plan:
+                    fail(f"tail-modes {tag}: no {must}:\n{plan}")
+            outs[d] = df.collect()
+        _bit_equal(f"tail-modes {tag}", outs["cuda"], outs["cpu"])
+        return outs["cuda"]
+    for tag, exprs in groups:
+        t1 = time.perf_counter()
+        both(tag, lambda s: s.create_dataframe(table).select(
+            *[e.alias(a) for a, e in exprs]))
+        nexprs += len(exprs)
+        detail(f"tail-modes {tag}: {len(exprs)} forms equal in "
+               f"{time.perf_counter() - t1:.1f} s")
+    ok_conf = dict(conf, **{"spark.rapids.tpu.sql.test.allowedNonTpu":
+                            "CpuProjectExec"})
+    # these run on the host in both sessions: a slice of the table does
+    head = table.slice(0, 1 << 16)
+    for a, pat, rep, why in TAIL_FALLBACKS:
+        e = col("w").rlike(pat) if rep is None else \
+            F.regexp_replace(col("w"), pat, rep)
+        fb = {d: TpuSparkSession(ok_conf, device=d).create_dataframe(
+            head).select(e.alias(a)) for d in ("cuda", "cpu")}
+        text = fb["cuda"].explain_string("tpu")
+        if why not in text:
+            fail(f"tail-modes {a}: the plan does not name '{why}':\n{text}")
+        _bit_equal(f"tail-modes {a}", fb["cuda"].collect(),
+                   fb["cpu"].collect())
+    for tag, _df in _tail_generate(sessions["cuda"], table, F):
+        both(tag, lambda s, tag=tag: dict(_tail_generate(s, table, F))[tag],
+             must="TpuGenerateExec")
+    leaf_batch = MODES_TAIL_ROWS >> 4     # 4 batches per partition
+    lconf = {"spark.rapids.tpu.sql.reader.batchSizeRows": leaf_batch}
+    lsess = {d: TpuSparkSession(dict(conf, **lconf), device=d)
+             for d in ("cuda", "cpu")}
+
+    def leaves(s):
+        df = s.create_dataframe(table.select(["x", "k"]), num_partitions=4)
+        return df.select("x", F.spark_partition_id().alias("p"),
+                         F.monotonically_increasing_id().alias("mid"),
+                         F.rand(3).alias("r"))
+    outs = {d: leaves(s).collect() for d, s in lsess.items()}
+    _bit_equal("tail-modes leaves", outs["cuda"], outs["cpu"])
+    parts = sorted(set(outs["cuda"]["p"].to_pylist()))
+    if parts != [0, 1, 2, 3] or \
+            (outs["cuda"]["mid"].to_numpy() &
+             ((1 << 33) - 1)).max() < leaf_batch:
+        fail(f"tail-modes leaves: partitions {parts}, offsets not past "
+             f"one batch")
+    fouts = {d: s.create_dataframe(table.select(["x"]), num_partitions=4)
+             .filter(F.monotonically_increasing_id() % 5 == 2)
+             .select("x", F.spark_partition_id().alias("p")).collect()
+             for d, s in lsess.items()}
+    _bit_equal("tail-modes leaves in a filter", fouts["cuda"], fouts["cpu"])
+    # a list column through the PERFILE reader
+    root = _parquet_dir("tail-modes")
+    try:
+        papq.write_table(table.select(["k", "arr"]),
+                         os.path.join(root, "part-0000.parquet"),
+                         row_group_size=1 << 18)
+        pconf = {"spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled":
+                 False}
+        kb.reset_counts()
+        pout = {}
+        for d in ("cuda", "cpu"):
+            s = TpuSparkSession(dict(conf, **pconf), device=d)
+            df = s.read.parquet(root).select(
+                "k", F.size("arr").alias("n"),
+                F.explode_outer("arr").alias("v"))
+            if d == "cuda":
+                plan = df.explain_string("physical")
+                pout[d] = df.collect()
+                expand = dict(kb.launches).get("decode.expand_stream", 0)
+            else:
+                pout[d] = df.collect()
+        if "TpuGenerateExec" not in plan or expand <= 0:
+            fail(f"tail-modes perfile: expand_stream launches {expand}:\n"
+                 f"{plan}")
+        _bit_equal("tail-modes perfile list", pout["cuda"], pout["cpu"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"tail-modes: {nexprs} expressions in {len(groups)} groups, "
+        f"{len(TAIL_FALLBACKS)} regex forms outside the subset (on the CPU "
+        f"in both, with the reference's reasons), 4 generate forms, the "
+        f"leaves and rand over 4 partitions of {leaf_batch}-row batches, "
+        f"and a "
+        f"list column through the PERFILE reader ({expand} expand_stream "
+        f"launches) over {MODES_TAIL_ROWS} rows equal the CPU session's "
+        f"bit for bit in {time.perf_counter() - t0:.1f} s")
+    schema = Schema.from_arrow(table.schema)
+    batch = from_arrow(table, device="cuda")
+
+    def bound(e):
+        return ir.bind(e.expr, schema.names, schema.dtypes, schema.nullables)
+    calls = [(a, partial(eval_tpu.evaluate, bound(e), batch))
+             for _tag, exprs in groups for a, e in exprs]
+    calls += [(a, partial(eval_tpu.evaluate, bound(e), batch)) for a, e in (
+        ("pid", F.spark_partition_id()),
+        ("mid", F.monotonically_increasing_id()), ("rand", F.rand(3)))]
+    gen = ir.bind(F.explode(col("arr")).expr, schema.names, schema.dtypes,
+                  schema.nullables)
+
+    def explode():
+        v = eval_tpu.evaluate(gen.children[0], batch)
+        counts = generate._counts(v, batch, False)
+        total = int(counts.sum())
+        from spark_rapids_tpu_torch.columnar.batch import bucket_rows
+        out_schema = Schema.from_arrow(pa.schema(
+            list(table.schema) + [pa.field("v", pa.int64())]))
+        return generate._generate_kernel(batch, v, counts, total,
+                                         bucket_rows(total), gen,
+                                         out_schema, False, False)
+    calls.append(("explode", explode))
+    ops = _launches_per_call(calls, "tail-modes")
+    if len(ops) != len(calls):
+        fail(f"tail-modes: {len(ops)} traced evaluations of {len(calls)}")
+    log(f"tail-modes: kernel launches, copies and memsets per evaluation "
+        f"over one {batch.capacity}-row batch (s is "
+        f"{batch.column('s').data.shape[1]} bytes wide, m "
+        f"{batch.column('m').data.shape[1]}, w "
+        f"{batch.column('w').data.shape[1]}): "
         + ", ".join(f"{a} {n}" for a, n in ops))
 
 
@@ -3924,7 +4762,8 @@ def phase_timing(paths):
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
               "pipeline", "q6s", "star", "window", "shuffle", "strings",
-              "modes", "window-modes", "shuffle-modes", "string-modes"]
+              "customer-etl", "mortgage", "modes", "window-modes",
+              "shuffle-modes", "string-modes", "tail-modes"]
 
 
 def main() -> int:
@@ -3977,10 +4816,12 @@ def main() -> int:
     if "q6s" in phases:
         runs["q6s"] = ("q6s-parquet", *phase_q6s_parquet(),
                        ["filter_decode.decode_str"])
-    if {"star", "window", "shuffle", "strings"} & set(phases):
-        # the star, window, shuffle and strings phases share the SF10
-        # files: store for window and strings, catalog_sales for shuffle
-        # and strings
+    if {"star", "window", "shuffle", "strings", "customer-etl"} & \
+            set(phases):
+        # the star, window, shuffle, strings and customer-etl phases share
+        # the SF10 files: store for window and strings, catalog_sales for
+        # shuffle and strings, the census tables for strings and
+        # customer-etl
         root = _parquet_dir("star")
         try:
             tables = write_star_files(root)
@@ -3988,6 +4829,9 @@ def main() -> int:
                 tables["store"] = write_store_file(root)
             if {"shuffle", "strings"} & set(phases):
                 tables["catalog_sales"] = write_catalog_sales(root)
+            if {"strings", "customer-etl"} & set(phases):
+                tables.update(write_strings_files(root,
+                                                  tables["store_sales"]))
             done("star files")
             if "star" in phases:
                 runs["star"] = ("star", *phase_star(root, tables))
@@ -4001,9 +4845,16 @@ def main() -> int:
             if "strings" in phases:
                 runs["strings"] = ("strings", *phase_strings(root, tables))
                 done("strings")
+            if "customer-etl" in phases:
+                runs["customer-etl"] = ("customer-etl", *phase_customer_etl(
+                    root, tables["customer"]))
+                done("customer-etl")
             del tables
         finally:
             shutil.rmtree(root, ignore_errors=True)
+    if "mortgage" in phases:
+        runs["mortgage"] = ("mortgage", *phase_mortgage())
+        done("mortgage")
     if "modes" in phases:
         phase_perfile_modes()
     if "window-modes" in phases:
@@ -4014,12 +4865,14 @@ def main() -> int:
     if "string-modes" in phases:
         phase_string_modes()
         done("string-modes")
+    if "tail-modes" in phases:
+        phase_tail_modes()
+        done("tail-modes")
     kernels = None
     if set(ALL_PHASES) <= set(phases):
-        kernels = phase_timing([runs[k] for k in ("q6", "q6p", "q6s",
-                                                  "q6pf", "star",
-                                                  "window", "shuffle",
-                                                  "strings")])
+        kernels = phase_timing([runs[k] for k in (
+            "q6", "q6p", "q6s", "q6pf", "star", "window", "shuffle",
+            "strings", "customer-etl", "mortgage")])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -251,22 +251,24 @@ def _np_column_from_arrow(arr, dtype: dt.DType, capacity: int,
         validity[:n] = True
 
     if dtype.is_list:
-        py = arr.to_pylist()
-        lens = [len(v) if v is not None else 0 for v in py]
-        max_len = _bucket_strlen(max(lens, default=0))
-        el_np = dtype.element.to_np()
-        data = zeros((capacity, max_len), el_np)
+        # a null list has length 0; a null element keeps ev False and a
+        # 0 payload.  Element k of row i is child value offs[i] + k.
+        offs = arr.offsets.to_numpy(zero_copy_only=False).astype(np.int64)
+        lens = np.where(validity[:n], offs[1:] - offs[:-1], 0)
+        max_len = _bucket_strlen(int(lens.max()) if n else 0)
+        data = zeros((capacity, max_len), dtype.element.to_np())
         ev = zeros((capacity, max_len), np.bool_)
         lengths = zeros(capacity, np.int32)
-        for i, v in enumerate(py):
-            if v is None:
-                continue
-            lengths[i] = len(v)
-            for j, x in enumerate(v):
-                if x is None:
-                    continue  # null element: ev stays False, data stays 0
-                ev[i, j] = True
-                data[i, j] = x
+        lengths[:n] = lens
+        rows = np.repeat(np.arange(n), lens)
+        cols = np.arange(len(rows)) - np.repeat(np.cumsum(lens) - lens, lens)
+        src = np.repeat(offs[:-1], lens) + cols
+        child = arr.values
+        ok = np.asarray(child.is_valid())[src]
+        vals = child.fill_null(_zero_value(dtype.element)).to_numpy(
+            zero_copy_only=False)[src]
+        ev[rows, cols] = ok
+        data[rows, cols] = np.where(ok, vals, 0)
         return data, validity, lengths, ev
 
     if dtype.is_string:
@@ -576,16 +578,15 @@ def _to_arrow_host(batch: DeviceBatch, layout,
             arr = _strings_to_arrow(data, lengths, validity, n)
         elif col.dtype.is_list:
             data = data[:n]
-            lengths = lengths[:n]
+            lens = np.where(validity, lengths[:n], 0).astype(np.int64)
             ev = np.ones(data.shape, dtype=bool) if ev is None else ev[:n]
-            py = []
-            for i in range(n):
-                if not validity[i]:
-                    py.append(None)
-                else:
-                    py.append([data[i, j].item() if ev[i, j] else None
-                               for j in range(lengths[i])])
-            arr = pa.array(py, type=col.dtype.to_arrow())
+            live = np.arange(data.shape[1])[None, :] < lens[:, None]
+            offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+            el = col.dtype.to_arrow().value_type
+            values = pa.array(data[live], type=el, mask=~ev[live])
+            arr = pa.ListArray.from_arrays(
+                pa.array(offsets), values, type=col.dtype.to_arrow(),
+                mask=pa.array(mask))
         elif col.dtype.id == dt.TypeId.TIMESTAMP_US:
             arr = pa.array(data[:n].astype("datetime64[us]"),
                            type=pa.timestamp("us", tz="UTC"), mask=mask)

@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
+from spark_rapids_tpu_torch.exec import context
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan, TpuExec, timed
 from spark_rapids_tpu_torch.expr import eval_tpu, ir
 from spark_rapids_tpu_torch.plan.logical import Schema
@@ -90,7 +91,7 @@ class TpuFusedStageExec(TpuExec):
         names = self._schema.names
         ords = [e.ordinal for e in self.out_exprs] if passthrough else None
 
-        def run(it):
+        def run(pid, it):
             for b in it:
                 if passthrough:
                     with timed(self.metrics, "fused.passthrough"):
@@ -98,9 +99,14 @@ class TpuFusedStageExec(TpuExec):
                                           [b.columns[i] for i in ords],
                                           b.num_rows, b.device)
                 else:
-                    with timed(self.metrics, "fused.eval"):
+                    # the row offset stays 0, as in the reference: the
+                    # planner keeps monotonically_increasing_id() out of
+                    # fused stages (plan/fusion.py)
+                    with timed(self.metrics, "fused.eval"), \
+                            context.task_context(pid, 0):
                         out = self._impl(b)
                 self.metrics.add_batches()
                 self.metrics.add_rows(out.num_rows)
                 yield out
-        return [run(it) for it in self.children[0].execute()]
+        return [run(pid, it) for pid, it in
+                enumerate(self.children[0].execute())]

@@ -23,6 +23,7 @@ from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
                                                    concat_batches,
                                                    from_arrow,
                                                    resolve_device, to_arrow_all)
+from spark_rapids_tpu_torch.exec import context
 from spark_rapids_tpu_torch.exec.base import (CoalesceGoal, PhysicalPlan,
                                               RequireSingleBatch, TargetSize,
                                               TpuExec, timed)
@@ -129,15 +130,31 @@ class TpuProjectExec(TpuExec):
 
     def execute(self):
         names = self._schema.names
+        needs_ctx = any(_partition_dependent(e) for e in self.exprs)
 
-        def run(it):
+        def run(pid, it):
+            offset = 0
             for b in it:
-                with timed(self.metrics, "project.eval"):
+                if needs_ctx:
+                    # row-offset tracking costs one host read per batch;
+                    # only paid when a partition-dependent expr exists
+                    nr = int(b.num_rows)
+                with timed(self.metrics, "project.eval"), \
+                        context.task_context(pid, offset):
                     cols = [eval_tpu.evaluate(e, b).to_column()
                             for e in self.exprs]
+                if needs_ctx:
+                    offset += nr
                 self.metrics.add_batches()
                 yield DeviceBatch(names, cols, b.num_rows, b.device)
-        return [run(it) for it in self.children[0].execute()]
+        return [run(pid, it) for pid, it in
+                enumerate(self.children[0].execute())]
+
+
+def _partition_dependent(e: ir.Expression) -> bool:
+    """Does ``e`` read the task context (partition id, row offset)?"""
+    return bool(ir.collect(e, lambda n: isinstance(
+        n, (ir.SparkPartitionID, ir.MonotonicallyIncreasingID))))
 
 
 def compact(batch: DeviceBatch, keep: torch.Tensor) -> DeviceBatch:
@@ -166,13 +183,24 @@ class TpuFilterExec(TpuExec):
         return self.children[0].schema
 
     def execute(self):
-        def run(it):
+        needs_ctx = _partition_dependent(self.condition)
+
+        def run(pid, it):
+            offset = 0
             for b in it:
-                with timed(self.metrics, "filter.eval"):
+                if needs_ctx:
+                    # the offset counts INPUT rows: the condition sees
+                    # pre-compaction positions
+                    nr = int(b.num_rows)
+                with timed(self.metrics, "filter.eval"), \
+                        context.task_context(pid, offset):
                     v = eval_tpu.evaluate(self.condition, b)
                     out = compact(b, v.data.to(torch.bool) & v.validity)
+                if needs_ctx:
+                    offset += nr
                 yield out
-        return [run(it) for it in self.children[0].execute()]
+        return [run(pid, it) for pid, it in
+                enumerate(self.children[0].execute())]
 
 
 class TpuRangeExec(TpuExec):

@@ -10,17 +10,22 @@ NULL; integer overflow wraps), IS [NOT] NULL, ``isnan``,
 functions (``log`` of x <= 0 is NULL; ``ceil``/``floor`` saturate to
 int64), the three shifts, casts between numeric, boolean, temporal and
 string types (string -> int/float/bool/date/timestamp and
-int/bool/date/timestamp -> string; float -> string waits for
-``expr/ryu.py``), the string functions (case, length, reverse,
-substring, the literal and column-needle searches, LIKE, concat, the
-trims, initcap, locate and the pads) over fixed-width byte matrices, the
-UTC date/time fields and date arithmetic, Spark's murmur3 hash
-(``hash_colval``, the shuffle exchange's partition key) and the
-NaN/-0.0 normalization of float join keys.  The planner keeps every
-other node on the CPU (:func:`supported_on_tpu` and
-:func:`cast_supported`, read by plan/overrides.py), so a planned query
-never reaches the ``NotImplementedError(<node name>)`` that evaluating
-one raises.
+int/bool/float/date/timestamp -> string; float -> string is Ryu's
+shortest decimal, ``expr/ryu.py``), the string functions (case, length,
+reverse, substring, the literal and column-needle searches, LIKE,
+concat, the trims, initcap, locate and the pads) over fixed-width byte
+matrices, RLIKE and regexp_replace (``expr/device_regex.py``'s bitmask
+NFA, or the literal-needle scan), md5, the UTC date/time fields and date
+arithmetic, Spark's murmur3 hash (``hash_colval``, the shuffle
+exchange's partition key), the NaN/-0.0 normalization of float join
+keys, the partition leaves (``spark_partition_id()``,
+``monotonically_increasing_id()``, read from exec/context.py), ``rand``
+(jax's threefry-2x32 uniform, bit for bit) and the list group (size,
+item, contains, element_at, array).  The dispatch table has the
+reference's keys.  The planner keeps a node the evaluator cannot run on
+the CPU (:func:`supported_on_tpu`, :func:`cast_supported` and the
+literal-argument checks of plan/overrides.py), so a planned query never
+reaches the ``NotImplementedError`` that evaluating one raises.
 """
 
 from __future__ import annotations
@@ -548,6 +553,14 @@ def _iota(w: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(w, device=like.device)
 
 
+def longest(lengths: torch.Tensor) -> int:
+    """The longest row (one host read).  The per-position loops below
+    (md5's blocks, the regex steps, regexp_replace's greedy scans) stop
+    there: past it every row is padding, where a step changes nothing,
+    so the result is the reference's full-width one, bit for bit."""
+    return int(lengths.max()) if lengths.numel() else 0
+
+
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
     """Per row, the index of the first True (0 where there is none):
     ``jnp.argmax``'s first-maximum rule, through uint8 (torch's argmax
@@ -621,15 +634,14 @@ def _float_to_int(x: torch.Tensor, tgt: dt.DType) -> torch.Tensor:
 
 def cast_supported(src: dt.DType, tgt: dt.DType) -> bool:
     """Does :func:`_eval_cast` cover ``src -> tgt``?  The planner keeps
-    any other cast on the CPU.  Float -> string waits for the port of the
-    reference's shortest-decimal printer (``expr/ryu.py``)."""
+    any other cast on the CPU."""
     if src == tgt or src == dt.NULL:
         return True
     if src.is_string:
         return tgt.is_integral or tgt.is_floating or tgt.is_bool or \
             tgt.id in (dt.TypeId.DATE32, dt.TypeId.TIMESTAMP_US)
     if tgt.is_string:
-        return src.is_bool or src.is_integral or \
+        return src.is_bool or src.is_integral or src.is_floating or \
             src.id in (dt.TypeId.DATE32, dt.TypeId.TIMESTAMP_US)
     return (src.is_temporal and (tgt.is_temporal or tgt.is_numeric)) or \
         ((src.is_bool or src.is_numeric) and (tgt.is_numeric or
@@ -662,6 +674,8 @@ def _eval_cast(e, batch):
             return _cast_bool_to_string(c)
         if src.is_integral:
             return _cast_int_to_string(c)
+        if src.is_floating:
+            return _cast_float_to_string(c)
         if src.id == dt.TypeId.DATE32:
             return _cast_date_to_string(c)
         return _cast_timestamp_to_string(c)
@@ -940,6 +954,15 @@ def _cast_int_to_string(c: ColVal) -> ColVal:
     data = torch.where(keep & c.validity[:, None], data, 0)
     return ColVal(dt.STRING, data, c.validity,
                   torch.where(c.validity, lens, 0))
+
+
+def _cast_float_to_string(c: ColVal) -> ColVal:
+    """Python's ``repr``: the shortest decimal that reads back to the
+    same double (expr/ryu.py).  float32 widens to float64 first: the CPU
+    oracle is ``repr(float(x))``, which sees the widened double."""
+    from spark_rapids_tpu_torch.expr import ryu
+    data, lens = ryu.f64_to_string(c.data.to(torch.float64), c.validity)
+    return ColVal(dt.STRING, data, c.validity, lens)
 
 
 def _cast_bool_to_string(c: ColVal) -> ColVal:
@@ -1586,6 +1609,362 @@ def _eval_knownfloat(e, batch):
     return c
 
 
+# ---------------------------------------------------------------------------
+# partition leaves and rand
+# ---------------------------------------------------------------------------
+
+def _ones(batch: DeviceBatch) -> torch.Tensor:
+    return torch.ones(batch.capacity, dtype=torch.bool, device=batch.device)
+
+
+def _eval_partition_id(e, batch):
+    from spark_rapids_tpu_torch.exec import context
+    pid, _ = context.get()
+    data = torch.full((batch.capacity,), int(pid), dtype=torch.int32,
+                      device=batch.device)
+    return ColVal(dt.INT32, data, _ones(batch))
+
+
+def _eval_monotonic_id(e, batch):
+    # Spark: (partitionId << 33) + row offset within partition
+    from spark_rapids_tpu_torch.exec import context
+    pid, off = context.get()
+    base = (int(pid) << 33) + int(off)
+    data = base + torch.arange(batch.capacity, dtype=torch.int64,
+                               device=batch.device)
+    return ColVal(dt.INT64, data, _ones(batch))
+
+
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
+    """Threefry-2x32 (20 rounds) over 32-bit words held in int64, as
+    jax's ``threefry_2x32`` computes it in uint32."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
+
+
+def _uniform_f64(seed: int, n: int, device) -> torch.Tensor:
+    """``jax.random.uniform(jax.random.PRNGKey(seed), (n,), float64)``
+    bit for bit, under ``jax_threefry_partitionable`` (the default since
+    jax 0.5): the key is the seed's two 32-bit halves, row i hashes the
+    counter pair (0, i), the 64 random bits are ``hi << 32 | lo``, and
+    their top 52 bits become the mantissa of a double in [1, 2) less
+    1.0.  Row i's value depends on i alone, not on ``n``."""
+    s = seed % (1 << 64)
+    k1, k2 = s >> 32, s & _M32
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = _threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    bits = (b1 << 20) | (b2 >> 12) | 0x3FF0000000000000
+    return bits.view(torch.float64) - 1.0
+
+
+def _eval_rand(e: ir.Rand, batch):
+    return ColVal(dt.FLOAT64,
+                  _uniform_f64(e.seed, batch.capacity, batch.device),
+                  _ones(batch))
+
+
+# ---------------------------------------------------------------------------
+# complex types: list columns are (padded [cap, max_len] payload, lengths,
+# elem_validity), the fixed-width layout strings use, so these are masked
+# gathers and reductions over the payload
+# ---------------------------------------------------------------------------
+
+def _eval_size(e: ir.Size, batch: DeviceBatch) -> ColVal:
+    v = evaluate(e.children[0], batch)
+    out = torch.where(v.validity, v.lengths.to(torch.int32),
+                      -1).to(torch.int32)   # Spark 3.0: size(null) = -1
+    return ColVal(dt.INT32, out, _ones(batch))
+
+
+def _list_item(e, v: ColVal, idx: torch.Tensor,
+               in_range: torch.Tensor) -> ColVal:
+    """Element ``idx`` of each row's list, null where not ``in_range``
+    or where the element is null."""
+    data = _at(v.data, idx)
+    ev = _at(v.elem_validity, idx) if v.elem_validity is not None \
+        else torch.ones_like(in_range)
+    valid = in_range & ev
+    el = e.dtype
+    return ColVal(el, torch.where(valid, data, 0).to(el.to_torch()), valid)
+
+
+def _eval_get_array_item(e: ir.GetArrayItem, batch: DeviceBatch) -> ColVal:
+    v = evaluate(e.children[0], batch)
+    o = evaluate(e.children[1], batch)
+    idx = o.data.to(torch.int32)
+    in_range = (idx >= 0) & (idx < v.lengths) & v.validity & o.validity
+    return _list_item(e, v, idx, in_range)
+
+
+def _eval_array_contains(e: ir.ArrayContains, batch: DeviceBatch) -> ColVal:
+    v = evaluate(e.children[0], batch)
+    x = evaluate(e.children[1], batch)
+    slot = _iota(v.data.shape[1], v.data)[None, :] < v.lengths[:, None]
+    ev = v.elem_validity if v.elem_validity is not None else \
+        torch.ones(v.data.shape, dtype=torch.bool, device=v.data.device)
+    live = slot & ev
+    # compare in the promoted type so fractional probes never truncate
+    # (as the CPU engine: 2.5 vs array<int> finds nothing)
+    el = v.dtype.element
+    if el != x.dtype and el.is_numeric and x.dtype.is_numeric:
+        cmp_t = dt.promote(el, x.dtype).to_torch()
+    else:
+        cmp_t = v.data.dtype
+    eq = (v.data.to(cmp_t) == x.data.to(cmp_t)[:, None]) & live
+    found = torch.any(eq, dim=1)
+    has_null_elem = torch.any(slot & ~ev, dim=1)
+    valid = v.validity & x.validity & (found | ~has_null_elem)
+    return ColVal(dt.BOOL, found & v.validity & x.validity, valid)
+
+
+def _eval_element_at(e: ir.ElementAt, batch: DeviceBatch) -> ColVal:
+    v = evaluate(e.children[0], batch)
+    o = evaluate(e.children[1], batch)
+    k = o.data.to(torch.int32)
+    idx = torch.where(k > 0, k - 1, v.lengths.to(torch.int32) + k)
+    in_range = (k != 0) & (idx >= 0) & (idx < v.lengths) & \
+        v.validity & o.validity
+    return _list_item(e, v, idx, in_range)
+
+
+def _eval_create_array(e: ir.CreateArray, batch: DeviceBatch) -> ColVal:
+    t = e.dtype.element.to_torch()
+    vals = [evaluate(c, batch) for c in e.children]
+    data = torch.stack([v.data.to(t) for v in vals], dim=1)
+    ev = torch.stack([v.validity for v in vals], dim=1)
+    lengths = torch.full((batch.capacity,), len(vals), dtype=torch.int32,
+                         device=batch.device)
+    return ColVal(e.dtype, data, _ones(batch), lengths, ev)
+
+
+# ---------------------------------------------------------------------------
+# md5: the MD5 block function over every row at once, one Python step per
+# 64-byte block of the widest row; each 32-bit word is held unsigned in
+# int64 (as murmur3's), so ~B is B ^ 0xFFFFFFFF and sums are masked
+# ---------------------------------------------------------------------------
+
+_MD5_S = ([7, 12, 17, 22] * 4 + [5, 9, 14, 20] * 4 + [4, 11, 16, 23] * 4 +
+          [6, 10, 15, 21] * 4)
+_MD5_K = [int(abs(np.sin(i + 1)) * (1 << 32)) & _M32 for i in range(64)]
+_MD5_G = ([i for i in range(16)] + [(5 * i + 1) % 16 for i in range(16)] +
+          [(3 * i + 5) % 16 for i in range(16)] +
+          [(7 * i) % 16 for i in range(16)])
+
+
+def _md5_block(words: torch.Tensor, a0, b0, c0, d0):
+    """The 64 rounds over one block's 16 words (``[rows, 16]``)."""
+    A, B, C, D = a0, b0, c0, d0
+    for i in range(64):
+        if i < 16:
+            F = (B & C) | ((B ^ _M32) & D)
+        elif i < 32:
+            F = (D & B) | ((D ^ _M32) & C)
+        elif i < 48:
+            F = B ^ C ^ D
+        else:
+            F = C ^ (B | (D ^ _M32))
+        F = (F + A + words[:, _MD5_G[i]] + _MD5_K[i]) & _M32
+        A, D, C = D, C, B
+        B = (B + _rotl(F, _MD5_S[i])) & _M32
+    return A, B, C, D
+
+
+def _eval_md5(e, batch):
+    c = evaluate(e.child, batch)
+    if not c.dtype.is_string:
+        raise NotImplementedError("md5 over a non-string")
+    data, lengths = c.data, c.lengths.to(torch.int64)
+    n, w = data.shape
+    dev = data.device
+    # padded message: data, 0x80, zeros, the 8-byte little-endian bit
+    # length at the end of the row's last block; blocks past the longest
+    # row's last are never active
+    n_blocks = (min(longest(lengths), w) + 9 + 63) // 64
+    k = min(w, n_blocks * 64)
+    msg = torch.zeros((n, n_blocks * 64), dtype=torch.int64, device=dev)
+    msg[:, :k] = torch.where(_iota(k, data)[None, :] < lengths[:, None],
+                             data[:, :k].to(torch.int64), 0)
+    msg.scatter_(1, lengths[:, None], 0x80)
+    row_blocks = (lengths + 9 + 63) // 64
+    lenpos = row_blocks * 64 - 8
+    shifts = 8 * _iota(8, data)
+    msg.scatter_(1, lenpos[:, None] + _iota(8, data)[None, :],
+                 ((lengths * 8)[:, None] >> shifts[None, :]) & 0xFF)
+    # bytes -> 16 little-endian words per block
+    words = (msg[:, 0::4] | (msg[:, 1::4] << 8) | (msg[:, 2::4] << 16) |
+             (msg[:, 3::4] << 24))
+    h = [torch.full((n,), v, dtype=torch.int64, device=dev)
+         for v in (0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476)]
+    for bi in range(n_blocks):
+        out = _md5_block(words[:, bi * 16:(bi + 1) * 16], *h)
+        active = bi < row_blocks
+        h = [torch.where(active, (x + y) & _M32, x) for x, y in zip(h, out)]
+    # digest: a, b, c, d as little-endian bytes -> 32 hex characters
+    by = (torch.stack(h, dim=1)[:, :, None] >> (8 * _iota(4, data))) & 0xFF
+    by = by.reshape(n, 16)
+    nib = torch.stack([by >> 4, by & 0xF], dim=2).reshape(n, 32)
+    hexc = torch.where(nib < 10, nib + ord("0"),
+                       nib - 10 + ord("a")).to(torch.uint8)
+    out = torch.where(c.validity[:, None], hexc, 0)
+    lens = torch.where(c.validity, 32, 0).to(torch.int32)
+    return ColVal(dt.STRING, out, c.validity, lens)
+
+
+# ---------------------------------------------------------------------------
+# regex: RLIKE and regexp_replace over the bitmask NFA of
+# expr/device_regex.py, and regexp_replace's literal-needle path
+# ---------------------------------------------------------------------------
+
+_REGEX_META = set(".^$*+?()[]{}|\\")
+
+
+def _emit_replaced(s: ColVal, starts, covered, rep_bytes: bytes,
+                   w_out: int) -> ColVal:
+    """regexp_replace's emission: given per-position start flags (emit
+    the replacement) and covered flags (emit nothing; starts take
+    precedence), scatter the copied characters and the replacement bytes
+    into a fresh byte matrix.  A dropped byte goes to one spare slot past
+    the end, which the output slices off."""
+    n, w = s.data.shape
+    dev = s.data.device
+    lr = len(rep_bytes)
+    in_str = _iota(w, s.data)[None, :] < s.lengths[:, None]
+    emit = torch.where(starts, lr, torch.where(covered, 0, 1)) * \
+        in_str.to(torch.int64)
+    out_pos = torch.cumsum(emit, dim=1) - emit
+    out_len = torch.sum(emit, dim=1).to(torch.int32)
+    row = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    spare = n * w_out
+    flat = torch.zeros((spare + 1,), dtype=torch.uint8, device=dev)
+    # copied characters
+    plain = in_str & ~covered & ~starts
+    tgt = torch.where(plain, row * w_out + out_pos, spare)
+    flat[tgt.reshape(-1)] = s.data.reshape(-1)
+    # replacement bytes
+    for k, byte in enumerate(rep_bytes):
+        tgt = torch.where(starts & in_str, row * w_out + out_pos + k, spare)
+        flat[tgt.reshape(-1)] = byte
+    data = flat[:spare].reshape(n, w_out)
+    keep = _iota(w_out, data)[None, :] < out_len[:, None]
+    data = torch.where(keep & s.validity[:, None], data, 0)
+    return ColVal(dt.STRING, data, s.validity,
+                  torch.where(s.validity, out_len, 0))
+
+
+def _replace_out_width(w: int, min_match: int, lr: int) -> int:
+    from spark_rapids_tpu_torch.columnar.batch import _bucket_strlen
+    w_out = w if lr <= min_match else \
+        (w // max(min_match, 1)) * lr + w
+    return _bucket_strlen(w_out)
+
+
+def _eval_regexp_replace(e, batch):
+    """regexp_replace with a literal pattern: a pattern free of
+    metacharacters takes the direct occurrence scan; one in the
+    device_regex.py subset (classes, anchors, greedy quantifiers, groups;
+    no alternation, which diverges from Java's leftmost-branch pick, and
+    no empty-matchable pattern) runs the bitmask NFA and replaces the
+    longest match per start.  Greedy leftmost non-overlapping, as
+    java.util.regex.  The planner keeps everything else on the CPU."""
+    s = evaluate(e.children[0], batch)
+    pat = e.children[1]
+    rep = e.children[2]
+    if not isinstance(pat, ir.Literal) or pat.value is None or \
+            not isinstance(rep, ir.Literal) or rep.value is None:
+        raise NotImplementedError("regexp_replace pattern/replacement "
+                                  "must be literals")
+    needle = pat.value.encode("utf-8")
+    r = rep.value.encode("utf-8")
+    n, w = s.data.shape
+    dev = s.data.device
+    pos = _iota(w, s.data)[None, :]
+
+    if needle and not any(chr(b) in _REGEX_META for b in needle):
+        # literal path: occurrences by shifted equality (the needle fits
+        # at p, inside the string)
+        m = len(needle)
+        occ = torch.zeros((n, w), dtype=torch.bool, device=dev)
+        if m <= w:
+            span = w - m + 1
+            match = torch.ones((n, span), dtype=torch.bool, device=dev)
+            for j, byte in enumerate(needle):
+                match = match & (s.data[:, j:j + span] == byte)
+            occ[:, :span] = match & (
+                _iota(span, s.data)[None, :] + m <= s.lengths[:, None])
+        # greedy leftmost non-overlap: a start is real if no real start
+        # lies in the previous m - 1 positions
+        starts = torch.zeros((n, w), dtype=torch.bool, device=dev)
+        next_free = torch.zeros((n,), dtype=torch.int64, device=dev)
+        for p in range(min(w, longest(s.lengths))):
+            here = occ[:, p] & (p >= next_free)
+            starts[:, p] = here
+            next_free = torch.where(here, p + m, next_free)
+        sstart = torch.where(starts, pos, -(1 << 30))
+        last = torch.cummax(sstart, dim=1).values
+        covered = (pos - last) < m
+        return _emit_replaced(s, starts, covered, r,
+                              _replace_out_width(w, m, len(r)))
+
+    # NFA subset path
+    from spark_rapids_tpu_torch.expr import device_regex as dr
+    try:
+        cr = dr.compile_pattern(pat.value)
+    except dr.Unsupported as ex:
+        raise NotImplementedError(f"regex pattern outside the device "
+                                  f"subset: {ex}")
+    if not cr.replace_safe:
+        # Java's greedy backtracking match equals the longest-end table
+        # only for single-variable-element patterns (see
+        # CompiledRegex.replace_safe)
+        raise NotImplementedError("regexp_replace pattern where Java "
+                                  "greedy semantics may differ from "
+                                  "longest-match")
+    if b"$" in r or b"\\" in r:
+        raise NotImplementedError("group references in replacement")
+    ends = dr.match_ends(cr, s.data, s.lengths)   # [n, w] exclusive, -1
+    starts = torch.zeros((n, w), dtype=torch.bool, device=dev)
+    covered = torch.zeros((n, w), dtype=torch.bool, device=dev)
+    cur_end = torch.zeros((n,), dtype=ends.dtype, device=dev)
+    for p in range(min(w, longest(s.lengths))):
+        cov_p = p < cur_end
+        here = (ends[:, p] >= 0) & ~cov_p
+        starts[:, p] = here
+        covered[:, p] = cov_p
+        cur_end = torch.where(here, ends[:, p], cur_end)
+    return _emit_replaced(s, starts, covered, r,
+                          _replace_out_width(w, cr.min_len, len(r)))
+
+
+def _eval_rlike(e, batch):
+    """RLIKE (find anywhere) over the bitmask NFA of device_regex.py; the
+    pattern is a literal in the device subset."""
+    l = evaluate(e.left, batch)
+    if isinstance(e.right, ir.Literal) and e.right.value is None:
+        n0 = l.data.shape[0]
+        z = torch.zeros((n0,), dtype=torch.bool, device=l.data.device)
+        return ColVal(dt.BOOL, z, z)             # RLIKE NULL -> NULL
+    if not isinstance(e.right, ir.Literal):
+        raise NotImplementedError("rlike pattern must be a literal")
+    from spark_rapids_tpu_torch.expr import device_regex as dr
+    try:
+        cr = dr.compile_pattern(e.right.value)
+    except dr.Unsupported as ex:
+        raise NotImplementedError(f"regex pattern outside the device "
+                                  f"subset: {ex}")
+    return ColVal(dt.BOOL, dr.rlike(cr, l.data, l.lengths), l.validity)
+
+
 _DISPATCH = {
     ir.Literal: _eval_literal,
     ir.BoundReference: _eval_bound,
@@ -1679,6 +2058,17 @@ _DISPATCH = {
     ir.UnixTimestampFromTs: _eval_unix_ts,
     ir.Murmur3Hash: _eval_murmur3,
     ir.KnownFloatingPointNormalized: _eval_knownfloat,
+    ir.SparkPartitionID: _eval_partition_id,
+    ir.MonotonicallyIncreasingID: _eval_monotonic_id,
+    ir.Rand: _eval_rand,
+    ir.Size: _eval_size,
+    ir.GetArrayItem: _eval_get_array_item,
+    ir.ArrayContains: _eval_array_contains,
+    ir.ElementAt: _eval_element_at,
+    ir.CreateArray: _eval_create_array,
+    ir.Md5: _eval_md5,
+    ir.RLike: _eval_rlike,
+    ir.RegExpReplace: _eval_regexp_replace,
 }
 
 

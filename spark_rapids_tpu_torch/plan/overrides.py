@@ -20,12 +20,12 @@ reference's:
      (``spark.rapids.tpu.sql.explain=NOT_ON_TPU|ALL``).
 
 Rules exist for the execs the port has: Project, Filter, HashAggregate,
-Range, Union, GlobalLimit, Expand, Sort, Window, the shuffle exchange
-and the partition coalesce, the shuffled and the broadcast hash joins,
-the broadcast nested-loop join, the cartesian product and the Parquet
-file scan (the in-memory scan stays a host node under its HostToDevice
-transition).  Generate and cache scans have no rule yet: the planner
-raises for them, naming the module each waits for.
+Range, Union, GlobalLimit, Expand, Generate, Sort, Window, the shuffle
+exchange and the partition coalesce, the shuffled and the broadcast hash
+joins, the broadcast nested-loop join, the cartesian product and the
+Parquet file scan (the in-memory scan stays a host node under its
+HostToDevice transition).  Cache scans have no rule yet: the planner
+raises for them, naming the module they wait for.
 
 The reference's shuffled-join rule also wraps the join's exchanges in
 adaptive readers (``exec/adaptive.py``, ``sql.adaptive.enabled``) and
@@ -85,6 +85,42 @@ def _check_expr_node(e: ir.Expression, conf: RapidsTpuConf
     if type(e) in _LITERAL_ARG_EXPRS:
         if not isinstance(e.children[1], ir.Literal):
             return _LITERAL_ARG_EXPRS[type(e)]
+    if isinstance(e, ir.RegExpReplace):
+        pat = e.children[1]
+        rep = e.children[2]
+        if not isinstance(pat, ir.Literal) or pat.value is None or \
+                not isinstance(rep, ir.Literal) or rep.value is None:
+            return "regexp_replace pattern/replacement must be literals"
+        from spark_rapids_tpu_torch.expr.eval_tpu import _REGEX_META
+        if "$" in rep.value or "\\" in rep.value:
+            return ("regexp replacement with $group/backslash "
+                    "references is not supported on TPU")
+        if not pat.value or any(ch in _REGEX_META for ch in pat.value):
+            # real regex: device NFA subset (expr/device_regex.py);
+            # alternation replace diverges from Java's leftmost-branch
+            # pick and empty-matchable patterns insert at every gap
+            from spark_rapids_tpu_torch.expr import device_regex as dr
+            try:
+                cr = dr.compile_pattern(pat.value or "")
+            except dr.Unsupported as ex:
+                return (f"regexp pattern '{pat.value}' outside the "
+                        f"device regex subset: {ex}")
+            if not cr.replace_safe:
+                return ("regexp_replace pattern where Java greedy "
+                        "semantics may differ from longest-match "
+                        "(alternation, empty-matchable, or multiple "
+                        "variable-length elements) — not on TPU")
+    if isinstance(e, ir.RLike):
+        pat = e.children[1]
+        if not isinstance(pat, ir.Literal):
+            return "rlike pattern must be a literal"
+        if pat.value is not None:
+            from spark_rapids_tpu_torch.expr import device_regex as dr
+            try:
+                dr.compile_pattern(pat.value)
+            except dr.Unsupported as ex:
+                return (f"rlike pattern '{pat.value}' outside the "
+                        f"device regex subset: {ex}")
     if isinstance(e, ir.StringLocate):
         if not isinstance(e.children[0], ir.Literal) or \
            not isinstance(e.children[2], ir.Literal):
@@ -108,12 +144,10 @@ def _check_expr_node(e: ir.Expression, conf: RapidsTpuConf
                         f"enable {cfg.ALLOW_INCOMPAT_UTC_ONLY.key}")
             if src.is_string and not eval_tpu.cast_supported(src, e.to):
                 return f"cast string->{e.to.name} not supported on TPU yet"
-            if e.to.is_string and src.is_floating:
-                if not conf.get(cfg.CAST_FLOAT_TO_STRING):
-                    return ("cast float->string disabled; enable "
-                            f"{cfg.CAST_FLOAT_TO_STRING.key}")
-                return (f"cast {src.name}->string waits for the port of "
-                        "spark_rapids_tpu/expr/ryu.py")
+            if e.to.is_string and src.is_floating and \
+                    not conf.get(cfg.CAST_FLOAT_TO_STRING):
+                return ("cast float->string disabled; enable "
+                        f"{cfg.CAST_FLOAT_TO_STRING.key}")
             if e.to.is_string and not eval_tpu.cast_supported(src, e.to):
                 return f"cast {src.name}->string not supported on TPU yet"
             if not eval_tpu.cast_supported(src, e.to):
@@ -371,6 +405,30 @@ def _register_join_strategy_rules():
 
 
 _register_join_strategy_rules()
+
+
+def _register_generate_rule():
+    from spark_rapids_tpu_torch.exec.generate import (CpuGenerateExec,
+                                                      TpuGenerateExec)
+
+    def _tag_generate(n, conf) -> List[str]:
+        out = []
+        d = n.generator.children[0].dtype
+        if d is None or not d.is_list or not dt.device_supported(d):
+            out.append(f"generator input type "
+                       f"{d.name if d else '?'} not supported on TPU")
+        return out
+
+    register_exec_rule(CpuGenerateExec, ExecRule(
+        "GenerateExec",
+        "TPU explode/posexplode (two-pass count-then-emit element gather)",
+        lambda n: list(n.generator.children),
+        convert=lambda n, ch, conf, device: TpuGenerateExec(
+            ch[0], n.generator, n.schema),
+        extra_tag=_tag_generate))
+
+
+_register_generate_rule()
 
 
 def _tag_exchange(n, conf) -> List[str]:

@@ -14,9 +14,8 @@ partitionwise window (``sql.window.exchange.enabled``, or ici/ici_ring),
 a range exchange under the distributed sort (``sql.sort.exchange.enabled``,
 or ici/ici_ring), repartition/coalesce, and a hash exchange on both sides
 of a shuffled join.  A node whose exec lives in a module the port has not
-ported yet raises ``NotImplementedError`` naming that module: generators
-(``exec/generate.py``), cached relations (``exec/cache.py``) and pandas
-UDFs (``pyworker/execs.py``).
+ported yet raises ``NotImplementedError`` naming that module: cached
+relations (``exec/cache.py``) and pandas UDFs (``pyworker/execs.py``).
 """
 
 from __future__ import annotations
@@ -112,7 +111,9 @@ def plan_cpu(node: lp.LogicalPlan, conf: RapidsTpuConf) -> PhysicalPlan:
         return cpux.CpuExpandExec(plan_cpu(node.children[0], conf),
                                   node.projections, node.schema)
     if isinstance(node, lp.Generate):
-        raise _not_ported("explode/posexplode", "exec/generate.py")
+        from spark_rapids_tpu_torch.exec.generate import CpuGenerateExec
+        return CpuGenerateExec(plan_cpu(node.children[0], conf),
+                               node.generator, node.schema)
     if isinstance(node, lp.Window):
         from spark_rapids_tpu_torch.exec.cpu_window import CpuWindowExec
         child = plan_cpu(node.children[0], conf)

@@ -296,9 +296,10 @@ def test_expression_parity(name, expr_batches):
 def test_unported_expression_names_the_node(expr_batches):
     t, _, tb = expr_batches
     ts = TSchema.from_arrow(t.schema)
-    e = tir.bind(tir.Md5(tir.UnresolvedAttribute("string")), ts.names,
-                 ts.dtypes, ts.nullables)
-    with pytest.raises(NotImplementedError, match="Md5"):
+    e = tir.bind(tir.SubstringIndex(tir.UnresolvedAttribute("string"),
+                                    tir.Literal("a"), tir.Literal(1)),
+                 ts.names, ts.dtypes, ts.nullables)
+    with pytest.raises(NotImplementedError, match="SubstringIndex"):
         teval.evaluate(e, tb)
 
 

@@ -129,12 +129,12 @@ def test_pruned_plans_match_reference_rows(roots, name):
 
 
 def test_unported_exec_raises_naming_its_module(roots):
-    """explode waits for exec/generate.py; the two-stage aggregate
+    """A cached relation waits for exec/cache.py; the two-stage aggregate
     (``agg.exchange.enabled``) plans as the reference's, a hash exchange
     under a per-partition aggregate, and gives its rows."""
     a = session("port", CONF).read.parquet(roots[0])
-    df = a.select("k", TF.explode(TF.array(tcol("k"), tcol("x"))).alias("e"))
-    with pytest.raises(NotImplementedError, match="exec/generate.py"):
+    df = a.select("k", (tcol("x") + 1).alias("e")).cache()
+    with pytest.raises(NotImplementedError, match="exec/cache.py"):
         df.collect()
     conf = dict(CONF, **{"spark.rapids.tpu.sql.agg.exchange.enabled": True,
                          "spark.rapids.tpu.sql.adaptive.enabled": False})

@@ -333,7 +333,7 @@ def test_string_group_dispatch_is_the_references():
     ("INT32", "STRING", True), ("INT16", "STRING", True),
     ("INT8", "STRING", True), ("BOOL", "STRING", True),
     ("DATE32", "STRING", True), ("TIMESTAMP_US", "STRING", True),
-    ("FLOAT64", "STRING", False), ("FLOAT32", "STRING", False),
+    ("FLOAT64", "STRING", True), ("FLOAT32", "STRING", True),
     ("STRING", "STRING", True)])
 def test_cast_supported_names_exactly_the_ported_pairs(src, to, covered):
     assert tev.cast_supported(getattr(tdt, src), getattr(tdt, to)) is covered
@@ -386,14 +386,12 @@ def test_planner_keeps_the_references_fallback_reason(name):
 
 
 def test_float_to_string_waits_for_ryu():
-    """With the cast enabled (the default) the reference prints floats on
-    the device (expr/ryu.py); the port keeps the cast on the CPU, naming
-    the module it waits for."""
+    """With the cast enabled (the default) both packages print floats on
+    the device (each package's expr/ryu.py): neither planner gives a
+    reason to keep the cast on the CPU."""
     conf = {}
     e = tir.Cast(tir.UnresolvedAttribute("f"), tdt.STRING)
-    got = _reason(tov, tir, tdt, TConf(conf), e)
-    assert got == ["cast double->string waits for the port of "
-                   "spark_rapids_tpu/expr/ryu.py"]
+    assert _reason(tov, tir, tdt, TConf(conf), e) == []
     assert _reason(jov, jir, jdt, JConf(conf),
                    jir.Cast(jir.UnresolvedAttribute("f"), jdt.STRING)) == []
 
