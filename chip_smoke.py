@@ -101,7 +101,7 @@ Phases (any failure exits non-zero):
                before it, must launch every kernel of its path with no
                fallback but the pinned filterDecode ones, and give each
                join pair the route the reference's rule gives it; then its
-               cold wall, 3 warm walls with sections, one profiler trace
+               cold wall, a warm wall with sections, one profiler trace
                and its peak device memory, host syncs and hash rounds;
   8c. window — the windowed reporting queries q98 and q47 at SF10 over the
                star phase's files and ``store`` (12,000 rows, one file,
@@ -116,7 +116,7 @@ Phases (any failure exits non-zero):
                way, its lag/lead by shifting each partition sorted on
                d_moy); with the counts set to 0 before it, must launch
                and fall back as pinned (WINDOW_COUNTS, WINDOW_FALLBACKS);
-               then its cold wall, 3 warm walls with sections
+               then its cold wall, a warm wall with sections
                (``window.eval`` among them), one profiler trace and its
                peak device memory;
   8d. shuffle — the shuffle exchange over the star phase's files and
@@ -133,8 +133,8 @@ Phases (any failure exits non-zero):
                the star phase's pyarrow references).  With the counts set
                to 0 before each, its launches, fallbacks and (for the star
                queries) join routes must equal the pinned SHUFFLE_COUNTS,
-               SHUFFLE_FALLBACKS and SHUFFLE_ROUTES; then its cold wall, 3
-               warm walls with sections (``exchange.partition``,
+               SHUFFLE_FALLBACKS and SHUFFLE_ROUTES; then its cold wall, a
+               warm wall with sections (``exchange.partition``,
                ``exchange.upload`` or ``exchange.concat``, the joins, the
                aggregate and the scan), the rows and ``bytes_written``
                through its exchanges, one profiler trace and its peak
@@ -154,7 +154,7 @@ Phases (any failure exits non-zero):
                pyarrow computation; with the counts set to 0 before it,
                its launches, fallbacks and join routes must equal the
                pinned STRINGS_COUNTS, STRINGS_FALLBACKS and STRINGS_ROUTES;
-               then its cold wall, 3 warm walls with sections (the
+               then its cold wall, a warm wall with sections (the
                filter's, projection's and fused stage's host eval time
                among them), one profiler trace with the kernel launches
                inside those eval spans, and its peak device memory;
@@ -169,7 +169,7 @@ Phases (any failure exits non-zero):
                each partition; the ids, partition ids and rand must equal a
                port session's on the CPU over the same batches, bit for
                bit; then the pinned launches and fallbacks, its cold wall,
-               3 warm walls with sections, one profiler trace (with the
+               a warm wall with sections, one profiler trace (with the
                launches inside the eval spans) and its peak device memory;
   8g. mortgage — ``bench/mortgage.py``'s ETL (``run``: the per-loan
                delinquency features, the explode of 0..11 and its
@@ -183,10 +183,42 @@ Phases (any failure exits non-zero):
                the name mapping's in-memory scan; the ETL's holds a
                TpuGenerateExec); must match an independent pyarrow/numpy
                computation (the ETL as row sets); launches, falls back and
-               routes its joins as pinned (MORT_*); then its cold wall, 3
-               warm walls with sections (``generate.count`` and
+               routes its joins as pinned (MORT_*); then its cold wall, a
+               warm wall with sections (``generate.count`` and
                ``generate.emit`` among them), one profiler trace and its
                peak device memory;
+  8h. tpch  — TPC-H from SQL text at SF10 when the phase runs alone, SF 2
+               in the whole smoke (its time limit): ``bench/tpch.py::
+               generate(sf, 7)`` (at SF10 lineitem 60,900,621 rows, orders
+               15,000,000, partsupp 8,000,000, part 2,000,000, customer
+               1,500,000, supplier 100,000) written by pyarrow, 8
+               dictionary-encoded
+               files for each table over 2^20 rows, read back with
+               ``setup_from_dir`` and registered as temp views on port
+               sessions on cuda at the shuffle phase's conf.  Each of the
+               eight SQL texts (q1, q3, q5, q6, q10, q12, q14, q19) goes
+               through ``session.sql``: its parse and planning time
+               (median of 5), its plan (no host node but the
+               transitions), its rows against an independent pyarrow
+               computation, the pinned launches, fallbacks and join
+               routes (TPCH_*), the cold wall, 2 warm walls with
+               sections, one profiler trace and its peak device memory;
+               then its DataFrame form ``QUERIES[name]`` on the card
+               against the SQL text's rows.  The cache: lineitem's q1/q6
+               columns cached and registered as the lineitem view, q1 and
+               q6 twice each; the first collect materializes it once
+               through the device encoder, every run reads the blobs
+               through TpuInMemoryTableScanExec and equals the uncached
+               rows exactly (pinned CACHE_*; cache.decode, the
+               expand_stream launches, the materialization time and the
+               blobs' bytes printed).  The handoff: ``collect_device()``
+               of q6's filtered lineitem gives CUDA batches whose rows
+               equal ``collect()``.  The writers: lineitem to Parquet
+               (snappy) and orders to ORC through the device encoders
+               (``encode_batch`` wrapped and counted: one call per
+               non-empty partition), read back by pyarrow equal to the
+               generated tables, q6 over the written lineitem against
+               the original's; their walls and rows/s;
   9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
                a dictionary that overflows into PLAIN pages, a 16-character
                string dictionary and a list<int32>, through the PERFILE
@@ -196,11 +228,11 @@ Phases (any failure exits non-zero):
                with and without a default; running, whole-partition,
                sliding ROWS and finite RANGE frames in both directions;
                sum, count, avg, min and max over int64, double with NaN and
-               bool) over a 2^18-row table with about 5% nulls and one
+               bool) over a 2^17-row table with about 5% nulls and one
                partition of half the rows, on a port session on cuda
                against the same DataFrame on one on the CPU: exactly,
                floats bit for bit; untimed;
-  9c. shuffle-modes — over 2^18 rows with about 5% nulls (int32, int64,
+  9c. shuffle-modes — over 2^17 rows with about 5% nulls (int32, int64,
                float64 with NaN and -0.0, bool, date and strings of byte
                widths 0-33 with multi-byte tails): repartition by hash,
                round robin, range and single, a coalesce, the shuffled
@@ -215,7 +247,7 @@ Phases (any failure exits non-zero):
                of the port (LIKE with %, _ and leading and trailing
                segments, literal and column needles, negative and zero
                substring positions, pads longer and shorter than the input)
-               over 2^18 rows with about 5% nulls (strings of byte widths
+               over 2^17 rows with about 5% nulls (strings of byte widths
                0-256, each function once, and 0-24, the other forms, with
                whitespace and multi-byte characters; numeric,
                boolean, date and timestamp text, valid and invalid; dates
@@ -233,25 +265,41 @@ Phases (any failure exits non-zero):
                elements), explode, posexplode and their outer forms, the
                leaves and rand over 4 partitions of 4 batches each, and a
                list column written to Parquet and read through the
-               PERFILE reader (expand_stream must launch), over 2^20 rows
+               PERFILE reader (expand_stream must launch), over 2^18 rows
                with about 5% nulls, on cuda against a port session on
                the CPU, bit for bit; then the kernel launches, copies and
                memsets one evaluation of each expression (and the
                explode's two passes) enqueues; untimed;
+  9f. io-modes — 2^18 rows with about 5% nulls (int32, int64, float32
+               and float64 with NaN and -0.0, bool, date, timestamp,
+               strings of byte widths 0-256 with multi-byte characters, an
+               all-null column) on cuda against a port session on the
+               CPU: the Parquet blob (codecs none, snappy, zstd) and the
+               ORC blob byte for byte, each read back by pyarrow equal to
+               the input; the cache (four partitions, one empty): the
+               blobs byte for byte and the rows exactly; a partitioned
+               write: the same partitions, files and rows; the
+               SELECT-surface queries of tests/test_sql.py (read from its
+               source text) over 2^12 rows of its ``qa`` columns:
+               exactly, floats bit for bit or, where a math function or a
+               float sum rounds differently on the card, to
+               tests/parity.py's tolerance (listed); untimed;
  10. timing  — per kernel at the shapes and on the inputs the q6 paths
-               and the star, window, shuffle, strings, customer-etl and
-               mortgage queries' cold runs gave it (segreduce from every
-               run; later runs' entries are named ``name@q6-parquet``,
-               ``name@q6-perfile``, ``name@star``, ``name@window``,
-               ``name@shuffle`` (from q97's run on the local transport),
-               ``name@strings``, ``name@customer-etl`` and
-               ``name@mortgage``): a check
+               and the star, window, shuffle, strings, customer-etl,
+               mortgage and TPC-H queries' cold runs gave it (segreduce
+               from every run; later runs' entries are named
+               ``name@q6-parquet``, ``name@q6-perfile``, ``name@star``,
+               ``name@window``, ``name@shuffle`` (from q97's run on the
+               local transport), ``name@strings``, ``name@customer-etl``,
+               ``name@mortgage``, ``name@tpch`` and ``name@cache`` (the
+               cached q1/q6 runs)): a check
                against the plain version, its time (CUDA events, L2
                flushed), its bytes bound, the plain version's time and a
                library call's where one computes the same function.
 
 Before each q6 path and each star, window, shuffle, strings,
-customer-etl and mortgage query the kernel launch counts are set to 0,
+customer-etl, mortgage, TPC-H and cached query the kernel launch counts
+are set to 0,
 and they are read just after it: every kernel of the path must have
 launched, with no fallback but the PERFILE path's predicted mixed-width
 ones and the later queries' pinned filterDecode ones.  The line
@@ -260,8 +308,9 @@ card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
 q6p, q6pf, session, pipeline, q6s, star, window, shuffle, strings,
-customer-etl, mortgage, modes, window-modes, shuffle-modes, string-modes,
-tail-modes) runs only those phases and prints no kernel table;
+customer-etl, mortgage, tpch, modes, window-modes, shuffle-modes,
+string-modes, tail-modes, io-modes) runs only those phases and prints no
+kernel table; ``tpch`` alone generates, writes and removes its own files;
 ``customer-etl`` alone writes the star files and the census tables
 itself; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
@@ -298,6 +347,10 @@ Q6_PARTS = 8
 Q6S_FILES = 4
 Q6S_ROWS = Q6S_FILES << 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+# set when every phase runs: the phases that cut their depth for the
+# whole smoke's time limit read it (the shuffle phase's star reruns, the
+# tpch phase's scale)
+WHOLE_SMOKE = False
 OUT_DIR = "chiprun_out"
 LOG_NAME = "chip_smoke.log"
 SOURCES = ["segreduce", "decode", "filter_decode"]
@@ -2298,7 +2351,7 @@ def _check_star_plan(name: str, plan) -> None:
 def phase_star(root: str, tables: dict):
     """q3/q42/q52/q55 at SF10 over Parquet on port sessions: plan checks,
     rows against pyarrow, kernels and routes with the counts set to 0
-    before each query, then the cold wall, 3 warm walls with sections,
+    before each query, then the cold wall, a warm wall with sections,
     one profiler trace and the peak device memory per query.  Returns
     (launches over the four queries, recorded classes, kernel names)."""
     from spark_rapids_tpu_torch.obs import registry as obsreg
@@ -2375,10 +2428,10 @@ def _scan_of_table(plan, prefix: str):
     fail(f"no scan of {prefix}* in the plan")
 
 
-# warm runs per star, window and shuffle query: 3, as in the strings,
-# customer-etl and mortgage phases, to keep the whole smoke inside its
-# time limit
-STAR_WARM = 3
+# warm runs per star, window and shuffle query: 1 (5, then 3 until the
+# tpch phase joined the smoke), as in the strings, customer-etl and
+# mortgage phases, to keep the whole smoke inside its time limit
+STAR_WARM = 1
 
 
 def _star_sections(run, reps: int = STAR_WARM, keys=STAR_SECTIONS) -> dict:
@@ -2562,7 +2615,7 @@ def _check_window_plan(name: str, plan) -> None:
 def phase_window(root: str, tables: dict):
     """q98 and q47 at SF10 over Parquet on port sessions: the plan
     checks, rows against pyarrow and numpy, the kernels with the counts
-    set to 0 before each query, then the cold wall, 3 warm walls with
+    set to 0 before each query, then the cold wall, a warm wall with
     sections, one profiler trace and the peak device memory per query.
     Returns (launches over both queries, recorded classes, kernel
     names)."""
@@ -2618,10 +2671,11 @@ def phase_window(root: str, tables: dict):
     return total, shapes.classes, names
 
 
-# cut from 2^20 rows to 2^18 when the last slice's phases joined the
-# smoke: the CPU session's side of these comparisons grows with the rows,
-# and the whole smoke must stay inside its time limit
-MODES_WINDOW_ROWS = 1 << 18
+# cut from 2^20 rows to 2^18 when the mortgage and customer-etl phases
+# joined the smoke and to 2^17 when the tpch phase did: the CPU session's
+# side of these comparisons grows with the rows, and the whole smoke must
+# stay inside its time limit
+MODES_WINDOW_ROWS = 1 << 17
 
 
 def window_modes_table(n: int, seed: int) -> pa.Table:
@@ -2945,7 +2999,7 @@ def _shuffle_query(tag: str, run, ref, shuffled_how: str, broadcasts: int,
                    key: str, errors: list, shapes=None):
     """One query: a cold run with the counts set to 0 before it (the
     inputs of its kernel calls recorded when ``shapes`` is given), plan,
-    rows, launches and fallbacks; then 3 warm walls with sections, one
+    rows, launches and fallbacks; then a warm wall with sections, one
     trace and the peak device memory.  Returns (output, launches)."""
     from spark_rapids_tpu_torch.obs import registry as obsreg
     view = obsreg.get_registry().view()
@@ -3001,7 +3055,8 @@ def phase_shuffle(root: str, tables: dict):
     classes, the kernels it launched)."""
     t0 = time.perf_counter()
     ref97 = q97_reference(tables)
-    refs = {q: star_reference(q, tables) for q in STAR_QUERIES}
+    star_reruns = () if WHOLE_SMOKE else STAR_QUERIES
+    refs = {q: star_reference(q, tables) for q in star_reruns}
     log(f"shuffle: pyarrow references in {time.perf_counter() - t0:.1f} s;"
         f" q97 {ref97.to_pylist()}")
     errors, rows = [], {}
@@ -3019,9 +3074,13 @@ def phase_shuffle(root: str, tables: dict):
             launches97 = launches
     if rows["local"] != rows["device"]:
         fail(f"shuffle q97: the transports disagree: {rows}")
-    for q in STAR_QUERIES:
+    for q in star_reruns:
         run = query_run(q, root, STAR_TABLES, SHUFFLE_CONF)
         _shuffle_query(f"shuffle {q}", run, refs[q], "inner", 1, q, errors)
+    if not star_reruns:
+        log("shuffle: the star queries at the default threshold are left "
+            "to `python3 chip_smoke.py shuffle` (the whole smoke's time "
+            "limit)")
     if errors:
         fail("; ".join(errors))
     return launches97, shapes.classes, sorted(launches97)
@@ -3030,7 +3089,7 @@ def phase_shuffle(root: str, tables: dict):
 # cut from 2^20 rows to 2^18 when the last slice's phases joined the
 # smoke: the CPU session's side of these comparisons grows with the rows,
 # and the whole smoke must stay inside its time limit
-MODES_SHUFFLE_ROWS = 1 << 18
+MODES_SHUFFLE_ROWS = 1 << 17
 # string keys: a pool of byte widths 0-33, most ending in a multi-byte
 # character (tail bytes >= 0x80)
 _WIDE = ("é", "中", "\U0001f600", "ÿ")
@@ -3215,10 +3274,10 @@ STRINGS_SPLIT_ROWS = 1 << 20
 # the shuffle phase's conf: the default 10 MiB broadcast threshold and
 # the default local transport
 STRINGS_CONF = SHUFFLE_CONF
-# warm runs per query: 2 (5 until the strings phase joined the smoke, 3
-# until the last slice's phases did), to keep the whole smoke inside its
-# time limit
-STRINGS_WARM = 2
+# warm runs per query: 1 (5 until the strings phase joined the smoke, 3
+# until the mortgage and customer-etl phases did, 2 until the tpch phase
+# did), to keep the whole smoke inside its time limit
+STRINGS_WARM = 1
 # the kernel launches of each query, pinned from the first run on the
 # H100: the fused scans' unpack; the dictionary gathers the pushed filters
 # defer (date_dim's everywhere; customer's in q8, item's in q19,
@@ -3574,7 +3633,7 @@ def phase_strings(root: str, tables: dict):
 # cut from 2^20 rows to 2^18 when the last slice's phases joined the
 # smoke: the CPU session's side of these comparisons grows with the rows,
 # and the whole smoke must stay inside its time limit
-MODES_STRING_ROWS = 1 << 18
+MODES_STRING_ROWS = 1 << 17
 _ALNUM = "abAB _%"
 
 
@@ -3825,7 +3884,7 @@ def phase_string_modes() -> None:
 MORT_SF = 1.0
 MORT_SEED = 7
 MORT_PIECES = ("etl", "simple_aggregates", "delinquency_rate")
-MORT_WARM = 3
+MORT_WARM = 1
 # the strings phase's conf (test mode, variableFloatAgg, the default 10 MiB
 # broadcast threshold) with the two-stage aggregate on the device
 # transport.  A single-stage aggregate concatenates every partition's
@@ -4129,7 +4188,7 @@ def phase_mortgage():
     transitions and the name mapping's in-memory scan; the ETL's holds a
     TpuGenerateExec), must match an independent pyarrow/numpy computation
     (row sets without order for the ETL), launches, falls back and routes
-    its joins as pinned, then its cold wall, 3 warm walls with sections
+    its joins as pinned, then its cold wall, a warm wall with sections
     (``generate.count`` and ``generate.emit`` among them), one profiler
     trace and its peak device memory.  Returns (launches over the three,
     recorded classes, kernel names)."""
@@ -4171,7 +4230,7 @@ def phase_mortgage():
 
 CUST_PATTERN = "^c[0-9]*[13579]@example"
 CUST_SEED = 11
-CUST_WARM = 3
+CUST_WARM = 1
 # pinned from the first run on the H100: unpack_bits for the birth year's
 # dictionary codes in each of the 8 fused batches (the key and the
 # address are PLAIN); the RLIKE filter stays a device filter above the
@@ -4267,7 +4326,7 @@ def phase_customer_etl(root: str, customer: pa.Table):
     (no host node but the transitions), the rows against Python's re,
     hashlib and repr, the leaves' structure, rand and the leaves bit for
     bit against a port session on the CPU over the same batches; the
-    pinned launches and fallbacks; the cold wall, 3 warm walls with
+    pinned launches and fallbacks; the cold wall, a warm wall with
     sections, one trace and the peak device memory.  Returns (launches,
     recorded classes, kernel names)."""
     from spark_rapids_tpu_torch.api import TpuSparkSession, col, lit
@@ -4316,7 +4375,8 @@ def phase_customer_etl(root: str, customer: pa.Table):
     return total, shapes.classes, names
 
 
-MODES_TAIL_ROWS = 1 << 20
+# 2^20 rows until the tpch phase joined the smoke (its time limit)
+MODES_TAIL_ROWS = 1 << 18
 TAIL_FLOATS = [0.0, -0.0, float("nan"), float("inf"), float("-inf"),
                5e-324, 2.2250738585072014e-308, 1.7976931348623157e308,
                1e16, 9999999999999998.0, 1e-4, 1e-5, 0.5, 2.5, 4.35, 1.005,
@@ -4578,6 +4638,790 @@ def phase_tail_modes() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 8h. TPC-H from SQL text at SF10: the SQL front end, the cache, the
+# writers with the device encoders and the device handoff; the io modes
+# ---------------------------------------------------------------------------
+
+# SF10 when the phase runs alone (``python3 chip_smoke.py tpch``, about
+# 600 s on the H100); SF 2 in the whole smoke, whose time limit neither
+# SF10 nor SF 5 fits (the whole smoke took 1402.2 s with SF 5)
+TPCH_SF = 10.0
+TPCH_SF_WHOLE = 2.0
+TPCH_SEED = 7
+TPCH_SQL = ("q1", "q3", "q5", "q6", "q10", "q12", "q14", "q19")
+TPCH_WARM = 2
+# the mortgage phase's conf: test mode, variableFloatAgg, the default
+# 10 MiB broadcast threshold (lineitem's and orders' joins shuffle), and
+# the two-stage aggregate on the device transport.  The single-stage
+# aggregate concatenates every batch's partial at its input capacity (the
+# reference's layout): q1's merge over lineitem's partials ran out of the
+# card (73.22 GiB allocated by torch when it failed, H100 80GB).
+TPCH_CONF = MORT_CONF
+# the kernel launches, fallbacks and join routes of each query at each
+# scale, pinned from the first run on the H100: the fused scans' unpack
+# of the dictionary codes and the aggregates' gathered segmented scans
+# everywhere, q1's COUNT(*) through seg_scan_sorted.  Only q1 and q6 read
+# one table, so only their WHERE clauses sit directly above a scan and
+# are pushed into it (the dictionary gathers decode / decode_str and the
+# condition columns' filterDecode fallbacks); the SQL front end, like the
+# reference's, keeps the other queries' WHERE clauses above their joins.
+# q5's nation/region joins take the probe route, the rest the sort route
+TPCH_COUNTS = {
+    10.0: {"q1": {"decode.unpack_bits": 256, "filter_decode.decode": 192,
+                  "filter_decode.decode_str": 64,
+                  "segreduce.gather_seg_scan": 56,
+                  "segreduce.seg_scan_sorted": 4},
+           "q3": {"decode.unpack_bits": 169, "segreduce.gather_seg_scan": 16},
+           "q5": {"decode.unpack_bits": 176, "segreduce.gather_seg_scan": 8},
+           "q6": {"decode.unpack_bits": 192, "filter_decode.decode": 32,
+                  "segreduce.gather_seg_scan": 66},
+           "q10": {"decode.unpack_bits": 170,
+                   "segreduce.gather_seg_scan": 16},
+           "q12": {"decode.unpack_bits": 72, "segreduce.gather_seg_scan": 8},
+           "q14": {"decode.unpack_bits": 161,
+                   "segreduce.gather_seg_scan": 36},
+           "q19": {"decode.unpack_bits": 226,
+                   "segreduce.gather_seg_scan": 18}},
+    2.0: {"q1": {"decode.unpack_bits": 64, "filter_decode.decode": 48,
+                 "filter_decode.decode_str": 16,
+                 "segreduce.gather_seg_scan": 56,
+                 "segreduce.seg_scan_sorted": 4},
+          "q3": {"decode.unpack_bits": 43, "segreduce.gather_seg_scan": 16},
+          "q5": {"decode.unpack_bits": 40, "segreduce.gather_seg_scan": 8},
+          "q6": {"decode.unpack_bits": 48, "filter_decode.decode": 8,
+                 "segreduce.gather_seg_scan": 18},
+          "q10": {"decode.unpack_bits": 44, "segreduce.gather_seg_scan": 16},
+          "q12": {"decode.unpack_bits": 18, "segreduce.gather_seg_scan": 8},
+          "q14": {"decode.unpack_bits": 41, "segreduce.gather_seg_scan": 36},
+          "q19": {"decode.unpack_bits": 58,
+                  "segreduce.gather_seg_scan": 18}}}
+TPCH_FALLBACKS = {
+    sf: dict({q: {} for q in TPCH_SQL},
+             q1={"scan.filterDecode.condition_column": 32 // per},
+             q6={"scan.filterDecode.condition_column": 96 // per})
+    for sf, per in ((10.0, 1), (2.0, 4))}
+_NO_JOIN = {"join.route.probe": 0, "join.route.sort": 0}
+# the same at both scales: one pair per exchange partition
+TPCH_ROUTES = {sf: {
+    "q1": _NO_JOIN, "q6": _NO_JOIN,
+    "q3": {"join.route.probe": 0, "join.route.sort": 16},
+    "q5": {"join.route.probe": 16, "join.route.sort": 24},
+    "q10": {"join.route.probe": 8, "join.route.sort": 16},
+    "q12": {"join.route.probe": 0, "join.route.sort": 8},
+    "q14": {"join.route.probe": 0, "join.route.sort": 8},
+    "q19": {"join.route.probe": 0, "join.route.sort": 8}}
+    for sf in (10.0, 2.0)}
+TPCH_SECTIONS = SHUFFLE_SECTIONS + STRINGS_EVAL
+# the lineitem columns q1 and q6 read: the cached relation's projection
+CACHE_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+                 "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+CACHE_QUERIES = ("q1", "q6")
+# launches and fallbacks of each (query, round) over the cached lineitem
+# at each scale, pinned from the first run on the H100: the first run's
+# materializing scan unpacks the dictionary codes; every run expands the
+# five non-string columns' def-level streams (one launch per column and
+# blob) and aggregates
+def _cache_counts(blobs: int, unpack: int) -> dict:
+    q1 = {"decode.expand_stream": 5 * blobs, "segreduce.gather_seg_scan": 56,
+          "segreduce.seg_scan_sorted": 4}
+    q6 = {"decode.expand_stream": 5 * blobs,
+          "segreduce.gather_seg_scan": 2 * blobs + 2}
+    return {"q1#1": dict(q1, **{"decode.unpack_bits": unpack}),
+            "q6#1": q6, "q1#2": q1, "q6#2": q6}
+
+
+# lineitem's scan gives 32 blobs at SF10 and 8 at SF 2
+CACHE_COUNTS = {10.0: _cache_counts(32, 256), 2.0: _cache_counts(8, 64)}
+CACHE_FALLBACKS = {sf: {k: {} for k in ("q1#1", "q6#1", "q1#2", "q6#2")}
+                   for sf in (10.0, 2.0)}
+HANDOFF_DEVICE = "cuda"
+
+
+def write_tpch_files(root: str, sf: float) -> dict:
+    """The port's ``tpch.generate(sf, TPCH_SEED)``: each table of
+    more than 2^20 rows in STAR_FILES files, the others in one, written
+    by 8 threads (dictionary-encoded, pyarrow's defaults); returns the
+    tables."""
+    from spark_rapids_tpu_torch.bench import tpch
+    t0 = time.perf_counter()
+    t = tpch.generate(sf, TPCH_SEED)
+    t1 = time.perf_counter()
+    write_parts(root, t, lambda _n, table: STAR_FILES if
+                table.num_rows > STRINGS_SPLIT_ROWS else 1)
+    log(f"tpch files: generated "
+        f"{', '.join(f'{k} {v.num_rows} rows' for k, v in t.items())} at "
+        f"SF {sf:g} in {t1 - t0:.1f} s, wrote them in "
+        f"{time.perf_counter() - t1:.1f} s")
+    return t
+
+
+def _date(y: int, m: int, d: int):
+    import datetime
+    return pa.scalar(datetime.date(y, m, d), pa.date32())
+
+
+def _revenue(t: pa.Table):
+    return pc.multiply(t["l_extendedprice"],
+                       pc.subtract(pa.scalar(1.0), t["l_discount"]))
+
+
+def _between(a, lo, hi):
+    return pc.and_(pc.greater_equal(a, lo), pc.less_equal(a, hi))
+
+
+def tpch_reference(name: str, t: dict) -> pa.Table:
+    """One of the eight SQL queries computed by pyarrow alone (filters,
+    ``Table.join``, ``group_by``, ``sort_by``) from the generated tables."""
+    L, O, C = t["lineitem"], t["orders"], t["customer"]
+    inner = partial(pa.Table.join, join_type="inner")
+    if name == "q1":
+        li = L.filter(pc.less_equal(L["l_shipdate"], _date(1998, 9, 2)))
+        dp = _revenue(li)
+        g = pa.table({
+            "f": li["l_returnflag"], "s": li["l_linestatus"],
+            "q": li["l_quantity"], "p": li["l_extendedprice"], "dp": dp,
+            "ch": pc.multiply(dp, pc.add(pa.scalar(1.0), li["l_tax"])),
+            "d": li["l_discount"]}).group_by(["f", "s"]).aggregate([
+                ("q", "sum"), ("p", "sum"), ("dp", "sum"), ("ch", "sum"),
+                ("q", "mean"), ("p", "mean"), ("d", "mean"),
+                ("q", "count", pc.CountOptions(mode="all"))])
+        g = g.sort_by([("f", "ascending"), ("s", "ascending")])
+        return pa.table({
+            "l_returnflag": g["f"], "l_linestatus": g["s"],
+            "sum_qty": g["q_sum"], "sum_base_price": g["p_sum"],
+            "sum_disc_price": g["dp_sum"], "sum_charge": g["ch_sum"],
+            "avg_qty": g["q_mean"], "avg_price": g["p_mean"],
+            "avg_disc": g["d_mean"], "count_order": g["q_count"]})
+    if name == "q3":
+        c = C.filter(pc.equal(C["c_mktsegment"], "BUILDING")) \
+            .select(["c_custkey"])
+        o = O.filter(pc.less(O["o_orderdate"], _date(1995, 3, 15))).select(
+            ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"])
+        co = inner(o, c, "o_custkey", "c_custkey")
+        li = L.filter(pc.greater(L["l_shipdate"], _date(1995, 3, 15))) \
+            .select(["l_orderkey", "l_extendedprice", "l_discount"])
+        j = inner(li, co, "l_orderkey", "o_orderkey")
+        j = j.append_column("rev", _revenue(j))
+        g = j.group_by(["l_orderkey", "o_orderdate", "o_shippriority"]) \
+            .aggregate([("rev", "sum")])
+        g = g.sort_by([("rev_sum", "descending"),
+                       ("o_orderdate", "ascending")]).slice(0, 10)
+        return pa.table({"l_orderkey": g["l_orderkey"],
+                         "revenue": g["rev_sum"],
+                         "o_orderdate": g["o_orderdate"],
+                         "o_shippriority": g["o_shippriority"]})
+    if name == "q5":
+        r = t["region"].filter(pc.equal(t["region"]["r_name"], "ASIA"))
+        n = inner(t["nation"].select(["n_nationkey", "n_name",
+                                      "n_regionkey"]),
+                  r.select(["r_regionkey"]), "n_regionkey", "r_regionkey")
+        s = inner(t["supplier"].select(["s_suppkey", "s_nationkey"]),
+                  n.select(["n_nationkey", "n_name"]), "s_nationkey",
+                  "n_nationkey")
+        o = O.filter(pc.and_(
+            pc.greater_equal(O["o_orderdate"], _date(1994, 1, 1)),
+            pc.less(O["o_orderdate"], _date(1995, 1, 1)))) \
+            .select(["o_orderkey", "o_custkey"])
+        co = inner(o, C.select(["c_custkey", "c_nationkey"]), "o_custkey",
+                   "c_custkey")
+        lco = inner(L.select(["l_orderkey", "l_suppkey", "l_extendedprice",
+                              "l_discount"]), co, "l_orderkey", "o_orderkey")
+        j = inner(lco, s, ["l_suppkey", "c_nationkey"],
+                  ["s_suppkey", "s_nationkey"])
+        j = j.append_column("rev", _revenue(j))
+        g = j.group_by(["n_name"]).aggregate([("rev", "sum")]) \
+            .sort_by([("rev_sum", "descending")])
+        return pa.table({"n_name": g["n_name"], "revenue": g["rev_sum"]})
+    if name == "q6":
+        li = L.filter(pc.and_(pc.and_(
+            pc.greater_equal(L["l_shipdate"], _date(1994, 1, 1)),
+            pc.less(L["l_shipdate"], _date(1995, 1, 1))), pc.and_(
+            _between(L["l_discount"], 0.05, 0.07),
+            pc.less(L["l_quantity"], 24.0))))
+        return pa.table({"revenue": [pc.sum(pc.multiply(
+            li["l_extendedprice"], li["l_discount"])).as_py()]})
+    if name == "q10":
+        o = O.filter(pc.and_(
+            pc.greater_equal(O["o_orderdate"], _date(1993, 10, 1)),
+            pc.less(O["o_orderdate"], _date(1994, 1, 1)))) \
+            .select(["o_orderkey", "o_custkey"])
+        li = L.filter(pc.equal(L["l_returnflag"], "R")).select(
+            ["l_orderkey", "l_extendedprice", "l_discount"])
+        j = inner(li, o, "l_orderkey", "o_orderkey")
+        j = j.append_column("rev", _revenue(j))
+        g = j.group_by(["o_custkey"]).aggregate([("rev", "sum")])
+        c = inner(C.select(["c_custkey", "c_name", "c_acctbal", "c_phone",
+                            "c_nationkey", "c_address", "c_comment"]),
+                  t["nation"].select(["n_nationkey", "n_name"]),
+                  "c_nationkey", "n_nationkey")
+        g = inner(g, c, "o_custkey", "c_custkey").sort_by(
+            [("rev_sum", "descending"), ("o_custkey", "ascending")]) \
+            .slice(0, 20)
+        return pa.table({"c_custkey": g["o_custkey"], "c_name": g["c_name"],
+                         "revenue": g["rev_sum"],
+                         "c_acctbal": g["c_acctbal"], "n_name": g["n_name"],
+                         "c_address": g["c_address"],
+                         "c_phone": g["c_phone"],
+                         "c_comment": g["c_comment"]})
+    if name == "q12":
+        li = L.filter(pc.and_(pc.and_(
+            pc.is_in(L["l_shipmode"], pa.array(["MAIL", "SHIP"])),
+            pc.less(L["l_commitdate"], L["l_receiptdate"])), pc.and_(
+            pc.less(L["l_shipdate"], L["l_commitdate"]), pc.and_(
+                pc.greater_equal(L["l_receiptdate"], _date(1994, 1, 1)),
+                pc.less(L["l_receiptdate"], _date(1995, 1, 1)))))) \
+            .select(["l_orderkey", "l_shipmode"])
+        j = inner(li, O.select(["o_orderkey", "o_orderpriority"]),
+                  "l_orderkey", "o_orderkey")
+        high = pc.cast(pc.is_in(j["o_orderpriority"],
+                                pa.array(["1-URGENT", "2-HIGH"])), pa.int64())
+        g = pa.table({"m": j["l_shipmode"], "h": high,
+                      "lo": pc.subtract(1, high)}).group_by(["m"]) \
+            .aggregate([("h", "sum"), ("lo", "sum")]) \
+            .sort_by([("m", "ascending")])
+        return pa.table({"l_shipmode": g["m"], "high_line_count": g["h_sum"],
+                         "low_line_count": g["lo_sum"]})
+    if name == "q14":
+        li = L.filter(pc.and_(
+            pc.greater_equal(L["l_shipdate"], _date(1995, 9, 1)),
+            pc.less(L["l_shipdate"], _date(1995, 10, 1)))).select(
+            ["l_partkey", "l_extendedprice", "l_discount"])
+        j = inner(li, t["part"].select(["p_partkey", "p_type"]),
+                  "l_partkey", "p_partkey")
+        rev = _revenue(j)
+        promo = pc.if_else(pc.starts_with(j["p_type"], "PROMO"), rev, 0.0)
+        return pa.table({"promo_revenue": [
+            pc.sum(promo).as_py() * 100.0 / pc.sum(rev).as_py()]})
+    # q19
+    li = L.filter(pc.and_(
+        pc.is_in(L["l_shipmode"], pa.array(["AIR", "REG AIR"])),
+        pc.equal(L["l_shipinstruct"], "DELIVER IN PERSON"))).select(
+        ["l_partkey", "l_quantity", "l_extendedprice", "l_discount"])
+    j = inner(li, t["part"].select(["p_partkey", "p_brand", "p_container",
+                                    "p_size"]), "l_partkey", "p_partkey")
+    cond = None
+    for brand, cont, qlo, qhi, shi in (
+            ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 11,
+             5),
+            ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10,
+             20, 10),
+            ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20, 30,
+             15)):
+        one = pc.and_(pc.and_(
+            pc.equal(j["p_brand"], brand),
+            pc.is_in(j["p_container"], pa.array(list(cont)))), pc.and_(
+            _between(j["l_quantity"], float(qlo), float(qhi)),
+            _between(j["p_size"], 1, shi)))
+        cond = one if cond is None else pc.or_(cond, one)
+    return pa.table({"revenue": [pc.sum(_revenue(j.filter(cond))).as_py()]})
+
+
+def tpch_session(root: str, conf: dict):
+    """A port session on cuda with the TPC-H files registered as temp
+    views (``setup_from_dir``, ``create_or_replace_temp_view``); returns
+    (session, the DataFrames by table)."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.bench import tpch
+    s = TpuSparkSession(dict(TPCH_CONF, **conf), device="cuda")
+    t = tpch.setup_from_dir(s, root)
+    for n, df in t.items():
+        df.create_or_replace_temp_view(n)
+    return s, t
+
+
+def tpch_run(name: str, root: str, sql: bool = True, views=None):
+    """run(conf) -> (Arrow output, planned plan) of one TPC-H query on a
+    fresh port session on cuda: its SQL text through ``session.sql``, or
+    its DataFrame form.  ``views(session, tables)`` may replace views."""
+    from spark_rapids_tpu_torch.bench import tpch
+
+    def run(conf):
+        s, t = tpch_session(root, conf)
+        if views is not None:
+            views(s, t)
+        plans = []
+        s.add_plan_listener(lambda r: plans.append(r.plan))
+        df = s.sql(tpch.SQL_QUERIES[name]) if sql else tpch.QUERIES[name](t)
+        return df.collect(), plans[-1]
+    return run
+
+
+def _parse_and_plan_ms(root: str, name: str):
+    """Median of 5 of the parse (``session.sql``) and of the planning
+    (``_plan_physical``) of one SQL text, in ms."""
+    from spark_rapids_tpu_torch.bench import tpch
+    s, _t = tpch_session(root, {})
+    parse, plan = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        df = s.sql(tpch.SQL_QUERIES[name])
+        t1 = time.perf_counter()
+        s._plan_physical(df.plan)
+        plan.append(time.perf_counter() - t1)
+        parse.append(t1 - t0)
+    return statistics.median(parse) * 1e3, statistics.median(plan) * 1e3
+
+
+def _tpch_sql_queries(root: str, t: dict, sf: float, shapes, errors, total,
+                      names):
+    """The eight SQL texts at SF10; returns their outputs by name."""
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    outs = {}
+    for q in TPCH_SQL:
+        tag = f"tpch {q}"
+        t0 = time.perf_counter()
+        ref = tpch_reference(q, t)
+        log(f"{tag}: pyarrow reference {ref.num_rows} rows in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def check(out, ref=ref, tag=tag):
+            rel = check_rows(tag, out, ref)
+            outs[tag.split(" ")[1]] = out
+            return f"match pyarrow (float max rel {rel:.3g}): " \
+                f"{out.to_pylist()[:2]}"
+        parse_ms, plan_ms = _parse_and_plan_ms(root, q)
+        log(f"{tag}: parse {parse_ms:.2f} ms, planning {plan_ms:.2f} ms "
+            f"(median of 5)")
+        view = obsreg.get_registry().view()
+        _etl_query(tag, tpch_run(q, root), check,
+                   (TPCH_COUNTS[sf], TPCH_FALLBACKS[sf], TPCH_ROUTES[sf]),
+                   shapes,
+                   errors, total, names, TPCH_WARM, TPCH_SECTIONS,
+                   routes=True)
+        counters = view.delta()["counters"]
+        log(f"{tag}: join host syncs "
+            f"{int(counters.get('join.hostSyncs', 0))}, hash rounds "
+            f"{int(counters.get('join.hashRounds', 0))} (cold and warm runs)")
+        kb.reset_counts()
+        t0 = time.perf_counter()
+        df_out, _plan = tpch_run(q, root, sql=False)({})
+        rel = check_rows(f"{tag} DataFrame form", df_out, outs[q])
+        log(f"{tag}: the DataFrame form QUERIES[{q!r}] on the card equals "
+            f"the SQL text's rows (float max rel {rel:.3g}; "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    return outs
+
+
+def _tpch_cache(root: str, outs: dict, sf: float, shapes, errors):
+    """lineitem's q1/q6 columns cached and registered as the lineitem
+    view; q1 and q6 twice each.  Returns (launches, kernel names)."""
+    from spark_rapids_tpu_torch.bench import tpch
+    from spark_rapids_tpu_torch.exec import cache as cache_mod
+    s, t = tpch_session(root, {})
+    cached = t["lineitem"].select(*CACHE_COLUMNS).cache()
+    cached.create_or_replace_temp_view("lineitem")
+    rel = cached.plan
+    mat = []
+    real = cache_mod.materialize
+
+    def timed_materialize(relation, *args, **kw):
+        t0 = time.perf_counter()
+        was = relation.materialized
+        real(relation, *args, **kw)
+        torch.cuda.synchronize()
+        if not was:
+            mat.append(time.perf_counter() - t0)
+    cache_mod.materialize = timed_materialize
+    total, names, plans = {}, [], []
+    s.add_plan_listener(lambda r: plans.append(r.plan))
+    try:
+        for rnd in (1, 2):
+            for q in CACHE_QUERIES:
+                tag = f"cache {q} #{rnd}"
+                kb.reset_counts()
+                t0 = time.perf_counter()
+                with shapes:
+                    out = s.sql(tpch.SQL_QUERIES[q]).collect()
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+                plan = plans[-1]
+                names_ = _check_host_free(tag, plan,
+                                          ("TpuInMemoryTableScanExec",))
+                if not out.equals(outs[q]):
+                    check_rows(tag, out, outs[q])
+                    fail(f"{tag}: rows equal the uncached query's only to "
+                         f"the float tolerance, not exactly")
+                scan = next(n for n in _plan_nodes(plan)
+                            if type(n).__name__ == "TpuInMemoryTableScanExec")
+                log(f"{tag}: {out.num_rows} rows equal the uncached query's "
+                    f"exactly; wall {wall * 1e3:.1f} ms; cache.decode "
+                    f"{scan.metrics.extra.get('cache.decode', 0) / 1e6:.1f} "
+                    f"ms; host-decoded columns "
+                    f"{scan.metrics.extra['fallbackColumns']}; launches "
+                    f"{launches}; fallbacks {fallbacks}; expand_stream "
+                    f"launches {launches.get('decode.expand_stream', 0)}")
+                detail(f"{tag} plan:\n{plan.tree_string()} ({names_})")
+                key = f"{q}#{rnd}"
+                _pinned(tag, launches, CACHE_COUNTS[sf], key, errors)
+                _pinned(tag, fallbacks, CACHE_FALLBACKS[sf], key, errors)
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                names += [k for k in launches if k not in names]
+                if rnd == 1 and q == CACHE_QUERIES[0]:
+                    if rel.device_encoded is not True:
+                        fail("cache: the first collect did not materialize "
+                             "through the device encoder")
+                    blob_bytes = sum(len(b) for b in rel.blobs)
+                    log(f"cache: materialized {len(rel.blobs)} blobs of "
+                        f"{blob_bytes} bytes (lineitem's "
+                        f"{len(CACHE_COLUMNS)} q1/q6 columns) through the "
+                        f"device encoder in {mat[0] * 1e3:.1f} ms")
+        if len(mat) != 1:
+            fail(f"cache: materialized {len(mat)} times, not once")
+    finally:
+        cache_mod.materialize = real
+    return total, names
+
+
+def _read_back(path: str, fmt: str) -> pa.Table:
+    files = sorted(f for f in os.listdir(path) if f.endswith("." + fmt))
+    if fmt == "orc":
+        import pyarrow.orc as paorc
+        return pa.concat_tables(paorc.ORCFile(os.path.join(path, f)).read()
+                                for f in files)
+    return pa.concat_tables(papq.read_table(os.path.join(path, f))
+                            for f in files)
+
+
+def _same_rows(tag: str, got: pa.Table, want: pa.Table, key) -> str:
+    """In order when the write kept the scan's order; else as row sets."""
+    if got.schema.equals(want.schema) and got.equals(want):
+        return "in order"
+    check_rows_unordered(tag, got, want, key)
+    return "as row sets"
+
+
+def _tpch_write(root: str, t: dict, outs: dict):
+    """lineitem to Parquet (snappy) and orders to ORC, each read from the
+    pyarrow files and encoded on the device; read back by pyarrow; q6 over
+    the written lineitem."""
+    from spark_rapids_tpu_torch.bench import tpch
+    from spark_rapids_tpu_torch.io import orc_encode, parquet_encode
+    s, tables = tpch_session(root, {})
+    for fmt, name, mod, key in (
+            ("parquet", "lineitem", parquet_encode,
+             lambda x: x["l_orderkey"].to_numpy() * 8 +
+             x["l_linenumber"].to_numpy()),
+            ("orc", "orders", orc_encode,
+             lambda x: x["o_orderkey"].to_numpy())):
+        calls = []
+        real = mod.encode_batch
+
+        def counting(batch, *a, real=real, calls=calls, **kw):
+            calls.append(int(batch.num_rows))
+            return real(batch, *a, **kw)
+        mod.encode_batch = counting
+        out_dir = os.path.join(root, f"written-{name}")
+        try:
+            w = tables[name].write
+            if fmt == "parquet":
+                w = w.option("compression", "snappy")
+            t0 = time.perf_counter()
+            stats = getattr(w, fmt)(out_dir)
+            wall = time.perf_counter() - t0
+        finally:
+            mod.encode_batch = real
+        if not calls or len(calls) != stats.num_files or \
+                min(calls) <= 0 or sum(calls) != t[name].num_rows:
+            fail(f"write {name}: {len(calls)} encode_batch calls of "
+                 f"{calls} rows for {stats.num_files} files of "
+                 f"{stats.num_rows} rows")
+        t1 = time.perf_counter()
+        back = _read_back(out_dir, fmt)
+        how = _same_rows(f"write {name}", back, t[name], key)
+        log(f"write {name} ({fmt}, device encoder): {stats.num_rows} rows "
+            f"in {stats.num_files} files ({len(calls)} encode_batch calls, "
+            f"one per non-empty partition), {stats.num_bytes} bytes, wall "
+            f"{wall * 1e3:.1f} ms = {stats.num_rows / wall:.0f} rows/s; "
+            f"pyarrow reads it back equal to the table {how} (in "
+            f"{time.perf_counter() - t1:.1f} s)")
+        del back
+    s2, _ = tpch_session(root, {})
+    s2.read.parquet(os.path.join(root, "written-lineitem")) \
+        .create_or_replace_temp_view("lineitem")
+    q6 = s2.sql(tpch.SQL_QUERIES["q6"]).collect()
+    rel = check_rows("write q6", q6, outs["q6"])
+    log(f"write: q6 over the written lineitem {q6.to_pylist()} equals q6 "
+        f"over the original (float rel {rel:.3g})")
+
+
+def _tpch_handoff(root: str) -> None:
+    """``collect_device()`` of q6's filtered lineitem (the columns q6
+    reads): CUDA tensors whose rows equal ``collect()``."""
+    from spark_rapids_tpu_torch.api import col, lit
+    from spark_rapids_tpu_torch.columnar.batch import to_arrow_all
+    import datetime
+    _s, t = tpch_session(root, {})
+    df = t["lineitem"].select(
+        "l_shipdate", "l_discount", "l_quantity", "l_extendedprice").filter(
+        (col("l_shipdate") >= lit(datetime.date(1994, 1, 1)))
+        & (col("l_shipdate") < lit(datetime.date(1995, 1, 1)))
+        & (col("l_discount") >= lit(0.05)) & (col("l_discount") <= lit(0.07))
+        & (col("l_quantity") < lit(24.0)))
+    t0 = time.perf_counter()
+    batches = df.collect_device()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    devs = {a.device.type for b in batches for c in b.columns
+            for a in (c.data, c.validity, c.lengths) if a is not None}
+    if not batches or devs != {HANDOFF_DEVICE}:
+        fail(f"handoff: {len(batches)} batches on {devs}")
+    got = pa.concat_tables(to_arrow_all(batches))
+    want = df.collect()
+    if not got.equals(want):
+        fail("handoff: the device batches' rows differ from collect()")
+    log(f"handoff: collect_device() gave {len(batches)} batches on "
+        f"{sorted(devs)} in {wall * 1e3:.1f} ms; their {got.num_rows} rows "
+        f"equal collect()'s")
+
+
+def phase_tpch():
+    """TPC-H at SF10 (SF 2 in the whole smoke) through ``session.sql``
+    over temp views on port sessions on cuda: the eight SQL texts (plan, pyarrow reference, the
+    DataFrame form, pinned launches, fallbacks and routes, parse and
+    planning time, cold and warm walls with sections, a trace, peak
+    memory), then the cache, the writers and the device handoff.
+    Returns ((launches, classes, names) of the SQL queries, the same of
+    the cached ones)."""
+    sf = TPCH_SF_WHOLE if WHOLE_SMOKE else TPCH_SF
+    root = _parquet_dir("tpch")
+    try:
+        t = write_tpch_files(root, sf)
+        errors, total, names = [], {}, []
+        shapes = ShapeRecorder()
+        outs = _tpch_sql_queries(root, t, sf, shapes, errors, total, names)
+        cache_shapes = ShapeRecorder()
+        c_total, c_names = _tpch_cache(root, outs, sf, cache_shapes,
+                                       errors)
+        _tpch_handoff(root)
+        _tpch_write(root, t, outs)
+        if errors:
+            fail("; ".join(errors))
+        return (total, shapes.classes, names), \
+            (c_total, cache_shapes.classes, c_names)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+MODES_IO_ROWS = 1 << 18
+# the join surface's self-joins on a 6-value key grow with the square of
+# the rows (2^16 rows: ~180M joined rows, 101 s on a CPU session)
+MODES_SQL_ROWS = 1 << 12
+IO_CODECS = ("none", "snappy", "zstd")
+
+
+def io_modes_table(n: int, seed: int) -> pa.Table:
+    """Every encoder type with about 5% nulls: int32, int64, float32 and
+    float64 (NaN and -0.0 among them), bool, date, timestamp, strings of
+    byte widths 0-256 with multi-byte characters, an all-null column, a
+    partition key and the row number."""
+    rng = np.random.default_rng(seed)
+
+    def nulls():
+        return rng.random(n) < 0.05
+    f64 = rng.normal(size=n) * 1e3
+    f64[rng.random(n) < 0.03] = np.nan
+    f64[rng.random(n) < 0.03] = -0.0
+    f32 = rng.normal(size=n).astype(np.float32)
+    f32[rng.random(n) < 0.03] = np.float32(np.nan)
+    f32[rng.random(n) < 0.03] = np.float32(-0.0)
+    pool = _string_modes_pool(rng, 4096, 256)
+    return pa.table({
+        "row": pa.array(np.arange(n), pa.int64()),
+        "k": pa.array(rng.integers(0, 5, n), pa.int32(), mask=nulls()),
+        "i32": pa.array(rng.integers(-2**31, 2**31 - 1, n), pa.int32(),
+                        mask=nulls()),
+        "i64": pa.array(rng.integers(-10**15, 10**15, n), pa.int64(),
+                        mask=nulls()),
+        "f32": pa.array(f32, mask=nulls()),
+        "f64": pa.array(f64, mask=nulls()),
+        "b": pa.array(rng.random(n) < 0.5, mask=nulls()),
+        "d": pa.array(rng.integers(-30000, 30000, n), pa.int32(),
+                      mask=nulls()).cast(pa.date32()),
+        "s": pa.array(pool, pa.string()).take(
+            pa.array(rng.integers(0, len(pool), n), mask=nulls())),
+        "none": pa.array([None] * n, pa.int64()),
+        "ts": pa.array(rng.integers(-2 * 10**15, 2 * 10**15, n), pa.int64(),
+                       mask=nulls()).cast(pa.timestamp("us", tz="UTC")),
+    })
+
+
+def _qa_modes_table(n: int, seed: int) -> pa.Table:
+    """tests/test_sql.py's ``qa`` columns (ik, sk, b, s, i, l, f, d, bo,
+    st, dt, ts) over ``n`` rows with about 5% nulls."""
+    rng = np.random.default_rng(seed)
+
+    def nulls():
+        return rng.random(n) < 0.05
+    small = ["".join(rng.choice(list("abcdef"), int(rng.integers(0, 4))))
+             for _ in range(64)]
+    pool = _string_modes_pool(rng, 2048, 24)
+
+    def ints(lo, hi, typ):
+        return pa.array(rng.integers(lo, hi, n), typ, mask=nulls())
+    return pa.table({
+        "ik": ints(0, 6, pa.int32()),
+        "sk": pa.array(small, pa.string()).take(
+            pa.array(rng.integers(0, len(small), n), mask=nulls())),
+        "b": ints(-128, 128, pa.int8()), "s": ints(-2**15, 2**15, pa.int16()),
+        "i": ints(-2**31, 2**31, pa.int32()),
+        "l": ints(-2**62, 2**62, pa.int64()),
+        "f": pa.array(rng.normal(size=n).astype(np.float32) * 100,
+                      mask=nulls()),
+        "d": pa.array(rng.normal(size=n) * 1e4, mask=nulls()),
+        "bo": pa.array(rng.random(n) < 0.5, mask=nulls()),
+        "st": pa.array(pool, pa.string()).take(
+            pa.array(rng.integers(0, len(pool), n), mask=nulls())),
+        "dt": ints(0, 40000, pa.int32()).cast(pa.date32()),
+        "ts": ints(0, 2 * 10**15, pa.int64()).cast(
+            pa.timestamp("us", tz="UTC")),
+    })
+
+
+def sql_surface_queries() -> list:
+    """The SELECT-surface queries of tests/test_sql.py (``_QA_SWEEP``,
+    ``_QA_SWEEP2``, ``_QA_JOINS``), read from its source text."""
+    import ast
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "test_sql.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = []
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", "") in ("_QA_SWEEP", "_QA_SWEEP2",
+                                         "_QA_JOINS") for t in node.targets):
+            out += ast.literal_eval(node.value)
+    if len(out) < 100:
+        fail(f"io-modes: read {len(out)} SELECT-surface queries")
+    return out
+
+
+def _close_floats(tag: str, got: pa.Table, want: pa.Table) -> int:
+    """:func:`_bit_equal` but for float columns, which may differ in their
+    last bits (the card's math functions and the segmented scan's add
+    tree differ from the CPU's): those to tests/parity.py's tolerance.
+    Returns the number of float columns that were not bit for bit."""
+    loose = 0
+    if got.column_names != want.column_names or \
+            got.num_rows != want.num_rows:
+        fail(f"{tag}: {got.column_names} x {got.num_rows} != "
+             f"{want.column_names} x {want.num_rows}")
+    for c in want.column_names:
+        a, b = got[c].combine_chunks(), want[c].combine_chunks()
+        if not pa.types.is_floating(b.type):
+            _bit_equal_array(tag, c, a, b)
+            continue
+        if not a.is_valid().equals(b.is_valid()):
+            fail(f"{tag}: column {c}: nulls differ")
+        x = a.fill_null(0).to_numpy(zero_copy_only=False)
+        y = b.fill_null(0).to_numpy(zero_copy_only=False)
+        if np.array_equal(x.view(f"i{x.itemsize}"), y.view(f"i{y.itemsize}")):
+            continue
+        ok = np.isclose(x, y, rtol=1e-9, atol=1e-11, equal_nan=True)
+        if not ok.all():
+            i = int(np.flatnonzero(~ok)[0])
+            fail(f"{tag}: column {c} row {i}: {x[i]!r} != {y[i]!r}")
+        loose += 1
+    return loose
+
+
+def phase_io_modes() -> None:
+    """The encoders, the cache, the partitioned write and the SQL surface
+    on cuda against a port session on the CPU: the blobs byte for byte,
+    pyarrow's read-back, the rows.  Untimed."""
+    import io as _io
+    import pyarrow.orc as paorc
+    from spark_rapids_tpu_torch.api import TpuSparkSession, col
+    from spark_rapids_tpu_torch.columnar.batch import from_arrow
+    from spark_rapids_tpu_torch.io import orc_encode, parquet_encode
+    t0 = time.perf_counter()
+    table = io_modes_table(MODES_IO_ROWS, 23)
+    blobs = 0
+    for codec in IO_CODECS:
+        got = parquet_encode.encode_batch(from_arrow(table, device="cuda"),
+                                          codec=codec)
+        want = parquet_encode.encode_batch(from_arrow(table, device="cpu"),
+                                           codec=codec)
+        if got != want:
+            fail(f"io-modes: the parquet blob ({codec}) on cuda differs "
+                 f"from the CPU's")
+        _bit_equal(f"io-modes parquet {codec} read back",
+                   papq.read_table(_io.BytesIO(got)), table)
+        blobs += 1
+    no_ts = table.drop(["ts"])
+    got = orc_encode.encode_batch(from_arrow(no_ts, device="cuda"))
+    if got != orc_encode.encode_batch(from_arrow(no_ts, device="cpu")):
+        fail("io-modes: the ORC blob on cuda differs from the CPU's")
+    back = paorc.ORCFile(_io.BytesIO(got)).read()
+    _bit_equal("io-modes orc read back", back, no_ts.cast(back.schema))
+    blobs += 1
+    base = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+            "spark.rapids.tpu.sql.castStringToFloat.enabled": True}
+    sessions = {d: TpuSparkSession(base, device=d) for d in ("cuda", "cpu")}
+    # 4 partitions, the last emptied by the filter
+    cached = {}
+    for d, s in sessions.items():
+        df = s.create_dataframe(table, num_partitions=4) \
+            .filter(col("row") < MODES_IO_ROWS * 3 // 4).cache()
+        out = df.collect()
+        if df.plan.device_encoded is not True:
+            fail(f"io-modes: the {d} cache was not device-encoded")
+        cached[d] = (df.plan.blobs, out, df.collect())
+    if cached["cuda"][0] != cached["cpu"][0]:
+        fail("io-modes: the cache's blobs on cuda differ from the CPU's")
+    for i in (1, 2):
+        _bit_equal(f"io-modes cache collect {i}", cached["cuda"][i],
+                   cached["cpu"][i])
+    parts = {}
+    for d, s in sessions.items():
+        path = os.path.join(OUT_DIR, f"io-modes-{d}")
+        shutil.rmtree(path, ignore_errors=True)
+        try:
+            stats = s.create_dataframe(table, num_partitions=3) \
+                .filter(col("i64").is_not_null()) \
+                .write.partition_by("k").parquet(path)
+            parts[d] = (stats.num_files, stats.num_rows,
+                        sorted(stats.partitions),
+                        {p: papq.read_table(os.path.join(path, p))
+                         for p in stats.partitions})
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+    if parts["cuda"][:3] != parts["cpu"][:3]:
+        fail(f"io-modes: partitioned write {parts['cuda'][:3]} != the CPU "
+             f"session's {parts['cpu'][:3]}")
+    for p, tbl in parts["cuda"][3].items():
+        _bit_equal(f"io-modes partition {p}", tbl, parts["cpu"][3][p])
+    qa = _qa_modes_table(MODES_SQL_ROWS, 29)
+    for s in sessions.values():
+        s.create_dataframe(qa, num_partitions=3) \
+            .create_or_replace_temp_view("qa")
+    queries = sql_surface_queries()
+    loose = []
+    for q in queries:
+        want = sessions["cpu"].sql(q).collect()
+        got = sessions["cuda"].sql(q).collect()
+        if "ORDER BY" not in q:
+            # no total order: both sides sorted the same way
+            keys = [(c, "ascending") for c in want.column_names]
+            want, got = want.sort_by(keys), got.sort_by(keys)
+        if _close_floats(f"io-modes sql {q!r}", got, want):
+            loose.append(q)
+    log(f"io-modes: {blobs} blobs over {MODES_IO_ROWS} rows (nulls ~5%, "
+        f"NaN, -0.0, strings of 0-256 bytes with multi-byte characters, "
+        f"an all-null column; parquet {', '.join(IO_CODECS)} and ORC) equal "
+        f"the CPU's byte for byte and read back equal; the cache's "
+        f"{len(cached['cuda'][0])} blobs (one partition empty) equal and "
+        f"its rows exact; the partitioned write's {parts['cuda'][0]} files "
+        f"equal; {len(queries)} SELECT-surface queries over "
+        f"{MODES_SQL_ROWS} rows equal the CPU session's exactly"
+        + (f", but for float columns within tests/parity.py's tolerance "
+           f"in {len(loose)}: {loose}" if loose else "")
+        + f" ({time.perf_counter() - t0:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
 # 9. kernel timings at the q6 shapes
 # ---------------------------------------------------------------------------
 
@@ -4762,8 +5606,8 @@ def phase_timing(paths):
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
               "pipeline", "q6s", "star", "window", "shuffle", "strings",
-              "customer-etl", "mortgage", "modes", "window-modes",
-              "shuffle-modes", "string-modes", "tail-modes"]
+              "customer-etl", "mortgage", "tpch", "modes", "window-modes",
+              "shuffle-modes", "string-modes", "tail-modes", "io-modes"]
 
 
 def main() -> int:
@@ -4771,7 +5615,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    global WHOLE_SMOKE
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else ALL_PHASES
+    WHOLE_SMOKE = set(ALL_PHASES) <= set(phases)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} pyarrow "
         f"{pa.__version__} on {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
@@ -4855,6 +5701,11 @@ def main() -> int:
     if "mortgage" in phases:
         runs["mortgage"] = ("mortgage", *phase_mortgage())
         done("mortgage")
+    if "tpch" in phases:
+        sql_run, cache_run = phase_tpch()
+        runs["tpch"] = ("tpch", *sql_run)
+        runs["cache"] = ("cache", *cache_run)
+        done("tpch")
     if "modes" in phases:
         phase_perfile_modes()
     if "window-modes" in phases:
@@ -4868,11 +5719,14 @@ def main() -> int:
     if "tail-modes" in phases:
         phase_tail_modes()
         done("tail-modes")
+    if "io-modes" in phases:
+        phase_io_modes()
+        done("io-modes")
     kernels = None
     if set(ALL_PHASES) <= set(phases):
         kernels = phase_timing([runs[k] for k in (
             "q6", "q6p", "q6s", "q6pf", "star", "window", "shuffle",
-            "strings", "customer-etl", "mortgage")])
+            "strings", "customer-etl", "mortgage", "tpch", "cache")])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

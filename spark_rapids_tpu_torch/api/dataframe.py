@@ -3,14 +3,15 @@
 Ported from ``spark_rapids_tpu/api/dataframe.py``: everything that builds
 logical nodes (select/with_column/filter/group_by/rollup/cube/agg/sort/
 limit/union/join/repartition/coalesce/cache/distinct), ``collect``,
-``count``, ``show``, ``explain_string`` (modes ``physical``, ``tpu`` and
-``logical``) and ``schema``/``columns``.  A plan whose exec the port has
-not ported yet raises ``NotImplementedError`` naming its module when it
-is planned (plan/planner.py).  Not ported: ``write``
-(``io/writers.py``), the pandas-UDF methods (``pyworker/execs.py``),
-``collect_async`` (``sched/service.py``), the ``profile`` explain mode
-(``obs/profile.py``), ``collect_device`` and temp views (``sql/``);
-each of the first four raises ``NotImplementedError`` naming its module.
+``collect_device`` (the device batches, no download), ``count``,
+``show``, ``explain_string`` (modes ``physical``, ``tpu`` and
+``logical``), ``schema``/``columns``, ``write`` (io/writers.py) and
+``create_or_replace_temp_view``.  A plan whose exec the port has not
+ported yet raises ``NotImplementedError`` naming its module when it is
+planned (plan/planner.py).  Not ported: the pandas-UDF methods
+(``pyworker/execs.py``), ``collect_async`` (``sched/service.py``) and the
+``profile`` explain mode (``obs/profile.py``); each raises
+``NotImplementedError`` naming its module.
 """
 
 from __future__ import annotations
@@ -278,6 +279,11 @@ class DataFrame:
     def is_cached(self) -> bool:
         return isinstance(self.plan, lp.CachedRelation)
 
+    def create_or_replace_temp_view(self, name: str) -> None:
+        self.session.register_view(name, self)
+
+    createOrReplaceTempView = create_or_replace_temp_view
+
     def distinct(self) -> "DataFrame":
         names = self.plan.schema.names
         return DataFrame(
@@ -296,7 +302,8 @@ class DataFrame:
 
     @property
     def write(self):
-        raise _not_ported("DataFrame.write", "io/writers.py")
+        from spark_rapids_tpu_torch.io.writers import DataFrameWriter
+        return DataFrameWriter(self)
 
     # -- actions -----------------------------------------------------------
     def collect(self) -> pa.Table:
@@ -315,6 +322,12 @@ class DataFrame:
         return self.collect().to_pandas()
 
     toPandas = to_pandas
+
+    def collect_device(self):
+        """Execute and return the device-resident batches, with no
+        download: the ColumnarRdd-style handoff to an ML framework (the
+        tensors stay on the session's device)."""
+        return self.session._execute_device(self.plan)
 
     def count(self) -> int:
         from spark_rapids_tpu_torch.api import functions as F

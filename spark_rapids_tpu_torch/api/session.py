@@ -17,10 +17,13 @@ the reference, it sizes the device semaphore from ``concurrentTpuTasks``
 ``obs.trace.*`` keys.  It accepts the reference's ``spark.rapids.tpu.*``
 keys unchanged, so one conf dict drives both packages.
 
-``collect`` runs on the calling thread.  Not ported yet: the query
-scheduler (``QueryService``, ``submit``/``collect_async``), ``sql()`` and
-temp views, spill, the rest of the observability layer (profiles, the
-HTTP endpoint, the flight recorder), serving and the fleet.
+``sql()`` parses a query (sql/parser.py) against the temp views that
+``register_view`` (or ``DataFrame.create_or_replace_temp_view``)
+registered.  ``collect`` runs on the calling thread; ``_execute_device``
+hands the device batches over with no download.  Not ported yet: the
+query scheduler (``QueryService``, ``submit``/``collect_async``), spill,
+the rest of the observability layer (profiles, the HTTP endpoint, the
+flight recorder), serving and the fleet.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ class TpuSparkSession:
             bool(self.conf.get(cfg.OBS_TRACE_ENABLED)),
             int(self.conf.get(cfg.OBS_TRACE_BUFFER_SPANS)))
         self._plan_listeners: List = []
+        self._views: Dict[str, lp.LogicalPlan] = {}
 
     # -- conf --------------------------------------------------------------
     def set_conf(self, key: str, value: Any) -> None:
@@ -101,6 +105,22 @@ class TpuSparkSession:
     def read(self) -> "DataFrameReader":
         return DataFrameReader(self)
 
+    # -- SQL ---------------------------------------------------------------
+    def sql(self, query: str) -> DataFrame:
+        """Parse and plan a SQL query against the registered temp views."""
+        from spark_rapids_tpu_torch.sql import parse_sql
+        return DataFrame(parse_sql(query, self._views), self)
+
+    def register_view(self, name: str, df: DataFrame) -> None:
+        self._views[name.lower()] = df.plan
+
+    def drop_view(self, name: str) -> None:
+        self._views.pop(name.lower(), None)
+
+    @property
+    def catalog(self) -> Dict[str, lp.LogicalPlan]:
+        return dict(self._views)
+
     # -- planning & execution ----------------------------------------------
     def _plan_physical(self, plan: lp.LogicalPlan) -> OverrideResult:
         if self.conf.get(cfg.COLUMN_PRUNING):
@@ -108,12 +128,9 @@ class TpuSparkSession:
             plan = prune_columns(plan)
         cpu_plan = plan_cpu(plan, self.conf)
         result = TpuOverrides.apply(cpu_plan, self.conf, device=self.device)
-        if self.copy_stream is not None:
-            # the transfer execs (HostToDeviceExec, DeviceToHostExec,
-            # the Parquet scan) copy on the session's stream
-            result.plan.foreach(
-                lambda n: setattr(n, "copy_stream", self.copy_stream)
-                if hasattr(n, "copy_stream") else None)
+        from spark_rapids_tpu_torch.columnar.transfer import \
+            stamp_copy_stream
+        stamp_copy_stream(result.plan, self.copy_stream)
         if self.conf.test_enabled:
             assert_is_on_tpu(result.plan, self.conf.test_allowed_non_tpu)
         for listener in self._plan_listeners:
@@ -178,6 +195,21 @@ class TpuSparkSession:
             return result, table
         tables = self._drain_partitions(p.execute())
         return result, concat_tables(tables, p.schema)
+
+    def _execute_device(self, plan: lp.LogicalPlan):
+        """ColumnarRdd-style handoff: the device batches of every
+        partition, with no download."""
+        from spark_rapids_tpu_torch.exec.tpu_basic import (DeviceToHostExec,
+                                                           HostToDeviceExec)
+        result = self._plan_physical(plan)
+        p = result.plan
+        if isinstance(p, DeviceToHostExec):
+            p = p.children[0]  # strip the terminal download
+        else:
+            p = HostToDeviceExec(p, self.conf.get(cfg.MIN_BUCKET_ROWS),
+                                 device=self.device)
+            p.copy_stream = self.copy_stream
+        return self._drain_partitions(p.execute())
 
     # plan-capture hook for tests
     def add_plan_listener(self, fn) -> None:

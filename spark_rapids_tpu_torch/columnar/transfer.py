@@ -156,6 +156,15 @@ class CopyStream:
                 self._held.popleft()
 
 
+def stamp_copy_stream(plan, copy_stream) -> None:
+    """Give every transfer exec of ``plan`` (those with a ``copy_stream``
+    attribute: HostToDeviceExec, DeviceToHostExec, the Parquet scan, the
+    cached scans) the session's stream; None leaves them as they are."""
+    if copy_stream is not None:
+        plan.foreach(lambda n: setattr(n, "copy_stream", copy_stream)
+                     if hasattr(n, "copy_stream") else None)
+
+
 def upload_arrays(arrays: Dict[str, np.ndarray], device,
                   copy_stream=None) -> Dict[str, torch.Tensor]:
     """``arrays`` as tensors on ``device``, key by key.  On the CPU they

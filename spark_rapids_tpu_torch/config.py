@@ -181,6 +181,35 @@ PARQUET_DEVICE_DECODE = conf(
     "Decode parquet pages on the device (TpuParquetScanExec); off, the "
     "scan stays a host CpuFileScanExec.", bool)
 
+PARQUET_DEVICE_ENCODE = conf(
+    "spark.rapids.tpu.sql.format.parquet.deviceEncode.enabled", True,
+    "Encode parquet writes from device batches: per-column null "
+    "compaction on the device, one packed download, host page/footer "
+    "assembly (io/parquet_encode.py). Unsupported types or partitioned "
+    "writes fall back to the host Arrow writer.", bool)
+
+ORC_DEVICE_ENCODE = conf(
+    "spark.rapids.tpu.sql.format.orc.deviceEncode.enabled", True,
+    "Encode ORC writes from device batches: per-column null compaction "
+    "on the device, one packed download, host RLEv1/protobuf stripe "
+    "assembly (io/orc_encode.py). Unsupported types or partitioned "
+    "writes fall back to the host Arrow writer.", bool)
+
+CACHE_DEVICE_ENCODE = conf(
+    "spark.rapids.tpu.sql.cache.deviceEncode.enabled", True,
+    "Compress df.cache() batches to parquet blobs with the device "
+    "encoder instead of host Arrow.", bool)
+
+CACHE_COMPRESSION = conf(
+    "spark.rapids.tpu.sql.cache.compression", "snappy",
+    "Parquet compression codec for df.cache() blobs "
+    "(none|snappy|zstd|gzip|lz4).")
+
+CACHE_DEVICE_DECODE = conf(
+    "spark.rapids.tpu.sql.cache.deviceDecode.enabled", True,
+    "Decode cached parquet blobs on the device, falling back per column "
+    "like file scans.", bool)
+
 PARQUET_READER_TYPE = conf(
     "spark.rapids.tpu.sql.format.parquet.reader.type", "AUTO",
     "Host parquet reader strategy: AUTO, PERFILE, COALESCING, "

@@ -1,8 +1,9 @@
 """Process-wide scan-plan cache: memoized host-prep artifacts.
 
-Ported from ``spark_rapids_tpu/io/scan_cache.py`` (file sources; an
-in-memory blob gets a footer from :func:`blob_footer` but its plans are not
-cached: the reference's blob keys and result-cache stamps are not ported).
+Ported from ``spark_rapids_tpu/io/scan_cache.py``: file sources, and the
+in-memory blobs of ``df.cache()`` keyed by content (:func:`blob_key`), so a
+re-collected cached relation skips its page walks.  The reference's
+result-cache stamps are not ported.
 The CPU half of the device parquet scan — footer parse, Thrift
 page-header walks, RLE run-boundary tables (``ChunkPlan``) — is pure
 O(pages+runs) host work that would otherwise be redone on every query:
@@ -28,6 +29,7 @@ benign because plans are immutable after construction).
 
 from __future__ import annotations
 
+import hashlib
 import io
 import os
 import threading
@@ -131,6 +133,10 @@ def configure(enabled: bool, max_bytes: int) -> None:
             _evict_locked()
 
 
+def enabled() -> bool:
+    return _ENABLED
+
+
 def stats() -> Dict[str, int]:
     with _LOCK:
         return {"hits": _HITS, "misses": _MISSES,
@@ -164,6 +170,15 @@ def file_key(path: str) -> Optional[Tuple]:
     except OSError:
         return None
     return ("file", os.path.abspath(path), st.st_mtime_ns, st.st_size)
+
+
+def blob_key(blob) -> Optional[Tuple]:
+    """Cache key of an in-memory parquet blob (the df.cache() path): its
+    content digest, so a re-materialized relation with identical bytes
+    still hits and freed-and-reused ids can never alias."""
+    if not isinstance(blob, (bytes, bytearray, memoryview)):
+        return None
+    return ("blob", hashlib.sha1(blob).hexdigest(), len(blob))
 
 
 def handle_key(pf, src) -> Optional[Tuple]:

@@ -613,9 +613,10 @@ class CachedRelation(LogicalPlan):
     Reference analog: ``ParquetCachedBatchSerializer``
     (shims/spark310/.../ParquetCachedBatchSerializer.scala:253 —
     ``compressColumnarBatchWithParquet`` at :333) + GpuInMemoryTableScanExec.
-    Delta: blob encode happens on host via Arrow (the reference encodes on
-    device via Table.writeParquetChunked); decode runs on device through
-    the same pallas/XLA parquet decoder as file scans.
+    exec/cache.py materializes it: the device parquet encoder when the
+    child plan ends on the device, else host Arrow; the blobs decode on
+    the device through the PERFILE reader of file scans.  Column pruning
+    stops here (plan/optimizer.py), so every plan shares this one object.
     """
 
     def __init__(self, child: LogicalPlan):

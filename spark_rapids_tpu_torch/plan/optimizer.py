@@ -13,7 +13,11 @@ whole column chunks (the q6 bench decodes 4 of 6 columns), and
 in-memory uploads skip the HBM transfer entirely.
 
 The port's copy of ``spark_rapids_tpu/plan/optimizer.py``, with its
-imports retargeted.
+imports retargeted and one repair: a cached relation is a leaf here.
+The reference's rewrite recurses below it and copies the relation
+whenever its child narrows (a cached projection of a scan), so every
+action materializes a fresh copy; the port leaves the shared relation in
+place, and ``exec/cache.materialize`` prunes its child instead.
 """
 
 from __future__ import annotations
@@ -88,6 +92,9 @@ def _rewrite(node: lp.LogicalPlan, needed: Optional[Set[int]]
         needed = None
 
     # ---- leaves -----------------------------------------------------------
+    if isinstance(node, lp.CachedRelation):
+        # one shared object holds the blobs: a copy would materialize anew
+        return node, None
     if isinstance(node, lp.FileScan):
         if needed is None or node.options.get("columns"):
             return node, None

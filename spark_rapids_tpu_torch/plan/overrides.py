@@ -495,6 +495,29 @@ def _register_file_scan_rule():
 _register_file_scan_rule()
 
 
+def _register_cache_scan_rule():
+    from spark_rapids_tpu_torch.exec.cache import (CpuInMemoryTableScanExec,
+                                                   TpuInMemoryTableScanExec)
+
+    def _tag_cache(n, conf) -> List[str]:
+        if not conf.get(cfg.CACHE_DEVICE_DECODE):
+            return ["cached-batch device decode disabled by "
+                    f"{cfg.CACHE_DEVICE_DECODE.key}"]
+        return []
+
+    register_exec_rule(CpuInMemoryTableScanExec, ExecRule(
+        "InMemoryTableScanExec",
+        "device cached-batch scan: parquet blobs decode on the device "
+        "through the PERFILE reader",
+        _no_exprs,
+        convert=lambda n, ch, conf, device: TpuInMemoryTableScanExec(
+            n.relation, conf, device=device),
+        extra_tag=_tag_cache))
+
+
+_register_cache_scan_rule()
+
+
 # ---------------------------------------------------------------------------
 # Meta tree
 # ---------------------------------------------------------------------------
@@ -645,8 +668,14 @@ class TpuOverrides:
         kbackend = kb.resolve(str(conf.get(cfg.KERNEL_BACKEND) or
                                   kb.PALLAS).strip().lower())
 
+        from spark_rapids_tpu_torch.exec.cache import \
+            CpuInMemoryTableScanExec
+
         def _stamp(n):
             n._kernel_backend = kbackend
+            if isinstance(n, CpuInMemoryTableScanExec):
+                # a host cached scan still materializes on the device
+                n.device = device
         plan.foreach(_stamp)
         if kbackend == kb.PALLAS:
             # push eligible filter conditions into a directly-below fused

@@ -13,9 +13,11 @@ The exchanges are planned as the reference plans them
 partitionwise window (``sql.window.exchange.enabled``, or ici/ici_ring),
 a range exchange under the distributed sort (``sql.sort.exchange.enabled``,
 or ici/ici_ring), repartition/coalesce, and a hash exchange on both sides
-of a shuffled join.  A node whose exec lives in a module the port has not
-ported yet raises ``NotImplementedError`` naming that module: cached
-relations (``exec/cache.py``) and pandas UDFs (``pyworker/execs.py``).
+of a shuffled join.  A cached relation plans as a
+``CpuInMemoryTableScanExec`` (exec/cache.py), which the overrides turn
+into the device's cached scan.  A node whose exec lives in a module the
+port has not ported yet raises ``NotImplementedError`` naming that
+module: pandas UDFs (``pyworker/execs.py``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ def plan_cpu(node: lp.LogicalPlan, conf: RapidsTpuConf) -> PhysicalPlan:
         from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
         return CpuFileScanExec(node, conf)
     if isinstance(node, lp.CachedRelation):
-        raise _not_ported("a cached relation", "exec/cache.py")
+        from spark_rapids_tpu_torch.exec.cache import \
+            CpuInMemoryTableScanExec
+        return CpuInMemoryTableScanExec(node, conf)
     if isinstance(node, lp.Project):
         _check_no_pandas_udfs(node.exprs)
         return cpux.CpuProjectExec(plan_cpu(node.children[0], conf),

@@ -129,12 +129,13 @@ def test_pruned_plans_match_reference_rows(roots, name):
 
 
 def test_unported_exec_raises_naming_its_module(roots):
-    """A cached relation waits for exec/cache.py; the two-stage aggregate
+    """A pandas UDF waits for pyworker/execs.py; the two-stage aggregate
     (``agg.exchange.enabled``) plans as the reference's, a hash exchange
     under a per-partition aggregate, and gives its rows."""
     a = session("port", CONF).read.parquet(roots[0])
-    df = a.select("k", (tcol("x") + 1).alias("e")).cache()
-    with pytest.raises(NotImplementedError, match="exec/cache.py"):
+    plus_one = TF.pandas_udf(lambda x: x + 1, "long")
+    df = a.select("k", plus_one(tcol("x")).alias("e"))
+    with pytest.raises(NotImplementedError, match="pyworker/execs.py"):
         df.collect()
     conf = dict(CONF, **{"spark.rapids.tpu.sql.agg.exchange.enabled": True,
                          "spark.rapids.tpu.sql.adaptive.enabled": False})
@@ -153,6 +154,33 @@ def _nodes(s, df):
     out = []
     s._plan_physical(df.plan).plan.foreach(out.append)
     return out
+
+
+@pytest.mark.parametrize("fmt", ["csv", "orc"])
+def test_csv_and_orc_scans_stay_on_the_host(tmp_path, fmt):
+    """The port decodes only Parquet on the device: a CSV or ORC scan
+    plans as a host CpuFileScanExec with the port's reason, under an
+    upload, and gives the reference's rows."""
+    import pyarrow.csv as pacsv
+    import pyarrow.orc as paorc
+    t = pa.table({"k": pa.array(np.arange(40) % 7),
+                  "v": pa.array(np.arange(40) * 0.5)})
+    path = str(tmp_path / f"t.{fmt}")
+    (pacsv.write_csv if fmt == "csv" else paorc.write_table)(t, path)
+    outs = {}
+    for side, (_, col, F, W, _lp, _p) in SIDES.items():
+        s = session(side, CONF if side == "port" else
+                    {"spark.rapids.tpu.sql.enabled": False})
+        df = getattr(s.read, fmt)(path).filter(col("k") > 2) \
+            .group_by("k").agg(F.sum("v").alias("sv"))
+        outs[side] = df.collect()
+        if side == "port":
+            names = [type(n).__name__ for n in _nodes(s, df)]
+            assert names[-2:] == ["HostToDeviceExec", "CpuFileScanExec"]
+            assert (f"{fmt} scans decode on host (device decode is "
+                    "parquet-only in the torch port)") in \
+                df.explain_string("tpu")
+    assert_tables_equal(outs["ref"], outs["port"], ignore_order=True)
 
 
 def test_filter_kill_switch(roots):
