@@ -219,6 +219,35 @@ Phases (any failure exits non-zero):
                non-empty partition), read back by pyarrow equal to the
                generated tables, q6 over the written lineitem against
                the original's; their walls and rows/s;
+  8i. oocore — over the tpch phase's Parquet files, q3 and q10 (the
+               lineitem/orders shuffled joins) on port sessions on cuda
+               at the reference's defaults (no grace join may activate)
+               and with ``join.buildSideBudgetBytes`` at 8 MiB (below
+               every exchange partition's build side),
+               ``memory.device.batchStorageSize`` at 256 MiB and
+               ``memory.host.spillStorageSize`` at 64 MiB (the spill dir
+               under chiprun_out/): the rows against pyarrow and the
+               unpartitioned run's, the grace counters, the bytes spilled
+               to the host and to disk (both must move), the host
+               arena's peak, each wall against the unpartitioned one, an
+               empty spill catalog after each query; then two 1 GiB
+               batches registered on the card and an allocation of twice
+               the card: the real ``torch.cuda.OutOfMemoryError`` goes to
+               ``hbm_oom_recover``, which must spill the whole device
+               tier, and the batches must come back equal;
+  8j. csv-orc — the tpch phase's tables (SF10 alone, SF 2 in the whole
+               smoke) written as ORC (RLEv2, ZLIB, Hive's 0.8 dictionary
+               threshold) and as pipe-delimited text with a header (region,
+               nation, supplier, part, partsupp, lineitem), 8 files for
+               each table over 2^20 rows: the eight SQL texts over views
+               from ``read.orc``, and q2, q11, q16 (DataFrame forms) and
+               q6 over ``read.csv(sep="|")``, each against pyarrow, with
+               its plan (TpuOrcScanExec / TpuCsvScanExec, no other host
+               node), the scans' fallbackColumns / fallbackFiles (q6's 8
+               lineitem files fall back whole, their date columns outside
+               the device parse), the pinned launches, fallbacks and
+               routes, the cold wall, a warm wall with ``scan.decode`` /
+               ``scan.csvDecode``, a trace and peak memory;
   9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
                a dictionary that overflows into PLAIN pages, a 16-character
                string dictionary and a list<int32>, through the PERFILE
@@ -291,15 +320,16 @@ Phases (any failure exits non-zero):
                ``name@q6-parquet``, ``name@q6-perfile``, ``name@star``,
                ``name@window``, ``name@shuffle`` (from q97's run on the
                local transport), ``name@strings``, ``name@customer-etl``,
-               ``name@mortgage``, ``name@tpch`` and ``name@cache`` (the
-               cached q1/q6 runs)): a check
+               ``name@mortgage``, ``name@tpch``, ``name@cache`` (the
+               cached q1/q6 runs), ``name@oocore`` (the grace runs) and
+               ``name@csv-orc``): a check
                against the plain version, its time (CUDA events, L2
                flushed), its bytes bound, the plain version's time and a
                library call's where one computes the same function.
 
 Before each q6 path and each star, window, shuffle, strings,
-customer-etl, mortgage, TPC-H and cached query the kernel launch counts
-are set to 0,
+customer-etl, mortgage, TPC-H, cached, out-of-core, ORC and CSV query
+the kernel launch counts are set to 0,
 and they are read just after it: every kernel of the path must have
 launched, with no fallback but the PERFILE path's predicted mixed-width
 ones and the later queries' pinned filterDecode ones.  The line
@@ -308,15 +338,18 @@ card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
 q6p, q6pf, session, pipeline, q6s, star, window, shuffle, strings,
-customer-etl, mortgage, tpch, modes, window-modes, shuffle-modes,
-string-modes, tail-modes, io-modes) runs only those phases and prints no
-kernel table; ``tpch`` alone generates, writes and removes its own files;
+customer-etl, mortgage, tpch, oocore, csv-orc, modes, window-modes,
+shuffle-modes, string-modes, tail-modes, io-modes) runs only those
+phases and prints no kernel table; ``tpch``, ``oocore`` and ``csv-orc``
+generate, write and remove their own files (sharing them when run
+together);
 ``customer-etl`` alone writes the star files and the census tables
 itself; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
 makes the in-memory table itself.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -4132,11 +4165,11 @@ def _check_host_free(tag: str, plan, must=()) -> list:
 
 def _etl_query(tag: str, run, check, pins, shapes, errors, total, names,
                warm: int, sections, must=(), launch_spans=STRINGS_EVAL,
-               routes=None):
+               routes=None, trace=True):
     """One query of the mortgage or customer-ETL phase: the cold run with
     the counts set to 0 just before it (plan, rows, pinned launches,
     fallbacks and routes, peak memory), then ``warm`` warm walls with
-    sections and one profiler trace."""
+    sections and (``trace``) one profiler trace."""
     from spark_rapids_tpu_torch.obs import registry as obsreg
     counts, falls, route_pins = pins
     view = obsreg.get_registry().view()
@@ -4160,6 +4193,7 @@ def _etl_query(tag: str, run, check, pins, shapes, errors, total, names,
         f"launches {launches}; fallbacks {fallbacks}; routes {jr}; peak "
         f"device memory {peak:.2f} GiB")
     log(f"{tag} cold sections: " + _fmt_ms(_sections(plan, sections)))
+    del plan      # its exchanges may hold device memory
     key = tag.split(" ", 1)[1]
     _pinned(tag, launches, counts, key, errors)
     _pinned(tag, fallbacks, falls, key, errors)
@@ -4171,14 +4205,16 @@ def _etl_query(tag: str, run, check, pins, shapes, errors, total, names,
         total[k] = total.get(k, 0) + v
     names += [k for k in launches if k not in names]
     del out
-    sec = _star_sections(run, reps=warm, keys=sections)
-    log(f"{tag} sections (host clock, median of {warm} warm runs; runs ms "
-        f"{', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}): "
-        + _fmt_ms(sec))
-    busy = trace_form(tag, run, {}, label=tag.split(" ")[0],
-                      launch_spans=launch_spans)
-    log(f"{tag}: device busy {busy['busy_share']:.1%} of "
-        f"{busy['wall_ms']:.1f} ms")
+    if warm:
+        sec = _star_sections(run, reps=warm, keys=sections)
+        log(f"{tag} sections (host clock, median of {warm} warm runs; "
+            f"runs ms {', '.join(f'{w * 1e3:.1f}' for w in sec['walls'])}"
+            f"): " + _fmt_ms(sec))
+    if trace:
+        busy = trace_form(tag, run, {}, label=tag.split(" ")[0],
+                          launch_spans=launch_spans)
+        log(f"{tag}: device busy {busy['busy_share']:.1%} of "
+            f"{busy['wall_ms']:.1f} ms")
 
 
 def phase_mortgage():
@@ -5176,32 +5212,475 @@ def _tpch_handoff(root: str) -> None:
         f"equal collect()'s")
 
 
-def phase_tpch():
+def phase_tpch(root: str, t: dict, sf: float):
     """TPC-H at SF10 (SF 2 in the whole smoke) through ``session.sql``
-    over temp views on port sessions on cuda: the eight SQL texts (plan, pyarrow reference, the
+    over temp views on port sessions on cuda, over the Parquet files
+    under ``root``: the eight SQL texts (plan, pyarrow reference, the
     DataFrame form, pinned launches, fallbacks and routes, parse and
     planning time, cold and warm walls with sections, a trace, peak
     memory), then the cache, the writers and the device handoff.
     Returns ((launches, classes, names) of the SQL queries, the same of
     the cached ones)."""
-    sf = TPCH_SF_WHOLE if WHOLE_SMOKE else TPCH_SF
-    root = _parquet_dir("tpch")
+    errors, total, names = [], {}, []
+    shapes = ShapeRecorder()
+    outs = _tpch_sql_queries(root, t, sf, shapes, errors, total, names)
+    cache_shapes = ShapeRecorder()
+    c_total, c_names = _tpch_cache(root, outs, sf, cache_shapes, errors)
+    _tpch_handoff(root)
+    _tpch_write(root, t, outs)
+    if errors:
+        fail("; ".join(errors))
+    return (total, shapes.classes, names), \
+        (c_total, cache_shapes.classes, c_names)
+
+
+# ---------------------------------------------------------------------------
+# 8i. TPC-H from ORC and pipe-delimited text; 8j. the out-of-core joins
+# ---------------------------------------------------------------------------
+
+# Hive's orc.dictionary.key.threshold: a string column with at most 80%
+# distinct values is written DICTIONARY_V2 (pyarrow's default of 0 writes
+# every string DIRECT_V2)
+ORC_DICT_THRESHOLD = 0.8
+# the tables the CSV queries read: q2, q11 and q16 (whose tables hold no
+# date) and q6's lineitem, whose dates send each file to the host
+CSV_TABLES = ("region", "nation", "supplier", "part", "partsupp",
+              "lineitem")
+CSV_QUERIES = ("q2", "q11", "q16", "q6")
+CSV_ORC_WARM = 1
+CSV_ORC_SECTIONS = TPCH_SECTIONS + ("scan.decode", "scan.orcHost",
+                                    "scan.csvDecode")
+# launches, kernel fallbacks and join routes of each query at each scale,
+# pinned from the first run on the H100
+_GSS, _SSS = "segreduce.gather_seg_scan", "segreduce.seg_scan_sorted"
+# only the aggregates launch: the ORC and CSV decodes are torch ops.  q6's
+# count follows its batches (32 stripes at SF10, 8 at SF 2); the CSV scans
+# give one batch per file, 8 files at both scales
+ORC_COUNTS = {sf: {"q1": {_GSS: 56, _SSS: 4}, "q3": {_GSS: 16},
+                   "q5": {_GSS: 8}, "q6": {_GSS: q6}, "q10": {_GSS: 16},
+                   "q12": {_GSS: 8}, "q14": {_GSS: 36}, "q19": {_GSS: 18}}
+              for sf, q6 in ((10.0, 66), (2.0, 18))}
+ORC_FALLBACKS = {sf: {q: {} for q in TPCH_SQL} for sf in (10.0, 2.0)}
+ORC_ROUTES = {sf: {"q1": _NO_JOIN, "q6": _NO_JOIN,
+                   "q3": {"join.route.probe": 0, "join.route.sort": 16},
+                   "q5": {"join.route.probe": 0, "join.route.sort": 40},
+                   "q10": {"join.route.probe": 0, "join.route.sort": 24},
+                   "q12": {"join.route.probe": 0, "join.route.sort": 8},
+                   "q14": {"join.route.probe": 0, "join.route.sort": 8},
+                   "q19": {"join.route.probe": 0, "join.route.sort": 8}}
+              for sf in (10.0, 2.0)}
+CSV_COUNTS = {sf: {"q2": {_GSS: 24}, "q11": {_GSS: 34}, "q16": {_SSS: 8},
+                   "q6": {_GSS: 18}} for sf in (10.0, 2.0)}
+CSV_FALLBACKS = {sf: {q: {} for q in CSV_QUERIES} for sf in (10.0, 2.0)}
+CSV_ROUTES = {sf: {"q2": {"join.route.probe": 0, "join.route.sort": 64},
+                   "q11": {"join.route.probe": 0, "join.route.sort": 32},
+                   "q16": {"join.route.probe": 0, "join.route.sort": 16},
+                   "q6": _NO_JOIN} for sf in (10.0, 2.0)}
+# the scans' fallbackColumns / fallbackFiles of each query (ORC: the
+# columns of each stripe the device decode does not cover: at SF10
+# o_orderkey passes 2^24 and its DIRECT runs go to Arrow, in each of the
+# 15 orders stripes q3, q5, q10 and q12 read; CSV: q6's lineitem files,
+# each sent to the host whole by its date columns)
+ORC_SCAN_FALLBACKS = {
+    10.0: dict({q: (0, 0) for q in TPCH_SQL},
+               **{q: (15, 0) for q in ("q3", "q5", "q10", "q12")}),
+    2.0: {q: (0, 0) for q in TPCH_SQL}}
+CSV_SCAN_FALLBACKS = {sf: {"q2": (0, 0), "q11": (0, 0), "q16": (0, 0),
+                           "q6": (0, STAR_FILES)} for sf in (10.0, 2.0)}
+
+
+def write_orc_csv_files(root: str, t: dict) -> None:
+    """Every TPC-H table as ORC (RLEv2, ZLIB, Hive's dictionary threshold)
+    under ``root/orc/<table>/`` and ``CSV_TABLES`` as pipe-delimited text
+    with a header and no trailing delimiter under ``root/csv/<table>/``:
+    STAR_FILES files for each table of more than 2^20 rows, one for the
+    others, written by 8 threads."""
+    import pyarrow.csv as pacsv
+    import pyarrow.orc as paorc
+    from concurrent.futures import ThreadPoolExecutor
+    jobs = []
+    for fmt, names in (("orc", list(t)), ("csv", CSV_TABLES)):
+        for name in names:
+            table = t[name]
+            d = os.path.join(root, fmt, name)
+            os.makedirs(d)
+            n = STAR_FILES if table.num_rows > STRINGS_SPLIT_ROWS else 1
+            step = -(-table.num_rows // n)
+            jobs += [(fmt, table.slice(i * step, step),
+                      os.path.join(d, f"part-{i:04d}.{fmt}"))
+                     for i in range(n)]
+
+    def write(job):
+        fmt, part, path = job
+        if fmt == "orc":
+            paorc.write_table(part, path, compression="zlib",
+                              dictionary_key_size_threshold=
+                              ORC_DICT_THRESHOLD)
+        else:
+            pacsv.write_csv(part, path, pacsv.WriteOptions(
+                delimiter="|", quoting_style="none"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write, jobs))
+    sizes = {fmt: sum(os.path.getsize(os.path.join(dp, f))
+                      for dp, _, fs in os.walk(os.path.join(root, fmt))
+                      for f in fs) for fmt in ("orc", "csv")}
+    log(f"csv-orc files: {len(jobs)} files in "
+        f"{time.perf_counter() - t0:.1f} s; ORC {sizes['orc'] / 2**30:.2f} "
+        f"GiB, pipe-delimited {sizes['csv'] / 2**30:.2f} GiB")
+
+
+def _q2_reference(t: dict) -> pa.Table:
+    inner = partial(pa.Table.join, join_type="inner")
+    r = t["region"].filter(pc.equal(t["region"]["r_name"], "EUROPE"))
+    n = inner(t["nation"], r.select(["r_regionkey"]), "n_regionkey",
+              "r_regionkey")
+    s = inner(t["supplier"], n.select(["n_nationkey", "n_name"]),
+              "s_nationkey", "n_nationkey")
+    eu = inner(t["partsupp"], s, "ps_suppkey", "s_suppkey")
+    mc = eu.group_by("ps_partkey").aggregate([("ps_supplycost", "min")])
+    p = t["part"]
+    p = p.filter(pc.and_(pc.equal(p["p_size"], 15),
+                         pc.ends_with(p["p_type"], "BRASS")))
+    j = inner(eu, p.select(["p_partkey", "p_mfgr"]), "ps_partkey",
+              "p_partkey")
+    j = inner(j, mc, ["ps_partkey", "ps_supplycost"],
+              ["ps_partkey", "ps_supplycost_min"])
+    j = j.sort_by([("s_acctbal", "descending"), ("n_name", "ascending"),
+                   ("s_name", "ascending"), ("ps_partkey", "ascending")])
+    j = j.slice(0, 100)
+    return pa.table({
+        "s_acctbal": j["s_acctbal"], "s_name": j["s_name"],
+        "n_name": j["n_name"], "p_partkey": j["ps_partkey"],
+        "p_mfgr": j["p_mfgr"], "s_address": j["s_address"],
+        "s_phone": j["s_phone"], "s_comment": j["s_comment"]})
+
+
+def _q11_reference(t: dict) -> pa.Table:
+    inner = partial(pa.Table.join, join_type="inner")
+    n = t["nation"].filter(pc.equal(t["nation"]["n_name"], "GERMANY"))
+    s = inner(t["supplier"].select(["s_suppkey", "s_nationkey"]),
+              n.select(["n_nationkey"]), "s_nationkey", "n_nationkey")
+    de = inner(t["partsupp"], s, "ps_suppkey", "s_suppkey")
+    v = pc.multiply(de["ps_supplycost"], pc.cast(de["ps_availqty"],
+                                                 pa.float64()))
+    threshold = pc.sum(v).as_py() * 0.0001
+    g = pa.table({"ps_partkey": de["ps_partkey"], "value": v}) \
+        .group_by("ps_partkey").aggregate([("value", "sum")])
+    g = g.filter(pc.greater(g["value_sum"], threshold))
+    g = g.sort_by([("value_sum", "descending"), ("ps_partkey", "ascending")])
+    return pa.table({"ps_partkey": g["ps_partkey"], "value": g["value_sum"]})
+
+
+def _q16_reference(t: dict) -> pa.Table:
+    s = t["supplier"]
+    bad = s.filter(pc.match_like(s["s_comment"], "%Customer%Complaints%"))
+    ps = t["partsupp"].join(bad.select(["s_suppkey"]), "ps_suppkey",
+                            "s_suppkey", join_type="left anti")
+    p = t["part"]
+    p = p.filter(pc.and_(pc.and_(
+        pc.not_equal(p["p_brand"], "Brand#45"),
+        pc.invert(pc.starts_with(p["p_type"], "MEDIUM POLISHED"))),
+        pc.is_in(p["p_size"], pa.array([49, 14, 23, 45, 19, 3, 36, 9],
+                                       pa.int32()))))
+    j = ps.join(p.select(["p_partkey", "p_brand", "p_type", "p_size"]),
+                "ps_partkey", "p_partkey", join_type="inner")
+    d = j.select(["p_brand", "p_type", "p_size", "ps_suppkey"]) \
+        .group_by(["p_brand", "p_type", "p_size", "ps_suppkey"]) \
+        .aggregate([])
+    g = d.group_by(["p_brand", "p_type", "p_size"]).aggregate(
+        [("ps_suppkey", "count")])
+    g = g.sort_by([("ps_suppkey_count", "descending"),
+                   ("p_brand", "ascending"), ("p_type", "ascending"),
+                   ("p_size", "ascending")])
+    return pa.table({"p_brand": g["p_brand"], "p_type": g["p_type"],
+                     "p_size": g["p_size"],
+                     "supplier_cnt": g["ps_suppkey_count"]})
+
+
+def csv_orc_reference(name: str, t: dict) -> pa.Table:
+    """pyarrow's result of a CSV-form query (q2, q11, q16: DataFrame
+    forms) or of an SQL text (tpch_reference)."""
+    refs = {"q2": _q2_reference, "q11": _q11_reference,
+            "q16": _q16_reference}
+    return refs[name](t) if name in refs else tpch_reference(name, t)
+
+
+def orc_csv_run(name: str, root: str, fmt: str, scan_fallbacks: list):
+    """run(conf) -> (Arrow output, planned plan) of one TPC-H query on a
+    fresh port session on cuda: over ORC, its SQL text through
+    ``session.sql`` over views from ``read.orc``; over CSV, its DataFrame
+    form over ``read.csv(sep="|")``.  Each run's scan fallback counters
+    (:func:`_scan_fallbacks`) land in ``scan_fallbacks`` (not the plan:
+    a kept plan keeps its exchanges' device memory)."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.bench import tpch
+
+    def run(conf):
+        s = TpuSparkSession(dict(TPCH_CONF, **conf), device="cuda")
+        seen = []
+        s.add_plan_listener(lambda r: seen.append(r.plan))
+        if fmt == "orc":
+            for n in tpch.TPCH_TABLES:
+                s.read.orc(os.path.join(root, "orc", n)) \
+                    .create_or_replace_temp_view(n)
+            df = s.sql(tpch.SQL_QUERIES[name])
+        else:
+            t = {n: s.read.csv(os.path.join(root, "csv", n), sep="|")
+                 for n in CSV_TABLES}
+            df = tpch.QUERIES[name](t)
+        out = df.collect()
+        scan_fallbacks.append(_scan_fallbacks(seen[-1]))
+        return out, seen[-1]
+    return run
+
+
+def _scan_fallbacks(plan) -> tuple:
+    """(fallbackColumns, fallbackFiles) summed over the plan's ORC and CSV
+    scans."""
+    cols = files = 0
+    for n in _plan_nodes(plan):
+        if type(n).__name__ in ("TpuOrcScanExec", "TpuCsvScanExec"):
+            cols += int(n.metrics.extra.get("fallbackColumns", 0))
+            files += int(n.metrics.extra.get("fallbackFiles", 0))
+    return cols, files
+
+
+def _q11_empty(tag: str, out: pa.Table, root: str, t: dict) -> str:
+    """q11 keeps the parts whose value passes 0.0001 of Germany's total,
+    the fraction TPC-H sets for SF 1 (the spec scales it by 1/SF), so at
+    SF 2 and 10 no part passes, in pyarrow either.  The output must be
+    empty too, and the total it was held to must equal pyarrow's."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession, col, lit
+    from spark_rapids_tpu_torch.api import functions as F
+    if out.num_rows:
+        fail(f"{tag}: {out.num_rows} rows where pyarrow has none")
+    s = TpuSparkSession(TPCH_CONF, device="cuda")
+    r = {n: s.read.csv(os.path.join(root, "csv", n), sep="|")
+         for n in ("partsupp", "supplier", "nation")}
+    total = (r["partsupp"]
+             .join(r["supplier"], col("ps_suppkey") == col("s_suppkey"))
+             .join(r["nation"].filter(col("n_name") == lit("GERMANY")),
+                   col("s_nationkey") == col("n_nationkey"))
+             .agg(F.sum(col("ps_supplycost") * col("ps_availqty"))
+                  .alias("total")).collect()["total"][0].as_py())
+    n = t["nation"].filter(pc.equal(t["nation"]["n_name"], "GERMANY"))
+    s_ = t["supplier"].join(n.select(["n_nationkey"]), "s_nationkey",
+                            "n_nationkey", join_type="inner")
+    de = t["partsupp"].join(s_.select(["s_suppkey"]), "ps_suppkey",
+                            "s_suppkey", join_type="inner")
+    want = pc.sum(pc.multiply(de["ps_supplycost"], pc.cast(
+        de["ps_availqty"], pa.float64()))).as_py()
+    if abs(total - want) > 1e-9 * abs(want):
+        fail(f"{tag}: Germany's total {total!r} != pyarrow's {want!r}")
+    return (f"empty, as pyarrow's (no part passes 0.0001 of Germany's "
+            f"total {total:.6g}, which equals pyarrow's)")
+
+
+def _catalog_empty(tag: str) -> None:
+    from spark_rapids_tpu_torch.mem import spill
+    left = spill.get_catalog().num_buffers()
+    if left:
+        fail(f"{tag}: the spill catalog still holds {left} buffers")
+
+
+def phase_csv_orc(root: str, t: dict, sf: float):
+    """TPC-H from ORC (the eight SQL texts over ``read.orc`` views) and
+    from pipe-delimited text (q2, q11 and q16's DataFrame forms, and q6,
+    whose lineitem files fall back whole) on port sessions on cuda: plan
+    (TpuOrcScanExec / TpuCsvScanExec and no other host node), rows
+    against pyarrow, the scans' fallback counters, pinned launches,
+    fallbacks and routes, cold and warm walls with the decode sections,
+    a trace and peak memory; the catalog holds no buffer after each.
+    Returns (launches, classes, names)."""
+    errors, total, names = [], {}, []
+    shapes = ShapeRecorder()
+    write_orc_csv_files(root, t)
+    for fmt, queries, pins, scan_pins in (
+            ("orc", TPCH_SQL,
+             (ORC_COUNTS[sf], ORC_FALLBACKS[sf], ORC_ROUTES[sf]),
+             ORC_SCAN_FALLBACKS[sf]),
+            ("csv", CSV_QUERIES,
+             (CSV_COUNTS[sf], CSV_FALLBACKS[sf], CSV_ROUTES[sf]),
+             CSV_SCAN_FALLBACKS[sf])):
+        scan = "TpuOrcScanExec" if fmt == "orc" else "TpuCsvScanExec"
+        for q in queries:
+            tag = f"{fmt} {q}"
+            ref = csv_orc_reference(q, t)
+
+            def check(out, ref=ref, tag=tag, q=q):
+                if q == "q11" and ref.num_rows == 0:
+                    return _q11_empty(tag, out, root, t)
+                rel = check_rows(tag, out, ref)
+                return f"match pyarrow (float max rel {rel:.3g}): " \
+                    f"{out.to_pylist()[:1]}"
+            fbs = []
+            # the whole smoke's limit: the warm run and the trace only
+            # when run alone
+            _etl_query(tag, orc_csv_run(q, root, fmt, fbs), check, pins,
+                       shapes, errors, total, names,
+                       0 if WHOLE_SMOKE else CSV_ORC_WARM,
+                       CSV_ORC_SECTIONS, must=(scan,), routes=True,
+                       trace=not WHOLE_SMOKE)
+            fb = fbs[0]
+            log(f"{tag}: fallbackColumns {fb[0]}, fallbackFiles {fb[1]} "
+                f"(cold run)")
+            _pinned(tag, fb, scan_pins, q, errors)
+            _catalog_empty(tag)
+    if errors:
+        fail("; ".join(errors))
+    return total, shapes.classes, names
+
+
+OOCORE_QUERIES = ("q3", "q10")
+# below every exchange partition's build side at SF 2 and SF10 (tens of
+# MiB at 2^20-row capacity): each join partition takes the grace join
+OOCORE_BUDGET = 8 << 20
+OOCORE_CONF = {
+    "spark.rapids.tpu.sql.join.buildSideBudgetBytes": OOCORE_BUDGET,
+    "spark.rapids.tpu.memory.device.batchStorageSize": 256 << 20,
+    # smaller than the parked partitions of one join: some reach disk
+    "spark.rapids.tpu.memory.host.spillStorageSize": 64 << 20}
+SPILL_COUNTERS = ("spill.deviceToHostBytes", "spill.hostToDiskBytes")
+GRACE_COUNTERS = ("join.grace.activations", "join.grace.partitions",
+                  "join.grace.restreams", "join.grace.fallbacks",
+                  "join.grace.spilledBuildBytes")
+
+
+def _oom_recovery() -> None:
+    """Two 1 GiB batches registered on the card, then an allocation
+    larger than the card: the real ``torch.cuda.OutOfMemoryError`` goes to
+    ``hbm_oom_recover``, which must spill the whole device tier; the
+    batches come back equal and the catalog ends empty."""
+    from spark_rapids_tpu_torch import dtypes as tdt
+    from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch,
+                                                       DeviceColumn)
+    from spark_rapids_tpu_torch.mem import spill
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    cat = spill.init_catalog(4 << 30, 8 << 30, device="cuda")
+    n = 1 << 27
+
+    def batch(k):
+        return DeviceBatch(["v"], [DeviceColumn(
+            tdt.INT64, torch.arange(n, dtype=torch.int64, device="cuda") * k,
+            torch.ones(n, dtype=torch.bool, device="cuda"))], n)
+    handles = [cat.register(batch(k)) for k in (1, 2)]
+    held = cat.device_bytes
+    retries = obsreg.get_registry().counter("mem.oomRetries")
+    _free, total = torch.cuda.mem_get_info()
     try:
-        t = write_tpch_files(root, sf)
-        errors, total, names = [], {}, []
-        shapes = ShapeRecorder()
-        outs = _tpch_sql_queries(root, t, sf, shapes, errors, total, names)
-        cache_shapes = ShapeRecorder()
-        c_total, c_names = _tpch_cache(root, outs, sf, cache_shapes,
-                                       errors)
-        _tpch_handoff(root)
-        _tpch_write(root, t, outs)
-        if errors:
-            fail("; ".join(errors))
-        return (total, shapes.classes, names), \
-            (c_total, cache_shapes.classes, c_names)
+        torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+        fail("oocore: an allocation of twice the card did not fail")
+    except torch.cuda.OutOfMemoryError as e:
+        t0 = time.perf_counter()
+        ok = spill.hbm_oom_recover(e)
+        ms = (time.perf_counter() - t0) * 1e3
+        err = str(e).splitlines()[0][:100]
+    if not ok or cat.device_bytes != 0 or \
+            any(h.tier != spill.StorageTier.HOST for h in handles):
+        fail(f"oocore: hbm_oom_recover gave {ok}, device tier "
+             f"{cat.device_bytes} B")
+    if obsreg.get_registry().counter("mem.oomRetries") != retries + 1:
+        fail("oocore: mem.oomRetries did not count the recovery")
+    for k, h in zip((1, 2), handles):
+        v = h.get().columns[0].data
+        if not torch.equal(v, torch.arange(n, dtype=torch.int64,
+                                           device="cuda") * k):
+            fail("oocore: a recovered batch came back different")
+        h.close()
+    _catalog_empty("oocore oom")
+    log(f"oocore: a real CUDA OOM ({err}) with {held / 2**30:.2f} GiB "
+        f"registered: hbm_oom_recover freed {cat.spilled_device_bytes} B "
+        f"(the whole device tier) in {ms:.1f} ms; host arena peak "
+        f"{cat.host_arena.peak / 2**30:.2f} GiB; both batches came back "
+        f"equal")
+
+
+def phase_oocore(root: str, t: dict, sf: float):
+    """q3 and q10 (the lineitem/orders shuffled joins) over the tpch
+    phase's Parquet files, at the reference's defaults (no grace join on
+    an 80 GB card) and under ``OOCORE_CONF`` (every join partition's build
+    side over budget, parked partitions through the host tier to disk):
+    the same rows as the unconstrained run and pyarrow, the grace and
+    spill counters, the arena's peak, each wall against the unconstrained
+    one; then a real CUDA OOM through ``hbm_oom_recover``.  Returns
+    (launches, classes, names) of the constrained runs."""
+    from spark_rapids_tpu_torch.mem import spill
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    reg = obsreg.get_registry()
+    spill_dir = _parquet_dir("spill")
+    total, names = {}, []
+    shapes = ShapeRecorder()
+    try:
+        # the whole smoke's limit: q3 there, q10 too when run alone
+        for q in OOCORE_QUERIES[:1] if WHOLE_SMOKE else OOCORE_QUERIES:
+            ref = tpch_reference(q, t)
+            run = tpch_run(q, root)
+            outs, walls = {}, {}
+            for form, conf in (("default", {}), ("grace", dict(
+                    OOCORE_CONF, **{"spark.rapids.tpu.memory.spill.dir":
+                                    spill_dir}))):
+                tag = f"oocore {q} {form}"
+                view = reg.view()
+                kb.reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with shapes if form == "grace" else contextlib.nullcontext():
+                    out, plan = run(conf)
+                    torch.cuda.synchronize()
+                cold = time.perf_counter() - t0
+                launches = dict(kb.launches)
+                c = view.delta()["counters"]
+                gauges = reg.snapshot()["gauges"]
+                check_rows(tag, out, ref)
+                _catalog_empty(tag)
+                grace = {k: int(c.get(k, 0)) for k in GRACE_COUNTERS}
+                spilled = {k: int(c.get(k, 0)) for k in SPILL_COUNTERS}
+                arena = spill.get_catalog()._host_arena
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                # the whole smoke's limit: its walls are the cold ones
+                warm = cold
+                if not WHOLE_SMOKE:
+                    t0 = time.perf_counter()
+                    run(conf)
+                    torch.cuda.synchronize()
+                    warm = time.perf_counter() - t0
+                walls[form] = (cold, warm)
+                outs[form] = out
+                depth = f"; deepest recursion so far " \
+                    f"{gauges.get('join.grace.maxRecursionDepth', 0)}" \
+                    if form == "grace" else ""
+                log(f"{tag}: {out.num_rows} rows match pyarrow; cold "
+                    f"{cold * 1e3:.1f} ms, warm {walls[form][1] * 1e3:.1f} "
+                    f"ms; grace {grace}{depth}; "
+                    f"spilled {spilled} (cold run); host arena peak "
+                    f"{(arena.peak if arena is not None else 0) / 2**20:.1f}"
+                    f" MiB; peak device memory {peak:.2f} GiB; launches "
+                    f"{launches}")
+                if form == "default" and grace["join.grace.activations"]:
+                    fail(f"{tag}: the grace join activated at the defaults")
+                if form == "grace":
+                    if grace["join.grace.activations"] < 1 or not all(
+                            spilled.values()):
+                        fail(f"{tag}: no grace join through host and disk "
+                             f"({grace}, {spilled})")
+                    if not launches:
+                        fail(f"{tag} launched no kernel")
+                    for k, v in launches.items():
+                        total[k] = total.get(k, 0) + v
+                    names += [k for k in launches if k not in names]
+            rel = check_rows(f"oocore {q} grace vs default", outs["grace"],
+                             outs["default"])
+            which = "cold" if WHOLE_SMOKE else "warm"
+            log(f"oocore {q}: the grace rows equal the unpartitioned run's "
+                f"(float max rel {rel:.3g}); {which} wall "
+                f"{walls['grace'][1] * 1e3:.1f} ms against "
+                f"{walls['default'][1] * 1e3:.1f} ms unpartitioned "
+                f"({walls['grace'][1] / walls['default'][1]:.2f}x)")
+        _oom_recovery()
+        return total, shapes.classes, names
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(spill_dir, ignore_errors=True)
 
 
 MODES_IO_ROWS = 1 << 18
@@ -5606,8 +6085,9 @@ def phase_timing(paths):
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
               "pipeline", "q6s", "star", "window", "shuffle", "strings",
-              "customer-etl", "mortgage", "tpch", "modes", "window-modes",
-              "shuffle-modes", "string-modes", "tail-modes", "io-modes"]
+              "customer-etl", "mortgage", "tpch", "oocore", "csv-orc",
+              "modes", "window-modes", "shuffle-modes", "string-modes",
+              "tail-modes", "io-modes"]
 
 
 def main() -> int:
@@ -5622,8 +6102,19 @@ def main() -> int:
         f"{pa.__version__} on {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
 
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    spilled = dict.fromkeys(SPILL_COUNTERS, 0.0)
+
     def done(name: str) -> None:
-        log(f"phase {name} done at {time.perf_counter() - t_start:.1f} s")
+        # every session spills registered batches past its device budget
+        # (memory.device.batchStorageSize, 4 GiB by default): the bytes
+        # each phase moved to the host and to disk
+        now = {k: obsreg.get_registry().counter(k) for k in SPILL_COUNTERS}
+        moved = {k: int(now[k] - spilled[k]) for k in SPILL_COUNTERS}
+        spilled.update(now)
+        log(f"phase {name} done at {time.perf_counter() - t_start:.1f} s; "
+            f"spilled device->host {moved['spill.deviceToHostBytes']} B, "
+            f"host->disk {moved['spill.hostToDiskBytes']} B")
     phase_build()
     done("build")
     if "parity" in phases:
@@ -5632,6 +6123,7 @@ def main() -> int:
         done("parity")
     if "entry" in phases:
         phase_entry()
+        done("entry")
     runs, counts = {}, {}
     if "q6" in phases:
         runs["q6"] = ("q6", *phase_q6(), SEGREDUCE)
@@ -5662,6 +6154,7 @@ def main() -> int:
     if "q6s" in phases:
         runs["q6s"] = ("q6s-parquet", *phase_q6s_parquet(),
                        ["filter_decode.decode_str"])
+        done("q6s")
     if {"star", "window", "shuffle", "strings", "customer-etl"} & \
             set(phases):
         # the star, window, shuffle, strings and customer-etl phases share
@@ -5701,15 +6194,38 @@ def main() -> int:
     if "mortgage" in phases:
         runs["mortgage"] = ("mortgage", *phase_mortgage())
         done("mortgage")
-    if "tpch" in phases:
-        sql_run, cache_run = phase_tpch()
-        runs["tpch"] = ("tpch", *sql_run)
-        runs["cache"] = ("cache", *cache_run)
-        done("tpch")
+    if {"tpch", "csv-orc", "oocore"} & set(phases):
+        # the three share the generated tables; tpch and oocore read the
+        # Parquet files, csv-orc writes its own ORC and CSV files
+        sf = TPCH_SF_WHOLE if WHOLE_SMOKE else TPCH_SF
+        root = _parquet_dir("tpch")
+        try:
+            if {"tpch", "oocore"} & set(phases):
+                t = write_tpch_files(root, sf)
+            else:
+                from spark_rapids_tpu_torch.bench import tpch
+                t = tpch.generate(sf, TPCH_SEED)
+            if "tpch" in phases:
+                sql_run, cache_run = phase_tpch(root, t, sf)
+                runs["tpch"] = ("tpch", *sql_run)
+                runs["cache"] = ("cache", *cache_run)
+                done("tpch")
+            if "oocore" in phases:
+                runs["oocore"] = ("oocore", *phase_oocore(root, t, sf))
+                done("oocore")
+            if "csv-orc" in phases:
+                runs["csv-orc"] = ("csv-orc", *phase_csv_orc(
+                    os.path.join(root, "text"), t, sf))
+                done("csv-orc")
+            del t
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
     if "modes" in phases:
         phase_perfile_modes()
+        done("modes")
     if "window-modes" in phases:
         phase_window_modes()
+        done("window-modes")
     if "shuffle-modes" in phases:
         phase_shuffle_modes()
         done("shuffle-modes")
@@ -5726,7 +6242,8 @@ def main() -> int:
     if set(ALL_PHASES) <= set(phases):
         kernels = phase_timing([runs[k] for k in (
             "q6", "q6p", "q6s", "q6pf", "star", "window", "shuffle",
-            "strings", "customer-etl", "mortgage", "tpch", "cache")])
+            "strings", "customer-etl", "mortgage", "tpch", "cache",
+            "oocore", "csv-orc")])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -20,9 +20,13 @@ keys unchanged, so one conf dict drives both packages.
 ``sql()`` parses a query (sql/parser.py) against the temp views that
 ``register_view`` (or ``DataFrame.create_or_replace_temp_view``)
 registered.  ``collect`` runs on the calling thread; ``_execute_device``
-hands the device batches over with no download.  Not ported yet: the
-query scheduler (``QueryService``, ``submit``/``collect_async``), spill,
-the rest of the observability layer (profiles, the HTTP endpoint, the
+hands the device batches over with no download.  At start the session
+makes the process's spill catalog (``mem/spill.init_catalog`` with the
+``memory.device.batchStorageSize``, ``memory.host.spillStorageSize`` and
+``memory.spill.dir`` keys), or disables it under
+``memory.spill.enabled=false``, as the reference does.  Not ported yet:
+the query scheduler (``QueryService``, ``submit``/``collect_async``), the
+rest of the observability layer (profiles, the HTTP endpoint, the
 flight recorder), serving and the fleet.
 """
 
@@ -57,6 +61,15 @@ class TpuSparkSession:
         if self.device.type == "cuda":
             from spark_rapids_tpu_torch.columnar.transfer import CopyStream
             self.copy_stream = CopyStream(self.device)
+        from spark_rapids_tpu_torch.mem import spill
+        if self.conf.get(cfg.MEM_SPILL_ENABLED):
+            spill.init_catalog(
+                self.conf.get(cfg.MEM_DEVICE_LIMIT),
+                self.conf.get(cfg.MEM_HOST_SPILL_LIMIT),
+                self.conf.get(cfg.MEM_SPILL_DIR) or None,
+                device=self.device)
+        else:
+            spill.disable_catalog()
         from spark_rapids_tpu_torch.io import scan_cache
         scan_cache.configure(
             self.conf.get(cfg.SCAN_METADATA_CACHE_ENABLED),

@@ -181,6 +181,21 @@ PARQUET_DEVICE_DECODE = conf(
     "Decode parquet pages on the device (TpuParquetScanExec); off, the "
     "scan stays a host CpuFileScanExec.", bool)
 
+CSV_DEVICE_DECODE = conf(
+    "spark.rapids.tpu.sql.format.csv.deviceDecode.enabled", True,
+    "Decode CSV files on the device: one pass of torch operations over "
+    "the raw bytes finds the delimiters and parses the fields of each "
+    "file (io/device_csv.py). Quoted/ragged/exotic files fall back to "
+    "the host Arrow reader.", bool)
+
+ORC_DEVICE_DECODE = conf(
+    "spark.rapids.tpu.sql.format.orc.deviceDecode.enabled", True,
+    "Decode ORC stripes on the device: the host parses stripe footers "
+    "and RLEv2 run boundaries, the device expands runs/PRESENT streams "
+    "and gathers string dictionaries (io/device_orc.py). Columns with "
+    "unsupported encodings fall back to host Arrow decode "
+    "individually.", bool)
+
 PARQUET_DEVICE_ENCODE = conf(
     "spark.rapids.tpu.sql.format.parquet.deviceEncode.enabled", True,
     "Encode parquet writes from device batches: per-column null "
@@ -292,6 +307,78 @@ SCAN_PREFETCH_DEPTH = conf(
     "dispatch-only device decode of the current batch (prep of batch "
     "k+1 overlaps decode of batch k; no device->host read happens "
     "before the terminal barrier). 0 disables pipelining.", int)
+
+# ---------------------------------------------------------------------------
+# Memory, out-of-core join and admission keys (reference config.py:282-298,
+# :483-516, :739-753)
+# ---------------------------------------------------------------------------
+
+MEM_DEVICE_LIMIT = conf(
+    "spark.rapids.tpu.memory.device.batchStorageSize", 4 << 30,
+    "Bytes of device budget for registered spillable batches; exceeding "
+    "it triggers synchronous device->host spill (mem/spill.py).", int)
+
+MEM_SPILL_ENABLED = conf(
+    "spark.rapids.tpu.memory.spill.enabled", True,
+    "Enable device->host->disk spill of registered batches under memory "
+    "pressure.", bool)
+
+MEM_HOST_SPILL_LIMIT = conf(
+    "spark.rapids.tpu.memory.host.spillStorageSize", 8 << 30,
+    "Bytes of host memory used to cache spilled device batches before "
+    "falling through to disk.", int)
+
+MEM_SPILL_DIR = conf(
+    "spark.rapids.tpu.memory.spill.dir", "",
+    "Directory for the disk spill tier (defaults to a temp dir).")
+
+JOIN_OOCORE_ENABLED = conf(
+    "spark.rapids.tpu.sql.join.oocore.enabled", True,
+    "Out-of-core grace hash join (exec/join_partition.py): when a "
+    "join's per-partition build side exceeds join.buildSideBudgetBytes "
+    "it is hash-partitioned (a different murmur seed per recursion "
+    "level, decorrelated from the exchange's bucketing) into 2^k grace "
+    "partitions together with its probe side; partitions spill through "
+    "the device->host->disk tiers and each grace partition is "
+    "re-streamed and joined alone, recursing on a still-oversized "
+    "partition. Under-budget joins take the unpartitioned path; off "
+    "reverts entirely.", bool)
+
+JOIN_BUILD_BUDGET = conf(
+    "spark.rapids.tpu.sql.join.buildSideBudgetBytes", 0,
+    "Per-partition build-side byte budget that activates the "
+    "out-of-core grace join. 0 (default) derives it from the admission "
+    "budget: sched.memoryBudget (or 0.9 of the card's memory; 8 GiB on "
+    "the CPU) divided by sched.maxConcurrent. -1 disables the budget "
+    "check (build sides gather unconditionally).", int)
+
+JOIN_OOCORE_PARTITIONS_LOG2 = conf(
+    "spark.rapids.tpu.sql.join.oocore.partitionsLog2", 0,
+    "Explicit grace fan-out exponent: partition both sides into 2^k "
+    "pieces when the build side exceeds the budget. 0 (default) picks "
+    "the smallest k whose expected per-partition build size fits the "
+    "budget, capped at 5 (32-way).", int)
+
+JOIN_OOCORE_MAX_RECURSION = conf(
+    "spark.rapids.tpu.sql.join.oocore.maxRecursion", 3,
+    "Recursion-depth bound for grace partitions that stay over budget "
+    "after a split (duplicate-heavy keys). At the bound, or as soon as "
+    "a level fails to shrink the partition (a single hot key cannot "
+    "hash-split), the join streams the probe side in chunks against "
+    "the oversized build partition.", int)
+
+SCHED_MEMORY_BUDGET = conf(
+    "spark.rapids.tpu.sched.memoryBudget", 0,
+    "Device byte budget of the admission controller. 0 derives it from "
+    "the device (0.9 of the card's memory; 8 GiB on the CPU). The port "
+    "has no query scheduler yet: only the grace join's default budget "
+    "reads it.", int)
+
+SCHED_MAX_CONCURRENT = conf(
+    "spark.rapids.tpu.sched.maxConcurrent", 4,
+    "Hard cap on concurrently running queries. The port has no query "
+    "scheduler yet: only the grace join's default budget (one query's "
+    "share of sched.memoryBudget) reads it.", int)
 
 # ---------------------------------------------------------------------------
 # Observability keys (reference config.py:719-737)

@@ -774,37 +774,46 @@ class TpuHashAggregateExec(TpuExec):
         n_keys = len(self.groupings)
 
         def run(its):
-            partials: List[DeviceBatch] = []
-            for it in its:
-                for b in it:
-                    # skip empty batches only when the count is host-side
-                    nr = b.num_rows
-                    if isinstance(nr, (int, np.integer)) and nr == 0 \
-                            and self.groupings:
-                        continue
-                    with timed(self.metrics, "agg.update"):
-                        partials.append(update_aggregate(
-                            kernel_abi.erase(b), self.groupings,
-                            self.aggregates, self.specs,
-                            self.fused_condition))
-            if not partials:
-                if self.groupings:
-                    return  # grouped agg over empty input -> no rows
-                # global agg over empty -> one row (count=0, sum=null)
-                empty = _make_empty_buffer_batch(self, _plan_device(self))
-                yield finalize_aggregate(empty, 0, self.specs,
+            from spark_rapids_tpu_torch.mem.spill import register_or_hold
+            # buffered partials stay spillable between update and merge
+            partials: List = []
+            try:
+                for it in its:
+                    for b in it:
+                        # skip empty batches only when the count is
+                        # host-side
+                        nr = b.num_rows
+                        if isinstance(nr, (int, np.integer)) and nr == 0 \
+                                and self.groupings:
+                            continue
+                        with timed(self.metrics, "agg.update"):
+                            partial = update_aggregate(
+                                kernel_abi.erase(b), self.groupings,
+                                self.aggregates, self.specs,
+                                self.fused_condition)
+                        partials.append(register_or_hold(partial))
+                if not partials:
+                    if self.groupings:
+                        return  # grouped agg over empty input -> no rows
+                    # global agg over empty -> one row (count=0, sum=null)
+                    empty = _make_empty_buffer_batch(self,
+                                                     _plan_device(self))
+                    yield finalize_aggregate(empty, 0, self.specs,
+                                             self._schema.names)
+                    return
+                if len(partials) == 1:
+                    merged = partials[0].get()
+                else:
+                    whole = concat_batches([p.get() for p in partials])
+                    with timed(self.metrics, "agg.merge"):
+                        merged = merge_aggregate(whole, n_keys, self.specs)
+                out = finalize_aggregate(merged, n_keys, self.specs,
                                          self._schema.names)
-                return
-            if len(partials) == 1:
-                merged = partials[0]
-            else:
-                whole = concat_batches(partials)
-                with timed(self.metrics, "agg.merge"):
-                    merged = merge_aggregate(whole, n_keys, self.specs)
-            out = finalize_aggregate(merged, n_keys, self.specs,
-                                     self._schema.names)
-            self.metrics.add_rows(out.num_rows)
-            yield out
+                self.metrics.add_rows(out.num_rows)
+                yield out
+            finally:
+                for p in partials:
+                    p.close()
 
         if self.per_partition:
             return [run([it]) for it in self.children[0].execute()]

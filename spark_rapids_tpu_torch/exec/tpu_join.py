@@ -36,10 +36,12 @@ them.
 partition by partition: inner/left/semi/anti gather the build partition
 once and probe it per stream batch; right and full outer joins gather
 both partitions, and a full outer join takes the sort route, appending
-its unmatched build rows after the pairs.  Left out until the spill
-catalog is ported: the grace joins of ``exec/join_partition.py`` (the
-planner never stamps ``_oocore``: the reference's unconditional
-gather).
+its unmatched build rows after the pairs.  Both modes take the grace
+join of ``exec/join_partition.py`` when the planner stamped an
+out-of-core budget (``_oocore``) and a partition's build side measures
+over it: the streamed mode re-streams the probe slices of each grace
+partition, the gathered mode joins each grace partition's two sides as
+single batches (the reference's branches, :805-830 and :855-870).
 """
 
 from __future__ import annotations
@@ -503,13 +505,36 @@ def _check_total(total: int) -> None:
 
 
 class _BroadcastBuildMixin:
-    """Caches the one-time gather of the broadcast (build) side."""
+    """Caches the one-time gather of the broadcast (build) side, held
+    through a spill handle while the stream partitions probe it.  The
+    handle closes when the last stream partition of an ``execute`` ends
+    (the reference leaves it to the garbage collector), so a finished
+    query leaves nothing in the spill catalog."""
 
     def _init_build(self, build_side: str) -> None:
         self.build_side = build_side
         self._built = None
         self._build_done = False
         self._build_lock = threading.Lock()
+        self._open_parts = 0
+
+    def _stream_parts(self, sits, run):
+        """``run`` over each stream partition; the build's handle closes
+        once every partition ended."""
+        with self._build_lock:
+            self._open_parts += len(sits)
+
+        def part(sit):
+            try:
+                yield from run(sit)
+            finally:
+                with self._build_lock:
+                    self._open_parts -= 1
+                    if self._open_parts == 0 and self._built is not None:
+                        self._built.close()
+                        self._built = None
+                        self._build_done = False
+        return [part(it) for it in sits]
 
     def _build(self):
         # concurrent stream partitions gather the build side once; it is
@@ -685,12 +710,17 @@ class TpuBroadcastHashJoinExec(_BroadcastBuildMixin, _HashJoinBase):
                 else:
                     yield from self._join_pair(b, sb, "left")
 
-        return [run(it) for it in sits]
+        return self._stream_parts(sits, run)
 
 
 class TpuShuffledHashJoinExec(_HashJoinBase):
     """Equi-join over co-partitioned children (the hash exchanges the
-    planner put on both sides): each partition pair joins on its own."""
+    planner put on both sides): each partition pair joins on its own.
+
+    ``_oocore`` is the planner's out-of-core stamp
+    (exec/join_partition.resolve_oocore): when set, a partition whose
+    build side measures over its budget takes the grace join; None (an
+    unstamped join, or the keys off) keeps the unconditional gather."""
 
     def execute(self):
         from spark_rapids_tpu_torch.mem.spill import register_or_hold
@@ -699,11 +729,23 @@ class TpuShuffledHashJoinExec(_HashJoinBase):
         if len(lits) != len(rits):
             raise ValueError(f"join children not co-partitioned: "
                              f"{len(lits)} vs {len(rits)}")
+        oocore = getattr(self, "_oocore", None)
 
         def run_streamed(lit, rit):
             """inner/left/semi/anti: the build partition gathered once and
             held while each stream batch probes it."""
-            right = _gather_partition(rit)
+            if oocore is not None:
+                rbs = [b for b in rit if int(b.num_rows)]
+                build_bytes = sum(int(b.nbytes()) for b in rbs)
+                if rbs and build_bytes > oocore["budget"]:
+                    from spark_rapids_tpu_torch.exec import join_partition
+                    yield from join_partition.grace_join(
+                        self, lit, rbs, build_bytes, oocore,
+                        build_is_left=False, gathered=False)
+                    return
+                right = concat_batches(rbs) if rbs else None
+            else:
+                right = _gather_partition(rit)
             if right is None and self.how == "inner":
                 for _ in lit:       # nothing can match; drain the stream
                     pass
@@ -723,8 +765,27 @@ class TpuShuffledHashJoinExec(_HashJoinBase):
         def run_gathered(lit, rit):
             """right/full: unmatched rows need every batch of the pair, so
             both partitions join as single batches."""
-            left = _gather_partition(lit)
-            right = _gather_partition(rit)
+            if oocore is not None:
+                lbs = [b for b in lit if int(b.num_rows)]
+                rbs = [b for b in rit if int(b.num_rows)]
+                # _join_pair's build side: a right outer join builds on
+                # the LEFT (the swapped left outer), a full one on the
+                # right
+                build_is_left = self.how == "right"
+                bbs = lbs if build_is_left else rbs
+                build_bytes = sum(int(b.nbytes()) for b in bbs)
+                if bbs and build_bytes > oocore["budget"]:
+                    from spark_rapids_tpu_torch.exec import join_partition
+                    yield from join_partition.grace_join(
+                        self, rbs if build_is_left else lbs, bbs,
+                        build_bytes, oocore, build_is_left=build_is_left,
+                        gathered=True)
+                    return
+                left = concat_batches(lbs) if lbs else None
+                right = concat_batches(rbs) if rbs else None
+            else:
+                left = _gather_partition(lit)
+                right = _gather_partition(rit)
             if left is None and right is None:
                 return
             dev = (left if left is not None else right).device
@@ -818,7 +879,7 @@ class TpuBroadcastNestedLoopJoinExec(_BroadcastBuildMixin, _NestedLoopBase):
                 else:
                     yield from self._cross_pair(build, sb)
 
-        return [run(it) for it in sits]
+        return self._stream_parts(sits, run)
 
 
 class TpuCartesianProductExec(_NestedLoopBase):

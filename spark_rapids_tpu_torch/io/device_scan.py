@@ -1,7 +1,8 @@
-"""Parquet scan exec whose decode runs on the device.
+"""File scan execs whose decode runs on the device.
 
 Ported from ``spark_rapids_tpu/io/device_scan.py``: ``TpuParquetScanExec``
-(:73) with its two readers.
+(:73) with its two readers, ``TpuOrcScanExec`` (:419) and
+``TpuCsvScanExec`` (:443).
 
   * The fused coalescing reader (``_execute_fused``, reference :213-412):
     row groups of the scan's files group greedily into batches bounded
@@ -24,9 +25,19 @@ Ported from ``spark_rapids_tpu/io/device_scan.py``: ``TpuParquetScanExec``
     is yielded and clears it when the file is done.  It ignores a pushed
     filter: the consumer applies its condition.
 
-Hive partition-value columns are appended as constant columns.  Not
-ported yet: scan sharing (io/scan_share.py), which acts across
-concurrent queries and waits for the query scheduler (``sched/``).
+``TpuOrcScanExec`` is the PERFILE reader over ORC: one batch per
+stripe (io/device_orc.decode_stripe), never the fused reader, and it
+ignores a pushed filter (the planner stamps none on it).
+``TpuCsvScanExec`` decodes each file in one pass on the device
+(io/device_csv.decode_csv, the ``scan.csvDecode`` section) and falls
+back to the whole-file Arrow read for a dialect the device parse does
+not cover, counting it in ``fallbackFiles``.
+
+Hive partition-value columns are appended as constant columns (not by
+the CSV scan: the planner keeps a partitioned CSV scan on the host, as
+the reference does).  Not ported yet: scan sharing (io/scan_share.py),
+which acts across concurrent queries and waits for the query scheduler
+(``sched/``).
 """
 
 from __future__ import annotations
@@ -99,6 +110,8 @@ class TpuParquetScanExec(TpuExec):
     ``copy_stream`` is the session's ``columnar/transfer.CopyStream``
     on the card; the scan makes its own when none is set."""
 
+    fmt = "parquet"
+
     def __init__(self, scan: FileScan, conf, device="cuda"):
         super().__init__()
         self.scan = scan
@@ -124,7 +137,8 @@ class TpuParquetScanExec(TpuExec):
                 f"(files={len(self.scan.paths)}, deviceDecode)")
 
     def execute(self) -> List[Iterator[DeviceBatch]]:
-        if self.allow_fused and self.conf.get(cfg.PARQUET_FUSED_DECODE):
+        if (self.fmt == "parquet" and self.allow_fused and
+                self.conf.get(cfg.PARQUET_FUSED_DECODE)):
             return self._execute_fused()
         from spark_rapids_tpu_torch.io.readers import scan_file_indices
         return [self._file_part(i) for i in scan_file_indices(self.scan)]
@@ -175,11 +189,14 @@ class TpuParquetScanExec(TpuExec):
                     self.metrics.add_batches()
                     yield out
         finally:
-            fctx[1].close()
+            self._close(fctx)
 
     def _open(self, path: str):
         from spark_rapids_tpu_torch.io import scan_cache as sc
         return path, sc.open_source(path, metrics=self.metrics)
+
+    def _close(self, fctx) -> None:
+        fctx[1].close()
 
     def _num_chunks(self, fctx) -> int:
         return fctx[1].metadata.num_row_groups
@@ -346,3 +363,112 @@ class TpuParquetScanExec(TpuExec):
 
         return [group_part(i, srcs, pv)
                 for i, (srcs, pv) in enumerate(groups)]
+
+
+class TpuOrcScanExec(TpuParquetScanExec):
+    """Device-decoding ORC scan (reference :419): one batch per stripe
+    through the PERFILE machinery (io/device_orc.decode_stripe), never
+    the fused reader; shares the partition-column and fallback
+    machinery."""
+
+    fmt = "orc"
+
+    def _open(self, path: str):
+        from spark_rapids_tpu_torch.io import device_orc as dorc
+        with open(path, "rb") as f:
+            raw = f.read()
+        return path, raw, dorc.read_meta(raw)
+
+    def _close(self, fctx) -> None:
+        pass
+
+    def _num_chunks(self, fctx) -> int:
+        return len(fctx[2].stripes)
+
+    def _decode_chunk(self, fctx, idx: int, file_schema: Schema, file_cols):
+        from spark_rapids_tpu_torch.io import device_orc as dorc
+        path, raw, meta = fctx
+        if self.device.type == "cuda" and self.copy_stream is None:
+            from spark_rapids_tpu_torch.columnar.transfer import CopyStream
+            self.copy_stream = CopyStream(self.device)
+        return dorc.decode_stripe(
+            path, idx, file_schema, columns=file_cols, raw=raw, meta=meta,
+            device=self.device, copy_stream=self.copy_stream,
+            host_threads=max(1, int(self.conf.get(
+                cfg.SCAN_HOST_PREP_THREADS))), metrics=self.metrics)
+
+
+class TpuCsvScanExec(TpuExec):
+    """Device-decoding CSV scan (reference :443): one device decode per
+    file (io/device_csv.decode_csv) under the device semaphore, timed as
+    ``scan.csvDecode``.  A dialect the device parse does not cover
+    (quotes, ragged rows, a type outside its set) falls back to the
+    whole-file Arrow read with permissive casts, counted in
+    ``fallbackFiles``; columns with exotic numerics are re-read on the
+    host, counted in ``fallbackColumns``.  A pruned scan decodes each
+    file against its unpruned schema (the scan option ``file_schema``,
+    plan/optimizer.py), where the reference passes the pruned one and
+    falls back whole-file."""
+
+    def __init__(self, scan: FileScan, conf, device="cuda"):
+        super().__init__()
+        self.scan = scan
+        self.conf = conf
+        self.device = resolve_device(device)
+        self.columns = scan.options.get("columns")
+        self._schema = scan.schema if not self.columns else Schema(
+            [scan.schema.field(c) for c in self.columns])
+        self.copy_stream = None
+        self.metrics.extra["fallbackColumns"] = 0
+        self.metrics.extra["fallbackFiles"] = 0
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def _file_part(self, path: str) -> Iterator[DeviceBatch]:
+        from spark_rapids_tpu_torch.columnar.batch import from_arrow
+        from spark_rapids_tpu_torch.exec.context import set_input_file
+        from spark_rapids_tpu_torch.io import device_csv as dcsv
+        from spark_rapids_tpu_torch.io.readers import _normalize, _read_csv
+        wanted = [f.name for f in self._schema.fields]
+        opts = self.scan.options
+        if self.device.type == "cuda" and self.copy_stream is None:
+            from spark_rapids_tpu_torch.columnar.transfer import CopyStream
+            self.copy_stream = CopyStream(self.device)
+        try:
+            with tpu_semaphore(self.metrics):
+                with timed(self.metrics, "scan.csvDecode"):
+                    try:
+                        batch, fallbacks = dcsv.decode_csv(
+                            path, opts.get("file_schema", self.scan.schema),
+                            columns=wanted,
+                            sep=opts.get("sep", ","),
+                            header=bool(opts.get("header", True)),
+                            device=self.device,
+                            copy_stream=self.copy_stream)
+                        self.metrics.add_extra("fallbackColumns",
+                                               len(fallbacks))
+                    except dcsv.UnsupportedCsv:
+                        # whole-file host fallback
+                        self.metrics.add_extra("fallbackFiles", 1)
+                        t = _normalize(_read_csv(path, opts),
+                                       self.scan.schema, permissive=True)
+                        batch = from_arrow(t.select(wanted),
+                                           device=self.device,
+                                           copy_stream=self.copy_stream)
+                self.metrics.add_rows(int(batch.num_rows))
+                self.metrics.add_batches()
+                set_input_file(path)
+                yield batch
+        finally:
+            set_input_file("")
+
+    def execute(self) -> List[Iterator[DeviceBatch]]:
+        from spark_rapids_tpu_torch.io.readers import scan_file_indices
+        return [self._file_part(self.scan.paths[i])
+                for i in scan_file_indices(self.scan)]
+
+    def simple_string(self) -> str:
+        return (f"{type(self).__name__}"
+                f"(files={len(self.scan.paths)}, deviceDecode)")

@@ -105,9 +105,14 @@ def _rewrite(node: lp.LogicalPlan, needed: Optional[Set[int]]
         # the logical schema must narrow too: ancestors that derive
         # their schema from child.schema (Join, Window) otherwise
         # compute ordinal offsets from the unpruned column list
+        # ``file_schema`` keeps the unpruned schema: the device CSV
+        # decode counts every column of the file (the reference passes
+        # the narrowed one, and each of its pruned CSV scans falls back
+        # whole-file)
         new = lp.FileScan(node.fmt, node.paths,
                           Schema([node.schema.field(c) for c in names]),
-                          dict(node.options, columns=names))
+                          dict(node.options, columns=names,
+                               file_schema=node.schema))
         return new, {o: i for i, o in enumerate(keep)}
     if isinstance(node, lp.InMemoryScan):
         if needed is None:

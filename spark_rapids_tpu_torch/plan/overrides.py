@@ -14,25 +14,32 @@ reference's:
      transitions at currency boundaries; then whole-stage fusion
      (plan/fusion.py), the filter fused into the aggregate, the
      ``_kernel_backend`` stamp, the filter pushed into the Parquet scan
-     (under ``pallas``) and, when the plan reads ``input_file_name()``,
-     the scan's switch to its PERFILE reader, in that order;
+     (under ``pallas``; never into an ORC scan) and, when the plan reads
+     ``input_file_name()``, the scan's switch to its PERFILE reader, in
+     that order;
   4. ``explain`` renders the per-node decisions
      (``spark.rapids.tpu.sql.explain=NOT_ON_TPU|ALL``).
 
 Rules exist for the execs the port has: Project, Filter, HashAggregate,
 Range, Union, GlobalLimit, Expand, Generate, Sort, Window, the shuffle
 exchange and the partition coalesce, the shuffled and the broadcast hash
-joins, the broadcast nested-loop join, the cartesian product and the
-Parquet file scan (the in-memory scan stays a host node under its
-HostToDevice transition).  Cache scans have no rule yet: the planner
-raises for them, naming the module they wait for.
+joins, the broadcast nested-loop join, the cartesian product, the cached
+scan and the file scan (the in-memory scan stays a host node under its
+HostToDevice transition).  The file-scan rule is the reference's
+(:505-548): Parquet, ORC and CSV scans convert to ``TpuParquetScanExec``,
+``TpuOrcScanExec`` and ``TpuCsvScanExec``, and stay on the host under
+their ``deviceDecode.enabled`` kill switches, as does a CSV scan with
+Hive partition columns.
 
-The reference's shuffled-join rule also wraps the join's exchanges in
-adaptive readers (``exec/adaptive.py``, ``sql.adaptive.enabled``) and
-stamps the grace-join budget (``exec/join_partition.py``,
-``sql.join.oocore.enabled``).  The port has neither module yet: it
-builds the join over the bare exchanges, the reference's plan with both
-keys false, and accepts both keys unread.
+The shuffled-join rule stamps the grace-join budget on the join
+(``_oocore``, exec/join_partition.resolve_oocore; None under
+``sql.join.oocore.enabled=false`` or ``buildSideBudgetBytes=-1``).  The
+reference's rule also wraps the join's exchanges in adaptive readers
+(``exec/adaptive.py``, ``sql.adaptive.enabled``); the port has no such
+module yet: it builds the join over the bare exchanges, the reference's
+plan with that key false, and accepts the key unread.  The port's
+planner never builds the reference's plain ``CpuJoinExec``, so it has no
+rule for one.
 """
 
 from __future__ import annotations
@@ -368,13 +375,22 @@ def _register_join_strategy_rules():
         TpuBroadcastHashJoinExec, TpuBroadcastNestedLoopJoinExec,
         TpuCartesianProductExec, TpuShuffledHashJoinExec)
 
+    def _convert_shuffled_join(n, ch, conf, device):
+        from spark_rapids_tpu_torch.exec.join_partition import \
+            resolve_oocore
+        j = TpuShuffledHashJoinExec(ch[0], ch[1], n.left_keys,
+                                    n.right_keys, n.how, n.condition,
+                                    n.schema)
+        # the out-of-core budget is resolved at conversion time (None:
+        # the unconditional gather); execute() never reads the conf
+        j._oocore = resolve_oocore(conf, device)
+        return j
+
     register_exec_rule(cpux.CpuShuffledHashJoinExec, ExecRule(
         "ShuffledHashJoinExec",
         "device partitioned equi-join over co-partitioned exchanges",
         _join_exprs,
-        convert=lambda n, ch, conf, device: TpuShuffledHashJoinExec(
-            ch[0], ch[1], n.left_keys, n.right_keys, n.how, n.condition,
-            n.schema),
+        convert=_convert_shuffled_join,
         extra_tag=_tag_join))
 
     register_exec_rule(cpux.CpuBroadcastHashJoinExec, ExecRule(
@@ -470,25 +486,47 @@ _register_exchange_rule()
 
 
 def _register_file_scan_rule():
-    from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+    from spark_rapids_tpu_torch.io.device_scan import (TpuCsvScanExec,
+                                                       TpuOrcScanExec,
+                                                       TpuParquetScanExec)
     from spark_rapids_tpu_torch.io.readers import CpuFileScanExec
 
     def _tag_scan(n, conf) -> List[str]:
-        if n.scan.fmt != "parquet":
-            return [f"{n.scan.fmt} scans decode on host (device decode is "
-                    "parquet-only in the torch port)"]
-        if not conf.get(cfg.PARQUET_DEVICE_DECODE):
-            return ["parquet device decode disabled by "
-                    f"{cfg.PARQUET_DEVICE_DECODE.key}"]
-        return []
+        out = []
+        if n.scan.fmt == "parquet":
+            if not conf.get(cfg.PARQUET_DEVICE_DECODE):
+                out.append("parquet device decode disabled by "
+                           f"{cfg.PARQUET_DEVICE_DECODE.key}")
+        elif n.scan.fmt == "orc":
+            if not conf.get(cfg.ORC_DEVICE_DECODE):
+                out.append("orc device decode disabled by "
+                           f"{cfg.ORC_DEVICE_DECODE.key}")
+        elif n.scan.fmt == "csv":
+            if not conf.get(cfg.CSV_DEVICE_DECODE):
+                out.append("csv device decode disabled by "
+                           f"{cfg.CSV_DEVICE_DECODE.key}")
+            elif n.scan.options.get("part_fields"):
+                out.append("csv device decode does not yet append "
+                           "Hive partition columns")
+        else:
+            out.append(f"{n.scan.fmt} scans decode on host "
+                       "(device decode is parquet/orc/csv-only)")
+        return out
+
+    def _convert_scan(n, ch, conf, device):
+        if n.scan.fmt == "orc":
+            return TpuOrcScanExec(n.scan, conf, device=device)
+        if n.scan.fmt == "csv":
+            return TpuCsvScanExec(n.scan, conf, device=device)
+        return TpuParquetScanExec(n.scan, conf, device=device)
 
     register_exec_rule(CpuFileScanExec, ExecRule(
         "FileSourceScanExec",
-        "device parquet scan: packed pages upload, RLE/dictionary/"
-        "def-level decode on the device",
+        "device parquet/ORC/CSV scan: packed pages/streams or raw bytes "
+        "upload, RLE/dictionary/def-level decode or the delimiter scan "
+        "and field parse on the device",
         _no_exprs,
-        convert=lambda n, ch, conf, device: TpuParquetScanExec(
-            n.scan, conf, device=device),
+        convert=_convert_scan,
         extra_tag=_tag_scan))
 
 
@@ -746,7 +784,8 @@ def _push_scan_filters(plan: PhysicalPlan) -> None:
         cover a batch (io/parquet_fused.py), which is always correct.
     """
     from spark_rapids_tpu_torch.exec.fused_stage import TpuFusedStageExec
-    from spark_rapids_tpu_torch.io.device_scan import TpuParquetScanExec
+    from spark_rapids_tpu_torch.io.device_scan import (TpuOrcScanExec,
+                                                       TpuParquetScanExec)
     from spark_rapids_tpu_torch.plan.fusion import (_AGG_BARRIERS,
                                                     _has_barrier, _refcounts)
 
@@ -771,6 +810,7 @@ def _push_scan_filters(plan: PhysicalPlan) -> None:
         if cond is not None and n.children:
             scan = n.children[0]
             if (isinstance(scan, TpuParquetScanExec) and
+                    not isinstance(scan, TpuOrcScanExec) and
                     scan.allow_fused and
                     refs.get(id(scan), 1) <= 1 and
                     getattr(scan, "_pushed_filter", None) is None and

@@ -156,30 +156,86 @@ def _nodes(s, df):
     return out
 
 
-@pytest.mark.parametrize("fmt", ["csv", "orc"])
-def test_csv_and_orc_scans_stay_on_the_host(tmp_path, fmt):
-    """The port decodes only Parquet on the device: a CSV or ORC scan
-    plans as a host CpuFileScanExec with the port's reason, under an
-    upload, and gives the reference's rows."""
+def _write_small(tmp_path, fmt: str, name: str = "t") -> str:
     import pyarrow.csv as pacsv
     import pyarrow.orc as paorc
     t = pa.table({"k": pa.array(np.arange(40) % 7),
                   "v": pa.array(np.arange(40) * 0.5)})
-    path = str(tmp_path / f"t.{fmt}")
+    path = str(tmp_path / f"{name}.{fmt}")
     (pacsv.write_csv if fmt == "csv" else paorc.write_table)(t, path)
+    return path
+
+
+def _scan_agg(s, fmt, path, col, F):
+    return getattr(s.read, fmt)(path).filter(col("k") > 2) \
+        .group_by("k").agg(F.sum("v").alias("sv"))
+
+
+@pytest.mark.parametrize("fmt", ["csv", "orc"])
+def test_csv_and_orc_scans_plan_on_the_device(tmp_path, fmt):
+    """A CSV or ORC scan plans as TpuCsvScanExec / TpuOrcScanExec, the
+    reference's plan node for node, and gives the reference's rows."""
+    path = _write_small(tmp_path, fmt)
+    names, outs = {}, {}
+    for side, (_, col, F, W, _lp, _p) in SIDES.items():
+        s = session(side, CONF)
+        df = _scan_agg(s, fmt, path, col, F)
+        names[side] = [type(n).__name__ for n in _nodes(s, df)]
+        if side == "port":
+            outs[side] = df.collect()
+        else:
+            outs[side] = _scan_agg(
+                session(side, {"spark.rapids.tpu.sql.enabled": False}),
+                fmt, path, col, F).collect()
+    assert names["port"] == names["ref"]
+    want = "TpuCsvScanExec" if fmt == "csv" else "TpuOrcScanExec"
+    assert names["port"][-1] == want
+    assert_tables_equal(outs["ref"], outs["port"], ignore_order=True)
+
+
+@pytest.mark.parametrize("fmt", ["csv", "orc"])
+def test_csv_and_orc_scans_stay_on_the_host(tmp_path, fmt):
+    """Under the format's device-decode kill switch a CSV or ORC scan
+    plans as a host CpuFileScanExec with the reference's reason, under an
+    upload, and gives the reference's rows."""
+    path = _write_small(tmp_path, fmt)
+    key = f"spark.rapids.tpu.sql.format.{fmt}.deviceDecode.enabled"
     outs = {}
     for side, (_, col, F, W, _lp, _p) in SIDES.items():
-        s = session(side, CONF if side == "port" else
+        s = session(side, dict(CONF, **{key: False}) if side == "port" else
                     {"spark.rapids.tpu.sql.enabled": False})
-        df = getattr(s.read, fmt)(path).filter(col("k") > 2) \
-            .group_by("k").agg(F.sum("v").alias("sv"))
+        df = _scan_agg(s, fmt, path, col, F)
         outs[side] = df.collect()
         if side == "port":
             names = [type(n).__name__ for n in _nodes(s, df)]
             assert names[-2:] == ["HostToDeviceExec", "CpuFileScanExec"]
-            assert (f"{fmt} scans decode on host (device decode is "
-                    "parquet-only in the torch port)") in \
+            assert f"{fmt} device decode disabled by {key}" in \
                 df.explain_string("tpu")
+    assert_tables_equal(outs["ref"], outs["port"], ignore_order=True)
+
+
+def test_csv_scan_with_hive_partitions_stays_on_the_host(tmp_path):
+    """A CSV scan with Hive partition columns stays on the host with the
+    reference's reason (the device CSV scan appends none), node for node
+    the reference's plan."""
+    for part in (0, 1):
+        (tmp_path / f"p={part}").mkdir()
+        _write_small(tmp_path / f"p={part}", "csv")
+    names, outs, why = {}, {}, {}
+    for side, (_, col, F, W, _lp, _p) in SIDES.items():
+        s = session(side, CONF)
+        df = s.read.csv(str(tmp_path)).group_by("p").agg(
+            F.sum("v").alias("sv"))
+        names[side] = [type(n).__name__ for n in _nodes(s, df)]
+        why[side] = df.explain_string("tpu")
+        outs[side] = df.collect() if side == "port" else \
+            s.read.csv(str(tmp_path)).group_by("p").agg(
+                F.sum("v").alias("sv")).collect()
+    assert names["port"] == names["ref"]
+    assert names["port"][-1] == "CpuFileScanExec"
+    for w in why.values():
+        assert "csv device decode does not yet append Hive partition " \
+            "columns" in w
     assert_tables_equal(outs["ref"], outs["port"], ignore_order=True)
 
 

@@ -327,18 +327,22 @@ def test_kernel_counters_lose_no_update_across_threads():
 
 
 def test_csv_scan_decodes_on_the_host_and_matches_reference(tmp_path):
+    """Under the CSV kill switch the scan decodes on the host with the
+    reference's reason (the device CSV scan has its own tests,
+    tests/test_torch_device_csv.py)."""
     path = str(tmp_path / "t.csv")
     pa.csv.write_csv(gen_store_sales(2000, seed=4), path)
     outs = {}
     for side, (_, col, F) in SIDES.items():
-        s = session(side, {"spark.rapids.tpu.sql.variableFloatAgg.enabled":
-                           True})
+        s = session(side, {
+            "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+            "spark.rapids.tpu.sql.format.csv.deviceDecode.enabled": False})
         df = q6(s.read.csv(path), col, F)
         outs[side] = df.collect()
         if side == "port":
             why = df.explain_string("tpu")
-    assert ("csv scans decode on host (device decode is parquet-only in "
-            "the torch port)") in why
+    assert ("csv device decode disabled by "
+            "spark.rapids.tpu.sql.format.csv.deviceDecode.enabled") in why
     assert_tables_equal(outs["ref"], outs["port"], ignore_order=True)
 
 
