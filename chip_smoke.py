@@ -154,10 +154,11 @@ Phases (any failure exits non-zero):
                pyarrow computation; with the counts set to 0 before it,
                its launches, fallbacks and join routes must equal the
                pinned STRINGS_COUNTS, STRINGS_FALLBACKS and STRINGS_ROUTES;
-               then its cold wall, a warm wall with sections (the
-               filter's, projection's and fused stage's host eval time
-               among them), one profiler trace with the kernel launches
-               inside those eval spans, and its peak device memory;
+               then its cold wall and peak device memory, and (not in
+               the whole smoke) a warm wall with sections (the filter's,
+               projection's and fused stage's host eval time among them)
+               and one profiler trace with the kernel launches inside
+               those eval spans;
   8f. customer-etl — over the strings phase's customer file (10,000,000
                rows) on a port session on cuda at the strings phase's conf:
                an RLIKE filter in the device subset on c_email_address,
@@ -168,9 +169,10 @@ Phases (any failure exits non-zero):
                hashlib and repr; the ids must count 0, 1, 2, ... within
                each partition; the ids, partition ids and rand must equal a
                port session's on the CPU over the same batches, bit for
-               bit; then the pinned launches and fallbacks, its cold wall,
-               a warm wall with sections, one profiler trace (with the
-               launches inside the eval spans) and its peak device memory;
+               bit; then the pinned launches and fallbacks, its cold wall
+               and peak device memory, and (not in the whole smoke) a
+               warm wall with sections and one profiler trace (with the
+               launches inside the eval spans);
   8g. mortgage — ``bench/mortgage.py``'s ETL (``run``: the per-loan
                delinquency features, the explode of 0..11 and its
                re-aggregation, the cleaned acquisitions), ``simple_aggregates``
@@ -183,10 +185,10 @@ Phases (any failure exits non-zero):
                the name mapping's in-memory scan; the ETL's holds a
                TpuGenerateExec); must match an independent pyarrow/numpy
                computation (the ETL as row sets); launches, falls back and
-               routes its joins as pinned (MORT_*); then its cold wall, a
+               routes its joins as pinned (MORT_*); then its cold wall
+               and peak device memory, and (not in the whole smoke) a
                warm wall with sections (``generate.count`` and
-               ``generate.emit`` among them), one profiler trace and its
-               peak device memory;
+               ``generate.emit`` among them) and one profiler trace;
   8h. tpch  — TPC-H from SQL text at SF10 when the phase runs alone, SF 2
                in the whole smoke (its time limit): ``bench/tpch.py::
                generate(sf, 7)`` (at SF10 lineitem 60,900,621 rows, orders
@@ -202,7 +204,8 @@ Phases (any failure exits non-zero):
                transitions), its rows against an independent pyarrow
                computation, the pinned launches, fallbacks and join
                routes (TPCH_*), the cold wall, 2 warm walls with
-               sections, one profiler trace and its peak device memory;
+               sections, one profiler trace (not in the whole smoke) and
+               its peak device memory;
                then its DataFrame form ``QUERIES[name]`` on the card
                against the SQL text's rows.  The cache: lineitem's q1/q6
                columns cached and registered as the lineitem view, q1 and
@@ -235,6 +238,31 @@ Phases (any failure exits non-zero):
                the card: the real ``torch.cuda.OutOfMemoryError`` goes to
                ``hbm_oom_recover``, which must spill the whole device
                tier, and the batches must come back equal;
+  8k. obs    — the per-query observability layer, over the SF10 q6
+               files and the oocore phase's tables: q6 through port
+               sessions with ``obs.profile.enabled`` on and off, 5 warm
+               runs of each in turns (both medians of the CUDA-event
+               walls and their difference, q6's kernels launched with no
+               fallback, the row counts left on the card per query); the
+               last profile: status, result rows,
+               every section, the plan tree in the executed plan's order,
+               the phases within the wall and each breakdown time within
+               the wall times the threads that time it (the prefetch
+               and task threads: the breakdown sums them, as the
+               reference's does; printed beside the run's CUDA-event
+               wall), ``explain_string('profile')``;
+               one traced run's Chrome trace read back by ``json.load``;
+               the oocore phase's grace q3 with ``obs.recorder.dir`` set:
+               grace and spill events in the ring, the
+               ``spill.deviceToHost`` bytes equal to the query's
+               ``spill.deviceToHostBytes``, the rows against pyarrow; q6
+               cancelled from a second thread through its installed
+               token: ``QueryCancelledError``, one ``q<id>-cancelled-``
+               bundle of the five files (status failure, the plan), an
+               empty spill catalog and q6 right after against pyarrow;
+               ``obs.slowQueryMs`` 1: one record per query with the
+               reference's keys; each line with the card's name and
+               power limit;
   8j. csv-orc — the tpch phase's tables (SF10 alone, SF 2 in the whole
                smoke) written as ORC (RLEv2, ZLIB, Hive's 0.8 dictionary
                threshold) and as pipe-delimited text with a header (region,
@@ -329,7 +357,8 @@ Phases (any failure exits non-zero):
 
 Before each q6 path and each star, window, shuffle, strings,
 customer-etl, mortgage, TPC-H, cached, out-of-core, ORC and CSV query
-the kernel launch counts are set to 0,
+(and before the obs phase's warm q6 runs) the kernel launch counts are
+set to 0,
 and they are read just after it: every kernel of the path must have
 launched, with no fallback but the PERFILE path's predicted mixed-width
 ones and the later queries' pinned filterDecode ones.  The line
@@ -338,11 +367,12 @@ card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
 q6p, q6pf, session, pipeline, q6s, star, window, shuffle, strings,
-customer-etl, mortgage, tpch, oocore, csv-orc, modes, window-modes,
-shuffle-modes, string-modes, tail-modes, io-modes) runs only those
-phases and prints no kernel table; ``tpch``, ``oocore`` and ``csv-orc``
-generate, write and remove their own files (sharing them when run
-together);
+customer-etl, mortgage, tpch, oocore, obs, csv-orc, modes,
+window-modes, shuffle-modes, string-modes, tail-modes, io-modes) runs
+only those phases and prints no kernel table; ``tpch``, ``oocore``,
+``obs`` and ``csv-orc`` generate, write and remove their own files
+(sharing them when run together; ``obs`` also writes the SF10 q6 files,
+and alone runs TPC-H at SF 2);
 ``customer-etl`` alone writes the star files and the census tables
 itself; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
@@ -382,7 +412,8 @@ Q6S_ROWS = Q6S_FILES << 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 # set when every phase runs: the phases that cut their depth for the
 # whole smoke's time limit read it (the shuffle phase's star reruns, the
-# tpch phase's scale)
+# strings, customer-etl and mortgage warm runs and traces, the tpch
+# phase's scale and traces)
 WHOLE_SMOKE = False
 OUT_DIR = "chiprun_out"
 LOG_NAME = "chip_smoke.log"
@@ -420,6 +451,9 @@ HOST_OK = ("CpuScanExec", "CpuFileScanExec", "HostToDeviceExec",
            "DeviceToHostExec")
 
 _log_lines = []
+# directories kept across phases (the SF10 q6 files the obs phase reads);
+# removed when the script ends, whatever its outcome
+_KEPT_DIRS = []
 
 
 def log(msg: str) -> None:
@@ -3649,6 +3683,8 @@ def phase_strings(root: str, tables: dict):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         names += [k for k in launches if k not in names]
+        if WHOLE_SMOKE:
+            continue    # the whole smoke's limit: the cold run only
         sec = _star_sections(run, reps=STRINGS_WARM, keys=STRINGS_SECTIONS)
         log(f"{tag} sections (host clock, median of {STRINGS_WARM} warm "
             f"runs; runs ms "
@@ -4253,10 +4289,12 @@ def phase_mortgage():
                         f"{out.to_pylist()[:2]}"
             _etl_query(tag, mortgage_run(p, root), check,
                        (MORT_COUNTS, MORT_FALLBACKS, MORT_ROUTES), shapes,
-                       errors, total, names, MORT_WARM, MORT_SECTIONS,
+                       errors, total, names,
+                       # the whole smoke's limit: the cold run only
+                       0 if WHOLE_SMOKE else MORT_WARM, MORT_SECTIONS,
                        must=("TpuGenerateExec",) if p == "etl" else (),
                        launch_spans=STRINGS_EVAL + GENERATE_SECTIONS,
-                       routes=True)
+                       routes=True, trace=not WHOLE_SMOKE)
         if errors:
             fail("; ".join(errors))
         return total, shapes.classes, names
@@ -4405,7 +4443,8 @@ def phase_customer_etl(root: str, customer: pa.Table):
     shapes = ShapeRecorder()
     _etl_query("customer-etl query", run, check,
                (CUST_COUNTS, CUST_FALLBACKS, None), shapes, errors, total,
-               names, CUST_WARM, CUST_SECTIONS)
+               names, 0 if WHOLE_SMOKE else CUST_WARM, CUST_SECTIONS,
+               trace=not WHOLE_SMOKE)    # the whole smoke: cold only
     if errors:
         fail("; ".join(errors))
     return total, shapes.classes, names
@@ -5023,7 +5062,8 @@ def _tpch_sql_queries(root: str, t: dict, sf: float, shapes, errors, total,
                    (TPCH_COUNTS[sf], TPCH_FALLBACKS[sf], TPCH_ROUTES[sf]),
                    shapes,
                    errors, total, names, TPCH_WARM, TPCH_SECTIONS,
-                   routes=True)
+                   # the whole smoke's limit: no trace
+                   routes=True, trace=not WHOLE_SMOKE)
         counters = view.delta()["counters"]
         log(f"{tag}: join host syncs "
             f"{int(counters.get('join.hostSyncs', 0))}, hash rounds "
@@ -5636,7 +5676,7 @@ def phase_oocore(root: str, t: dict, sf: float):
                 _catalog_empty(tag)
                 grace = {k: int(c.get(k, 0)) for k in GRACE_COUNTERS}
                 spilled = {k: int(c.get(k, 0)) for k in SPILL_COUNTERS}
-                arena = spill.get_catalog()._host_arena
+                arena_peak = spill.get_catalog().arena_peak
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 # the whole smoke's limit: its walls are the cold ones
                 warm = cold
@@ -5654,7 +5694,7 @@ def phase_oocore(root: str, t: dict, sf: float):
                     f"{cold * 1e3:.1f} ms, warm {walls[form][1] * 1e3:.1f} "
                     f"ms; grace {grace}{depth}; "
                     f"spilled {spilled} (cold run); host arena peak "
-                    f"{(arena.peak if arena is not None else 0) / 2**20:.1f}"
+                    f"{arena_peak / 2**20:.1f}"
                     f" MiB; peak device memory {peak:.2f} GiB; launches "
                     f"{launches}")
                 if form == "default" and grace["join.grace.activations"]:
@@ -5681,6 +5721,273 @@ def phase_oocore(root: str, t: dict, sf: float):
         return total, shapes.classes, names
     finally:
         shutil.rmtree(spill_dir, ignore_errors=True)
+
+
+OBS_RUNS = 5
+# the reference's slow-query record (api/session.py::_maybe_log_slow_query)
+SLOW_KEYS = {"ts_unix", "threshold_ms", "session_id", "queue_wait_s",
+             "kernels_compiled", "compile_ms", "query_id", "plan_digest",
+             "status", "error", "wall_s", "result_rows", "phases",
+             "wall_breakdown"}
+BUNDLE_FILES = ["config.json", "events.jsonl", "profile.json",
+                "registry.json", "trace.json"]
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip() or f"nvidia-smi rc={smi.returncode}"
+
+
+def _bundles(root: str) -> list:
+    """The recorder's bundle directories (it makes ``root`` with the
+    first)."""
+    if not os.path.isdir(root):
+        return []
+    return sorted(d for d in os.listdir(root)
+                  if os.path.isdir(os.path.join(root, d)))
+
+
+def _obs_q6(root: str, ref: pa.Table, card: str) -> None:
+    """q6 through port sessions with profiling on and off, warm runs in
+    turns; the last profile's checks; one traced run's Chrome trace."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.obs import profile as obsprof
+    from spark_rapids_tpu_torch.obs import trace as obstrace
+    conf = dict(SCAN_CONF, **{
+        "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+        "spark.rapids.tpu.sql.test.enabled": True})
+    plans = {}
+    dfs = {}
+    for form, on in (("profiled", True), ("unprofiled", False)):
+        s = TpuSparkSession(dict(conf, **{
+            "spark.rapids.tpu.obs.profile.enabled": on}), device="cuda")
+        s.add_plan_listener(
+            lambda r, form=form: plans.__setitem__(form, r.plan))
+        dfs[form] = bench_query(s, root)
+        check_q6(dfs[form].collect(), ref)      # cold: the plan cache
+    walls = {"profiled": [], "unprofiled": []}
+    outs = {}
+    kb.reset_counts()
+    for i in range(OBS_RUNS):
+        order = ("profiled", "unprofiled") if i % 2 == 0 else \
+            ("unprofiled", "profiled")
+        for form in order:
+            outs[form], _wall, ev = _timed_collect(dfs[form])
+            walls[form].append(ev)
+    launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+    _check_launches("obs q6", launches, fallbacks, Q6P_KERNELS)
+    for form, out in outs.items():
+        check_q6(out, ref)
+    out, ev = outs["profiled"], walls["profiled"][-1]
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"obs q6 warm walls (CUDA events, median of {OBS_RUNS} in turns): "
+        f"profiled {med['profiled'] * 1e3:.1f} ms, unprofiled "
+        f"{med['unprofiled'] * 1e3:.1f} ms, difference "
+        f"{(med['profiled'] - med['unprofiled']) * 1e3:.1f} ms (runs ms: "
+        + "; ".join(f"{k} " + ", ".join(f"{x * 1e3:.1f}" for x in v)
+                    for k, v in walls.items())
+        + f"); launches over the {2 * OBS_RUNS} runs {launches} [{card}]")
+    # the row counts an exec left on the card as 0-d tensors: the
+    # profile's assembly reads them when it reads the nodes' Metrics
+    pending = sum(len(n.metrics._rows_pending)
+                  for n in _plan_nodes(plans["unprofiled"]))
+    log(f"obs q6: {pending} row counts left on the card per query, read "
+        f"by the profile's assembly after the download [{card}]")
+    s = dfs["profiled"].session
+    prof = s.last_query_profile()
+    if prof is None or prof.status != "success" or \
+            prof.result_rows != out.num_rows:
+        fail(f"obs q6: last profile {prof and prof.status}, rows "
+             f"{prof and prof.result_rows} != {out.num_rows}")
+    missing = [sec for sec in obsprof.SECTIONS if sec not in prof.metrics]
+    if missing:
+        fail(f"obs q6: profile sections missing: {missing}")
+    names = [n.simple_string() for n in _plan_nodes(plans["profiled"])]
+    got = [n.name for n in prof.plan.walk()]
+    if got != names:
+        fail(f"obs q6: profile tree {got} != executed plan {names}")
+    wall = prof.wall_ns / 1e9
+    # the breakdown keeps the reference's sums: host prep and upload over
+    # the scan's prefetch threads, the exec times over the task threads,
+    # so a time may pass the wall up to that many times; the phases run
+    # one after the other on the query's thread
+    from spark_rapids_tpu_torch import config as cfg
+    threads = max(int(s.conf.get(cfg.CONCURRENT_TPU_TASKS)),
+                  int(s.conf.get(cfg.SCAN_PREFETCH_DEPTH)))
+    over = {k: v for k, v in prof.wall_breakdown.items()
+            if k.endswith("_s") and not 0 <= v <= wall * threads}
+    phases = sum(prof.phases.values()) / 1e9
+    if over or phases > wall:
+        fail(f"obs q6: breakdown times outside {threads} x the wall "
+             f"{wall:.4f} s: {over}; phases {phases:.4f} s")
+    tree = dfs["profiled"].explain_string("profile")
+    if tree != prof.tree_string() or not all(
+            n in tree for n in names):
+        fail("obs q6: explain_string('profile') is not the profile's tree")
+    log(f"obs q6: profile #{prof.query_id} success, {prof.result_rows} "
+        f"rows, {len(obsprof.SECTIONS)} sections, tree of {len(names)} "
+        f"nodes in the executed plan's order; every breakdown time within "
+        f"{threads} x the wall, the phases {phases * 1e3:.1f} ms within "
+        f"it [{card}]")
+    log(f"obs q6 breakdown (host clock, the last profiled run's wall "
+        f"{wall * 1e3:.1f} ms beside its CUDA-event wall "
+        f"{ev * 1e3:.1f} ms): "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
+                    prof.wall_breakdown.items() if k.endswith("_s"))
+        + "; phases " + ", ".join(f"{k} {v / 1e6:.1f} ms"
+                                  for k, v in prof.phases.items())
+        + f" [{card}]")
+    detail("obs q6 explain_string('profile'):\n" + tree)
+    # one traced run: its span window as a Chrome trace
+    s = TpuSparkSession(dict(conf, **{
+        "spark.rapids.tpu.obs.trace.enabled": True}), device="cuda")
+    try:
+        check_q6(bench_query(s, root).collect(), ref)
+        prof = s.last_query_profile()
+        path = prof.dump_chrome_trace(
+            os.path.join(OUT_DIR, "obs_q6.trace.json"))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        obstrace.configure(False)
+        obstrace.clear()
+    if not prof.spans or not events:
+        fail("obs q6: the traced run's Chrome trace holds no span")
+    log(f"obs q6 traced run: {len(prof.spans)} spans, a Chrome trace of "
+        f"{len(events)} events that json.load reads [{card}]")
+
+
+def _obs_grace(root: str, t: dict, rec_dir: str, spill_dir: str,
+               card: str) -> None:
+    """The oocore phase's grace q3 with the flight recorder on: the ring's
+    join and spill events against the query's spill counters."""
+    from spark_rapids_tpu_torch.obs import recorder as obsrec
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    ref = tpch_reference("q3", t)
+    view = obsreg.get_registry().view()
+    out, _plan = tpch_run("q3", root)(dict(OOCORE_CONF, **{
+        "spark.rapids.tpu.memory.spill.dir": spill_dir,
+        "spark.rapids.tpu.obs.recorder.dir": rec_dir,
+        # every event of the query: the ring keeps the newest maxEvents
+        "spark.rapids.tpu.obs.recorder.maxEvents": 1 << 20}))
+    torch.cuda.synchronize()
+    delta = view.delta()["counters"]
+    check_rows("obs grace q3", out, ref)
+    _catalog_empty("obs grace q3")
+    events = obsrec.get_recorder().events()
+    kinds = {}
+    for e in events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    moved = sum(e["bytes"] for e in events
+                if e["kind"] == "spill.deviceToHost")
+    want = int(delta.get("spill.deviceToHostBytes", 0))
+    if kinds.get("join.graceActivated", 0) < 1 or \
+            kinds.get("spill.deviceToHost", 0) < 1:
+        fail(f"obs grace q3: the ring holds {kinds}")
+    if moved != want:
+        fail(f"obs grace q3: spill.deviceToHost events moved {moved} B, "
+             f"the query's spill.deviceToHostBytes {want} B")
+    log(f"obs grace q3: {out.num_rows} rows match pyarrow; ring events "
+        f"{kinds}; spill.deviceToHost events sum to {moved} B = the "
+        f"query's spill.deviceToHostBytes; bundles "
+        f"{len(_bundles(rec_dir))} [{card}]")
+
+
+def _obs_cancel(root: str, ref: pa.Table, rec_dir: str, card: str) -> None:
+    """q6 cancelled from a second thread through the token its session
+    installed: a QueryCancelledError, one ``cancelled`` bundle, and q6
+    right after on the same card."""
+    import threading
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.sched import cancel as sched_cancel
+    s = TpuSparkSession(dict(SCAN_CONF, **{
+        "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+        "spark.rapids.tpu.obs.recorder.dir": rec_dir}), device="cuda")
+    df = bench_query(s, root)
+    check_q6(df.collect(), ref)                  # cold: the plan cache
+    before = _bundles(rec_dir)
+    cancellers = []
+
+    def cancel_soon(_result):
+        # planning runs on the query's thread, under its installed token
+        token = sched_cancel.current()
+        timer = threading.Timer(0.02, token.cancel,
+                                args=("cancelled by the obs phase",))
+        cancellers.append(timer)
+        timer.start()
+    s.add_plan_listener(cancel_soon)
+    t0 = time.perf_counter()
+    try:
+        df.collect()
+        fail("obs cancel: q6 finished before its token fired")
+    except sched_cancel.QueryCancelledError as e:
+        err = str(e)
+    ms = (time.perf_counter() - t0) * 1e3
+    s.remove_plan_listener(cancel_soon)
+    for timer in cancellers:
+        timer.join(5)
+    torch.cuda.synchronize()
+    _catalog_empty("obs cancel")
+    new = [b for b in _bundles(rec_dir) if b not in before]
+    if len(new) != 1 or "-cancelled-" not in new[0]:
+        fail(f"obs cancel: new bundles {new}")
+    bundle = os.path.join(rec_dir, new[0])
+    files = sorted(os.listdir(bundle))
+    with open(os.path.join(bundle, "profile.json")) as f:
+        prof = json.load(f)
+    if files != BUNDLE_FILES or prof["status"] != "failure" or \
+            prof["plan"] is None:
+        fail(f"obs cancel: bundle {new[0]} holds {files}, status "
+             f"{prof['status']}, plan {prof['plan'] is not None}")
+    rel = check_q6(df.collect(), ref)
+    log(f"obs cancel: q6 raised QueryCancelledError ({err}) after "
+        f"{ms:.1f} ms; one bundle {new[0]} with {files}, status failure "
+        f"and the plan; q6 right after matches pyarrow (max rel "
+        f"{rel:.3g}) [{card}]")
+
+
+def _obs_slow_log(root: str, ref: pa.Table, path: str, card: str) -> None:
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    s = TpuSparkSession(dict(SCAN_CONF, **{
+        "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+        "spark.rapids.tpu.obs.slowQueryMs": 1,
+        "spark.rapids.tpu.obs.slowQueryPath": path}), device="cuda")
+    runs = 2
+    for _ in range(runs):
+        check_q6(bench_query(s, root).collect(), ref)
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    bad = [sorted(set(r) ^ SLOW_KEYS) for r in records if set(r) != SLOW_KEYS]
+    if len(records) != runs or bad:
+        fail(f"obs slow log: {len(records)} records for {runs} queries, "
+             f"keys off the reference's: {bad}")
+    log(f"obs slow log: {len(records)} records for {runs} queries with "
+        f"the reference's keys, walls "
+        + ", ".join(f"{r['wall_s'] * 1e3:.1f}" for r in records)
+        + f" ms [{card}]")
+
+
+def phase_obs(q6_root: str, q6_ref: pa.Table, root: str, t: dict) -> None:
+    """The per-query observability layer on the card: q6's profile with
+    profiling on and off, the grace q3's recorder events, a cancelled q6's
+    bundle and the slow-query log."""
+    card = _card()
+    scratch = _parquet_dir("obs")
+    try:
+        _obs_q6(q6_root, q6_ref, card)
+        _obs_grace(root, t, os.path.join(scratch, "grace-recorder"),
+                   os.path.join(scratch, "spill"), card)
+        _obs_cancel(q6_root, q6_ref, os.path.join(scratch, "recorder"),
+                    card)
+        _obs_slow_log(q6_root, q6_ref, os.path.join(scratch, "slow.jsonl"),
+                      card)
+    finally:
+        from spark_rapids_tpu_torch.obs import recorder as obsrec
+        obsrec.disable()
+        shutil.rmtree(scratch, ignore_errors=True)
 
 
 MODES_IO_ROWS = 1 << 18
@@ -6085,7 +6392,7 @@ def phase_timing(paths):
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
               "pipeline", "q6s", "star", "window", "shuffle", "strings",
-              "customer-etl", "mortgage", "tpch", "oocore", "csv-orc",
+              "customer-etl", "mortgage", "tpch", "oocore", "obs", "csv-orc",
               "modes", "window-modes", "shuffle-modes", "string-modes",
               "tail-modes", "io-modes"]
 
@@ -6128,10 +6435,14 @@ def main() -> int:
     if "q6" in phases:
         runs["q6"] = ("q6", *phase_q6(), SEGREDUCE)
         done("q6")
-    if {"q6p", "q6pf", "session", "pipeline"} & set(phases):
+    q6_files = None
+    if {"q6p", "q6pf", "session", "pipeline", "obs"} & set(phases):
         root = _parquet_dir("q6-parquet")
         try:
             ref = write_q6_files(root)
+            if "obs" in phases:   # the obs phase reads them after oocore
+                _KEPT_DIRS.append(root)
+                q6_files = (root, ref)
             for key, tag, fn, names in (
                     ("q6p", "q6-parquet", phase_q6_parquet, Q6P_KERNELS),
                     ("q6pf", "q6-perfile", phase_q6_perfile,
@@ -6149,7 +6460,8 @@ def main() -> int:
                     f"{k} {v['busy_share']:.1%} of {v['wall_ms']:.1f} ms"
                     for k, v in busy.items()))
         finally:
-            shutil.rmtree(root, ignore_errors=True)
+            if q6_files is None:
+                shutil.rmtree(root, ignore_errors=True)
         done("q6p/q6pf/session/pipeline")
     if "q6s" in phases:
         runs["q6s"] = ("q6s-parquet", *phase_q6s_parquet(),
@@ -6194,13 +6506,15 @@ def main() -> int:
     if "mortgage" in phases:
         runs["mortgage"] = ("mortgage", *phase_mortgage())
         done("mortgage")
-    if {"tpch", "csv-orc", "oocore"} & set(phases):
-        # the three share the generated tables; tpch and oocore read the
-        # Parquet files, csv-orc writes its own ORC and CSV files
-        sf = TPCH_SF_WHOLE if WHOLE_SMOKE else TPCH_SF
+    if {"tpch", "csv-orc", "oocore", "obs"} & set(phases):
+        # the four share the generated tables; tpch, oocore and obs read
+        # the Parquet files, csv-orc writes its own ORC and CSV files; obs
+        # alone runs at the whole smoke's scale
+        sf = TPCH_SF_WHOLE if WHOLE_SMOKE or not (
+            {"tpch", "csv-orc", "oocore"} & set(phases)) else TPCH_SF
         root = _parquet_dir("tpch")
         try:
-            if {"tpch", "oocore"} & set(phases):
+            if {"tpch", "oocore", "obs"} & set(phases):
                 t = write_tpch_files(root, sf)
             else:
                 from spark_rapids_tpu_torch.bench import tpch
@@ -6213,6 +6527,10 @@ def main() -> int:
             if "oocore" in phases:
                 runs["oocore"] = ("oocore", *phase_oocore(root, t, sf))
                 done("oocore")
+            if "obs" in phases:
+                phase_obs(*q6_files, root, t)
+                shutil.rmtree(q6_files[0], ignore_errors=True)
+                done("obs")
             if "csv-orc" in phases:
                 runs["csv-orc"] = ("csv-orc", *phase_csv_orc(
                     os.path.join(root, "text"), t, sf))
@@ -6245,11 +6563,9 @@ def main() -> int:
             "strings", "customer-etl", "mortgage", "tpch", "cache",
             "oocore", "csv-orc")])
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
+    card = _card()
     _write_log()
-    print(smi.stdout.strip() or f"nvidia-smi rc={smi.returncode}")
+    print(card)
     if kernels is not None:
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6259,4 +6575,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for kept in _KEPT_DIRS:
+            shutil.rmtree(kept, ignore_errors=True)

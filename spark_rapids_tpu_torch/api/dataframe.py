@@ -4,14 +4,14 @@ Ported from ``spark_rapids_tpu/api/dataframe.py``: everything that builds
 logical nodes (select/with_column/filter/group_by/rollup/cube/agg/sort/
 limit/union/join/repartition/coalesce/cache/distinct), ``collect``,
 ``collect_device`` (the device batches, no download), ``count``,
-``show``, ``explain_string`` (modes ``physical``, ``tpu`` and
-``logical``), ``schema``/``columns``, ``write`` (io/writers.py) and
+``show``, ``explain_string`` (modes ``physical``, ``tpu``, ``logical``
+and ``profile``: the last action's ``QueryProfile`` tree),
+``schema``/``columns``, ``write`` (io/writers.py) and
 ``create_or_replace_temp_view``.  A plan whose exec the port has not
 ported yet raises ``NotImplementedError`` naming its module when it is
 planned (plan/planner.py).  Not ported: the pandas-UDF methods
-(``pyworker/execs.py``), ``collect_async`` (``sched/service.py``) and the
-``profile`` explain mode (``obs/profile.py``); each raises
-``NotImplementedError`` naming its module.
+(``pyworker/execs.py``) and ``collect_async`` (``sched/service.py``);
+each raises ``NotImplementedError`` naming its module.
 """
 
 from __future__ import annotations
@@ -344,8 +344,14 @@ class DataFrame:
         if mode == "logical":
             return self.plan.tree_string()
         if mode == "profile":
-            raise _not_ported("explain_string('profile')",
-                              "obs/profile.py")
+            # metrics-annotated plan of the last executed action
+            # (obs/profile.py; run collect() first)
+            prof = self.session.last_query_profile()
+            if prof is None:
+                return ("no query profile recorded — run an action "
+                        "(collect) first, with "
+                        "spark.rapids.tpu.obs.profile.enabled=true")
+            return prof.tree_string()
         result = self.session._plan_physical(self.plan)
         if mode == "tpu":
             return result.explain_string(all_=True)

@@ -24,15 +24,27 @@ hands the device batches over with no download.  At start the session
 makes the process's spill catalog (``mem/spill.init_catalog`` with the
 ``memory.device.batchStorageSize``, ``memory.host.spillStorageSize`` and
 ``memory.spill.dir`` keys), or disables it under
-``memory.spill.enabled=false``, as the reference does.  Not ported yet:
-the query scheduler (``QueryService``, ``submit``/``collect_async``), the
-rest of the observability layer (profiles, the HTTP endpoint, the
-flight recorder), serving and the fleet.
+``memory.spill.enabled=false``, as the reference does.
+
+Every action runs in the reference's observability envelope
+(``_execute_attributed``, here ``_execute``): a process-global query id,
+the query's ``CancelToken`` installed on the calling thread (and so on
+its task threads), and, under ``obs.profile.enabled`` (the default), a
+``QueryRun`` whose ``QueryProfile`` goes to the profile ring
+(``last_query_profile``, ``query_profile``), the query listeners
+(``register_query_listener``; the flight recorder of ``obs.recorder.dir``
+is one) and the slow-query log (``obs.slowQueryMs``).  Not ported yet:
+the query scheduler (``QueryService``, ``submit``/``collect_async``) and
+with it the admission events, the compile observatory and the resource
+ledger, the plan digest, the HTTP endpoint, serving and the fleet.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 from typing import Any, Dict, List, Optional, Sequence
 
 import pyarrow as pa
@@ -51,6 +63,10 @@ from spark_rapids_tpu_torch.plan.planner import plan_cpu
 
 
 class TpuSparkSession:
+    # process-global query ids, shared across sessions as in the
+    # reference: the profile ring and the recorder's bundles key on them
+    _QUERY_IDS = itertools.count(1)
+
     def __init__(self, conf: Optional[Dict[str, Any]] = None,
                  device="cuda"):
         self.device = resolve_device(device)
@@ -79,7 +95,40 @@ class TpuSparkSession:
             bool(self.conf.get(cfg.OBS_TRACE_ENABLED)),
             int(self.conf.get(cfg.OBS_TRACE_BUFFER_SPANS)))
         self._plan_listeners: List = []
+        self._query_listeners: List = []
         self._views: Dict[str, lp.LogicalPlan] = {}
+        # per-query profiles: a bounded ring keyed by query id, plus the
+        # most recently COMPLETED one
+        self._profile_lock = threading.Lock()
+        self._profiles: "collections.OrderedDict[int, Any]" = \
+            collections.OrderedDict()
+        self._profile_ring = max(1, int(self.conf.get(
+            cfg.SCHED_PROFILE_RING)))
+        self._last_profile = None
+        from spark_rapids_tpu_torch.obs import recorder as obs_recorder
+        self._recorder = None
+        rec_dir = str(self.conf.get(cfg.OBS_RECORDER_DIR) or "")
+        if rec_dir:
+            # configuring REPLACES any previous session's recorder
+            # (whose listener then stands down via _stale()); a session
+            # with no recorder dir leaves an existing recorder alone, so
+            # a helper session does not disarm a live sibling's recorder
+            self._recorder = obs_recorder.configure(
+                rec_dir,
+                max_events=int(self.conf.get(
+                    cfg.OBS_RECORDER_MAX_EVENTS)),
+                config_snapshot=dict(self.conf._settings))
+            self._query_listeners.append(self._recorder)
+        if not self.conf.get(cfg.OBS_PROFILE_ENABLED) and (
+                rec_dir or int(self.conf.get(cfg.OBS_SLOW_QUERY_MS))):
+            # both features ride the QueryProfile assembly path; with
+            # profiling off they would be silently inert
+            import logging
+            logging.getLogger("spark_rapids_tpu_torch.obs").warning(
+                "obs.recorder.dir / obs.slowQueryMs are configured but "
+                "obs.profile.enabled=false: flight-recorder bundles "
+                "and the slow-query log require per-query profiles "
+                "and will not fire")
 
     # -- conf --------------------------------------------------------------
     def set_conf(self, key: str, value: Any) -> None:
@@ -173,11 +222,38 @@ class TpuSparkSession:
         return [x for p in parts for x in p]
 
     def _execute(self, plan: lp.LogicalPlan) -> pa.Table:
-        table = self._execute_inner(plan)[1]
-        if self.conf.get(cfg.OBS_TRACE_ENABLED):
-            # tracing without profiling (the port has no profiles yet):
-            # the whole span ring stands in for the query window, as in
-            # the reference's _execute_attributed
+        """The blocking action path: the reference's
+        ``_execute_attributed`` under the token its query service would
+        install.  Draws a query id, installs a ``CancelToken`` for it
+        unless a token is installed already (a nested collect runs under
+        its parent's), and runs the query with the observability
+        envelope: under ``obs.profile.enabled`` a ``QueryRun`` captures
+        the wall phases, the registry delta and the span window, and the
+        assembled profile goes to the ring, the query listeners and the
+        slow-query log on success and on failure."""
+        from spark_rapids_tpu_torch.sched import cancel as sched_cancel
+        query_id = next(self._QUERY_IDS)
+        token = sched_cancel.current() or sched_cancel.CancelToken(query_id)
+        run = None
+        if self.conf.get(cfg.OBS_PROFILE_ENABLED):
+            from spark_rapids_tpu_torch.obs.profile import QueryRun
+            # plan_digest stays None until plan/digest.py is ported
+            run = QueryRun(query_id)
+        try:
+            with sched_cancel.install(token):
+                result, table = self._execute_inner(plan, run)
+        except BaseException as e:
+            if run is not None:
+                # run.planned was stashed right after planning, so a
+                # failure profile still carries the plan tree and the
+                # explain report whenever planning itself succeeded
+                self._finish_query(run, run.planned, None, e)
+            raise
+        if run is not None:
+            self._finish_query(run, result, table, None)
+        elif self.conf.get(cfg.OBS_TRACE_ENABLED):
+            # tracing without profiling: the chromePath contract still
+            # holds (the whole ring stands in for the query window)
             from spark_rapids_tpu_torch.obs import trace as obs_trace
             chrome = str(self.conf.get(cfg.OBS_TRACE_CHROME_PATH) or "")
             if chrome and obs_trace.is_enabled():
@@ -185,29 +261,115 @@ class TpuSparkSession:
                     obs_trace.dump_chrome_trace(chrome)
         return table
 
-    def _execute_inner(self, plan: lp.LogicalPlan):
-        """(planned result, Arrow table) of one query."""
+    def _finish_query(self, run, result, table,
+                      error: Optional[BaseException]) -> None:
+        from spark_rapids_tpu_torch.obs import listener as obs_listener
+        from spark_rapids_tpu_torch.obs import trace as obs_trace
+        prof = run.finish(result=result, table=table, error=error)
+        with self._profile_lock:
+            self._profiles[run.query_id] = prof
+            while len(self._profiles) > self._profile_ring:
+                self._profiles.popitem(last=False)
+            # completion order under the lock: "last" is the most
+            # recently COMPLETED query, stable under concurrent collects
+            self._last_profile = prof
+        obs_listener.notify(self._query_listeners, prof, error)
+        self._maybe_log_slow_query(prof)
+        chrome = str(self.conf.get(cfg.OBS_TRACE_CHROME_PATH) or "")
+        if chrome and obs_trace.is_enabled():
+            with contextlib.suppress(OSError):
+                prof.dump_chrome_trace(chrome)
+
+    def _maybe_log_slow_query(self, prof) -> None:
+        """Structured slow-query log: one JSONL record per query at or
+        over ``obs.slowQueryMs`` (failures included), appended to
+        ``obs.slowQueryPath`` or routed through the
+        ``spark_rapids_tpu_torch.obs.slowquery`` logger.  Never fails
+        the query."""
+        threshold_ms = int(self.conf.get(cfg.OBS_SLOW_QUERY_MS))
+        if threshold_ms <= 0:
+            return
+        if prof.wall_ns < threshold_ms * 1e6:
+            return
+        try:
+            import json as _json
+            import time as _time
+            # one rendering of the profile exists (to_dict): the log
+            # record is a field subset of it plus the log-only extras
+            d = prof.to_dict()
+            record = {"ts_unix": _time.time(),
+                      "threshold_ms": threshold_ms,
+                      "session_id": prof.metrics.get("sched", {}).get(
+                          "sched.sessionId"),
+                      "queue_wait_s": prof.metrics.get("sched", {}).get(
+                          "sched.queueWaitNs", 0) / 1e9,
+                      # the reference takes these two from
+                      # obs/compile.row_fields, which gives null for a
+                      # query its ledger never saw; the port has no
+                      # obs/compile.py yet, so no query is seen
+                      "kernels_compiled": None,
+                      "compile_ms": None}
+            for key in ("query_id", "plan_digest", "status", "error",
+                        "wall_s", "result_rows", "phases",
+                        "wall_breakdown"):
+                record[key] = d[key]
+            line = _json.dumps(record, default=str)
+            from spark_rapids_tpu_torch.obs import recorder as obs_recorder
+            from spark_rapids_tpu_torch.obs import registry as obsreg
+            obsreg.get_registry().inc("obs.slowQueries")
+            obs_recorder.record_event("query.slow",
+                                      query=prof.query_id,
+                                      wall_s=record["wall_s"])
+            path = str(self.conf.get(cfg.OBS_SLOW_QUERY_PATH) or "")
+            if path:
+                from spark_rapids_tpu_torch.obs import jsonl as obs_jsonl
+                obs_jsonl.rotating_append(
+                    path, line,
+                    int(self.conf.get(cfg.OBS_SLOW_QUERY_MAX_BYTES)))
+            else:
+                import logging
+                logging.getLogger(
+                    "spark_rapids_tpu_torch.obs.slowquery").warning(line)
+        except Exception:
+            pass
+
+    def _phase(self, run, name: str):
+        return run.phase(name) if run is not None \
+            else contextlib.nullcontext()
+
+    def _execute_inner(self, plan: lp.LogicalPlan, run=None):
+        """(planned result, Arrow table) of one query; ``run`` (a
+        ``QueryRun`` or None) times its plan, execute and collect
+        phases."""
         from spark_rapids_tpu_torch.columnar.batch import to_arrow_all
         from spark_rapids_tpu_torch.exec.context import set_input_file
         from spark_rapids_tpu_torch.exec.tpu_basic import DeviceToHostExec
         set_input_file("")  # fresh query: no stale input_file_name()
-        result = self._plan_physical(plan)
+        with self._phase(run, "plan"):
+            result = self._plan_physical(plan)
+        if run is not None:
+            run.planned = result
         p = result.plan
         if isinstance(p, DeviceToHostExec):
             # drain the device plan first, then download every batch
             # behind one barrier: one packed copy per wire dtype, one
             # wait for all of them
-            batches = self._drain_partitions(p.children[0].execute())
-            with timed(p.metrics, "transition.download"):
-                tables = to_arrow_all(batches, self.copy_stream)
-            table = concat_tables(tables, p.schema)
+            with self._phase(run, "execute"):
+                batches = self._drain_partitions(p.children[0].execute())
+            with self._phase(run, "collect"):
+                with timed(p.metrics, "transition.download"):
+                    tables = to_arrow_all(batches, self.copy_stream)
+                table = concat_tables(tables, p.schema)
             # the terminal download exec never ran execute(); stamp it
             # with the collected result
             p.metrics.add_rows(table.num_rows)
             p.metrics.add_batches(len(tables))
             return result, table
-        tables = self._drain_partitions(p.execute())
-        return result, concat_tables(tables, p.schema)
+        with self._phase(run, "execute"):
+            tables = self._drain_partitions(p.execute())
+        with self._phase(run, "collect"):
+            table = concat_tables(tables, p.schema)
+        return result, table
 
     def _execute_device(self, plan: lp.LogicalPlan):
         """ColumnarRdd-style handoff: the device batches of every
@@ -230,6 +392,36 @@ class TpuSparkSession:
 
     def remove_plan_listener(self, fn) -> None:
         self._plan_listeners.remove(fn)
+
+    # -- observability surface ---------------------------------------------
+    @property
+    def flight_recorder(self):
+        """The flight recorder (obs/recorder.FlightRecorder) when
+        ``obs.recorder.dir`` is set; None otherwise."""
+        return self._recorder
+
+    def last_query_profile(self):
+        """The QueryProfile of the most recently COMPLETED action (None
+        before the first action, or while ``obs.profile.enabled=false``
+        has kept new profiles from being assembled)."""
+        with self._profile_lock:
+            return self._last_profile
+
+    def query_profile(self, query_id: int):
+        """The QueryProfile for ``query_id`` from the bounded per-query
+        ring (``sched.profileRing`` entries; None once evicted or when
+        profiling is off)."""
+        with self._profile_lock:
+            return self._profiles.get(query_id)
+
+    def register_query_listener(self, listener) -> None:
+        """Register a QueryExecutionListener analog: ``on_success(
+        profile)`` / ``on_failure(profile, exception)`` fire after
+        every action (obs/listener.py)."""
+        self._query_listeners.append(listener)
+
+    def remove_query_listener(self, listener) -> None:
+        self._query_listeners.remove(listener)
 
 
 class DataFrameReader:

@@ -381,7 +381,7 @@ SCHED_MAX_CONCURRENT = conf(
     "share of sched.memoryBudget) reads it.", int)
 
 # ---------------------------------------------------------------------------
-# Observability keys (reference config.py:719-737)
+# Observability keys (reference config.py:719-737, :790-853, :1243)
 # ---------------------------------------------------------------------------
 
 OBS_TRACE_ENABLED = conf(
@@ -403,6 +403,62 @@ OBS_TRACE_CHROME_PATH = conf(
     "When set (and tracing is enabled), every query's span window is "
     "also written to this path as Chrome trace-event JSON, overwriting "
     "the previous query's file.")
+
+OBS_PROFILE_ENABLED = conf(
+    "spark.rapids.tpu.obs.profile.enabled", True,
+    "Assemble a QueryProfile after every action (annotated plan tree, "
+    "wall breakdown, per-query registry delta, explain report) — "
+    "surfaced via session.last_query_profile(), "
+    "DataFrame.explain('profile'), and query listeners.", bool)
+
+SCHED_PROFILE_RING = conf(
+    "spark.rapids.tpu.sched.profileRing", 64,
+    "How many completed QueryProfiles the session retains, keyed by "
+    "query id (last_query_profile() returns the most recently "
+    "COMPLETED query's profile).", int)
+
+OBS_RECORDER_DIR = conf(
+    "spark.rapids.tpu.obs.recorder.dir", "",
+    "Directory for flight-recorder diagnostic bundles. Non-empty "
+    "enables the recorder: a bounded in-memory ring of recent engine "
+    "events (spill traffic, OOM retries, grace-join activations, slow "
+    "queries) is kept, and on query failure, timeout, cancellation, or "
+    "an OOM-retried success a self-contained bundle (profile.json + "
+    "trace.json + events.jsonl + config.json + registry.json) is "
+    "written here. Empty (default) disables the recorder entirely; "
+    "event hooks cost one bool check. Bundles ride the QueryProfile "
+    "assembly path, so obs.profile.enabled must stay true (its "
+    "default) for them to fire.")
+
+OBS_RECORDER_MAX_EVENTS = conf(
+    "spark.rapids.tpu.obs.recorder.maxEvents", 4096,
+    "Capacity of the flight recorder's in-memory event ring; the "
+    "oldest events drop when a busy engine outruns it (bounded memory, "
+    "never the process).", int)
+
+OBS_SLOW_QUERY_MS = conf(
+    "spark.rapids.tpu.obs.slowQueryMs", 0,
+    "Wall-clock threshold in milliseconds for the structured "
+    "slow-query log: a completed (or failed) query at or over it emits "
+    "ONE JSONL record (ts, query_id, status, error, wall_s, "
+    "queue_wait_s, result_rows, phases, wall_breakdown) to "
+    "obs.slowQueryPath, or through the "
+    "'spark_rapids_tpu_torch.obs.slowquery' python logger when no path "
+    "is set. 0 (default) disables. Rides the QueryProfile assembly "
+    "path, so obs.profile.enabled must stay true (its default).", int)
+
+OBS_SLOW_QUERY_PATH = conf(
+    "spark.rapids.tpu.obs.slowQueryPath", "",
+    "Append-mode file for slow-query JSONL records (one JSON object "
+    "per line). Empty routes records to the python logger instead.")
+
+OBS_SLOW_QUERY_MAX_BYTES = conf(
+    "spark.rapids.tpu.obs.slowQueryMaxBytes", 16 * 1024 * 1024,
+    "Size-based rotation for the slow-query JSONL file: when an append "
+    "would push the file past this many bytes, it is atomically "
+    "renamed to <path>.1 (replacing the previous .1) and a fresh file "
+    "starts — the keep-1 logrotate shape, at most 2x this size on disk. "
+    "0 disables rotation (unbounded append).", int)
 
 
 class RapidsTpuConf:

@@ -4,9 +4,11 @@ Ported from ``spark_rapids_tpu/exec/base.py``: the coalesce goals,
 ``Metrics``, ``PhysicalPlan`` (``is_tpu``, ``simple_string``,
 ``tree_string``, ``foreach``), ``TpuExec``, ``timed`` and
 ``timed_extra``, with their hooks into tracing (``obs/trace.py``) and
-cooperative cancellation (``sched/cancel.py``).  The reference's
-peak-memory metric and the executor-side metrics round trip wait for the
-ported ``shuffle/``.
+cooperative cancellation (``sched/cancel.py``), and the per-node metrics
+walk ``collect_plan_metrics`` / ``merge_plan_metrics`` that the query
+profile reads and the process transport will ship.  ``peak_dev_memory``
+is kept for the profile's layout; as in the reference, only a merge sets
+it.
 
 Execution model: ``execute()`` returns one Python iterator per partition.
 CPU execs yield ``pyarrow.Table`` batches; device execs yield
@@ -56,6 +58,7 @@ class Metrics:
     _rows_host: int = 0
     num_output_batches: int = 0
     total_time_ns: int = 0
+    peak_dev_memory: int = 0
     extra: Dict[str, float] = field(default_factory=dict)
     _rows_pending: list = field(default_factory=list)
     _rows_lock: Any = field(default_factory=threading.Lock)
@@ -81,6 +84,11 @@ class Metrics:
     def add_time_ns(self, ns: int) -> None:
         with self._rows_lock:
             self.total_time_ns += ns
+
+    def max_peak(self, v: int) -> None:
+        with self._rows_lock:
+            if v > self.peak_dev_memory:
+                self.peak_dev_memory = v
 
     @property
     def num_output_rows(self) -> int:
@@ -190,3 +198,58 @@ def timed_extra(metrics: Metrics, key: str):
     the consumer's ``timed`` covers the dispatch).  Also recorded as a
     span named ``key`` when tracing is enabled."""
     return _TimedExtra(metrics, key)
+
+
+# ---------------------------------------------------------------------------
+# Per-node metrics walk (reference: exec/base.py:276-332)
+# ---------------------------------------------------------------------------
+
+def collect_plan_metrics(plan: PhysicalPlan) -> List[dict]:
+    """Flatten a plan tree's Metrics in pre-order (``foreach`` order).
+    The pre-order index IS the plan node id: two copies of one plan
+    share the structure, so index + class name key the merge."""
+    out: List[dict] = []
+
+    def one(n: PhysicalPlan) -> None:
+        m = n.metrics
+        out.append({
+            "name": type(n).__name__,
+            "rows": int(m.num_output_rows),
+            "batches": int(m.num_output_batches),
+            "time_ns": int(m.total_time_ns),
+            "peak_dev_memory": int(m.peak_dev_memory),
+            "extra": {k: v for k, v in m.extra.items()
+                      if isinstance(v, (int, float))},
+        })
+    plan.foreach(one)
+    return out
+
+
+def merge_plan_metrics(plan: PhysicalPlan,
+                       recorded: Optional[List[dict]],
+                       skip_root: bool = False) -> None:
+    """Merge recorded metrics into a tree of the same shape (keyed by
+    pre-order node id + class name; a shape mismatch drops the payload
+    rather than corrupting the tree's metrics).  Additive, so every
+    copy's share accumulates.  ``skip_root`` leaves the root untouched
+    (the caller times that node itself)."""
+    if not recorded:
+        return
+    nodes: List[PhysicalPlan] = []
+    plan.foreach(nodes.append)
+    if len(nodes) != len(recorded):
+        return
+    for i, (n, r) in enumerate(zip(nodes, recorded)):
+        if (skip_root and i == 0) or r.get("name") != type(n).__name__:
+            continue
+        m = n.metrics
+        if r.get("rows"):
+            m.add_rows(int(r["rows"]))
+        if r.get("batches"):
+            m.add_batches(int(r["batches"]))
+        if r.get("time_ns"):
+            m.add_time_ns(int(r["time_ns"]))
+        if r.get("peak_dev_memory"):
+            m.max_peak(int(r["peak_dev_memory"]))
+        for k, v in (r.get("extra") or {}).items():
+            m.add_extra(k, v)

@@ -20,7 +20,9 @@ Here the stage runs as an eager torch composition of those three steps.
 The reference's compile machinery (``build_kernel``, ``dispatch``, input
 donation and the shared-scan donation gate, :111-252) exists to cut XLA
 dispatches and reuse HBM under ``jax.jit`` and has no counterpart in an
-eager port.
+eager port.  The stage counts the dispatches it saves
+(``fusion.dispatchesSaved``) per batch as the reference does: the chain
+would have cost one per fused exec, the stage one (a passthrough none).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.exec import context
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan, TpuExec, timed
 from spark_rapids_tpu_torch.expr import eval_tpu, ir
+from spark_rapids_tpu_torch.obs import registry as obsreg
 from spark_rapids_tpu_torch.plan.logical import Schema
 
 
@@ -90,8 +93,11 @@ class TpuFusedStageExec(TpuExec):
         passthrough = self.is_passthrough
         names = self._schema.names
         ords = [e.ordinal for e in self.out_exprs] if passthrough else None
+        saved = len(self.fused) if passthrough else \
+            max(0, len(self.fused) - 1)
 
         def run(pid, it):
+            reg = obsreg.get_registry()
             for b in it:
                 if passthrough:
                     with timed(self.metrics, "fused.passthrough"):
@@ -105,6 +111,8 @@ class TpuFusedStageExec(TpuExec):
                     with timed(self.metrics, "fused.eval"), \
                             context.task_context(pid, 0):
                         out = self._impl(b)
+                if saved:
+                    reg.inc("fusion.dispatchesSaved", saved)
                 self.metrics.add_batches()
                 self.metrics.add_rows(out.num_rows)
                 yield out

@@ -26,8 +26,10 @@ per-schema kernel-cache entries have no counterpart.  A
 ``GraceJoinState`` tracks every live partition handle, registers as a
 pressure spiller so ``mem/spill.handle_memory_pressure`` reaches parked
 join state, and drains the catalog on any exit, including a mid-join
-``close()`` of the generator.  The reference's flight-recorder events
-wait for ``obs/recorder.py``; the ``join.grace.*`` counters are kept.
+``close()`` of the generator.  Activations, recursions and fallbacks
+count in the ``join.grace.*`` registry counters and record the
+reference's flight-recorder events (``join.graceActivated``,
+``join.graceRecurse``, ``join.graceFallback``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from spark_rapids_tpu_torch import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, bucket_rows,
                                                    concat_batches)
 from spark_rapids_tpu_torch.exec import sortkeys
+from spark_rapids_tpu_torch.obs import recorder as obsrec
 from spark_rapids_tpu_torch.obs import registry as obsreg
 
 _MAX_PARTS_LOG2 = 5          # 32-way cap per level (matches the conf doc)
@@ -315,6 +318,10 @@ def _run_level(exec_obj, state: GraceJoinState, build: List[_Part],
             # progress: every child partition is strictly smaller
             reg.gauge_max("join.grace.maxRecursionDepth", level + 1)
             reg.inc("join.grace.partitions", n_child)
+            obsrec.record_event("join.graceRecurse", level=level + 1,
+                                partitions=n_child,
+                                buildBytes=build_bytes,
+                                budget=oocore["budget"])
             child_p = _split_parts(state, probe, pkeys, key_dtypes, seed,
                                    n_child)
             for i in range(n_child):
@@ -328,8 +335,15 @@ def _run_level(exec_obj, state: GraceJoinState, build: List[_Part],
         # landed in one bucket: they ARE the partition)
         build = [p for part in child_b for p in part]
         reg.inc("join.grace.fallbacks")
+        obsrec.record_event("join.graceFallback", level=level,
+                            buildBytes=build_bytes,
+                            budget=oocore["budget"], reason="noShrink")
     elif over:
         reg.inc("join.grace.fallbacks")
+        obsrec.record_event("join.graceFallback", level=level,
+                            buildBytes=build_bytes,
+                            budget=oocore["budget"],
+                            reason="maxRecursion")
 
     reg.inc("join.grace.restreams")
     if gathered:
@@ -384,6 +398,9 @@ def grace_join(exec_obj, probe_input, build_batches: List[DeviceBatch],
     seed = _level_seed(0)
     reg.inc_many(("join.grace.activations", 1),
                  ("join.grace.partitions", n_parts))
+    obsrec.record_event("join.graceActivated", how=exec_obj.how,
+                        buildBytes=build_bytes, budget=oocore["budget"],
+                        partitions=n_parts)
     exec_obj.metrics.add_extra("join.gracePartitions", n_parts)
     try:
         build_parts: List[List[_Part]] = [[] for _ in range(n_parts)]

@@ -37,6 +37,7 @@ from spark_rapids_tpu_torch.expr import eval_tpu, ir
 from spark_rapids_tpu_torch.expr.eval_tpu import ColVal
 from spark_rapids_tpu_torch.kernels import backend as kb
 from spark_rapids_tpu_torch.kernels import segreduce as kseg
+from spark_rapids_tpu_torch.obs import registry as obsreg
 from spark_rapids_tpu_torch.plan.logical import Schema
 
 _BIG = 1 << 62
@@ -791,6 +792,10 @@ class TpuHashAggregateExec(TpuExec):
                                 kernel_abi.erase(b), self.groupings,
                                 self.aggregates, self.specs,
                                 self.fused_condition)
+                        if self.fused_prologue_saved:
+                            obsreg.get_registry().inc(
+                                "fusion.dispatchesSaved",
+                                self.fused_prologue_saved)
                         partials.append(register_or_hold(partial))
                 if not partials:
                     if self.groupings:

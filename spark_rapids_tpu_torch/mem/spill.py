@@ -25,10 +25,10 @@ reference's round trip drops the hints, which changes no row.
 
 A freed device tensor goes back to PyTorch's caching allocator, which
 the retry after ``hbm_oom_recover`` reuses, so the bytes freed are the
-catalog's own accounting, not ``torch.cuda.memory_reserved()``.  The
-reference's flight-recorder events (``record_event``) wait for
-``obs/recorder.py``; the registry counters (``spill.*``,
-``mem.oomRetries``) are kept.
+catalog's own accounting, not ``torch.cuda.memory_reserved()``.  Each
+spill and OOM retry counts in the registry (``spill.*``,
+``mem.oomRetries``) and records the reference's flight-recorder event
+(``spill.deviceToHost``, ``spill.hostToDisk``, ``mem.oomRetry``).
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, DeviceColumn
 from spark_rapids_tpu_torch.mem.host_arena import HostArena
+from spark_rapids_tpu_torch.obs import recorder as obsrec
 from spark_rapids_tpu_torch.obs import registry as obsreg
 
 
@@ -152,6 +153,13 @@ class BufferCatalog:
             return self._host_arena
 
     @property
+    def arena_peak(self) -> int:
+        """The host arena's high-water mark in bytes: 0 before the first
+        spill made the arena (reading it makes none)."""
+        arena = self._host_arena
+        return arena.peak if arena is not None else 0
+
+    @property
     def spill_dir(self) -> str:
         with self._lock:
             if not self._spill_dir:
@@ -233,6 +241,8 @@ class BufferCatalog:
         reg.inc("spill.events")
         reg.inc("spill.deviceToHostBytes", size)
         reg.gauge_max("spill.hostBytesHwm", self.host_bytes)
+        obsrec.record_event("spill.deviceToHost", buffer=buf.id,
+                            bytes=size, host_bytes=self.host_bytes)
         self._maybe_spill_host()
         return size
 
@@ -268,6 +278,8 @@ class BufferCatalog:
         reg = obsreg.get_registry()
         reg.inc("spill.events")
         reg.inc("spill.hostToDiskBytes", nbytes)
+        obsrec.record_event("spill.hostToDisk", buffer=buf.id,
+                            bytes=nbytes)
 
     # -- access ------------------------------------------------------------
     def acquire(self, buffer_id: int) -> DeviceBatch:
@@ -553,7 +565,11 @@ def hbm_oom_recover(e: BaseException) -> bool:
         return False
     freed = get_catalog().spill_to_fit(1 << 62)   # the whole device tier
     if freed > 0:
+        # the flight recorder bundles a SUCCESSFUL query whose window
+        # moved this counter
         obsreg.get_registry().inc("mem.oomRetries")
+        obsrec.record_event("mem.oomRetry", freed_bytes=freed,
+                            error=str(e)[:200])
     return freed > 0
 
 

@@ -39,11 +39,10 @@ Fusion barriers (a chain stops at, and never crosses):
   * the composed DAG exceeding ``sql.fusion.maxExprs`` nodes
     (substitution duplicates shared subtrees).
 
-The port's copy of ``spark_rapids_tpu/plan/fusion.py``.  The reference's
-plan-shape counters (``fusion.stages``, ``fusion.execsFused``,
-``fusion.aggProloguesInlined``) go to its obs registry, which the port
-has not ported yet; here the shape is read off the plan (the aggregate's
-``fused_prologue_execs``, each stage's ``fused``).
+The port's copy of ``spark_rapids_tpu/plan/fusion.py``, with the
+reference's plan-shape counters (``fusion.stages``, ``fusion.execsFused``,
+``fusion.aggProloguesInlined``) in the obs registry; a query profile
+shows them in its ``fusion`` section.
 """
 
 from __future__ import annotations
@@ -56,6 +55,7 @@ from spark_rapids_tpu_torch.exec.base import PhysicalPlan
 from spark_rapids_tpu_torch.exec.fused_stage import TpuFusedStageExec
 from spark_rapids_tpu_torch.exec.tpu_basic import TpuFilterExec, TpuProjectExec
 from spark_rapids_tpu_torch.expr import ir
+from spark_rapids_tpu_torch.obs import registry as obsreg
 
 # position-dependent or otherwise unfusable expression nodes
 _STAGE_BARRIERS = (ir.MonotonicallyIncreasingID, ir.Rand, ir.PythonUDF,
@@ -278,6 +278,7 @@ def fuse_stages(plan: PhysicalPlan, conf: RapidsTpuConf) -> PhysicalPlan:
     max_nodes = int(conf.get(cfg.FUSION_MAX_EXPRS))
     allow_filter = bool(conf.get(cfg.AGG_FUSED_FILTER))
     refs = _refcounts(plan)
+    reg = obsreg.get_registry()
     holder = _Holder(plan)
     # a shared subtree is rewritten ONCE (both parents keep pointing at
     # the same mutated object); re-walking it per parent would re-run
@@ -289,10 +290,16 @@ def fuse_stages(plan: PhysicalPlan, conf: RapidsTpuConf) -> PhysicalPlan:
             return
         seen.add(id(n))
         if isinstance(n, TpuHashAggregateExec):
-            _absorb_agg_prologue(n, refs, max_nodes, allow_filter)
+            inlined = _absorb_agg_prologue(n, refs, max_nodes,
+                                           allow_filter)
+            if inlined:
+                reg.inc("fusion.aggProloguesInlined", inlined)
         new_children = []
         for c in n.children:
             stage = _try_collapse(c, refs, max_nodes)
+            if stage is not None:
+                reg.inc("fusion.stages")
+                reg.inc("fusion.execsFused", stage.n_fused())
             new_children.append(c if stage is None else stage)
         if tuple(new_children) != tuple(n.children):
             n.children = tuple(new_children)

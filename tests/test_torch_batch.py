@@ -177,13 +177,18 @@ def test_vbits_buckets_match_reference(lo, hi):
 
 
 def test_import_loads_neither_jax_nor_the_reference():
-    """Every module of the port imports, and a session plans and runs q6
-    on the CPU, with neither jax nor the reference package loaded."""
+    """Every module of the port imports (the observability layer named
+    too), and a session plans and runs q6 on the CPU and assembles its
+    profile, with neither jax nor the reference package loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import spark_rapids_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import spark_rapids_tpu_torch.obs.jsonl, "
+        "spark_rapids_tpu_torch.obs.listener, "
+        "spark_rapids_tpu_torch.obs.profile, "
+        "spark_rapids_tpu_torch.obs.recorder\n"
         "from spark_rapids_tpu_torch.api.session import TpuSparkSession\n"
         "from spark_rapids_tpu_torch.entry import gen_store_sales, "
         "q6_query\n"
@@ -192,6 +197,7 @@ def test_import_loads_neither_jax_nor_the_reference():
         "device='cpu')\n"
         "out = q6_query(s.create_dataframe(gen_store_sales(2000))).collect()\n"
         "assert out.num_rows > 100, out.num_rows\n"
+        "assert s.last_query_profile().result_rows == out.num_rows\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'spark_rapids_tpu' or "
         "m.startswith('spark_rapids_tpu.'))\n"
