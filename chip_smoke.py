@@ -276,6 +276,16 @@ Phases (any failure exits non-zero):
                the device parse), the pinned launches, fallbacks and
                routes, the cold wall, a warm wall with ``scan.decode`` /
                ``scan.csvDecode``, a trace and peak memory;
+  8l. compile — the kernel cache, over the SF10 q6 files and a 2^24-row
+               in-memory q6: registered batches and a ballast leave too
+               little free device memory for the aggregate, so a real
+               CUDA OOM in ``agg_update`` is spilled and retried, with
+               the rows of a run without the fill, the batches back
+               equal and the catalog empty; cold and warm q6 with
+               ``kernel.dispatches.*``, ``kernel.cache.*``, the first
+               calls per family (none in the warm run) and the
+               attribution identity; the warm q6 with the observatory
+               and the ledger on and off, ``COMPILE_TURNS`` in turns;
   9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
                a dictionary that overflows into PLAIN pages, a 16-character
                string dictionary and a list<int32>, through the PERFILE
@@ -285,11 +295,11 @@ Phases (any failure exits non-zero):
                with and without a default; running, whole-partition,
                sliding ROWS and finite RANGE frames in both directions;
                sum, count, avg, min and max over int64, double with NaN and
-               bool) over a 2^17-row table with about 5% nulls and one
+               bool) over a 2^16-row table with about 5% nulls and one
                partition of half the rows, on a port session on cuda
                against the same DataFrame on one on the CPU: exactly,
                floats bit for bit; untimed;
-  9c. shuffle-modes — over 2^17 rows with about 5% nulls (int32, int64,
+  9c. shuffle-modes — over 2^16 rows with about 5% nulls (int32, int64,
                float64 with NaN and -0.0, bool, date and strings of byte
                widths 0-33 with multi-byte tails): repartition by hash,
                round robin, range and single, a coalesce, the shuffled
@@ -367,12 +377,12 @@ card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
 q6p, q6pf, session, pipeline, q6s, star, window, shuffle, strings,
-customer-etl, mortgage, tpch, oocore, obs, csv-orc, modes,
+customer-etl, mortgage, tpch, oocore, obs, csv-orc, compile, modes,
 window-modes, shuffle-modes, string-modes, tail-modes, io-modes) runs
 only those phases and prints no kernel table; ``tpch``, ``oocore``,
 ``obs`` and ``csv-orc`` generate, write and remove their own files
 (sharing them when run together; ``obs`` also writes the SF10 q6 files,
-and alone runs TPC-H at SF 2);
+and alone runs TPC-H at SF 2; ``compile`` writes the SF10 q6 files);
 ``customer-etl`` alone writes the star files and the census tables
 itself; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
@@ -380,6 +390,7 @@ makes the in-memory table itself.
 """
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -2739,10 +2750,10 @@ def phase_window(root: str, tables: dict):
 
 
 # cut from 2^20 rows to 2^18 when the mortgage and customer-etl phases
-# joined the smoke and to 2^17 when the tpch phase did: the CPU session's
-# side of these comparisons grows with the rows, and the whole smoke must
-# stay inside its time limit
-MODES_WINDOW_ROWS = 1 << 17
+# joined the smoke, to 2^17 when the tpch phase did and to 2^16 when the
+# compile phase did: the CPU session's side of these comparisons grows
+# with the rows, and the whole smoke must stay inside its time limit
+MODES_WINDOW_ROWS = 1 << 16
 
 
 def window_modes_table(n: int, seed: int) -> pa.Table:
@@ -3154,9 +3165,10 @@ def phase_shuffle(root: str, tables: dict):
 
 
 # cut from 2^20 rows to 2^18 when the last slice's phases joined the
-# smoke: the CPU session's side of these comparisons grows with the rows,
-# and the whole smoke must stay inside its time limit
-MODES_SHUFFLE_ROWS = 1 << 17
+# smoke and to 2^16 when the compile phase did: the CPU session's side of
+# these comparisons grows with the rows, and the whole smoke must stay
+# inside its time limit
+MODES_SHUFFLE_ROWS = 1 << 16
 # string keys: a pool of byte widths 0-33, most ending in a multi-byte
 # character (tail bytes >= 0x80)
 _WIDE = ("é", "中", "\U0001f600", "ÿ")
@@ -5990,6 +6002,290 @@ def phase_obs(q6_root: str, q6_ref: pa.Table, root: str, t: dict) -> None:
         shutil.rmtree(scratch, ignore_errors=True)
 
 
+# the compile phase's OOM query: one in-memory batch of this many q6 rows
+COMPILE_OOM_ROWS = 1 << 24
+COMPILE_OOM_CONF = {
+    "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+    "spark.rapids.tpu.sql.test.enabled": True,
+    # one partition, one batch: no concat of partials outside a dispatch
+    "spark.rapids.tpu.sql.reader.batchSizeRows": COMPILE_OOM_ROWS,
+    # above the registered fill and the query's partials: the budget
+    # itself spills nothing
+    "spark.rapids.tpu.memory.device.batchStorageSize": 16 << 30,
+    "spark.rapids.tpu.memory.host.spillStorageSize": 16 << 30}
+COMPILE_TURNS = 6
+# the compile phase's device (a CPU rehearsal sets "cpu")
+COMPILE_DEVICE = "cuda"
+
+
+def _settle() -> None:
+    """Free what unreachable Python objects still hold on the card, and
+    the allocator's unused blocks: what an earlier phase left as cyclic
+    garbage would otherwise be freed mid-query, in the middle of a
+    measurement or a fill."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _take_cached_blocks() -> list:
+    """Tensors holding every free block of 2 MiB or more that the caching
+    allocator keeps inside segments it cannot release (a segment with a
+    live tensor in it).  ``mem_get_info`` does not see those blocks, yet a
+    query reuses them; a fill must take them first.  An allocation that
+    grew the reserved memory came from the driver: it is freed at once,
+    and the size halves."""
+    held = []
+    size = 1 << 30
+    while size >= 2 << 20:
+        before = torch.cuda.memory_reserved()
+        t = torch.empty(size, dtype=torch.uint8, device=COMPILE_DEVICE)
+        if torch.cuda.memory_reserved() > before:
+            del t
+            torch.cuda.empty_cache()
+            size >>= 1
+            continue
+        held.append(t)
+    return held
+
+
+def _compile_oom(card: str) -> None:
+    """A real CUDA OOM inside a query: registered batches plus a ballast
+    tensor leave less free device memory than the aggregate's update
+    needs, but more than the upload; the query must return the rows of a
+    run without the fill after the kernel cache's spill and retry, move
+    ``mem.oomRetries``, and leave the registered batches equal and the
+    catalog empty.  The fill takes the allocator's unreleasable cached
+    blocks first (``_take_cached_blocks``), then a ballast from what the
+    driver reports free.  A run that needed no retry tightens the fill,
+    up to three times."""
+    from spark_rapids_tpu_torch import dtypes as tdt
+    from spark_rapids_tpu_torch.api import TpuSparkSession, col
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch,
+                                                       DeviceColumn)
+    from spark_rapids_tpu_torch.mem import spill
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    table = q6_table()[0].slice(0, COMPILE_OOM_ROWS).select(
+        ["ss_item_sk", "ss_quantity", "ss_sales_price",
+         "ss_ext_sales_price"])
+    s = TpuSparkSession(COMPILE_OOM_CONF, device=COMPILE_DEVICE)
+    df = (s.create_dataframe(table).filter(col("ss_sales_price") > 150.0)
+          .group_by("ss_item_sk")
+          .agg(F.count("*").alias("cnt"), F.sum("ss_quantity").alias("qty"),
+               F.avg("ss_ext_sales_price").alias("aesp")))
+    # the run without the fill: its rows and its device memory above the
+    # baseline; the upload alone is the bare scan's batch
+    _settle()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want = df.collect().sort_by("ss_item_sk")
+    need = torch.cuda.max_memory_allocated() - base
+    check_q6(want, q6_reference(table))
+    upload = sum(b.nbytes() for b in s.create_dataframe(
+        table).collect_device())
+    _settle()
+    work = need - upload
+    if work <= 0:
+        fail(f"compile oom: the query needs {need} B over its upload "
+             f"{upload} B")
+    # registered batches: 1 GiB each, enough to cover the retry twice
+    cat = spill.get_catalog()
+    n = 1 << 27
+    k_batches = max(2, -(-2 * need // (9 * n)))
+
+    def batch(k):
+        return DeviceBatch(["v"], [DeviceColumn(
+            tdt.INT64,
+            torch.arange(n, dtype=torch.int64, device=COMPILE_DEVICE) * k,
+            torch.ones(n, dtype=torch.bool, device=COMPILE_DEVICE))], n)
+    handles = [cat.register(batch(k)) for k in range(1, k_batches + 1)]
+    registered = cat.device_bytes
+    if cat.spilled_device_bytes or any(
+            h.tier != spill.StorageTier.DEVICE for h in handles):
+        fail("compile oom: the device budget spilled a registered batch")
+    reg = obsreg.get_registry()
+    for share in (2, 4, 8):
+        _settle()
+        cached = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+        ballast = _take_cached_blocks()
+        free = torch.cuda.mem_get_info()[0]
+        ballast.append(torch.empty(max(free - upload - work // share, 0),
+                                   dtype=torch.uint8, device=COMPILE_DEVICE))
+        free_fill = torch.cuda.mem_get_info()[0]
+        view = reg.view()
+        kb.reset_counts()
+        t0 = time.perf_counter()
+        out = df.collect().sort_by("ss_item_sk")     # must not raise
+        wall = time.perf_counter() - t0
+        d = view.delta()["counters"]
+        launches = dict(kb.launches)
+        del ballast
+        _settle()
+        if not out.equals(want):
+            fail("compile oom: the query's rows under the fill differ from "
+                 "the run without it")
+        if d.get("mem.oomRetries", 0) >= 1:
+            break
+        log(f"compile oom: no OOM with {free_fill} B free (the upload "
+            f"plus 1/{share} of the rest of the need; {cached} B of "
+            f"unreleasable cached blocks taken first); tightening [{card}]")
+    retried = {k.split(".", 2)[2]: int(v) for k, v in d.items()
+               if k.startswith("kernel.oomRetries.")}
+    if d.get("mem.oomRetries", 0) < 1 or not retried:
+        fail(f"compile oom: no OOM retry with {free_fill} B free (the "
+             f"query needs {need} B, its upload {upload} B): {d}")
+    for k, h in enumerate(handles, 1):
+        if h.tier == spill.StorageTier.DEVICE:
+            fail("compile oom: a registered batch was not spilled")
+        v = h.get().columns[0].data
+        if not torch.equal(v, torch.arange(n, dtype=torch.int64,
+                                           device=COMPILE_DEVICE) * k):
+            fail("compile oom: a spilled batch came back different")
+        h.close()
+    _catalog_empty("compile oom")
+    log(f"compile oom: {k_batches} registered batches "
+        f"({registered / 2**30:.2f} GiB) and a ballast (first the "
+        f"allocator's {cached} B of unreleasable cached blocks) left "
+        f"{free_fill} B free (the upload plus 1/{share} of the rest); the "
+        f"aggregate "
+        f"needs {need} B over the baseline, its upload {upload} B; the "
+        f"query over {COMPILE_OOM_ROWS} rows retried in {retried} "
+        f"(mem.oomRetries +{int(d['mem.oomRetries'])}, spilled "
+        f"{int(d.get('spill.deviceToHostBytes', 0))} B to the host) and "
+        f"returned the {out.num_rows} rows of the run without the fill in "
+        f"{wall * 1e3:.1f} ms; launches {launches}; the batches came back "
+        f"equal and the catalog is empty [{card}]")
+
+
+def _compile_counts(root: str, ref: pa.Table, card: str):
+    """Cold and warm q6 over the SF10 files: the dispatch and cache
+    counters, the first-call events per family, the warm run's zero
+    events and the attribution identity.  Returns the DataFrame."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
+    from spark_rapids_tpu_torch.obs import compile as obscompile
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    s = TpuSparkSession(dict(SCAN_CONF, **{
+        "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+        "spark.rapids.tpu.sql.test.enabled": True}), device=COMPILE_DEVICE)
+    df = bench_query(s, root)
+    reg = obsreg.get_registry()
+    kc.clear()
+    obscompile.reset()
+    window = reg.view()
+    deltas = {}
+    for run in ("cold", "warm"):
+        view = reg.view()
+        kb.reset_counts()
+        out, _wall, ev = _timed_collect(df)
+        check_q6(out, ref)
+        _check_launches(f"compile q6 {run}", kb.launches, kb.fallbacks,
+                        Q6P_KERNELS)
+        d = view.delta()["counters"]
+        deltas[run] = d
+        shown = {k: int(v) for k, v in sorted(d.items())
+                 if k.startswith(("kernel.dispatches", "kernel.cache."))}
+        log(f"compile q6 {run}: {ev * 1e3:.1f} ms (CUDA events); {shown} "
+            f"[{card}]")
+    fams = {}
+    for e in obscompile.events():
+        fams.setdefault(e["family"], []).append(
+            f"{e['wall_ms']:.3f} ms {e['tier']}")
+    log(f"compile q6 cold first calls per family (host wall, tier): "
+        f"{fams} [{card}]")
+    if deltas["cold"].get("kernel.compile.events", 0) <= 0:
+        fail("compile q6: the cold run recorded no first call")
+    if deltas["warm"].get("kernel.compile.events", 0) or \
+            deltas["warm"].get("kernel.cache.compiles", 0):
+        fail(f"compile q6: the warm run recorded first calls: "
+             f"{deltas['warm']}")
+    for run, d in deltas.items():
+        if d.get("kernel.dispatches", 0) <= 0 or \
+                d.get("kernel.dispatches.agg_update.pallas", 0) <= 0:
+            fail(f"compile q6 {run}: no agg_update.pallas dispatch: {d}")
+    snap = obscompile.snapshot(max_events=0)
+    t = snap["totals"]
+    attributed = sum(r["kernels_compiled"]
+                     for r in snap["per_query"].values())
+    compiles = window.delta()["counters"].get("kernel.cache.compiles", 0)
+    if attributed + t["unattributed_fresh"] + t["evicted_compiled"] != \
+            compiles:
+        fail(f"compile q6: {attributed} attributed + "
+             f"{t['unattributed_fresh']} unattributed + "
+             f"{t['evicted_compiled']} evicted != kernel.cache.compiles "
+             f"{compiles}")
+    log(f"compile q6: sum(kernels_compiled) {attributed} + unattributed "
+        f"{t['unattributed_fresh']} + evicted {t['evicted_compiled']} == "
+        f"kernel.cache.compiles {int(compiles)}; churn "
+        f"{obscompile.churn_report()}")
+    return df
+
+
+def _compile_wrapper_cost(df, ref: pa.Table, card: str) -> None:
+    """Warm q6 with the observatory and the ledger on and off, in turns:
+    each turn clears the kernel cache so the steps are built in its mode
+    (the observe wrapper is installed at build time), runs once untimed
+    and once timed with CUDA events.  The garbage collector's passes
+    inside the timed runs are counted and timed per mode: the wrappers
+    allocate a few tuples per dispatch, and a pass over a large heap
+    costs far more than the wrappers themselves."""
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
+    from spark_rapids_tpu_torch.obs import accounting as obsacct
+    from spark_rapids_tpu_torch.obs import compile as obscompile
+    walls = {"on": [], "off": []}
+    gcs = {"on": [0, 0.0], "off": [0, 0.0]}
+    clock = {"mode": None, "t0": 0.0}
+
+    def on_gc(phase, info):
+        if clock["mode"] is None:
+            return
+        if phase == "start":
+            clock["t0"] = time.perf_counter()
+        else:
+            g = gcs[clock["mode"]]
+            g[0] += 1
+            g[1] += (time.perf_counter() - clock["t0"]) * 1e3
+    gc.callbacks.append(on_gc)
+    try:
+        for i in range(COMPILE_TURNS):
+            for mode in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                obscompile.configure(mode == "on")
+                obsacct.configure(mode == "on")
+                kc.clear()
+                check_q6(df.collect(), ref)
+                clock["mode"] = mode
+                out, _wall, ev = _timed_collect(df)
+                clock["mode"] = None
+                check_q6(out, ref)
+                walls[mode].append(ev)
+    finally:
+        clock["mode"] = None
+        gc.callbacks.remove(on_gc)
+        obscompile.configure(True)
+        obsacct.configure(True)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"compile wrappers: warm q6 (CUDA events, median of "
+        f"{COMPILE_TURNS} in turns) observatory+ledger on "
+        f"{med['on'] * 1e3:.1f} ms, off {med['off'] * 1e3:.1f} ms, "
+        f"difference {(med['on'] - med['off']) * 1e3:.2f} ms (runs ms: "
+        + "; ".join(f"{k} " + ", ".join(f"{x * 1e3:.1f}" for x in v)
+                    for k, v in walls.items())
+        + "); garbage-collector passes inside the timed runs: "
+        + "; ".join(f"{k} {n} taking {ms:.1f} ms"
+                    for k, (n, ms) in gcs.items()) + f" [{card}]")
+
+
+def phase_compile(q6_root: str, q6_ref: pa.Table) -> None:
+    """The kernel cache on the card: a real CUDA OOM inside a query,
+    retried by the cache; cold and warm q6's dispatch, cache and
+    first-call counts; the wrappers' cost on the warm q6."""
+    card = _card()
+    _compile_oom(card)
+    df = _compile_counts(q6_root, q6_ref, card)
+    _compile_wrapper_cost(df, q6_ref, card)
+
+
 MODES_IO_ROWS = 1 << 18
 # the join surface's self-joins on a 6-value key grow with the square of
 # the rows (2^16 rows: ~180M joined rows, 101 s on a CPU session)
@@ -6393,7 +6689,7 @@ def phase_timing(paths):
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
               "pipeline", "q6s", "star", "window", "shuffle", "strings",
               "customer-etl", "mortgage", "tpch", "oocore", "obs", "csv-orc",
-              "modes", "window-modes", "shuffle-modes", "string-modes",
+              "compile", "modes", "window-modes", "shuffle-modes", "string-modes",
               "tail-modes", "io-modes"]
 
 
@@ -6436,11 +6732,13 @@ def main() -> int:
         runs["q6"] = ("q6", *phase_q6(), SEGREDUCE)
         done("q6")
     q6_files = None
-    if {"q6p", "q6pf", "session", "pipeline", "obs"} & set(phases):
+    if {"q6p", "q6pf", "session", "pipeline", "obs", "compile"} & \
+            set(phases):
         root = _parquet_dir("q6-parquet")
         try:
             ref = write_q6_files(root)
-            if "obs" in phases:   # the obs phase reads them after oocore
+            if {"obs", "compile"} & set(phases):
+                # the obs and compile phases read them after oocore
                 _KEPT_DIRS.append(root)
                 q6_files = (root, ref)
             for key, tag, fn, names in (
@@ -6529,7 +6827,6 @@ def main() -> int:
                 done("oocore")
             if "obs" in phases:
                 phase_obs(*q6_files, root, t)
-                shutil.rmtree(q6_files[0], ignore_errors=True)
                 done("obs")
             if "csv-orc" in phases:
                 runs["csv-orc"] = ("csv-orc", *phase_csv_orc(
@@ -6538,6 +6835,11 @@ def main() -> int:
             del t
         finally:
             shutil.rmtree(root, ignore_errors=True)
+    if "compile" in phases:
+        phase_compile(*q6_files)
+        done("compile")
+    if q6_files is not None:
+        shutil.rmtree(q6_files[0], ignore_errors=True)
     if "modes" in phases:
         phase_perfile_modes()
         done("modes")

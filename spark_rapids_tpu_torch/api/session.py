@@ -33,10 +33,16 @@ its task threads), and, under ``obs.profile.enabled`` (the default), a
 ``QueryRun`` whose ``QueryProfile`` goes to the profile ring
 (``last_query_profile``, ``query_profile``), the query listeners
 (``register_query_listener``; the flight recorder of ``obs.recorder.dir``
-is one) and the slow-query log (``obs.slowQueryMs``).  Not ported yet:
+is one) and the slow-query log (``obs.slowQueryMs``).  Until the query
+scheduler is ported, ``_execute`` also does what its ``submit`` does for
+the compile observatory (``obs/compile.py``) and the resource ledger
+(``obs/accounting.py``): it registers the query id with both (the tenant
+``("(in-process)", "(ad-hoc)")``: no plan digest yet) and finishes it in
+both on success and on failure.  Session init configures both from the
+``obs.compile.*`` and ``obs.accounting.enabled`` keys.  Not ported yet:
 the query scheduler (``QueryService``, ``submit``/``collect_async``) and
-with it the admission events, the compile observatory and the resource
-ledger, the plan digest, the HTTP endpoint, serving and the fleet.
+with it the admission events, the plan digest, the HTTP endpoint,
+serving and the fleet.
 """
 
 from __future__ import annotations
@@ -94,6 +100,17 @@ class TpuSparkSession:
         obs_trace.configure(
             bool(self.conf.get(cfg.OBS_TRACE_ENABLED)),
             int(self.conf.get(cfg.OBS_TRACE_BUFFER_SPANS)))
+        from spark_rapids_tpu_torch.obs import compile as obs_compile
+        obs_compile.configure(
+            bool(self.conf.get(cfg.OBS_COMPILE_ENABLED)),
+            ring_events=int(self.conf.get(cfg.OBS_COMPILE_RING_EVENTS)),
+            storm_threshold=int(self.conf.get(
+                cfg.OBS_COMPILE_STORM_THRESHOLD)),
+            corpus_path=str(self.conf.get(
+                cfg.OBS_COMPILE_CORPUS_PATH) or ""))
+        from spark_rapids_tpu_torch.obs import accounting as obs_accounting
+        obs_accounting.configure(
+            bool(self.conf.get(cfg.OBS_ACCOUNTING_ENABLED)))
         self._plan_listeners: List = []
         self._query_listeners: List = []
         self._views: Dict[str, lp.LogicalPlan] = {}
@@ -230,9 +247,27 @@ class TpuSparkSession:
         envelope: under ``obs.profile.enabled`` a ``QueryRun`` captures
         the wall phases, the registry delta and the span window, and the
         assembled profile goes to the ring, the query listeners and the
-        slow-query log on success and on failure."""
-        from spark_rapids_tpu_torch.sched import cancel as sched_cancel
+        slow-query log on success and on failure.
+
+        The query id is registered with the compile observatory and the
+        resource ledger first, and finished in both on either outcome
+        (the reference's ``sched/service.submit``, :378-417)."""
+        from spark_rapids_tpu_torch.obs import accounting as obs_accounting
+        from spark_rapids_tpu_torch.obs import compile as obs_compile
         query_id = next(self._QUERY_IDS)
+        # plan_digest stays None until plan/digest.py is ported, so the
+        # ledger bills the tenant ("(in-process)", "(ad-hoc)")
+        obs_compile.register_query(query_id, None)
+        obs_accounting.register_query(query_id)
+        try:
+            return self._execute_registered(plan, query_id)
+        finally:
+            obs_compile.finish_query(query_id)
+            obs_accounting.finish_query(query_id)
+
+    def _execute_registered(self, plan: lp.LogicalPlan,
+                            query_id: int) -> pa.Table:
+        from spark_rapids_tpu_torch.sched import cancel as sched_cancel
         token = sched_cancel.current() or sched_cancel.CancelToken(query_id)
         run = None
         if self.conf.get(cfg.OBS_PROFILE_ENABLED):
@@ -302,13 +337,13 @@ class TpuSparkSession:
                       "session_id": prof.metrics.get("sched", {}).get(
                           "sched.sessionId"),
                       "queue_wait_s": prof.metrics.get("sched", {}).get(
-                          "sched.queueWaitNs", 0) / 1e9,
-                      # the reference takes these two from
-                      # obs/compile.row_fields, which gives null for a
-                      # query its ledger never saw; the port has no
-                      # obs/compile.py yet, so no query is seen
-                      "kernels_compiled": None,
-                      "compile_ms": None}
+                          "sched.queueWaitNs", 0) / 1e9}
+            # exact token-based attribution (obs/compile.row_fields —
+            # the same derivation the reference's /queries rows use),
+            # not the registry window, which a concurrent neighbour's
+            # first calls would bleed into
+            from spark_rapids_tpu_torch.obs import compile as obs_compile
+            record.update(obs_compile.row_fields(prof.query_id))
             for key in ("query_id", "plan_digest", "status", "error",
                         "wall_s", "result_rows", "phases",
                         "wall_breakdown"):
@@ -342,8 +377,11 @@ class TpuSparkSession:
         ``QueryRun`` or None) times its plan, execute and collect
         phases."""
         from spark_rapids_tpu_torch.columnar.batch import to_arrow_all
+        from spark_rapids_tpu_torch.exec import kernel_cache
         from spark_rapids_tpu_torch.exec.context import set_input_file
         from spark_rapids_tpu_torch.exec.tpu_basic import DeviceToHostExec
+        # executor-longevity guard (see the kernel_cache docstring)
+        kernel_cache.maybe_clear_for_map_pressure()
         set_input_file("")  # fresh query: no stale input_file_name()
         with self._phase(run, "plan"):
             result = self._plan_physical(plan)

@@ -176,6 +176,15 @@ class DeviceBatch:
     def column(self, name: str) -> DeviceColumn:
         return self.columns[self.names.index(name)]
 
+    def schema_key(self) -> Tuple:
+        """Hashable (schema, shape-bucket) key: names, dtype names,
+        capacity and var-len widths (a kernel-cache key component)."""
+        return (tuple(self.names),
+                tuple(c.dtype.name for c in self.columns),
+                self._capacity,
+                tuple(c.max_len if c.dtype.has_lengths else 0
+                      for c in self.columns))
+
     def row_mask(self) -> torch.Tensor:
         return torch.arange(self._capacity, device=self.device) < \
             self.num_rows

@@ -381,7 +381,7 @@ SCHED_MAX_CONCURRENT = conf(
     "share of sched.memoryBudget) reads it.", int)
 
 # ---------------------------------------------------------------------------
-# Observability keys (reference config.py:719-737, :790-853, :1243)
+# Observability keys (reference config.py:719-737, :790-863, :1168-1210, :1243)
 # ---------------------------------------------------------------------------
 
 OBS_TRACE_ENABLED = conf(
@@ -459,6 +459,47 @@ OBS_SLOW_QUERY_MAX_BYTES = conf(
     "renamed to <path>.1 (replacing the previous .1) and a fresh file "
     "starts — the keep-1 logrotate shape, at most 2x this size on disk. "
     "0 disables rotation (unbounded append).", int)
+
+OBS_ACCOUNTING_ENABLED = conf(
+    "spark.rapids.tpu.obs.accounting.enabled", True,
+    "Per-tenant resource metering (obs/accounting.py): attributes "
+    "kernel dispatches, compile wall and scan bytes walked/uploaded to "
+    "the owning (session, statement template | plan digest) tenant. "
+    "Off: every charging hook is one bool check (the obs.compile "
+    "pattern).", bool)
+
+OBS_COMPILE_ENABLED = conf(
+    "spark.rapids.tpu.obs.compile.enabled", True,
+    "Record a CompileEvent for every first (kernel, arg-shape) call "
+    "through the process kernel cache — the compile observatory "
+    "(obs/compile.py): kernel family, canonical shape/dtype signature, "
+    "backend, first-call wall, tier (fresh nvcc build / reload of a "
+    "library an earlier process built), and the triggering query id + "
+    "plan digest. Events land in a bounded ring with process-lifetime "
+    "per-family aggregates, surface as kernel.compile spans in the "
+    "Chrome trace, a 'compile' QueryProfile section and "
+    "kernel.compile.* registry counters. Disabled, kernels built "
+    "afterwards carry no observe wrapper.", bool)
+
+OBS_COMPILE_RING_EVENTS = conf(
+    "spark.rapids.tpu.obs.compile.ringEvents", 4096,
+    "Capacity of the compile observatory's event ring; the oldest "
+    "events drop past it (process-lifetime aggregates — per-family "
+    "program/signature counts, compile wall — are unaffected).", int)
+
+OBS_COMPILE_STORM_THRESHOLD = conf(
+    "spark.rapids.tpu.obs.compile.stormThreshold", 64,
+    "Programs one query may record before the observatory flags a "
+    "'compile storm': a flight-recorder compile.storm event (once per "
+    "query) plus the kernel.compile.storms counter.", int)
+
+OBS_COMPILE_CORPUS_PATH = conf(
+    "spark.rapids.tpu.obs.compile.corpusPath", "",
+    "Append-mode JSONL file for the precompile corpus: on the first "
+    "completion of each distinct plan digest that recorded at least "
+    "one program, one record {plan_digest, query_id, programs: "
+    "[{family, key, signature, backend, replay}]} is appended. Empty "
+    "(default) disables corpus emission.")
 
 
 class RapidsTpuConf:

@@ -16,11 +16,14 @@ Project/Filter execs into one node that
 A stage whose composed projection is pure column selection runs in
 **passthrough** mode: a host-side column pick, no device work.
 
-Here the stage runs as an eager torch composition of those three steps.
-The reference's compile machinery (``build_kernel``, ``dispatch``, input
-donation and the shared-scan donation gate, :111-252) exists to cut XLA
-dispatches and reuse HBM under ``jax.jit`` and has no counterpart in an
-eager port.  The stage counts the dispatches it saves
+Here the stage runs as an eager torch composition of those three steps,
+dispatched once per batch through the process kernel cache
+(``exec/kernel_cache.get_kernel``) under the reference's key
+``("fused_stage", out_exprs, condition, donate)`` (:216-219, :345-354),
+so it is counted, observed and OOM-retried like every device step.  The
+port never donates an input (``donate`` is always False), so the
+reference's donation gate and its shared-scan check (:111-252) have no
+counterpart.  The stage counts the dispatches it saves
 (``fusion.dispatchesSaved``) per batch as the reference does: the chain
 would have cost one per fused exec, the stage one (a passthrough none).
 """
@@ -39,6 +42,13 @@ from spark_rapids_tpu_torch.obs import registry as obsreg
 from spark_rapids_tpu_torch.plan.logical import Schema
 
 
+def canonical_names(n: int):
+    """Positional output names of a stage's step (``_c0``, ``_c1``, ...):
+    output aliases never reach a kernel-cache key, and the exec restamps
+    its schema's names after the dispatch."""
+    return [f"_c{i}" for i in range(n)]
+
+
 class TpuFusedStageExec(TpuExec):
     """One collapsed Project/Filter chain (see module docstring)."""
 
@@ -53,6 +63,7 @@ class TpuFusedStageExec(TpuExec):
         self.condition = condition
         # display names of the execs this stage replaced (top-down)
         self.fused = tuple(fused)
+        self._kernel = None
 
     @property
     def schema(self) -> Schema:
@@ -74,19 +85,24 @@ class TpuFusedStageExec(TpuExec):
         return (f"TpuFusedStageExec({mode}, fused={len(self.fused)}: "
                 f"{'+'.join(self.fused)})")
 
-    def _impl(self, batch: DeviceBatch) -> DeviceBatch:
+    def _impl(self, batch: DeviceBatch, pid: int = 0) -> DeviceBatch:
+        """One batch through the stage, with positional output names
+        (the caller restamps the schema's)."""
         from spark_rapids_tpu_torch.exec.tpu_basic import compact
-        names = self._schema.names
         keep = None
-        if self.condition is not None:
-            v = eval_tpu.evaluate(self.condition, batch)
-            keep = v.data.to(torch.bool) & v.validity
-            if len(self.out_exprs) >= len(batch.columns):
-                batch = compact(batch, keep)
-                keep = None
-        cols = [eval_tpu.evaluate(e, batch).to_column()
-                for e in self.out_exprs]
-        out = DeviceBatch(names, cols, batch.num_rows, batch.device)
+        # the row offset stays 0, as in the reference: the planner keeps
+        # monotonically_increasing_id() out of fused stages
+        with context.task_context(pid, 0):
+            if self.condition is not None:
+                v = eval_tpu.evaluate(self.condition, batch)
+                keep = v.data.to(torch.bool) & v.validity
+                if len(self.out_exprs) >= len(batch.columns):
+                    batch = compact(batch, keep)
+                    keep = None
+            cols = [eval_tpu.evaluate(e, batch).to_column()
+                    for e in self.out_exprs]
+        out = DeviceBatch(canonical_names(len(cols)), cols, batch.num_rows,
+                          batch.device)
         return compact(out, keep) if keep is not None else out
 
     def execute(self):
@@ -95,6 +111,19 @@ class TpuFusedStageExec(TpuExec):
         ords = [e.ordinal for e in self.out_exprs] if passthrough else None
         saved = len(self.fused) if passthrough else \
             max(0, len(self.fused) - 1)
+        if not passthrough and self._kernel is None:
+            import functools
+            import types
+            from spark_rapids_tpu_torch.exec import kernel_cache as kc
+            # detach from self: the cached step must not pin the exec
+            # (and through it the child plan)
+            shim = types.SimpleNamespace(out_exprs=self.out_exprs,
+                                         condition=self.condition)
+            key = ("fused_stage", kc.exprs_sig(self.out_exprs),
+                   kc.expr_sig(self.condition), False)
+            self._kernel = kc.get_kernel(
+                key, lambda: functools.partial(type(self)._impl, shim))
+        kernel = self._kernel
 
         def run(pid, it):
             reg = obsreg.get_registry()
@@ -105,12 +134,10 @@ class TpuFusedStageExec(TpuExec):
                                           [b.columns[i] for i in ords],
                                           b.num_rows, b.device)
                 else:
-                    # the row offset stays 0, as in the reference: the
-                    # planner keeps monotonically_increasing_id() out of
-                    # fused stages (plan/fusion.py)
-                    with timed(self.metrics, "fused.eval"), \
-                            context.task_context(pid, 0):
-                        out = self._impl(b)
+                    with timed(self.metrics, "fused.eval"):
+                        out = kernel(b, pid)
+                    out = DeviceBatch(names, out.columns, out.num_rows,
+                                      out.device)
                 if saved:
                     reg.inc("fusion.dispatchesSaved", saved)
                 self.metrics.add_batches()

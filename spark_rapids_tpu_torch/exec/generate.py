@@ -8,8 +8,10 @@ and sums each row's emission count, with one host read of the total per
 batch; the emit pass runs at ``bucket_rows(total)``, maps each output
 slot back to its source row and element ordinal by a binary search of
 the inclusive count sums (``torch.searchsorted(incl, k, right=True)``),
-and gathers.  The reference evaluates the list once per pass, in two
-compiled programs; here one eager evaluation serves both.
+and gathers.  Both passes dispatch through the process kernel cache
+under the reference's keys (``gen_count``, ``gen_emit``, :158-171).  The
+reference evaluates the list once per pass; here the count step returns
+the evaluated list with its counts, and the emit step takes them.
 """
 
 from __future__ import annotations
@@ -141,26 +143,45 @@ class TpuGenerateExec(TpuExec):
         self.children = (child,)
         self.generator = generator
         self._schema = schema
+        self._kernels = {}
 
     @property
     def schema(self) -> Schema:
         return self._schema
 
     def execute(self):
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
         gen = self.generator
         with_pos = isinstance(gen, ir.PosExplode)
         outer = gen.outer
+        schema = self._schema
+
+        def count_fn(b):
+            v = eval_tpu.evaluate(gen.children[0], b)
+            counts = _counts(v, b, outer)
+            return v, counts, counts.sum()
 
         def run(it) -> Iterator[DeviceBatch]:
+            gsig = kc.expr_sig(gen)
             for b in it:
+                ckey = ("gen_count", gsig, outer, b.schema_key())
+                if ckey not in self._kernels:
+                    self._kernels[ckey] = kc.get_kernel(
+                        ckey, lambda: count_fn)
                 with timed(self.metrics, "generate.count"):
-                    v = eval_tpu.evaluate(gen.children[0], b)
-                    counts = _counts(v, b, outer)
-                    total = int(counts.sum())
+                    v, counts, total = self._kernels[ckey](b)
+                    total = int(total)
+                out_cap = bucket_rows(total)
+                ekey = ("gen_emit", gsig, out_cap, with_pos, outer,
+                        tuple(schema.names), b.schema_key())
+                if ekey not in self._kernels:
+                    # out_cap bound now: the step outlives this loop
+                    self._kernels[ekey] = kc.get_kernel(
+                        ekey, lambda oc=out_cap: lambda bb, vv, cc, tt:
+                        _generate_kernel(bb, vv, cc, tt, oc, gen, schema,
+                                         with_pos, outer))
                 with timed(self.metrics, "generate.emit"):
-                    out = _generate_kernel(b, v, counts, total,
-                                           bucket_rows(total), gen,
-                                           self._schema, with_pos, outer)
+                    out = self._kernels[ekey](b, v, counts, total)
                 self.metrics.add_rows(total)
                 self.metrics.add_batches()
                 yield out

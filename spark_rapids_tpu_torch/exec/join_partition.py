@@ -21,8 +21,8 @@ row order.
 
 The split is the exchange's map side over the port's murmur3 targets
 (``expr/eval_tpu.hash_colval``, ``sortkeys.shared_partition_order``,
-``shuffle/exchange.slice_span``), run eagerly: the reference's
-per-schema kernel-cache entries have no counterpart.  A
+``shuffle/exchange.slice_span``), dispatched through the process kernel
+cache under the reference's per-schema keys (``split_batch``).  A
 ``GraceJoinState`` tracks every live partition handle, registers as a
 pressure spiller so ``mem/spill.handle_memory_pressure`` reaches parked
 join state, and drains the catalog on any exit, including a mid-join
@@ -138,37 +138,61 @@ def _grace_key_colval(batch: DeviceBatch, name: str,
     return v
 
 
-def split_batch(batch: DeviceBatch, key_names: Sequence[str],
+def split_batch(kernels: dict, batch: DeviceBatch,
+                key_names: Sequence[str],
                 key_dtypes: Sequence[Optional[dt.DType]], seed: int,
                 n_parts: int,
                 min_bucket: int = 16) -> List[Optional[DeviceBatch]]:
     """Hash-partition one device batch into ``n_parts`` sub-batches by
     the salted murmur3 of its (promoted, normalized) key columns: the
-    exchange's map side (targets, the shared stable partition order,
-    one gather, one host read of the counts, a bucketed slice per
-    partition).  Returns one batch (or None when empty) per
-    partition."""
+    exchange's map side, as the reference's kernel split (:150-188): a
+    per-schema ``grace_target`` step (the seed is an argument, so one
+    step serves every recursion level), the shared
+    ``shared_partition_order`` sort, a per-schema ``grace_apply`` gather
+    with the per-partition counts (one host read), and a bucketed
+    ``grace_slice`` per partition.  ``kernels`` memoizes the steps per
+    exec.  Returns one batch (or None when empty) per partition."""
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
     from spark_rapids_tpu_torch.expr.eval_tpu import hash_colval
     from spark_rapids_tpu_torch.shuffle.exchange import slice_span
-    h = torch.full((batch.capacity,), seed, dtype=torch.int32,
-                   device=batch.device)
-    for nm, td in zip(key_names, key_dtypes):
-        h = hash_colval(_grace_key_colval(batch, nm, td), h)
-    exists = batch.row_mask()
-    t = torch.where(exists, torch.remainder(h, n_parts).to(torch.int32),
-                    n_parts)
+    knames = tuple(key_names)
+    kdts = tuple(None if d is None else d.id for d in key_dtypes)
+    tkey = ("grace_target", n_parts, knames, kdts, batch.schema_key())
+    if tkey not in kernels:
+        kn, kd = list(key_names), list(key_dtypes)
+
+        def targets(b, sd):
+            h = torch.full((b.capacity,), sd, dtype=torch.int32,
+                           device=b.device)
+            for nm, td in zip(kn, kd):
+                h = hash_colval(_grace_key_colval(b, nm, td), h)
+            return torch.where(b.row_mask(),
+                               torch.remainder(h, n_parts).to(torch.int32),
+                               n_parts)
+        kernels[tkey] = kc.get_kernel(tkey, lambda: targets)
+    t = kernels[tkey](batch, seed)
     order = sortkeys.shared_partition_order(t)
-    counts = torch.bincount(t.long(), minlength=n_parts + 1)[:n_parts]
-    reordered = DeviceBatch(batch.names,
-                            [c.gather(order, exists[order])
-                             for c in batch.columns],
-                            batch.num_rows, batch.device)
+    akey = ("grace_apply", n_parts, batch.schema_key())
+    if akey not in kernels:
+        def apply_order(b, tt, o):
+            counts = torch.bincount(tt.long(),
+                                    minlength=n_parts + 1)[:n_parts]
+            exists = b.row_mask()
+            cols = [c.gather(o, exists[o]) for c in b.columns]
+            return DeviceBatch(b.names, cols, b.num_rows, b.device), counts
+        kernels[akey] = kc.get_kernel(akey, lambda: apply_order)
+    reordered, counts = kernels[akey](batch, t, order)
     out: List[Optional[DeviceBatch]] = [None] * n_parts
     off = 0
     for p, c in enumerate(counts.tolist()):
         if c:
-            out[p] = slice_span(reordered, off, c,
-                                bucket_rows(c, min_bucket))
+            out_cap = bucket_rows(c, min_bucket)
+            skey = ("grace_slice", out_cap, reordered.schema_key())
+            if skey not in kernels:
+                kernels[skey] = kc.get_kernel(
+                    skey, lambda oc=out_cap:
+                    lambda b, o, cc: slice_span(b, o, cc, oc))
+            out[p] = kernels[skey](reordered, off, c)
         off += c
     return out
 
@@ -272,16 +296,17 @@ def _close_parts(state: GraceJoinState, parts: List[_Part]) -> None:
         p.handle.close()
 
 
-def _split_parts(state: GraceJoinState, parts: List[_Part], key_names,
-                 key_dtypes, seed: int, n_parts: int) -> List[List[_Part]]:
+def _split_parts(exec_obj, state: GraceJoinState, parts: List[_Part],
+                 key_names, key_dtypes, seed: int,
+                 n_parts: int) -> List[List[_Part]]:
     """Re-partition parked slices into ``n_parts`` child partitions (the
     recursion step): each slice is re-streamed, split with the new
     level's seed and its children parked; the parent handle closes."""
     out: List[List[_Part]] = [[] for _ in range(n_parts)]
     for p in parts:
         b = _unpark(state, p)
-        for i, s in enumerate(split_batch(b, key_names, key_dtypes, seed,
-                                          n_parts)):
+        for i, s in enumerate(split_batch(exec_obj._kernels, b, key_names,
+                                          key_dtypes, seed, n_parts)):
             if s is not None:
                 out[i].append(_park(state, s))
     return out
@@ -312,8 +337,8 @@ def _run_level(exec_obj, state: GraceJoinState, build: List[_Part],
     if over and level < oocore["max_recursion"]:
         n_child = _fanout(build_bytes, oocore, level)
         seed = _level_seed(level + 1)
-        child_b = _split_parts(state, build, bkeys, key_dtypes, seed,
-                               n_child)
+        child_b = _split_parts(exec_obj, state, build, bkeys, key_dtypes,
+                               seed, n_child)
         if sum(1 for part in child_b if part) >= 2:
             # progress: every child partition is strictly smaller
             reg.gauge_max("join.grace.maxRecursionDepth", level + 1)
@@ -322,8 +347,8 @@ def _run_level(exec_obj, state: GraceJoinState, build: List[_Part],
                                 partitions=n_child,
                                 buildBytes=build_bytes,
                                 budget=oocore["budget"])
-            child_p = _split_parts(state, probe, pkeys, key_dtypes, seed,
-                                   n_child)
+            child_p = _split_parts(exec_obj, state, probe, pkeys,
+                                   key_dtypes, seed, n_child)
             for i in range(n_child):
                 yield from _run_level(exec_obj, state, child_b[i],
                                       child_p[i], level + 1, oocore,
@@ -405,8 +430,8 @@ def grace_join(exec_obj, probe_input, build_batches: List[DeviceBatch],
     try:
         build_parts: List[List[_Part]] = [[] for _ in range(n_parts)]
         for b in build_batches:
-            for i, s in enumerate(split_batch(b, bkeys, key_dtypes, seed,
-                                              n_parts)):
+            for i, s in enumerate(split_batch(exec_obj._kernels, b, bkeys,
+                                              key_dtypes, seed, n_parts)):
                 if s is not None:
                     build_parts[i].append(_park(state, s))
         # the caller's list too: from here only the parked slices hold
@@ -416,8 +441,8 @@ def grace_join(exec_obj, probe_input, build_batches: List[DeviceBatch],
         for pb in probe_input:
             if not int(pb.num_rows):
                 continue
-            for i, s in enumerate(split_batch(pb, pkeys, key_dtypes, seed,
-                                              n_parts)):
+            for i, s in enumerate(split_batch(exec_obj._kernels, pb, pkeys,
+                                              key_dtypes, seed, n_parts)):
                 if s is not None:
                     probe_parts[i].append(_park(state, s))
         for i in range(n_parts):

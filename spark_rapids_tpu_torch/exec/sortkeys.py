@@ -292,12 +292,21 @@ def stack_sort_digits(field_groups: List[List[Tuple[int, torch.Tensor]]],
     return fields_to_digits(fields)
 
 
-def shared_digit_sort(digits: torch.Tensor) -> torch.Tensor:
-    """Stable order for a [d, cap] digit matrix (LSB digit first)."""
+def _digit_sort_impl(digits: torch.Tensor) -> torch.Tensor:
     if digits.shape[0] == 1:
         # everything fits one u32: a single stable sort
         return torch.sort(digits[0], stable=True)[1]
     return radix_order_digits(digits)
+
+
+def shared_digit_sort(digits: torch.Tensor) -> torch.Tensor:
+    """Stable order for a [d, cap] digit matrix (LSB digit first), via
+    the shared per-(d, cap) step of the kernel cache."""
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
+    d, cap = int(digits.shape[0]), int(digits.shape[1])
+    fn = kc.get_kernel(("shared_digit_sort", d, cap),
+                       lambda: _digit_sort_impl)
+    return fn(digits)
 
 
 def digit_boundaries(digits: torch.Tensor, order: torch.Tensor,
@@ -312,17 +321,28 @@ def digit_boundaries(digits: torch.Tensor, order: torch.Tensor,
 
 
 def shared_lexsort(wm: torch.Tensor) -> torch.Tensor:
-    """Stable sort order for a [m, cap] word matrix."""
-    return radix_order(wm)
+    """Stable sort order for a [m, cap] word matrix, via the shared
+    per-(m, cap) step of the kernel cache."""
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
+    m, cap = int(wm.shape[0]), int(wm.shape[1])
+    fn = kc.get_kernel(("shared_lexsort4", m, cap), lambda: radix_order)
+    return fn(wm)
 
+
+
+def _shared_partition_order_impl(targets: torch.Tensor) -> torch.Tensor:
+    return torch.sort(targets, stable=True)[1]
 
 
 def shared_partition_order(targets: torch.Tensor) -> torch.Tensor:
     """Stable order grouping rows by non-negative int32 target id: rows
     of one target keep their input order (the reference sorts
     ``target << 32 | row`` as u64; a stable sort of the targets is the
-    same permutation)."""
-    return torch.sort(targets, stable=True)[1]
+    same permutation).  A shared step keyed on capacity only."""
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
+    fn = kc.get_kernel(("shared_partition_order", int(targets.shape[0])),
+                       lambda: _shared_partition_order_impl)
+    return fn(targets)
 
 
 DUMP_SLOTS = 1 << 16

@@ -760,6 +760,9 @@ class TpuHashAggregateExec(TpuExec):
         # filter fusion would not have absorbed
         self.fused_prologue_execs = 0
         self.fused_prologue_saved = 0
+        self._update_kernel = None
+        self._merge_kernel = None
+        self._final_kernel = None
 
     @property
     def schema(self) -> Schema:
@@ -771,8 +774,57 @@ class TpuHashAggregateExec(TpuExec):
                     f"{self.fused_condition.sql()})")
         return "TpuHashAggregateExec"
 
+    def _update_impl(self, batch: DeviceBatch) -> DeviceBatch:
+        return update_aggregate(batch, self.groupings, self.aggregates,
+                                self.specs, self.fused_condition)
+
+    def _merge_impl(self, batch: DeviceBatch) -> DeviceBatch:
+        return merge_aggregate(batch, len(self.groupings), self.specs)
+
+    def _final_impl(self, batch: DeviceBatch) -> DeviceBatch:
+        return finalize_aggregate(batch, len(self.groupings), self.specs,
+                                  self._schema.names)
+
+    def _build_kernels(self) -> None:
+        """The update/merge/final steps from the process kernel cache,
+        under the reference's keys (:911-962)."""
+        import functools
+        import types
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
+        # the plan-stamped kernel.backend (the process default for
+        # hand-built plans): folded into the keys and passed to
+        # get_kernel so dispatches count as kernel.dispatches.agg_*.<bk>.
+        # The reference's interpret flag and tile budget ride its keys
+        # for its Pallas grids; the port has neither, and keeps their
+        # slots as None
+        bk = kb.resolve(getattr(self, "_kernel_backend", None))
+        # update/merge never read the output names (static __k*/__a*
+        # buffer names); only agg_final bakes them in
+        sig = (kc.exprs_sig(self.groupings), kc.exprs_sig(self.aggregates),
+               bk, None, None)
+        # only the UPDATE step evaluates the fused condition
+        usig = sig + (kc.expr_sig(self.fused_condition)
+                      if self.fused_condition is not None else None,)
+        # detach from self: the cached steps must not pin the exec (and
+        # through it the plan)
+        shim = types.SimpleNamespace(
+            groupings=self.groupings, aggregates=self.aggregates,
+            specs=self.specs, _schema=self._schema,
+            fused_condition=self.fused_condition)
+        cls = type(self)
+        self._update_kernel = kc.get_kernel(
+            ("agg_update", usig),
+            lambda: functools.partial(cls._update_impl, shim), backend=bk)
+        self._merge_kernel = kc.get_kernel(
+            ("agg_merge", sig),
+            lambda: functools.partial(cls._merge_impl, shim), backend=bk)
+        self._final_kernel = kc.get_kernel(
+            ("agg_final", sig, tuple(self._schema.names)),
+            lambda: functools.partial(cls._final_impl, shim))
+
     def execute(self):
-        n_keys = len(self.groupings)
+        if self._update_kernel is None:
+            self._build_kernels()
 
         def run(its):
             from spark_rapids_tpu_torch.mem.spill import register_or_hold
@@ -788,10 +840,8 @@ class TpuHashAggregateExec(TpuExec):
                                 and self.groupings:
                             continue
                         with timed(self.metrics, "agg.update"):
-                            partial = update_aggregate(
-                                kernel_abi.erase(b), self.groupings,
-                                self.aggregates, self.specs,
-                                self.fused_condition)
+                            partial = self._update_kernel(
+                                kernel_abi.erase(b))
                         if self.fused_prologue_saved:
                             obsreg.get_registry().inc(
                                 "fusion.dispatchesSaved",
@@ -803,17 +853,15 @@ class TpuHashAggregateExec(TpuExec):
                     # global agg over empty -> one row (count=0, sum=null)
                     empty = _make_empty_buffer_batch(self,
                                                      _plan_device(self))
-                    yield finalize_aggregate(empty, 0, self.specs,
-                                             self._schema.names)
+                    yield self._final_kernel(empty)
                     return
                 if len(partials) == 1:
                     merged = partials[0].get()
                 else:
                     whole = concat_batches([p.get() for p in partials])
                     with timed(self.metrics, "agg.merge"):
-                        merged = merge_aggregate(whole, n_keys, self.specs)
-                out = finalize_aggregate(merged, n_keys, self.specs,
-                                         self._schema.names)
+                        merged = self._merge_kernel(whole)
+                out = self._final_kernel(merged)
                 self.metrics.add_rows(out.num_rows)
                 yield out
             finally:

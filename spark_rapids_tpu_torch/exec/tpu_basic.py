@@ -4,8 +4,12 @@ union, global limit, batch coalescing and expand.
 Ported from ``spark_rapids_tpu/exec/tpu_basic.py`` (HostToDeviceExec :44,
 DeviceToHostExec :99, TpuProjectExec :118, compact :191, TpuFilterExec
 :209, TpuRangeExec :272, TpuUnionExec :310, TpuGlobalLimitExec :333,
-TpuCoalesceBatchesExec :360, TpuExpandExec :413).  The port runs eagerly
-as plain torch: no kernel cache and no input donation.
+TpuCoalesceBatchesExec :360, TpuExpandExec :413).  The project, filter
+and expand steps run once per batch through the process kernel cache
+(``exec/kernel_cache.get_kernel``) under the reference's keys
+(``project`` :153-160, ``filter`` :236-241, ``expand`` :429-443); the
+port never donates an input, so the donate flag in the first two keys is
+always False.
 """
 
 from __future__ import annotations
@@ -128,7 +132,27 @@ class TpuProjectExec(TpuExec):
     def schema(self) -> Schema:
         return self._schema
 
+    def _impl(self, batch: DeviceBatch, pid: int, offset: int
+              ) -> DeviceBatch:
+        """One batch's projection with positional output names (aliases
+        share one kernel; execute() restamps the schema's names)."""
+        from spark_rapids_tpu_torch.exec.fused_stage import canonical_names
+        with context.task_context(pid, offset):
+            cols = [eval_tpu.evaluate(e, batch).to_column()
+                    for e in self.exprs]
+        return DeviceBatch(canonical_names(len(cols)), cols,
+                           batch.num_rows, batch.device)
+
     def execute(self):
+        import functools
+        import types
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
+        # detach from self: the cached step must not pin the exec (and
+        # through it the child plan)
+        shim = types.SimpleNamespace(exprs=self.exprs)
+        kernel = kc.get_kernel(
+            ("project", kc.exprs_sig(self.exprs), False),
+            lambda: functools.partial(type(self)._impl, shim))
         names = self._schema.names
         needs_ctx = any(_partition_dependent(e) for e in self.exprs)
 
@@ -139,14 +163,13 @@ class TpuProjectExec(TpuExec):
                     # row-offset tracking costs one host read per batch;
                     # only paid when a partition-dependent expr exists
                     nr = int(b.num_rows)
-                with timed(self.metrics, "project.eval"), \
-                        context.task_context(pid, offset):
-                    cols = [eval_tpu.evaluate(e, b).to_column()
-                            for e in self.exprs]
+                with timed(self.metrics, "project.eval"):
+                    out = kernel(b, pid, offset)
                 if needs_ctx:
                     offset += nr
                 self.metrics.add_batches()
-                yield DeviceBatch(names, cols, b.num_rows, b.device)
+                yield DeviceBatch(names, out.columns, out.num_rows,
+                                  out.device)
         return [run(pid, it) for pid, it in
                 enumerate(self.children[0].execute())]
 
@@ -182,7 +205,20 @@ class TpuFilterExec(TpuExec):
     def schema(self) -> Schema:
         return self.children[0].schema
 
+    def _impl(self, batch: DeviceBatch, pid: int, offset: int
+              ) -> DeviceBatch:
+        with context.task_context(pid, offset):
+            v = eval_tpu.evaluate(self.condition, batch)
+        return compact(batch, v.data.to(torch.bool) & v.validity)
+
     def execute(self):
+        import functools
+        import types
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
+        shim = types.SimpleNamespace(condition=self.condition)
+        kernel = kc.get_kernel(
+            ("filter", kc.expr_sig(self.condition), False),
+            lambda: functools.partial(type(self)._impl, shim))
         needs_ctx = _partition_dependent(self.condition)
 
         def run(pid, it):
@@ -192,10 +228,8 @@ class TpuFilterExec(TpuExec):
                     # the offset counts INPUT rows: the condition sees
                     # pre-compaction positions
                     nr = int(b.num_rows)
-                with timed(self.metrics, "filter.eval"), \
-                        context.task_context(pid, offset):
-                    v = eval_tpu.evaluate(self.condition, b)
-                    out = compact(b, v.data.to(torch.bool) & v.validity)
+                with timed(self.metrics, "filter.eval"):
+                    out = kernel(b, pid, offset)
                 if needs_ctx:
                     offset += nr
                 yield out
@@ -344,18 +378,36 @@ class TpuExpandExec(TpuExec):
         self.children = (child,)
         self.projections = projections
         self._schema = schema
+        self._kernels = None
 
     @property
     def schema(self) -> Schema:
         return self._schema
 
     def execute(self):
+        if self._kernels is None:
+            from spark_rapids_tpu_torch.exec import kernel_cache as kc
+            from spark_rapids_tpu_torch.exec.fused_stage import \
+                canonical_names
+
+            def mk(proj):
+                n_out = len(proj)
+
+                def impl(batch):
+                    cols = [eval_tpu.evaluate(e, batch).to_column()
+                            for e in proj]
+                    # positional output names; run() restamps the schema
+                    return DeviceBatch(canonical_names(n_out), cols,
+                                       batch.num_rows, batch.device)
+                return kc.get_kernel(("expand", kc.exprs_sig(proj)),
+                                     lambda: impl)
+            self._kernels = [mk(p) for p in self.projections]
         names = self._schema.names
 
         def run(it):
             for b in it:
-                for proj in self.projections:
-                    cols = [eval_tpu.evaluate(e, b).to_column()
-                            for e in proj]
-                    yield DeviceBatch(names, cols, b.num_rows, b.device)
+                for k in self._kernels:
+                    out = k(b)
+                    yield DeviceBatch(names, out.columns, out.num_rows,
+                                      out.device)
         return [run(it) for it in self.children[0].execute()]

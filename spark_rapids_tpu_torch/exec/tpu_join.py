@@ -27,10 +27,15 @@ rounds; both are counted in the process registry
 (``join.hostSyncs``, ``join.hashRounds``), as is each pair's route
 (``join.route.probe`` / ``join.route.sort``).
 
-The reference's kernel-cache keys and erased dispatch exist to bound XLA
-compiles; the port runs eagerly, and computes each route's tables once
-per pair where the reference's count and emit kernels each recompute
-them.
+Every pass is a dispatch through the process kernel cache under the
+reference's keys and families (:611-1023): ``probe_count`` then
+``probe_emit_u`` or ``probe_bpack`` + ``shared_lexsort4`` +
+``probe_emit_d`` on the probe route; ``join_pack`` + ``shared_lexsort4``
+then ``count`` and ``emit`` (or ``semi``) on the sort route;
+``probe_semi``; ``cross``.  Where the reference's count and emit kernels
+each recompute the route's tables, the port's count step returns them
+(``_ProbeTables``, ``_JoinCtx``) and the emit step takes them.  The
+cached steps capture key names and constants, never a batch or the exec.
 
 ``TpuShuffledHashJoinExec`` joins co-partitioned exchange outputs
 partition by partition: inner/left/semi/anti gather the build partition
@@ -213,15 +218,15 @@ class _JoinCtx:
     """Combined sorted space over build+stream rows (the sort route)."""
 
     def __init__(self, build: DeviceBatch, stream: DeviceBatch,
-                 build_keys: Sequence[str], stream_keys: Sequence[str]):
+                 parts, order: torch.Tensor):
+        """``parts`` is ``_join_sort_key``'s output, ``order`` the shared
+        sort of its packed key."""
         self.cap_b = build.capacity
         self.cap_s = stream.capacity
-        null_key, exists, side, seg0, packed = _join_sort_key(
-            build, stream, build_keys, stream_keys)
+        null_key, exists, side, seg0, packed = parts
         cap = int(packed.shape[0])
         self.cap = cap
         dev = packed.device
-        order = sortkeys.shared_lexsort(packed.reshape(1, -1))
         seg_sorted_raw = seg0[order]
         exists_sorted = exists[order]
         new_group = torch.cat([
@@ -459,16 +464,14 @@ def _probe_emit_unique(build: DeviceBatch, stream: DeviceBatch,
 
 
 def _probe_emit_dup(build: DeviceBatch, stream: DeviceBatch,
-                    pt: _ProbeTables, how: str, out_cap: int,
-                    build_first: bool) -> DeviceBatch:
-    """Emit with duplicated build keys: build rows grouped by code (one
-    stable sort of the build codes, invalid rows last), match ranges from
+                    pt: _ProbeTables, grouped_rows: torch.Tensor, how: str,
+                    out_cap: int, build_first: bool) -> DeviceBatch:
+    """Emit with duplicated build keys: build rows grouped by code
+    (``grouped_rows``, the stable sort of ``_probe_bpack``), match ranges from
     the dense start/count tables, the expansion by cumsum, a scatter and
     a running-max forward fill."""
     cap_b, cap_s = build.capacity, stream.capacity
     dev = stream.device
-    bkey = torch.where(pt.bvalid, pt.bcode, 0xFFFFFFFF)
-    grouped_rows = sortkeys.shared_lexsort(bkey.reshape(1, -1))
     starts_tbl = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                             torch.cumsum(pt.cnt.to(torch.int64), 0)[:-1]])
     st = torch.where(pt.svalid, starts_tbl[pt.scode], 0)
@@ -495,6 +498,36 @@ def _probe_emit_dup(build: DeviceBatch, stream: DeviceBatch,
     b_cols = [c.gather(build_row, valid_pair & has_match)
               for c in build.columns]
     return _assemble(build, stream, b_cols, s_cols, total_out, build_first)
+
+
+def _side_key(batch: DeviceBatch):
+    """Erased cache-key component for one (already canonical) side."""
+    return kernel_abi.erased_key(batch)
+
+
+def _sort_count(build, stream, order, parts, how: str):
+    """The sort route's count step: the combined-space context, each
+    sorted row's emission count, its inclusive cumsum and the output
+    row total (a device scalar)."""
+    ctx = _JoinCtx(build, stream, parts, order)
+    m_out, incl = _pairs_layout(ctx, how in ("left", "full"))
+    n_out = incl[-1]
+    if how == "full":
+        n_out = n_out + ctx.unmatched_build().to(torch.int64).sum()
+    return ctx, m_out, incl, n_out
+
+
+def _probe_count(build, stream, bkeys, skeys, how: str, bits: int):
+    """The probe route's count step: the tables, the output row total
+    and the largest per-row match count (device scalars)."""
+    pt = _ProbeTables(build, stream, bkeys, skeys, bits)
+    total, maxm = _probe_totals(stream, pt, how)
+    return pt, total, maxm
+
+
+def _probe_bpack(pt: "_ProbeTables") -> torch.Tensor:
+    """Build codes as one sort word, invalid rows last."""
+    return torch.where(pt.bvalid, pt.bcode, 0xFFFFFFFF).reshape(1, -1)
 
 
 def _check_total(total: int) -> None:
@@ -564,10 +597,32 @@ class _HashJoinBase(TpuExec):
         self.how = how
         self.condition = condition
         self._schema = schema
+        self._kernels = {}
 
     @property
     def schema(self) -> Schema:
         return self._schema
+
+    def _kernel(self, key, factory):
+        """The cached step of ``key``, memoized per exec."""
+        k = self._kernels.get(key)
+        if k is None:
+            from spark_rapids_tpu_torch.exec import kernel_cache as kc
+            k = self._kernels[key] = kc.get_kernel(key, factory)
+        return k
+
+    def _sort_order(self, build: DeviceBatch, stream: DeviceBatch,
+                    bkeys, skeys):
+        """(combined-space sort order, ``_join_sort_key`` parts): a
+        per-schema ``join_pack`` step feeding the shared per-capacity
+        sort step."""
+        bk, sk = list(bkeys), list(skeys)
+        pack = self._kernel(
+            ("join_pack", tuple(bkeys), tuple(skeys), _side_key(build),
+             _side_key(stream)),
+            lambda: lambda b, s: _join_sort_key(b, s, bk, sk))
+        parts = pack(build, stream)
+        return sortkeys.shared_lexsort(parts[4].reshape(1, -1)), parts
 
     def _route(self, name: str) -> None:
         self.metrics.add_extra(name, 1)
@@ -591,9 +646,15 @@ class _HashJoinBase(TpuExec):
         """Direct-address probe join (narrow keys): count, then the host
         picks the unique or duplicated-build-key emit."""
         self._route("join.route.probe")
+        bk, sk = list(bkeys), list(skeys)
+        sig = (bits, emit_how, tuple(bkeys), tuple(skeys),
+               _side_key(build), _side_key(stream))
+        count = self._kernel(
+            ("probe_count",) + sig,
+            lambda: lambda b, s: _probe_count(b, s, bk, sk, emit_how, bits))
         with timed(self.metrics, "join.probeCount"):
-            pt = _ProbeTables(build, stream, bkeys, skeys, bits)
-            total, maxm = _host_ints(*_probe_totals(stream, pt, emit_how))
+            pt, total, maxm = count(build, stream)
+            total, maxm = _host_ints(total, maxm)
         _check_total(total)
         with timed(self.metrics, "join.probeEmit"):
             if maxm <= 1:
@@ -604,11 +665,21 @@ class _HashJoinBase(TpuExec):
                     variant = "inner_inplace"   # FK join: all rows match
                 out_cap = bucket_rows(stream.capacity) \
                     if variant != "inner" else bucket_rows(total)
-                out = _probe_emit_unique(build, stream, pt, variant,
-                                         out_cap, build_first)
+                emit = self._kernel(
+                    ("probe_emit_u", variant, out_cap, build_first) + sig,
+                    lambda: lambda b, s, t: _probe_emit_unique(
+                        b, s, t, variant, out_cap, build_first))
+                out = emit(build, stream, pt)
             else:
-                out = _probe_emit_dup(build, stream, pt, emit_how,
-                                      bucket_rows(total), build_first)
+                out_cap = bucket_rows(total)
+                bpack = self._kernel(("probe_bpack",) + sig,
+                                     lambda: lambda b, s, t: _probe_bpack(t))
+                emit = self._kernel(
+                    ("probe_emit_d", out_cap, build_first) + sig,
+                    lambda: lambda b, s, t, o: _probe_emit_dup(
+                        b, s, t, o, emit_how, out_cap, build_first))
+                border = sortkeys.shared_lexsort(bpack(build, stream, pt))
+                out = emit(build, stream, pt, border)
         yield self._finish(out)
 
     def _join_pair(self, left: DeviceBatch, right: DeviceBatch,
@@ -622,17 +693,31 @@ class _HashJoinBase(TpuExec):
         right = _canon_side(right, "__r")
 
         if how in ("semi", "anti"):
+            anti = how == "anti"
             bits = _probe_code_bits(right, left, rkeys, lkeys)
             with timed(self.metrics, "join.semi"):
                 if bits is not None and bits <= _PROBE_MAX_BITS:
                     self._route("join.route.probe")
-                    pt = _ProbeTables(right, left, rkeys, lkeys, bits)
-                    keep = (pt.m == 0) if how == "anti" else (pt.m > 0)
-                    out = compact(left, keep & left.row_mask())
+
+                    def probe_semi(b, s):
+                        pt = _ProbeTables(b, s, rkeys, lkeys, bits)
+                        keep = (pt.m == 0) if anti else (pt.m > 0)
+                        return compact(s, keep & s.row_mask())
+                    semi = self._kernel(
+                        ("probe_semi", how, bits, tuple(lkeys),
+                         tuple(rkeys), _side_key(left), _side_key(right)),
+                        lambda: probe_semi)
+                    out = semi(right, left)
                 else:
                     self._route("join.route.sort")
-                    ctx = _JoinCtx(right, left, rkeys, lkeys)
-                    out = _semi(left, ctx, how == "anti")
+                    semi = self._kernel(
+                        ("semi", how, tuple(lkeys), tuple(rkeys),
+                         _side_key(left), _side_key(right)),
+                        lambda: lambda b, s, o, g: _semi(
+                            s, _JoinCtx(b, s, g, o), anti))
+                    order, parts = self._sort_order(right, left, rkeys,
+                                                    lkeys)
+                    out = semi(right, left, order, parts)
             yield self._finish(out, semi=True)
             return
 
@@ -655,17 +740,23 @@ class _HashJoinBase(TpuExec):
                                         emit_how, build_first, bits)
             return
         self._route("join.route.sort")
+        count = self._kernel(
+            ("count", emit_how, tuple(bkeys), tuple(skeys),
+             _side_key(build), _side_key(stream)),
+            lambda: lambda b, s, o, g: _sort_count(b, s, o, g, emit_how))
         with timed(self.metrics, "join.count"):
-            ctx = _JoinCtx(build, stream, bkeys, skeys)
-            m_out, incl = _pairs_layout(ctx, emit_how in ("left", "full"))
-            n_out = incl[-1]
-            if full:
-                n_out = n_out + ctx.unmatched_build().to(torch.int64).sum()
+            order, parts = self._sort_order(build, stream, bkeys, skeys)
+            ctx, m_out, incl, n_out = count(build, stream, order, parts)
             (total,) = _host_ints(n_out)
         _check_total(total)
+        out_cap = bucket_rows(total)
+        emit = self._kernel(
+            ("emit", emit_how, out_cap, tuple(bkeys), tuple(skeys),
+             build_first, _side_key(build), _side_key(stream)),
+            lambda: lambda b, s, c, m, i: _emit(b, s, c, m, i, out_cap,
+                                                build_first, full))
         with timed(self.metrics, "join.emit"):
-            out = _emit(build, stream, ctx, m_out, incl, bucket_rows(total),
-                        build_first, full)
+            out = emit(build, stream, ctx, m_out, incl)
         yield self._finish(out)
 
 
@@ -824,6 +915,7 @@ class _NestedLoopBase(TpuExec):
         self.children = (left, right)
         self.condition = condition
         self._schema = schema
+        self._kernels = {}
 
     @property
     def schema(self) -> Schema:
@@ -833,21 +925,37 @@ class _NestedLoopBase(TpuExec):
         nl, nr = int(left.num_rows), int(right.num_rows)
         if nl == 0 or nr == 0:
             return
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
+        from spark_rapids_tpu_torch.exec.fused_stage import canonical_names
+        # the step builds positional names (the condition reads by
+        # ordinal); the schema's are restamped after
         left = _canon_side(left, "__l")
         right = _canon_side(right, "__r")
+        n_out = left.num_cols + right.num_cols
         out_cap = bucket_rows(nl * nr)
-        dev = left.device
+        cond = self.condition
+        key = ("cross", out_cap, kc.expr_sig(cond), _side_key(left),
+               _side_key(right))
+        if key not in self._kernels:
+            def impl(lb, rb, n_l, n_r):
+                dev = lb.device
+                k = torch.arange(out_cap, dtype=torch.int64, device=dev)
+                li = torch.clamp(k // max(n_r, 1), 0, lb.capacity - 1)
+                ri = torch.clamp(k % max(n_r, 1), 0, rb.capacity - 1)
+                valid = k < n_l * n_r
+                cols = [c.gather(li, valid) for c in lb.columns] + \
+                    [c.gather(ri, valid) for c in rb.columns]
+                out = DeviceBatch(canonical_names(n_out), cols, n_l * n_r,
+                                  dev)
+                if cond is not None:
+                    v = eval_tpu.evaluate(cond, out)
+                    out = compact(out, v.data.to(torch.bool) & v.validity)
+                return out
+            self._kernels[key] = kc.get_kernel(key, lambda: impl)
         with timed(self.metrics, "join.nestedLoop"):
-            k = torch.arange(out_cap, dtype=torch.int64, device=dev)
-            li = torch.clamp(k // max(nr, 1), 0, left.capacity - 1)
-            ri = torch.clamp(k % max(nr, 1), 0, right.capacity - 1)
-            valid = k < nl * nr
-            cols = [c.gather(li, valid) for c in left.columns] + \
-                [c.gather(ri, valid) for c in right.columns]
-            out = DeviceBatch(self._schema.names, cols, nl * nr, dev)
-            if self.condition is not None:
-                v = eval_tpu.evaluate(self.condition, out)
-                out = compact(out, v.data.to(torch.bool) & v.validity)
+            out = self._kernels[key](left, right, nl, nr)
+        out = DeviceBatch(self._schema.names, out.columns, out.num_rows,
+                          out.device)
         self.metrics.add_rows(out.num_rows)
         self.metrics.add_batches()
         yield out

@@ -5,9 +5,11 @@ analog of ``GpuSortExec``: ``Table.orderBy`` on a single coalesced batch
 with ``RequireSingleBatch`` for a total sort).  Each sort column encodes
 into bit-width-aware key fields (exec/sortkeys.py), the fields pack into
 u32 digits, one stable sort per digit gives the order, then a row gather
-applies it.  The reference splits this into an encode kernel, a shared
-sort kernel and an apply kernel to bound XLA compiles; here the three
-steps run eagerly in sequence.
+applies it.  As in the reference (:80-115) the three steps are three
+dispatches through the process kernel cache: the ``sort_keys`` encode
+(keyed by the sort orders), the shared ``shared_digit_sort`` (keyed by
+the digit matrix's shape, exec/sortkeys.py) and the ``sort_apply``
+gather (keyed by the erased layout).
 """
 
 from __future__ import annotations
@@ -37,18 +39,45 @@ def _field_groups(batch: DeviceBatch, orders: Sequence[SortOrder]):
     return groups
 
 
-def sort_batch(batch: DeviceBatch, orders: Sequence[SortOrder]
-               ) -> DeviceBatch:
+def _keys_impl(orders: Sequence[SortOrder], batch: DeviceBatch
+               ) -> torch.Tensor:
+    return sortkeys.stack_sort_digits(_field_groups(batch, orders),
+                                      batch.row_mask())
+
+
+def _apply_impl(batch: DeviceBatch, order: torch.Tensor) -> DeviceBatch:
+    valid = torch.arange(batch.capacity, device=batch.device) < \
+        batch.num_rows
+    cols = [c.gather(order, valid) for c in batch.columns]
+    return DeviceBatch(batch.names, cols, batch.num_rows, batch.device)
+
+
+def sort_keys_kernel(orders: Sequence[SortOrder]):
+    """The cached key-encode step of ``orders`` (the reference's
+    ``sort_keys`` family)."""
+    import functools
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
+    orders = list(orders)
+    return kc.get_kernel(
+        ("sort_keys", tuple((kc.expr_sig(o.expr), o.ascending,
+                             o.nulls_first_resolved) for o in orders)),
+        lambda: functools.partial(_keys_impl, orders))
+
+
+def sort_batch(batch: DeviceBatch, orders: Sequence[SortOrder],
+               keys_kernel=None) -> DeviceBatch:
     """``batch`` in the total order of ``orders``.  One erased view feeds
     the key encode and the gather, so the order indexes the erased
     capacity; the batch's names are restamped after."""
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
+    keys_kernel = keys_kernel or sort_keys_kernel(orders)
     ew = kernel_abi.erase(batch)
-    digits = sortkeys.stack_sort_digits(_field_groups(ew, orders),
-                                        ew.row_mask())
+    digits = keys_kernel(ew)
     order = sortkeys.shared_digit_sort(digits)
-    valid = torch.arange(ew.capacity, device=ew.device) < ew.num_rows
-    cols = [c.gather(order, valid) for c in ew.columns]
-    return DeviceBatch(batch.names, cols, ew.num_rows, ew.device)
+    apply_kernel = kc.get_kernel(("sort_apply", kernel_abi.erased_key(ew)),
+                                 lambda: _apply_impl)
+    out = apply_kernel(ew, order)
+    return DeviceBatch(batch.names, out.columns, out.num_rows, out.device)
 
 
 class TpuSortExec(TpuExec):
@@ -72,6 +101,8 @@ class TpuSortExec(TpuExec):
         return [REQUIRE_SINGLE_BATCH]
 
     def execute(self):
+        keys_kernel = sort_keys_kernel(self.orders)
+
         def run(iters):
             from spark_rapids_tpu_torch.mem.spill import register_or_hold
             # every input batch is held until the concat
@@ -87,7 +118,7 @@ class TpuSortExec(TpuExec):
                 for h in handles:
                     h.close()
             with timed(self.metrics, "sort.exec"):
-                out = sort_batch(whole, self.orders)
+                out = sort_batch(whole, self.orders, keys_kernel)
             self.metrics.add_rows(out.num_rows)
             yield out
         if self.partitionwise:

@@ -18,6 +18,13 @@ runs in sorted space, so segment starts and ends are binary searches of
 the running segment number, and per-partition counts are prefix-count
 differences: no reducing scatter, whose atomics would serialize on the
 one huge segment the padding rows form.
+
+As in the reference (:557-571), the exec dispatches through the process
+kernel cache: one ``win_keys`` step per (partition, order) spec encodes
+its order values, partition fields and sort digits, the shared
+``shared_digit_sort`` orders the digits, and one ``window_apply`` step
+evaluates every window expression from those keys and orders, so no key
+is evaluated or encoded twice.
 """
 
 from __future__ import annotations
@@ -59,25 +66,34 @@ def segment_bounds(new: torch.Tensor):
             torch.searchsorted(seg, seg, right=True) - 1)
 
 
+def _spec_fields(batch: DeviceBatch, part_exprs, order_exprs, order_dirs):
+    """(order values, partition key fields, full sort digits) of one
+    (partition, order) spec over ``batch``: the exec's ``win_keys``
+    step."""
+    pvals = [normalize_key(eval_tpu.evaluate(e, batch)) for e in part_exprs]
+    ovals = [normalize_key(eval_tpu.evaluate(e, batch))
+             for e in order_exprs]
+    pfields = [_win_fields(v, True, True) for v in pvals]
+    ofields = [_win_fields(v, asc, nf)
+               for v, (asc, nf) in zip(ovals, order_dirs)]
+    digits = sortkeys.stack_sort_digits(pfields + ofields, batch.row_mask())
+    return ovals, pfields, digits
+
+
 class _WinCtx:
     """Sorted-space context for one (partition, order) spec."""
 
-    def __init__(self, batch: DeviceBatch,
-                 part_exprs, order_exprs, order_dirs):
+    def __init__(self, batch: DeviceBatch, order_dirs, keys,
+                 order: torch.Tensor):
+        """``keys`` is the spec's ``_spec_fields`` triple and ``order``
+        the stable sort of its digits (ties keep their input order, as
+        in the reference): the exec's ``win_keys`` and shared sort
+        steps."""
         cap = batch.capacity
         self.cap = cap
         row_mask = batch.row_mask()
-        pvals = [normalize_key(eval_tpu.evaluate(e, batch))
-                 for e in part_exprs]
-        ovals = [normalize_key(eval_tpu.evaluate(e, batch))
-                 for e in order_exprs]
-        pfields = [_win_fields(v, True, True) for v in pvals]
-        ofields = [_win_fields(v, asc, nf)
-                   for v, (asc, nf) in zip(ovals, order_dirs)]
-        full_digits = sortkeys.stack_sort_digits(pfields + ofields,
-                                                 row_mask)
-        # stable: ties keep their input order, as in the reference
-        self.order = sortkeys.shared_digit_sort(full_digits)
+        ovals, pfields, full_digits = keys
+        self.order = order
         if pfields:
             pdigits = sortkeys.fields_to_digits(
                 [f for g in pfields for f in g])
@@ -450,16 +466,18 @@ def _window_value(we: ir.WindowExpression, ctx: _WinCtx,
 
 
 def window_batch(batch: DeviceBatch, out_names: Sequence[str],
-                 window_exprs: Sequence[ir.WindowExpression]
+                 window_exprs: Sequence[ir.WindowExpression],
+                 keys: Sequence[tuple], orders: Sequence[torch.Tensor]
                  ) -> DeviceBatch:
     """``batch`` with one column per window expression, emitted in the
-    last spec's sorted order (Spark emits sorted)."""
+    last spec's sorted order (Spark emits sorted).  ``keys`` and
+    ``orders`` are each spec's ``_spec_fields`` triple and sort order,
+    in spec-group order."""
     new_cols = {}
     ctx = None
-    for items in TpuWindowExec._spec_groups(out_names, window_exprs):
-        we0 = items[0][1]
-        ctx = _WinCtx(batch, we0.partition_exprs, we0.order_exprs,
-                      we0.order_dirs)
+    groups = TpuWindowExec._spec_groups(out_names, window_exprs)
+    for gi, items in enumerate(groups):
+        ctx = _WinCtx(batch, items[0][1].order_dirs, keys[gi], orders[gi])
         # back to the input's row order: the inverse permutation, a
         # scatter with unique indices
         inv = torch.empty_like(ctx.order)
@@ -510,7 +528,36 @@ class TpuWindowExec(TpuExec):
             groups[sig].append((name, we))
         return [groups[sig] for sig in order]
 
+    def _keys_impl(self, gi: int, batch: DeviceBatch) -> tuple:
+        we0 = self._spec_groups(self.out_names, self.window_exprs)[gi][0][1]
+        return _spec_fields(batch, we0.partition_exprs, we0.order_exprs,
+                            we0.order_dirs)
+
+    def _impl(self, batch: DeviceBatch, keys, orders) -> DeviceBatch:
+        return window_batch(batch, self.out_names, self.window_exprs,
+                            keys, orders)
+
     def execute(self):
+        import functools
+        import types
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
+        # detach from self: the cached steps must not pin the exec
+        shim = types.SimpleNamespace(window_exprs=self.window_exprs,
+                                     out_names=self.out_names,
+                                     _spec_groups=type(self)._spec_groups)
+        cls = type(self)
+        sig = (kc.exprs_sig(self.window_exprs), tuple(self.out_names))
+        n_groups = len(self._spec_groups(self.out_names,
+                                         self.window_exprs))
+        keys_kernels = [
+            kc.get_kernel(("win_keys", sig, gi),
+                          lambda gi=gi: functools.partial(
+                              cls._keys_impl, shim, gi))
+            for gi in range(n_groups)]
+        apply_kernel = kc.get_kernel(
+            ("window_apply", sig),
+            lambda: functools.partial(cls._impl, shim))
+
         def run(iters):
             batches: List[DeviceBatch] = []
             for it in iters:
@@ -519,7 +566,10 @@ class TpuWindowExec(TpuExec):
                 return
             whole = concat_batches(batches)
             with timed(self.metrics, "window.eval"):
-                out = window_batch(whole, self.out_names, self.window_exprs)
+                keys = tuple(k(whole) for k in keys_kernels)
+                orders = tuple(sortkeys.shared_digit_sort(k[2])
+                               for k in keys)
+                out = apply_kernel(whole, keys, orders)
             self.metrics.add_rows(out.num_rows)
             yield out
         if self.partitionwise:

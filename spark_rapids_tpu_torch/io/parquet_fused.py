@@ -1015,9 +1015,16 @@ def prepare_fused(sources: Sequence[Tuple[Any, str, int]],
         if fp is not None:
             dev_arrays = fused_arrays_to_torch(fp.arrays, dev, copy_stream,
                                                stage)
+            up = sum(int(v.nbytes) for v in fp.arrays.values())
             if metrics is not None:
-                metrics.add_extra("scan.bytesUploaded", sum(
-                    int(v.nbytes) for v in fp.arrays.values()))
+                metrics.add_extra("scan.bytesUploaded", up)
+            if up:
+                # upload-byte accounting: global counter + tenant
+                # ledger, same n (the exactness invariant)
+                from spark_rapids_tpu_torch.obs import accounting as _acct
+                from spark_rapids_tpu_torch.obs import registry as _obsreg
+                _obsreg.get_registry().inc("scan.bytesUploaded", up)
+                _acct.charge("scan.bytesUploaded", up)
         extra_cols = dict(list_cols)
         if fallbacks:
             extra_cols.update(_host_fallback(sources, schema, fallbacks, cap,

@@ -258,6 +258,12 @@ def read_chunk_pages(path: str, row_group: int, col_idx: int,
         start = cc.data_page_offset
     total = cc.total_compressed_size
     _note_walk(int(total))
+    # byte-walk accounting: global counter + tenant ledger with the
+    # same n (prefetch threads carry no token and bill unattributed)
+    from spark_rapids_tpu_torch.obs import accounting as _acct
+    from spark_rapids_tpu_torch.obs import registry as _obsreg
+    _obsreg.get_registry().inc("scan.bytesWalked", int(total))
+    _acct.charge("scan.bytesWalked", int(total))
     if isinstance(path, (bytes, bytearray, memoryview)):
         # in-memory parquet blob (cached-batch path)
         data = bytes(path[start:start + total])

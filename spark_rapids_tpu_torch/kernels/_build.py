@@ -4,6 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on first
 use into ``<repo>/build/lib<name>-<source hash>.so`` for ``sm_90a``; the
 library is then loaded with ``ctypes``.  A build failure raises with the
 compiler's output: there is no fallback.
+
+Each thread counts the builds it ran and the libraries it opened that an
+earlier process built (:func:`thread_counts`); the compile observatory
+(obs/compile.py) reads the pair around a kernel's first call to tell a
+fresh build from a reload.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,6 +35,24 @@ _locks_guard = threading.Lock()
 # name -> nvcc's output of the build this process made (registers, shared
 # memory and spills per kernel, from -Xptxas -v)
 compiler_output: Dict[str, str] = {}
+# per thread: [nvcc builds run, libraries opened that this process did
+# not build]
+_tls = threading.local()
+
+
+def _thread_tally() -> List[int]:
+    tally = getattr(_tls, "tally", None)
+    if tally is None:
+        tally = _tls.tally = [0, 0]
+    return tally
+
+
+def thread_counts() -> Tuple[int, int]:
+    """(builds, reloads) on the calling thread so far: ``nvcc`` runs of
+    :func:`build`, and libraries :func:`load` opened that an earlier
+    process built."""
+    tally = _thread_tally()
+    return tally[0], tally[1]
 
 
 def nvcc_path() -> str:
@@ -72,6 +95,7 @@ def build(name: str) -> Path:
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     compiler_output[name] = proc.stdout + proc.stderr
+    _thread_tally()[0] += 1
     return out
 
 
@@ -87,4 +111,6 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
+            if name not in compiler_output:
+                _thread_tally()[1] += 1
     return lib

@@ -15,10 +15,8 @@ and walks the executed plan.  Surfaces:
 ``profile.to_json()`` and ``profile.dump_chrome_trace(path)``.
 
 Copied from ``spark_rapids_tpu/obs/profile.py``, its imports
-retargeted.  Two parts wait for modules the port lacks: the compile
-wall (``_compile_attr_s``) reads only the registry window until
-``obs/compile.py`` is ported, and ``plan_digest`` stays None until
-``plan/digest.py`` is.  The per-exec times and the wall breakdown are
+retargeted.  ``plan_digest`` stays None until ``plan/digest.py`` is
+ported.  The per-exec times and the wall breakdown are
 host timers, as in the reference: CUDA launches return before the card
 finishes, so the exec that waits on the card (the packed download, a
 host read of a count) carries the device time of the execs before it.
@@ -217,11 +215,17 @@ def _sectioned(delta: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
 
 def _compile_attr_s(query_id: Optional[int],
                     sections: Dict[str, Dict[str, Any]]) -> float:
-    """Compile wall this query triggered, in seconds.  The reference
-    prefers the compile observatory's token-based attribution
-    (``obs/compile.query_stats``) and falls back to the registry-window
-    delta when the ledger never saw the query; the port has no
-    ``obs/compile.py`` yet, so every query takes the window branch."""
+    """Compile wall this query triggered, in seconds: the compile
+    observatory's exact token-based attribution (the same source the
+    slow-query log uses), falling back to the registry-window delta only
+    when the ledger never saw the query — a window delta alone would
+    bleed a concurrent neighbour's first calls into this breakdown."""
+    if query_id is not None:
+        with contextlib.suppress(Exception):
+            from spark_rapids_tpu_torch.obs import compile as obscompile
+            stats = obscompile.query_stats(query_id)
+            if stats is not None:
+                return stats["compile_ms"] / 1e3
     return sections.get("compile", {}).get(
         "kernel.compile.wallNs", 0) / 1e9
 
