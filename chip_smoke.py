@@ -263,6 +263,23 @@ Phases (any failure exits non-zero):
                ``obs.slowQueryMs`` 1: one record per query with the
                reference's keys; each line with the card's name and
                power limit;
+  8m. sched  — the query service (every ``collect()`` is its
+               ``submit().result()``) on one port session on cuda with two
+               query slots and the telemetry endpoint on, over the SF10
+               q6 files and the TPC-H files: q6 at four filter literals,
+               serial and then submitted at once, each result equal to
+               its serial run bit for bit and to pyarrow, one of them
+               waiting for a slot, /queries showing queued, running and
+               finished rows, /tenants billing four ``digest:`` tenants
+               and the ledger's window equal to the ``kernel.dispatches``
+               and ``sched.queueWaitNs`` counters'; the same q6 submitted
+               twice at once run as one flight; TPC-H q10 under a
+               deadline that fires while it runs (TIMED_OUT, the slot
+               freed, an empty spill catalog, the card's allocated memory
+               back within 64 MiB, q6 right after matching); /metrics
+               through the strict lint, /compiles, /profiles/<qid>,
+               /healthz; warm q6 through the service and through the
+               session's direct ``_execute_attributed``, in turns;
   8j. csv-orc — the tpch phase's tables (SF10 alone, SF 2 in the whole
                smoke) written as ORC (RLEv2, ZLIB, Hive's 0.8 dictionary
                threshold) and as pipe-delimited text with a header (region,
@@ -377,12 +394,13 @@ card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
 q6p, q6pf, session, pipeline, q6s, star, window, shuffle, strings,
-customer-etl, mortgage, tpch, oocore, obs, csv-orc, compile, modes,
-window-modes, shuffle-modes, string-modes, tail-modes, io-modes) runs
-only those phases and prints no kernel table; ``tpch``, ``oocore``,
-``obs`` and ``csv-orc`` generate, write and remove their own files
-(sharing them when run together; ``obs`` also writes the SF10 q6 files,
-and alone runs TPC-H at SF 2; ``compile`` writes the SF10 q6 files);
+customer-etl, mortgage, tpch, oocore, obs, sched, csv-orc, compile,
+modes, window-modes, shuffle-modes, string-modes, tail-modes, io-modes)
+runs only those phases and prints no kernel table; ``tpch``, ``oocore``,
+``obs``, ``sched`` and ``csv-orc`` generate, write and remove their own
+files (sharing them when run together; ``obs`` and ``sched`` also write
+the SF10 q6 files, and alone run TPC-H at SF 2; ``compile`` writes the
+SF10 q6 files);
 ``customer-etl`` alone writes the star files and the census tables
 itself; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
@@ -1191,8 +1209,8 @@ class DownloadCounter:
         self._cls.download = self._orig
 
 
-def q6_reference(table: pa.Table) -> pa.Table:
-    f = table.filter(pc.greater(table["ss_sales_price"], 150.0))
+def q6_reference(table: pa.Table, price: float = 150.0) -> pa.Table:
+    f = table.filter(pc.greater(table["ss_sales_price"], price))
     return f.group_by("ss_item_sk").aggregate(
         [("ss_item_sk", "count"), ("ss_quantity", "sum"),
          ("ss_ext_sales_price", "mean")]).sort_by("ss_item_sk")
@@ -1626,12 +1644,12 @@ def phase_q6_perfile(root: str, ref: pa.Table):
     return launches, shapes.classes, fallbacks
 
 
-def bench_query(session, path):
+def bench_query(session, path, price: float = 150.0):
     """``bench.py::_query``, written against the port's ``col`` and
-    ``functions``."""
+    ``functions`` (``price`` is its filter literal)."""
     from spark_rapids_tpu_torch.api import col, functions as F
     return (session.read.parquet(path)
-            .filter(col("ss_sales_price") > 150.0)
+            .filter(col("ss_sales_price") > price)
             .group_by("ss_item_sk")
             .agg(F.count("*").alias("cnt"),
                  F.sum("ss_quantity").alias("qty"),
@@ -6002,6 +6020,295 @@ def phase_obs(q6_root: str, q6_ref: pa.Table, root: str, t: dict) -> None:
         shutil.rmtree(scratch, ignore_errors=True)
 
 
+# the sched phase: four q6 literals under two query slots, the deadline
+# of TPC-H q10 (fires while q10 runs on the card: its warm SF 2 wall is
+# seconds) and the turns of the service's cost
+SCHED_PRICES = (150.0, 140.0, 130.0, 120.0)
+SCHED_SLOTS = 2
+SCHED_DEADLINE_MS = 1000
+SCHED_TURNS = 6
+SCHED_MEM_SLACK = 64 << 20
+
+
+def _scrape(port: int, path: str):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def _tenant_sums(snap: dict, metrics) -> dict:
+    return {m: sum(r["usage"].get(m, 0.0) for r in snap["tenants"])
+            for m in metrics}
+
+
+def _spilled() -> float:
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    return obsreg.get_registry().counter("spill.deviceToHostBytes")
+
+
+def _sched_table_sig(s, table: pa.Table, card: str) -> None:
+    """The digest's walk of an in-memory q6 (plan/digest.py::_table_sig):
+    the whole SF10 table is keyed by identity (over 64 MiB), a 2^21-row
+    slice by the SHA-1 of its Arrow IPC stream, once per table object."""
+    from spark_rapids_tpu_torch.api import col, functions as F
+    from spark_rapids_tpu_torch.plan.digest import plan_fingerprint
+    parts = []
+    for tag, t in (("whole", table),
+                   ("2^21 rows", table.slice(0, 1 << 21).combine_chunks())):
+        plan = (s.create_dataframe(t).filter(col("ss_sales_price") > 150.0)
+                .group_by("ss_item_sk").agg(F.count("*").alias("cnt"))).plan
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fp = plan_fingerprint(plan)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        parts.append(f"{tag} ({t.nbytes} B, cacheable {fp.cacheable}) "
+                     f"first {ms[0]:.3f} ms, again {ms[1]:.3f} ms")
+    log("sched digest walk of the in-memory q6: " + "; ".join(parts)
+        + f" [{card}]")
+
+
+def _sched_concurrency(s, root: str, card: str):
+    """Four warm q6 literals, serial then all submitted at once under two
+    slots, with /queries scraped throughout: each result equals its
+    serial run bit for bit and pyarrow; one waited in the queue; /tenants
+    bills four digest tenants; the ledger's window equals the counters'.
+    Returns the futures."""
+    import threading
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    from spark_rapids_tpu_torch.plan.digest import plan_digest
+    port = s.obs_server.port
+    table = papq.read_table(root, columns=Q6PF_COLUMNS)
+    dfs = [bench_query(s, root, p) for p in SCHED_PRICES]
+    serial = []
+    spill0 = _spilled()
+    for p, df in zip(SCHED_PRICES, dfs):
+        out = df.collect().sort_by("ss_item_sk")
+        check_q6(out, q6_reference(table, p))
+        serial.append(out)
+    spill1 = _spilled()
+    _sched_table_sig(s, table, card)
+    del table
+    # the admission estimate each literal now gets (refined from the
+    # serial runs' high water) and the pressure spill it may trigger
+    estimate = s.scheduler._estimate(dfs[0].plan, None)
+    pressure0 = obsreg.get_registry().counter("sched.pressureSpillBytes")
+    metrics = ("kernel.dispatches", "sched.queueWaitNs")
+    reg = obsreg.get_registry()
+    before = _tenant_sums(json.loads(_scrape(port, "/tenants")[1]), metrics)
+    counters = {m: reg.counter(m) for m in metrics}
+    states, stop = set(), threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            for row in json.loads(_scrape(port, "/queries")[1])["queries"]:
+                states.add(row["state"])
+            time.sleep(0.005)
+    watcher = threading.Thread(target=watch, name="sched-watch")
+    watcher.start()
+    try:
+        kb.reset_counts()
+        t0 = time.perf_counter()
+        futs = [df.collect_async() for df in dfs]
+        outs = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        spill2 = _spilled()
+    finally:
+        stop.set()
+        watcher.join(30)
+    pressure = reg.counter("sched.pressureSpillBytes") - pressure0
+    ctrl_budget = s.scheduler.controller.memory_budget
+    _check_launches("sched concurrency", kb.launches, kb.fallbacks,
+                    Q6P_KERNELS)
+    for p, a, b in zip(SCHED_PRICES, serial, outs):
+        if not a.equals(b.sort_by("ss_item_sk")):
+            fail(f"sched: q6 at {p} under the scheduler differs from its "
+                 f"serial run")
+    waits = [f.queue_wait_ns for f in futs]
+    if not any(w > 0 for w in waits):
+        fail(f"sched: no q6 waited for a slot ({waits} ns)")
+    if not {"queued", "running", "success"} <= states:
+        fail(f"sched: /queries showed the states {sorted(states)}")
+    snap = json.loads(_scrape(port, "/tenants")[1])
+    digests = {"digest:" + plan_digest(df.plan)[:16] for df in dfs}
+    billed = {r["workload"] for r in snap["tenants"]
+              if r["session_id"] == "(in-process)"}
+    if len(digests) != 4 or not digests <= billed:
+        fail(f"sched: /tenants bills {sorted(billed)}, not the four "
+             f"{sorted(digests)}")
+    after = _tenant_sums(snap, metrics)
+    for m in metrics:
+        ledger = after[m] - before[m]
+        counter = reg.counter(m) - counters[m]
+        if counter <= 0 or abs(ledger - counter) > 1e-6 * counter:
+            fail(f"sched: the tenants' {m} {ledger} != the counter's "
+                 f"{counter}")
+    log(f"sched concurrency: q6 at {SCHED_PRICES} under {SCHED_SLOTS} "
+        f"slots in {wall * 1e3:.1f} ms, each equal to its serial run and "
+        f"pyarrow; queue waits "
+        + ", ".join(f"{w / 1e6:.1f}" for w in waits)
+        + f" ms; estimate {estimate} B each of a {ctrl_budget} B budget; "
+        f"spilled device->host {int(spill1 - spill0)} B in the serial "
+        f"runs, {int(spill2 - spill1)} B under the scheduler, "
+        f"{int(pressure)} B of it by the admission's pressure hook; "
+        f"/queries states {sorted(states)}; four digest tenants; "
+        f"ledger = counters over the window: "
+        + ", ".join(f"{m} {after[m] - before[m]:.0f}" for m in metrics)
+        + f" [{card}]")
+    return futs
+
+
+def _sched_single_flight(s, root: str, ref: pa.Table, card: str) -> None:
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    view = obsreg.get_registry().view()
+    df = bench_query(s, root)
+    a, b = df.collect_async(), df.collect_async()
+    ta, tb = a.result(timeout=300), b.result(timeout=300)
+    d = view.delta()["counters"]
+    once = {k: d.get(k, 0) for k in ("sched.submitted", "sched.admitted",
+                                      "sched.completed", "sched.dedup.hits")}
+    if b.dedup_of != a.query_id or once != {
+            "sched.submitted": 2, "sched.admitted": 1,
+            "sched.completed": 1, "sched.dedup.hits": 1}:
+        fail(f"sched single flight: follower of {b.dedup_of} (leader "
+             f"{a.query_id}), counters {once}")
+    if not ta.equals(tb):
+        fail("sched single flight: the two futures' tables differ")
+    check_q6(ta, ref)
+    log(f"sched single flight: q{b.query_id} joined q{a.query_id}'s "
+        f"flight: {once}, sched.dedup.flights "
+        f"{int(d.get('sched.dedup.flights', 0))}; equal tables [{card}]")
+
+
+def _sched_deadline(tpch_root: str, q6_root: str, ref: pa.Table,
+                    card: str) -> None:
+    """TPC-H q10 under a deadline that fires while it runs: TIMED_OUT,
+    the slot freed, an empty spill catalog, the card's memory back; then
+    q6 on the same session (the tpch phase's conf)."""
+    from spark_rapids_tpu_torch.bench import tpch
+    from spark_rapids_tpu_torch.sched import QueryState, QueryTimeoutError
+    s, _tables = tpch_session(tpch_root, dict(SCAN_CONF, **{
+        "spark.rapids.tpu.sched.maxConcurrent": SCHED_SLOTS}))
+    q10 = s.sql(tpch.SQL_QUERIES["q10"])
+    runs = []
+    for _ in range(2):
+        # twice: what the first run leaves allocated beyond the query
+        # (first-call state) shows as a difference between the two
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fut = q10.collect_async(timeout_ms=SCHED_DEADLINE_MS)
+        try:
+            fut.result(timeout=300)
+            fail("sched deadline: q10 finished inside its deadline")
+        except QueryTimeoutError as e:
+            err = str(e)
+        ms = (time.perf_counter() - t0) * 1e3
+        started = fut.profile is not None and fut.profile.plan is not None
+        state = fut.state
+        del fut
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        stats = s.scheduler.controller.stats()
+        if state is not QueryState.TIMED_OUT or not started:
+            fail(f"sched deadline: q10 ended {state}, planned {started}")
+        if stats["running"] or stats["queued"] or stats["admitted_bytes"]:
+            fail(f"sched deadline: the controller holds {stats}")
+        _catalog_empty("sched deadline")
+        if mem1 - mem0 > SCHED_MEM_SLACK:
+            fail(f"sched deadline: {mem1 - mem0} B still allocated on the "
+                 f"card")
+        runs.append(f"TIMED_OUT after {ms:.1f} ms ({err}), "
+                    f"memory_allocated {mem0} -> {mem1} B")
+    rel = check_q6(bench_query(s, q6_root).collect(), ref)
+    log(f"sched deadline: q10 under {SCHED_DEADLINE_MS} ms, twice: "
+        + "; ".join(runs) + f"; each time the slot freed and the spill "
+        f"catalog empty; q6 next matches (max rel {rel:.3g}) [{card}]")
+
+
+def _sched_endpoint(s, futs, card: str) -> None:
+    from spark_rapids_tpu_torch.obs.server import lint_exposition
+    port = s.obs_server.port
+    samples = lint_exposition(_scrape(port, "/metrics")[1])
+    for name in ("sched_submitted", "sched_admitted", "sched_completed",
+                 "sched_queueWaitNs", "sched_timedOut",
+                 "sched_dedup_hits"):
+        if f"spark_rapids_tpu_{name}" not in samples:
+            fail(f"sched endpoint: /metrics has no {name}")
+    rows = json.loads(_scrape(port, "/queries")[1])["queries"]
+    mine = {r["query_id"]: r for r in rows}
+    for f in futs:
+        row = mine.get(f.query_id)
+        if row is None or row["state"] != "success" or \
+                not row["plan_digest"]:
+            fail(f"sched endpoint: /queries row of q{f.query_id}: {row}")
+    compiles = json.loads(_scrape(port, "/compiles?n=8")[1])
+    prof = json.loads(_scrape(port, f"/profiles/{futs[0].query_id}")[1])
+    health = json.loads(_scrape(port, "/healthz")[1])
+    if prof["query_id"] != futs[0].query_id or \
+            prof["plan_digest"] is None or not health["ok"] or \
+            "totals" not in compiles:
+        fail(f"sched endpoint: profile {prof.get('query_id')}, health "
+             f"{health}, compiles keys {sorted(compiles)}")
+    log(f"sched endpoint: /metrics lints ({len(samples)} samples), "
+        f"/queries {len(rows)} rows, /compiles {compiles['totals']}, "
+        f"/profiles/{futs[0].query_id} status {prof['status']}, /healthz "
+        f"{health['state']} [{card}]")
+
+
+def _sched_cost(s, root: str, ref: pa.Table, card: str) -> None:
+    """Warm q6 through ``collect()`` (the service: a digest walk, a
+    thread, a future) and through ``_execute_attributed`` called directly
+    on this thread, in turns, CUDA events."""
+    df = bench_query(s, root)
+    walls = {"service": [], "direct": []}
+    spill0 = _spilled()
+    runs = {"service": df.collect,
+            "direct": lambda: s._execute_attributed(df.plan)[0]}
+    for i in range(SCHED_TURNS):
+        for mode in (("service", "direct") if i % 2 == 0
+                     else ("direct", "service")):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = runs[mode]()
+            end.record()
+            torch.cuda.synchronize()
+            check_q6(out, ref)
+            walls[mode].append(start.elapsed_time(end))
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log("sched cost: warm q6 (CUDA events, median of "
+        f"{SCHED_TURNS} in turns) through the service "
+        f"{med['service']:.1f} ms (runs {min(walls['service']):.1f}-"
+        f"{max(walls['service']):.1f}), direct {med['direct']:.1f} ms "
+        f"(runs {min(walls['direct']):.1f}-{max(walls['direct']):.1f}), "
+        f"difference {med['service'] - med['direct']:.2f} ms; spilled "
+        f"device->host {int(_spilled() - spill0)} B [{card}]")
+
+
+def phase_sched(q6_root: str, q6_ref: pa.Table, tpch_root: str) -> None:
+    """The query service on the card, with the endpoint on: four q6
+    literals under two slots, a single flight, a deadline inside TPC-H
+    q10, the endpoint's routes and the service's cost on the warm q6."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    card = _card()
+    s = TpuSparkSession(dict(SCAN_CONF, **{
+        "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+        "spark.rapids.tpu.sched.maxConcurrent": SCHED_SLOTS,
+        "spark.rapids.tpu.obs.http.enabled": True}), device="cuda")
+    try:
+        futs = _sched_concurrency(s, q6_root, card)
+        _sched_single_flight(s, q6_root, q6_ref, card)
+        _sched_deadline(tpch_root, q6_root, q6_ref, card)
+        _sched_endpoint(s, futs, card)
+        _sched_cost(s, q6_root, q6_ref, card)
+    finally:
+        s.obs_server.shutdown()
+
+
 # the compile phase's OOM query: one in-memory batch of this many q6 rows
 COMPILE_OOM_ROWS = 1 << 24
 COMPILE_OOM_CONF = {
@@ -6688,9 +6995,9 @@ def phase_timing(paths):
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
               "pipeline", "q6s", "star", "window", "shuffle", "strings",
-              "customer-etl", "mortgage", "tpch", "oocore", "obs", "csv-orc",
-              "compile", "modes", "window-modes", "shuffle-modes", "string-modes",
-              "tail-modes", "io-modes"]
+              "customer-etl", "mortgage", "tpch", "oocore", "obs", "sched",
+              "csv-orc", "compile", "modes", "window-modes", "shuffle-modes",
+              "string-modes", "tail-modes", "io-modes"]
 
 
 def main() -> int:
@@ -6732,13 +7039,13 @@ def main() -> int:
         runs["q6"] = ("q6", *phase_q6(), SEGREDUCE)
         done("q6")
     q6_files = None
-    if {"q6p", "q6pf", "session", "pipeline", "obs", "compile"} & \
-            set(phases):
+    if {"q6p", "q6pf", "session", "pipeline", "obs", "sched",
+            "compile"} & set(phases):
         root = _parquet_dir("q6-parquet")
         try:
             ref = write_q6_files(root)
-            if {"obs", "compile"} & set(phases):
-                # the obs and compile phases read them after oocore
+            if {"obs", "sched", "compile"} & set(phases):
+                # the obs, sched and compile phases read them after oocore
                 _KEPT_DIRS.append(root)
                 q6_files = (root, ref)
             for key, tag, fn, names in (
@@ -6804,15 +7111,15 @@ def main() -> int:
     if "mortgage" in phases:
         runs["mortgage"] = ("mortgage", *phase_mortgage())
         done("mortgage")
-    if {"tpch", "csv-orc", "oocore", "obs"} & set(phases):
-        # the four share the generated tables; tpch, oocore and obs read
-        # the Parquet files, csv-orc writes its own ORC and CSV files; obs
-        # alone runs at the whole smoke's scale
+    if {"tpch", "csv-orc", "oocore", "obs", "sched"} & set(phases):
+        # the five share the generated tables; tpch, oocore, obs and sched
+        # read the Parquet files, csv-orc writes its own ORC and CSV
+        # files; obs and sched alone run at the whole smoke's scale
         sf = TPCH_SF_WHOLE if WHOLE_SMOKE or not (
             {"tpch", "csv-orc", "oocore"} & set(phases)) else TPCH_SF
         root = _parquet_dir("tpch")
         try:
-            if {"tpch", "oocore", "obs"} & set(phases):
+            if {"tpch", "oocore", "obs", "sched"} & set(phases):
                 t = write_tpch_files(root, sf)
             else:
                 from spark_rapids_tpu_torch.bench import tpch
@@ -6828,6 +7135,9 @@ def main() -> int:
             if "obs" in phases:
                 phase_obs(*q6_files, root, t)
                 done("obs")
+            if "sched" in phases:
+                phase_sched(*q6_files, root)
+                done("sched")
             if "csv-orc" in phases:
                 runs["csv-orc"] = ("csv-orc", *phase_csv_orc(
                     os.path.join(root, "text"), t, sf))

@@ -2,16 +2,18 @@
 
 Ported from ``spark_rapids_tpu/api/dataframe.py``: everything that builds
 logical nodes (select/with_column/filter/group_by/rollup/cube/agg/sort/
-limit/union/join/repartition/coalesce/cache/distinct), ``collect``,
-``collect_device`` (the device batches, no download), ``count``,
+limit/union/join/repartition/coalesce/cache/distinct), ``collect``
+(``submit().result()`` through the session's query service),
+``collect_async`` (the ``QueryFuture``), ``collect_device`` (the device
+batches, no download, run directly as in the reference), ``count``,
 ``show``, ``explain_string`` (modes ``physical``, ``tpu``, ``logical``
 and ``profile``: the last action's ``QueryProfile`` tree),
 ``schema``/``columns``, ``write`` (io/writers.py) and
 ``create_or_replace_temp_view``.  A plan whose exec the port has not
 ported yet raises ``NotImplementedError`` naming its module when it is
 planned (plan/planner.py).  Not ported: the pandas-UDF methods
-(``pyworker/execs.py``) and ``collect_async`` (``sched/service.py``);
-each raises ``NotImplementedError`` naming its module.
+(``pyworker/execs.py``); each raises ``NotImplementedError`` naming its
+module.
 """
 
 from __future__ import annotations
@@ -308,13 +310,25 @@ class DataFrame:
     # -- actions -----------------------------------------------------------
     def collect(self) -> pa.Table:
         """Execute and return an Arrow table (the terminal device->host
-        transition), on the calling thread."""
+        transition): ``submit().result()`` through the session's query
+        service, so admission control, cancellation and deadlines govern
+        blocking collects too."""
         return self.session._execute(self.plan)
 
     def collect_async(self, priority: int = 0,
                       timeout_ms: Optional[int] = None,
                       estimate_bytes: Optional[int] = None):
-        raise _not_ported("collect_async", "sched/service.py")
+        """Submit this query to the session's QueryService and return a
+        QueryFuture at once (sched/service.py): ``result(timeout)``
+        blocks for the Arrow table, ``cancel()`` unwinds the query at its
+        next cooperative checkpoint, ``done()``/``state`` inspect, and
+        ``profile`` carries the QueryProfile once complete.  Higher
+        ``priority`` admits first; ``timeout_ms`` overrides
+        ``sched.defaultTimeoutMs``; ``estimate_bytes`` overrides the
+        admission estimate for this submission."""
+        return self.session.submit(self.plan, priority=priority,
+                                   timeout_ms=timeout_ms,
+                                   estimate_bytes=estimate_bytes)
 
     collectAsync = collect_async
 

@@ -19,30 +19,33 @@ keys unchanged, so one conf dict drives both packages.
 
 ``sql()`` parses a query (sql/parser.py) against the temp views that
 ``register_view`` (or ``DataFrame.create_or_replace_temp_view``)
-registered.  ``collect`` runs on the calling thread; ``_execute_device``
-hands the device batches over with no download.  At start the session
-makes the process's spill catalog (``mem/spill.init_catalog`` with the
-``memory.device.batchStorageSize``, ``memory.host.spillStorageSize`` and
-``memory.spill.dir`` keys), or disables it under
-``memory.spill.enabled=false``, as the reference does.
+registered.  ``_execute_device`` hands the device batches over with no
+download.  At start the session makes the process's spill catalog
+(``mem/spill.init_catalog`` with the ``memory.device.batchStorageSize``,
+``memory.host.spillStorageSize`` and ``memory.spill.dir`` keys), or
+disables it under ``memory.spill.enabled=false``, as the reference does.
 
-Every action runs in the reference's observability envelope
-(``_execute_attributed``, here ``_execute``): a process-global query id,
-the query's ``CancelToken`` installed on the calling thread (and so on
-its task threads), and, under ``obs.profile.enabled`` (the default), a
-``QueryRun`` whose ``QueryProfile`` goes to the profile ring
+Every action goes through the session's query service
+(``sched/service.QueryService``, built at init as the reference builds
+it): ``collect()`` is ``submit().result()`` and ``collect_async`` /
+``submit`` return the ``QueryFuture``.  The service digests the plan
+(plan/digest.py), registers the query with the compile observatory and
+the resource ledger under the tenant ``("(in-process)",
+"digest:<16 hex>")``, admits it against ``sched.memoryBudget`` /
+``sched.maxConcurrent``, arms its deadline, joins an identical flight
+(``sched.dedup.enabled``) and runs it on a ``sched-q<id>`` thread under
+its ``CancelToken`` (a collect from inside a running query runs inline
+under its parent's).  There ``_execute_attributed`` wraps the query in
+the observability envelope: under ``obs.profile.enabled`` (the default)
+a ``QueryRun`` whose ``QueryProfile`` goes to the profile ring
 (``last_query_profile``, ``query_profile``), the query listeners
 (``register_query_listener``; the flight recorder of ``obs.recorder.dir``
-is one) and the slow-query log (``obs.slowQueryMs``).  Until the query
-scheduler is ported, ``_execute`` also does what its ``submit`` does for
-the compile observatory (``obs/compile.py``) and the resource ledger
-(``obs/accounting.py``): it registers the query id with both (the tenant
-``("(in-process)", "(ad-hoc)")``: no plan digest yet) and finishes it in
-both on success and on failure.  Session init configures both from the
-``obs.compile.*`` and ``obs.accounting.enabled`` keys.  Not ported yet:
-the query scheduler (``QueryService``, ``submit``/``collect_async``) and
-with it the admission events, the plan digest, the HTTP endpoint,
-serving and the fleet.
+is one) and the slow-query log (``obs.slowQueryMs``).  A query rejected
+before admission, or a single-flight follower, gets a stub profile
+through the same ring, listeners and log.  ``obs.http.enabled`` starts
+the telemetry endpoint (``obs_server``) and ``obs.sentinel.enabled`` the
+drift sentinel (``sentinel``).  Not ported yet: serving, precompile and
+the fleet.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
+import os
 import threading
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -70,7 +74,8 @@ from spark_rapids_tpu_torch.plan.planner import plan_cpu
 
 class TpuSparkSession:
     # process-global query ids, shared across sessions as in the
-    # reference: the profile ring and the recorder's bundles key on them
+    # reference: the compile observatory, the profile ring, the /queries
+    # table and the recorder's bundles key on them
     _QUERY_IDS = itertools.count(1)
 
     def __init__(self, conf: Optional[Dict[str, Any]] = None,
@@ -114,6 +119,7 @@ class TpuSparkSession:
         self._plan_listeners: List = []
         self._query_listeners: List = []
         self._views: Dict[str, lp.LogicalPlan] = {}
+        self._query_ids = TpuSparkSession._QUERY_IDS
         # per-query profiles: a bounded ring keyed by query id, plus the
         # most recently COMPLETED one
         self._profile_lock = threading.Lock()
@@ -122,6 +128,8 @@ class TpuSparkSession:
         self._profile_ring = max(1, int(self.conf.get(
             cfg.SCHED_PROFILE_RING)))
         self._last_profile = None
+        from spark_rapids_tpu_torch.sched.service import QueryService
+        self._query_service = QueryService(self)
         from spark_rapids_tpu_torch.obs import recorder as obs_recorder
         self._recorder = None
         rec_dir = str(self.conf.get(cfg.OBS_RECORDER_DIR) or "")
@@ -146,6 +154,26 @@ class TpuSparkSession:
                 "obs.profile.enabled=false: flight-recorder bundles "
                 "and the slow-query log require per-query profiles "
                 "and will not fire")
+        # the telemetry endpoint and the drift sentinel: both off by
+        # default (no socket, no thread)
+        self._obs_server = None
+        if self.conf.get(cfg.OBS_HTTP_ENABLED):
+            from spark_rapids_tpu_torch.obs.server import ObsHttpServer
+            self._obs_server = ObsHttpServer(
+                self, host=str(self.conf.get(cfg.OBS_HTTP_HOST)),
+                port=int(self.conf.get(cfg.OBS_HTTP_PORT)))
+        self._sentinel = None
+        if self.conf.get(cfg.OBS_SENTINEL_ENABLED):
+            from spark_rapids_tpu_torch.obs.sentinel import DriftSentinel
+            self._sentinel = DriftSentinel(
+                interval_ms=int(self.conf.get(
+                    cfg.OBS_SENTINEL_INTERVAL_MS)),
+                rules=str(self.conf.get(cfg.OBS_SENTINEL_RULES) or ""),
+                jsonl_path=str(self.conf.get(
+                    cfg.OBS_SENTINEL_PATH) or ""),
+                jsonl_max_bytes=int(self.conf.get(
+                    cfg.OBS_SLOW_QUERY_MAX_BYTES)))
+            self._sentinel.start()
 
     # -- conf --------------------------------------------------------------
     def set_conf(self, key: str, value: Any) -> None:
@@ -238,45 +266,65 @@ class TpuSparkSession:
             parts = list(pool.map(drain, its))
         return [x for p in parts for x in p]
 
+    # -- scheduler surface ---------------------------------------------------
+    def _next_query_id(self) -> int:
+        return next(self._query_ids)
+
+    @property
+    def scheduler(self):
+        """The session's QueryService (sched/service.py): admission
+        stats, controller, estimate book, the live query table."""
+        return self._query_service
+
+    def submit(self, df_or_plan, priority: int = 0,
+               timeout_ms: Optional[int] = None,
+               estimate_bytes: Optional[int] = None):
+        """Submit a query for asynchronous execution; returns a
+        QueryFuture (result/cancel/done, profile attached on
+        completion).  Accepts a DataFrame or a logical plan.  Higher
+        ``priority`` admits first; ``timeout_ms`` overrides
+        ``sched.defaultTimeoutMs``; ``estimate_bytes`` overrides the
+        admission working-set estimate."""
+        plan = getattr(df_or_plan, "plan", df_or_plan)
+        return self._query_service.submit(
+            plan, priority=priority, timeout_ms=timeout_ms,
+            estimate_bytes=estimate_bytes)
+
     def _execute(self, plan: lp.LogicalPlan) -> pa.Table:
-        """The blocking action path: the reference's
-        ``_execute_attributed`` under the token its query service would
-        install.  Draws a query id, installs a ``CancelToken`` for it
-        unless a token is installed already (a nested collect runs under
-        its parent's), and runs the query with the observability
-        envelope: under ``obs.profile.enabled`` a ``QueryRun`` captures
-        the wall phases, the registry delta and the span window, and the
-        assembled profile goes to the ring, the query listeners and the
-        slow-query log on success and on failure.
-
-        The query id is registered with the compile observatory and the
-        resource ledger first, and finished in both on either outcome
-        (the reference's ``sched/service.submit``, :378-417)."""
-        from spark_rapids_tpu_torch.obs import accounting as obs_accounting
-        from spark_rapids_tpu_torch.obs import compile as obs_compile
-        query_id = next(self._QUERY_IDS)
-        # plan_digest stays None until plan/digest.py is ported, so the
-        # ledger bills the tenant ("(in-process)", "(ad-hoc)")
-        obs_compile.register_query(query_id, None)
-        obs_accounting.register_query(query_id)
+        """The blocking action path: ``submit().result()`` through the
+        query service, so admission, the deadline, cancellation and the
+        per-query attribution apply to plain ``collect()`` too.  An
+        interrupt of the blocking wait cancels the submitted query
+        (cancel() is a no-op when the query itself raised: it has
+        finished)."""
+        fut = self._query_service.submit(plan)
         try:
-            return self._execute_registered(plan, query_id)
-        finally:
-            obs_compile.finish_query(query_id)
-            obs_accounting.finish_query(query_id)
+            return fut.result()
+        except BaseException:
+            fut.cancel("blocking collect interrupted")
+            raise
 
-    def _execute_registered(self, plan: lp.LogicalPlan,
-                            query_id: int) -> pa.Table:
-        from spark_rapids_tpu_torch.sched import cancel as sched_cancel
-        token = sched_cancel.current() or sched_cancel.CancelToken(query_id)
+    def _execute_attributed(self, plan: lp.LogicalPlan,
+                            query_id: Optional[int] = None,
+                            sched_extra: Optional[Dict[str, Any]] = None,
+                            plan_digest: Optional[str] = None):
+        """Execute an action with the observability envelope: a
+        QueryRun captures the wall phases, the per-query registry delta
+        and the span window; the assembled QueryProfile lands in the
+        profile ring / ``last_query_profile()`` and fans out to the
+        query listeners (on success AND on failure).  Returns ``(table,
+        profile)`` (profile None when profiling is off).  The query
+        service calls it with the query's CancelToken installed on the
+        thread."""
         run = None
         if self.conf.get(cfg.OBS_PROFILE_ENABLED):
             from spark_rapids_tpu_torch.obs.profile import QueryRun
-            # plan_digest stays None until plan/digest.py is ported
-            run = QueryRun(query_id)
+            run = QueryRun(query_id if query_id is not None
+                           else self._next_query_id(),
+                           sched_extra=sched_extra,
+                           plan_digest=plan_digest)
         try:
-            with sched_cancel.install(token):
-                result, table = self._execute_inner(plan, run)
+            result, table = self._execute_inner(plan, run)
         except BaseException as e:
             if run is not None:
                 # run.planned was stashed right after planning, so a
@@ -284,8 +332,9 @@ class TpuSparkSession:
                 # explain report whenever planning itself succeeded
                 self._finish_query(run, run.planned, None, e)
             raise
+        prof = None
         if run is not None:
-            self._finish_query(run, result, table, None)
+            prof = self._finish_query(run, result, table, None)
         elif self.conf.get(cfg.OBS_TRACE_ENABLED):
             # tracing without profiling: the chromePath contract still
             # holds (the whole ring stands in for the query window)
@@ -294,26 +343,106 @@ class TpuSparkSession:
             if chrome and obs_trace.is_enabled():
                 with contextlib.suppress(OSError):
                     obs_trace.dump_chrome_trace(chrome)
-        return table
+        return table, prof
 
     def _finish_query(self, run, result, table,
-                      error: Optional[BaseException]) -> None:
+                      error: Optional[BaseException]):
         from spark_rapids_tpu_torch.obs import listener as obs_listener
         from spark_rapids_tpu_torch.obs import trace as obs_trace
         prof = run.finish(result=result, table=table, error=error)
-        with self._profile_lock:
-            self._profiles[run.query_id] = prof
-            while len(self._profiles) > self._profile_ring:
-                self._profiles.popitem(last=False)
-            # completion order under the lock: "last" is the most
-            # recently COMPLETED query, stable under concurrent collects
-            self._last_profile = prof
+        self._ring_profile(prof)
         obs_listener.notify(self._query_listeners, prof, error)
         self._maybe_log_slow_query(prof)
         chrome = str(self.conf.get(cfg.OBS_TRACE_CHROME_PATH) or "")
         if chrome and obs_trace.is_enabled():
             with contextlib.suppress(OSError):
                 prof.dump_chrome_trace(chrome)
+        return prof
+
+    def _ring_profile(self, prof, last: bool = True) -> None:
+        with self._profile_lock:
+            self._profiles[prof.query_id] = prof
+            while len(self._profiles) > self._profile_ring:
+                self._profiles.popitem(last=False)
+            if last:
+                # completion order under the lock: "last" is the most
+                # recently COMPLETED query, stable under concurrent
+                # collects
+                self._last_profile = prof
+
+    def _record_rejection(self, query_id: int,
+                          error: BaseException, req,
+                          meta: Optional[Dict[str, Any]] = None) -> None:
+        """A query refused BEFORE admission (queue-full rejection)
+        never reaches the profile assembly path: build a stub
+        QueryProfile (status ``rejected``) and put it through the ring,
+        the listener fan-out (the flight recorder bundles it under
+        reason ``rejected``) and the slow-query log.  Never raises."""
+        try:
+            from spark_rapids_tpu_torch.obs import listener as obs_listener
+            from spark_rapids_tpu_torch.obs.profile import QueryProfile
+            meta = dict(meta or {})
+            sched = {"sched.estimateBytes": getattr(req, "estimate", 0),
+                     "sched.priority": getattr(req, "priority", 0)}
+            if meta.get("session_id") is not None:
+                sched["sched.sessionId"] = meta["session_id"]
+            prof = QueryProfile(
+                query_id=query_id,
+                status="rejected",
+                error=f"{type(error).__name__}: {error}",
+                result_rows=None, wall_ns=0, phases={}, plan=None,
+                metrics={"sched": sched},
+                wall_breakdown={}, explain_lines=[], spans=[],
+                plan_digest=meta.get("plan_digest"))
+            self._ring_profile(prof, last=False)
+            obs_listener.notify(self._query_listeners, prof, error)
+            self._maybe_log_slow_query(prof)
+        except Exception:
+            pass
+
+    def _record_dedup_follower(self, query_id: int, leader_qid: int,
+                               state, error: Optional[BaseException],
+                               meta: Optional[Dict[str, Any]],
+                               wall_ns: int, result) -> Any:
+        """Stub QueryProfile for a single-flight follower: it never
+        executed, so it records a pointer at the leader's query id
+        (``sched.dedup.leaderQueryId``), whose profile holds the real
+        execution.  Rings, notifies the listeners and logs a slow one
+        (rows carry ``deduped: true``) like the rejection stub.  Returns
+        the profile (None on any failure)."""
+        try:
+            from spark_rapids_tpu_torch.obs import listener as obs_listener
+            from spark_rapids_tpu_torch.obs.profile import QueryProfile
+            meta = dict(meta or {})
+            sched = {"sched.dedup.leaderQueryId": leader_qid,
+                     "sched.deduped": 1}
+            if meta.get("session_id") is not None:
+                sched["sched.sessionId"] = meta["session_id"]
+            status = getattr(state, "value", str(state))
+            nrows = None
+            try:
+                if result is not None:
+                    nrows = int(result.num_rows)
+            except Exception:
+                nrows = None
+            prof = QueryProfile(
+                query_id=query_id,
+                status=status,
+                error=None if error is None
+                else f"{type(error).__name__}: {error}",
+                result_rows=nrows, wall_ns=int(wall_ns), phases={},
+                plan=None,
+                metrics={"sched": sched,
+                         "sharing": {"sched.dedup.leaderQueryId":
+                                     leader_qid}},
+                wall_breakdown={}, explain_lines=[], spans=[],
+                plan_digest=meta.get("plan_digest"))
+            self._ring_profile(prof)
+            obs_listener.notify(self._query_listeners, prof, error)
+            self._maybe_log_slow_query(prof)
+            return prof
+        except Exception:
+            return None
 
     def _maybe_log_slow_query(self, prof) -> None:
         """Structured slow-query log: one JSONL record per query at or
@@ -324,7 +453,9 @@ class TpuSparkSession:
         threshold_ms = int(self.conf.get(cfg.OBS_SLOW_QUERY_MS))
         if threshold_ms <= 0:
             return
-        if prof.wall_ns < threshold_ms * 1e6:
+        # a rejection logs whatever its wall: the overload signal
+        if prof.status != "rejected" and \
+                prof.wall_ns < threshold_ms * 1e6:
             return
         try:
             import json as _json
@@ -348,6 +479,11 @@ class TpuSparkSession:
                         "wall_s", "result_rows", "phases",
                         "wall_breakdown"):
                 record[key] = d[key]
+            leader = prof.metrics.get("sched", {}).get(
+                "sched.dedup.leaderQueryId")
+            if leader is not None:
+                record["deduped"] = True
+                record["leader_query_id"] = leader
             line = _json.dumps(record, default=str)
             from spark_rapids_tpu_torch.obs import recorder as obs_recorder
             from spark_rapids_tpu_torch.obs import registry as obsreg
@@ -433,6 +569,21 @@ class TpuSparkSession:
 
     # -- observability surface ---------------------------------------------
     @property
+    def obs_server(self):
+        """The live telemetry endpoint (obs/server.ObsHttpServer) when
+        ``obs.http.enabled=true``; None otherwise.  ``obs_server.port``
+        is the bound port (ephemeral under ``obs.http.port=0``)."""
+        return self._obs_server
+
+    @property
+    def sentinel(self):
+        """The drift sentinel (obs/sentinel.DriftSentinel) when
+        ``obs.sentinel.enabled=true``; None otherwise.
+        ``sentinel.stats()`` reports ticks/breaches/episodes;
+        ``sentinel.stop()`` halts the watcher thread."""
+        return self._sentinel
+
+    @property
     def flight_recorder(self):
         """The flight recorder (obs/recorder.FlightRecorder) when
         ``obs.recorder.dir`` is set; None otherwise."""
@@ -492,6 +643,9 @@ class DataFrameReader:
         opts = dict(self._options)
         opts["part_values"] = part_values
         opts["part_fields"] = pfields
+        # the pre-expansion roots, as the reference records them: the
+        # plan digest keys a file scan on them (plan/digest.py)
+        opts["source_roots"] = [os.path.abspath(p) for p in paths]
         return DataFrame(
             lp.FileScan(fmt, files, schema, opts), self.session)
 

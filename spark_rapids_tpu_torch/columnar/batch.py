@@ -19,6 +19,7 @@ else follows the device of the tensors it is given.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -454,9 +455,17 @@ def _dispatch_pack(batch: DeviceBatch):
     """(layout, packed buffers) of one batch; no host read.  The layout is
     the batch's erased key (exec/kernel_abi.erased_key): the capacity and
     each column's dtype, width and element-validity flag, from which the
-    host epilogue cuts the packed buffers back into columns."""
+    host epilogue cuts the packed buffers back into columns.
+
+    The pack is one kernel-cache dispatch keyed on that layout, over the
+    name- and hint-erased batch at its own shapes (``pad=False``: the
+    epilogue reads the original shapes back; ``strip_hints``: the pack
+    never reads vbits/nonnull)."""
     from spark_rapids_tpu_torch.exec import kernel_abi
-    return kernel_abi.erased_key(batch), _pack_batch_impl(batch)
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
+    layout = kernel_abi.erased_key(batch)
+    fn = kc.get_kernel(("pack_batch", layout), lambda: _pack_batch_impl)
+    return layout, fn(kernel_abi.erase(batch, pad=False, strip_hints=True))
 
 
 def _download_batch(batch: DeviceBatch, layout,
@@ -521,6 +530,12 @@ def _compact_for_download(batches: Sequence[DeviceBatch]):
     batches; then every batch is packed.  (The reference builds one
     slice and one pack program per tier first; eager torch needs none.)
 
+    The slice is a kernel-cache dispatch per (layout, tier) over the
+    name-erased batch; the real names are restamped on its output.  (The
+    reference also builds and warms every candidate tier once per
+    process, for its tunneled runtime; the port builds the tier it
+    uses.)
+
     Returns (batches, (layout, packed) per batch)."""
     if any(b.capacity > 4 * _DL_TIERS[0] for b in batches):
         _read_counts(batches)
@@ -529,10 +544,21 @@ def _compact_for_download(batches: Sequence[DeviceBatch]):
         tier = _dl_tier(int(b.num_rows), b.capacity) \
             if isinstance(b.num_rows, (int, np.integer)) else None
         if tier is not None:
-            b = _slice_head(b, tier)
+            b = _run_compact(b, tier)
         out.append(b)
         out_packed.append(_dispatch_pack(b))
     return out, out_packed
+
+
+def _run_compact(b: DeviceBatch, tier: int) -> DeviceBatch:
+    """One erased ``dl_compact`` dispatch and the host-side restamp of
+    the real names (the slice gathers by position only)."""
+    from spark_rapids_tpu_torch.exec import kernel_abi
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
+    fn = kc.get_kernel(("dl_compact", kernel_abi.erased_key(b), tier),
+                       lambda: functools.partial(_slice_head, cap=tier))
+    nb = fn(kernel_abi.erase(b, pad=False))
+    return DeviceBatch(b.names, nb.columns, nb.num_rows, b.device)
 
 
 def _slice_head(batch: DeviceBatch, cap: int) -> DeviceBatch:
@@ -685,7 +711,22 @@ def _concat_batches_nosync(batches: Sequence[DeviceBatch],
     batches = kept or list(batches[:1])
     if len(batches) == 1:
         return batches[0]
+    from spark_rapids_tpu_torch.exec import kernel_abi
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
     cap = bucket_rows(sum(b.capacity for b in batches), min_bucket)
+    key = ("concat_nosync", cap,
+           tuple(kernel_abi.erased_key(b) for b in batches))
+    fn = kc.get_kernel(key, lambda: functools.partial(_concat_nosync_impl,
+                                                      cap=cap))
+    # schema-erased dispatch (the concat is positional); the real names
+    # are restamped on the output
+    out = fn(tuple(kernel_abi.erase(b, pad=False) for b in batches))
+    return DeviceBatch(batches[0].names, out.columns, out.num_rows,
+                       out.device)
+
+
+def _concat_nosync_impl(batches: Sequence[DeviceBatch],
+                        cap: int) -> DeviceBatch:
     dev = batches[0].device
     exists = torch.cat([b.row_mask() for b in batches])
     exists = _pad_rows(exists, cap)

@@ -72,6 +72,12 @@ INCOMPATIBLE_OPS = conf(
     "Enable operators that produce results that differ from Spark in "
     "corner cases (e.g. float aggregation ordering).", bool)
 
+BATCH_SIZE_BYTES = conf(
+    "spark.rapids.tpu.sql.batchSizeBytes", 2 << 30,
+    "Target size in bytes of one coalesced batch. The query service's "
+    "default admission estimate is this times (concurrentTpuTasks + "
+    "scan.prefetch.depth).", int)
+
 VARIABLE_FLOAT_AGG = conf(
     "spark.rapids.tpu.sql.variableFloatAgg.enabled", False,
     "Allow float/double aggregations whose result may vary run-to-run "
@@ -369,16 +375,53 @@ JOIN_OOCORE_MAX_RECURSION = conf(
 
 SCHED_MEMORY_BUDGET = conf(
     "spark.rapids.tpu.sched.memoryBudget", 0,
-    "Device byte budget of the admission controller. 0 derives it from "
-    "the device (0.9 of the card's memory; 8 GiB on the CPU). The port "
-    "has no query scheduler yet: only the grace join's default budget "
-    "reads it.", int)
+    "Device byte budget the admission controller packs query estimates "
+    "into: queries are admitted while the sum of their declared "
+    "working-set estimates stays under it (sched.maxConcurrent is the "
+    "hard count cap); excess queries queue instead of running out of "
+    "the card. 0 derives it from the session's device (0.9 of the "
+    "card's memory; 8 GiB on the CPU). The grace join's default budget "
+    "is one query's share of it.", int)
 
 SCHED_MAX_CONCURRENT = conf(
     "spark.rapids.tpu.sched.maxConcurrent", 4,
-    "Hard cap on concurrently running queries. The port has no query "
-    "scheduler yet: only the grace join's default budget (one query's "
-    "share of sched.memoryBudget) reads it.", int)
+    "Hard cap on concurrently RUNNING queries in the per-session "
+    "QueryService, regardless of memory estimates (the inter-query "
+    "layer above sql.concurrentTpuTasks, which still bounds "
+    "device-task concurrency inside admitted queries).", int)
+
+SCHED_DEFAULT_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.sched.defaultTimeoutMs", 0,
+    "Default per-query deadline in milliseconds, covering queue wait "
+    "AND execution; on expiry the query's CancelToken fires with "
+    "timed_out=true and the query unwinds (admission slot released, "
+    "prefetcher drained, spill entries freed), raising "
+    "QueryTimeoutError from result(). 0 disables; "
+    "submit(timeout_ms=...) overrides per query.", int)
+
+SCHED_MAX_QUEUED = conf(
+    "spark.rapids.tpu.sched.maxQueued", 1024,
+    "Bound on the admission wait queue; submissions past it are "
+    "rejected with QueryRejectedError (back-pressure instead of an "
+    "unbounded thread pile-up).", int)
+
+SCHED_QUERY_ESTIMATE_BYTES = conf(
+    "spark.rapids.tpu.sched.queryEstimateBytes", 0,
+    "Fixed device working-set estimate per query for admission control. "
+    "0 (default) derives batchSizeBytes x (concurrentTpuTasks + "
+    "scan.prefetch.depth), then refines per plan shape from the spill "
+    "catalog's device-bytes high-water mark of prior runs; "
+    "submit(estimate_bytes=...) overrides per query.", int)
+
+SCHED_DEDUP_ENABLED = conf(
+    "spark.rapids.tpu.sched.dedup.enabled", True,
+    "Single-flight execution: concurrent submissions of the same "
+    "deterministic plan (same canonical digest + output names) join "
+    "one in-flight execution instead of running N copies; followers' "
+    "futures resolve from the leader's result, and cancelling the "
+    "leader promotes a follower instead of killing the flight. "
+    "Non-deterministic plans always bypass. Off reverts to "
+    "one execution per submission.", bool)
 
 # ---------------------------------------------------------------------------
 # Observability keys (reference config.py:719-737, :790-863, :1168-1210, :1243)
@@ -454,7 +497,8 @@ OBS_SLOW_QUERY_PATH = conf(
 
 OBS_SLOW_QUERY_MAX_BYTES = conf(
     "spark.rapids.tpu.obs.slowQueryMaxBytes", 16 * 1024 * 1024,
-    "Size-based rotation for the slow-query JSONL file: when an append "
+    "Size-based rotation for the slow-query JSONL file (and the drift "
+    "sentinel's breach log): when an append "
     "would push the file past this many bytes, it is atomically "
     "renamed to <path>.1 (replacing the previous .1) and a fresh file "
     "starts — the keep-1 logrotate shape, at most 2x this size on disk. "
@@ -467,6 +511,62 @@ OBS_ACCOUNTING_ENABLED = conf(
     "the owning (session, statement template | plan digest) tenant. "
     "Off: every charging hook is one bool check (the obs.compile "
     "pattern).", bool)
+
+OBS_HTTP_ENABLED = conf(
+    "spark.rapids.tpu.obs.http.enabled", False,
+    "Serve the live operational telemetry endpoint from a background "
+    "daemon thread: /metrics (Prometheus text exposition of the "
+    "MetricsRegistry plus live scheduler gauges), /queries (the "
+    "QueryService's queued/running/recently-completed table), "
+    "/profiles/<qid> (QueryProfile JSON from the profile ring), "
+    "/compiles, /tenants, /slo and /healthz. Off by default: nothing "
+    "binds a socket and the serving path costs nothing.", bool)
+
+OBS_HTTP_PORT = conf(
+    "spark.rapids.tpu.obs.http.port", 0,
+    "TCP port for the telemetry endpoint when obs.http.enabled=true. "
+    "0 binds an ephemeral port (discover it via "
+    "session.obs_server.port).", int)
+
+OBS_HTTP_HOST = conf(
+    "spark.rapids.tpu.obs.http.host", "127.0.0.1",
+    "Bind address for the telemetry endpoint (loopback by default; "
+    "widen deliberately, the endpoint is unauthenticated).")
+
+OBS_SENTINEL_ENABLED = conf(
+    "spark.rapids.tpu.obs.sentinel.enabled", False,
+    "Drift sentinel (obs/sentinel.py): a background watcher sampling "
+    "the metrics registry every obs.sentinel.intervalMs, comparing "
+    "windowed rates against a trailing EWMA baseline, and on a "
+    "sustained breach (p95 latency regression, slow-query spike, "
+    "result-cache hit-rate collapse, compile storm, spill surge) "
+    "emitting ONE flight-recorder bundle per episode (reason 'slo') "
+    "with per-tenant top-talkers attached, obs.sentinel.breaches[.rule]"
+    " counters, and a structured JSONL line. Off by default: no "
+    "thread runs.", bool)
+
+OBS_SENTINEL_INTERVAL_MS = conf(
+    "spark.rapids.tpu.obs.sentinel.intervalMs", 1000,
+    "Sampling window of the drift sentinel in milliseconds; each tick "
+    "evaluates the rule set against the delta since the previous "
+    "tick.", int)
+
+OBS_SENTINEL_RULES = conf(
+    "spark.rapids.tpu.obs.sentinel.rules", "",
+    "Rule spec for the drift sentinel: semicolon-separated "
+    "rule:key=val,key=val entries, e.g. "
+    "'latency:factor=2,sustain=2;slow:min=5' enables ONLY those rules "
+    "with the given overrides. Empty (default) enables every rule "
+    "(latency, slow, cacheHit, compile, spill) at its defaults; a "
+    "mistyped rule or parameter raises at session init rather than "
+    "silently disarming the watcher.")
+
+OBS_SENTINEL_PATH = conf(
+    "spark.rapids.tpu.obs.sentinel.path", "",
+    "JSONL file for the sentinel's structured breach records (rotated "
+    "by obs.slowQueryMaxBytes, the slow-query log's writer). Empty "
+    "disables the breach log; flight-recorder bundles and counters "
+    "still fire.")
 
 OBS_COMPILE_ENABLED = conf(
     "spark.rapids.tpu.obs.compile.enabled", True,

@@ -44,11 +44,11 @@ from spark_rapids_tpu_torch import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, bucket_rows,
                                                    concat_batches)
 from spark_rapids_tpu_torch.exec import sortkeys
+from spark_rapids_tpu_torch.mem import device as devmgr
 from spark_rapids_tpu_torch.obs import recorder as obsrec
 from spark_rapids_tpu_torch.obs import registry as obsreg
 
 _MAX_PARTS_LOG2 = 5          # 32-way cap per level (matches the conf doc)
-_CPU_BUDGET_BASE = 8 << 30   # the reference's budget when no pool is known
 
 
 def _level_seed(level: int) -> int:
@@ -76,12 +76,8 @@ def resolve_oocore(conf_obj, device=None) -> Optional[dict]:
         return None
     if budget == 0:
         base = int(conf_obj.get(cfg.SCHED_MEMORY_BUDGET) or 0)
-        if base <= 0 and device is not None and \
-                torch.device(device).type == "cuda":
-            base = int(0.9 * torch.cuda.get_device_properties(
-                torch.device(device)).total_memory)
         if base <= 0:
-            base = _CPU_BUDGET_BASE
+            base = devmgr.memory_budget(device)
         budget = max(1, base // max(1, int(conf_obj.get(
             cfg.SCHED_MAX_CONCURRENT))))
     return {

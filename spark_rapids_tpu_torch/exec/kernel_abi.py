@@ -82,7 +82,13 @@ def canonical_input_names(n: int) -> List[str]:
     return _CANON + [f"_c{i}" for i in range(len(_CANON), n)]
 
 
-def _erase_column(c):
+def _erase_column(c, strip_hints: bool = False):
+    """Hint-bucketed (or, for steps that never read hints, hint-stripped)
+    view of one column; shares every buffer."""
+    if strip_hints:
+        if c.vbits is None and not c.nonnull:
+            return c
+        return replace(c, vbits=None, nonnull=False)
     vb = bucket_vbits(c.vbits)
     if vb == c.vbits:
         return c
@@ -108,16 +114,22 @@ def _pad_column(c, cap: int, width: Optional[int]):
                    elem_validity=pad(c.elem_validity, width))
 
 
-def erase(batch):
+def erase(batch, pad: bool = True, strip_hints: bool = False):
     """The erased view of a batch at an exec boundary: canonical
-    positional names, ABI-bucketed hints, and capacity / var-len widths
-    padded up to their tiers.  Shares the input's buffers whenever no
-    padding is needed; ``num_rows`` passes through."""
+    positional names, ABI-bucketed hints, and (``pad=True``) capacity /
+    var-len widths padded up to their tiers.  Shares the input's buffers
+    whenever no padding is needed; ``num_rows`` passes through.
+
+    ``pad=False`` is for steps whose host epilogue reads the original
+    buffer shapes back (the packed download): names and hints erase,
+    shapes stay.  ``strip_hints=True`` drops the hints instead of
+    bucketing them, for steps that never read vbits/nonnull (the pack),
+    so a hint cannot make a new argument signature for the same work."""
     if not _enabled:
         return batch
     from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
-    cols = [_erase_column(c) for c in batch.columns]
-    if cols:
+    cols = [_erase_column(c, strip_hints) for c in batch.columns]
+    if pad and cols:
         cap = tier_rows(batch.capacity, min_bucket=min(16, batch.capacity))
         widths = [tier_strlen(c.max_len) if c.dtype.has_lengths else None
                   for c in cols]

@@ -53,6 +53,7 @@ from spark_rapids_tpu_torch.columnar.batch import (DeviceBatch, DeviceColumn,
                                                    _bucket_strlen,
                                                    resolve_device)
 from spark_rapids_tpu_torch.exec.base import TpuExec, timed
+from spark_rapids_tpu_torch.kernels import backend as kb
 from spark_rapids_tpu_torch.mem.device import tpu_semaphore
 from spark_rapids_tpu_torch.plan.logical import FileScan, Schema
 
@@ -264,6 +265,7 @@ class TpuParquetScanExec(TpuExec):
         depth = max(0, int(self.conf.get(cfg.SCAN_PREFETCH_DEPTH)))
         # ordinals of the pushed condition index `wanted`
         pushed = self._pushed_filter
+        backend = kb.resolve(getattr(self, "_kernel_backend", None))
         groups = self._fused_groups()
         if self.device.type == "cuda" and self.copy_stream is None:
             from spark_rapids_tpu_torch.columnar.transfer import CopyStream
@@ -281,7 +283,8 @@ class TpuParquetScanExec(TpuExec):
                     file_schema, columns=file_cols,
                     host_threads=host_threads, metrics=self.metrics,
                     pushed_filter=pushed, scan_names=wanted,
-                    device=self.device, copy_stream=copy_stream), handles
+                    device=self.device, copy_stream=copy_stream,
+                    backend=backend), handles
             except BaseException:
                 for h in handles.values():
                     h.close()

@@ -106,9 +106,11 @@ class _SegSpec:
     defer: bool = False
 
 
-@dataclass
+@dataclass(slots=True)
 class _FusedPlan:
-    """Everything :func:`assemble` packed on the host."""
+    """Everything :func:`assemble` packed on the host.  Slotted: the
+    kernel cache's argument walk sees it as one opaque value (its content
+    is in ``key``), as the reference's jitted decode closes over it."""
     specs: List[List[_SegSpec]]      # [col][rg]
     out_dtypes: List[dt.DType]
     names: List[str]
@@ -126,6 +128,10 @@ class _FusedPlan:
     # (condition, scan output-name order, deferred column names) when
     # the pushed filter is active, else None
     pushed: Optional[Tuple] = None
+    # the kernel-cache key of the decode (the reference's "pq_fused6"
+    # key) and the kernel backend in effect
+    key: Tuple = ()
+    backend: str = kb.PALLAS
 
 
 def _column_vbits(out_dtype: dt.DType,
@@ -375,7 +381,8 @@ def assemble(plans: List[List[Optional[ChunkPlan]]],
              out_dtypes: List[dt.DType], names: List[str],
              n_rows: List[int], pushed_filter=None,
              scan_names: Optional[List[str]] = None,
-             device="cuda", alloc=np.empty) -> _FusedPlan:
+             device="cuda", alloc=np.empty,
+             backend: str = kb.PALLAS) -> _FusedPlan:
     """Pack every segment's host structures into the fused upload set.
 
     plans[col][rg] is a ChunkPlan, or None for a column missing from
@@ -513,11 +520,28 @@ def assemble(plans: List[List[Optional[ChunkPlan]]],
 
     col_vbits = tuple(_column_vbits(out_dtypes[ci], plans[ci])
                       for ci in range(len(plans)))
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
+    pushed_sig = (kc.expr_sig(pushed_filter), tuple(scan_names),
+                  defer_names) if pushed is not None else None
+    # the reference's key field for field; its Pallas interpret flag and
+    # tile budget have no counterpart (None)
+    key = ("pq_fused6", tuple(names),
+           tuple(d.name for d in out_dtypes), len(n_rows), vcap, cap,
+           nslcap, int(arrays["gruns"].shape[1]), tuple(stream_path),
+           tuple(w_caps), col_vbits, backend, None, None, pushed_sig,
+           tuple((a, arrays[a].shape, str(arrays[a].dtype))
+                 for a in sorted(arrays)),
+           tuple(tuple((s.mode, s.nullable, s.def_stream, s.val_stream,
+                        s.plain_key, s.dcap, s.dlen, s.m_plain_off,
+                        s.m_dict_off, s.m_dict_size, s.m_dlen_off,
+                        s.defer)
+                       for s in row) for row in specs))
     return _FusedPlan(specs=specs, out_dtypes=out_dtypes,
                       names=names, arrays=arrays, n_rows=list(n_rows),
                       cap=cap, vcap=vcap, stream_path=stream_path,
                       nslcap=nslcap, widths=w_caps,
-                      col_vbits=col_vbits, pushed=pushed)
+                      col_vbits=col_vbits, pushed=pushed, key=key,
+                      backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -605,6 +629,11 @@ def unpack_dense(fp: _FusedPlan,
                          out=dense_all[off:off + ncap])
         off += ncap
     return dense_all
+
+
+def _decode_fused(fp: _FusedPlan, arrays: Dict[str, torch.Tensor]):
+    """The fused decode of one assembled batch (the kernel-cache step)."""
+    return _make_kernel(fp)(arrays)
 
 
 def _make_kernel(fp: _FusedPlan):
@@ -958,7 +987,8 @@ def prepare_fused(sources: Sequence[Tuple[Any, str, int]],
                   metrics=None,
                   pushed_filter=None,
                   scan_names: Optional[List[str]] = None,
-                  device="cuda", copy_stream=None) -> PreparedScan:
+                  device="cuda", copy_stream=None,
+                  backend: Optional[str] = None) -> PreparedScan:
     """Host half of the fused decode: page walks (through the scan-plan
     cache), fused-plan assembly, the upload to ``device`` (on the card
     through pinned memory on ``copy_stream``, without waiting for the
@@ -967,8 +997,11 @@ def prepare_fused(sources: Sequence[Tuple[Any, str, int]],
 
     ``pushed_filter``/``scan_names`` arm the deferred dictionary decode
     (see :func:`assemble`): a hint checked per batch, never a contract —
-    an ineligible batch decodes everything."""
+    an ineligible batch decodes everything.  ``backend`` is the plan's
+    ``kernel.backend`` stamp (the process default when None); it tags the
+    decode's kernel-cache key and dispatch counter."""
     dev = resolve_device(device)
+    backend = kb.resolve(backend)
 
     def phase(key):
         # the phases may overlap the consumer's decode on a prefetch
@@ -1006,7 +1039,7 @@ def prepare_fused(sources: Sequence[Tuple[Any, str, int]],
         stage = PinnedStage() if dev.type == "cuda" else None
         fp = assemble(dev_plans, dev_dtypes, dev_cols, n_rows,
                       pushed_filter=pushed, scan_names=scan_names,
-                      device=dev,
+                      device=dev, backend=backend,
                       alloc=stage.empty if stage is not None else np.empty
                       ) if dev_plans else None
 
@@ -1041,9 +1074,15 @@ def finish_fused(prep: PreparedScan) -> Tuple[DeviceBatch, List[str]]:
     Returns (batch, fallback column names)."""
     cols_by_name: Dict[str, DeviceColumn] = dict(prep.extra_cols)
     if prep.fp is not None:
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
         if isinstance(prep.dev_arrays, PinnedUpload):
             prep.dev_arrays.wait()     # the decode reads the copies
-        out_cols, _ = _make_kernel(prep.fp)(prep.dev_arrays)
+        # the cached step takes the plan as an argument: its host arrays
+        # (the meta values, the slice runs) differ between batches of
+        # one key, where the reference's are traced operands
+        kern = kc.get_kernel(prep.fp.key, lambda: _decode_fused,
+                             backend=prep.fp.backend)
+        out_cols, _ = kern(prep.fp, prep.dev_arrays)
         cols_by_name.update(zip(prep.dev_cols, out_cols))
     out = DeviceBatch(prep.wanted, [cols_by_name[c] for c in prep.wanted],
                       prep.total, prep.device)

@@ -65,6 +65,22 @@ def resolve(stamped: Optional[str] = None) -> str:
     return default_backend()
 
 
+def selection_snapshot() -> dict:
+    """The ``/compiles`` endpoint's selection block (obs/server.py), from
+    :data:`fallbacks` and :data:`launches` since the last
+    :func:`reset_counts`: the fallbacks under the reference's names
+    (``kernel.backend.pallas.fallbacks[.<family>.<reason>]``) and each
+    hand kernel's launches (``kernel.backend.launches.<kernel>``, where
+    the reference counts its Pallas selections)."""
+    with _lock:
+        fb, ln = dict(fallbacks), dict(launches)
+    out = {f"kernel.backend.pallas.fallbacks.{k}": v for k, v in fb.items()}
+    if fb:
+        out["kernel.backend.pallas.fallbacks"] = sum(fb.values())
+    out.update((f"kernel.backend.launches.{k}", v) for k, v in ln.items())
+    return dict(sorted(out.items()))
+
+
 def choose(family: str, supported: bool, reason: str = "unsupported"
            ) -> str:
     """One call site's route: ``pallas`` (the hand kernel) when it covers

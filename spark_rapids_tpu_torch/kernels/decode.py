@@ -51,6 +51,7 @@ widths and raises ``UnsupportedChunk`` past them.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -427,12 +428,21 @@ def stream_prep(runs, packed: bytes, cap: int, dev: torch.device):
 def stream_expand(prep, tensors, cap: int) -> torch.Tensor:
     """The device half of :func:`expand_stream`, from :func:`stream_prep`'s
     result and its arrays uploaded under the same keys."""
+    from spark_rapids_tpu_torch.exec import kernel_cache as kc
     from spark_rapids_tpu_torch.io import device_parquet as dp
     w, ncap, _ = prep
     if w is None:
         return dp.expand_runs_matrix(tensors["runs_mat"], tensors["packed"],
                                      cap)
-    return expand_device(tensors["table"], tensors["packed"], w, ncap, cap)
+    table = tensors["table"]
+    # the reference's key; its interpret flag and tile plan have no
+    # counterpart (None)
+    kern = kc.get_kernel(
+        ("decode_expand", kb.PALLAS, w, int(table.shape[0]), ncap, cap,
+         str(table.dtype).replace("torch.", ""), None, None, None),
+        lambda: functools.partial(expand_device, w=w, ncap=ncap, cap=cap),
+        backend=kb.PALLAS)
+    return kern(table, tensors["packed"])
 
 
 def expand_stream(runs, packed: bytes, cap: int,

@@ -9,7 +9,9 @@ Ported from ``spark_rapids_tpu/mem/device.py``:
   * The reference's ``TpuDeviceManager`` sizes a memory pool over the
     device XLA owns.  The caching allocator owns the card's memory here,
     so what is left of it is :func:`check_device`: the session's device
-    must exist, and its name is what the session reports.
+    must exist, and its name is what the session reports; and
+    :func:`memory_budget`, the pool size the reference's ``hbm_budget``
+    gives the admission controller and the grace join.
 """
 
 from __future__ import annotations
@@ -29,6 +31,17 @@ from spark_rapids_tpu_torch.sched.admission import TaskGate
 _LOCK = threading.Lock()
 _GATE: Optional[TaskGate] = None
 _SLOTS = 2
+_CPU_BUDGET = 8 << 30   # the reference's budget when no pool is known
+
+
+def memory_budget(device=None) -> int:
+    """The device byte budget when ``sched.memoryBudget`` is 0: 0.9 of a
+    CUDA device's memory (the reference's pool fraction of its HBM
+    limit), else the reference's 8 GiB."""
+    if device is not None and torch.device(device).type == "cuda":
+        return int(0.9 * torch.cuda.get_device_properties(
+            torch.device(device)).total_memory)
+    return _CPU_BUDGET
 
 
 def initialize(concurrent_tasks: int) -> None:

@@ -3,11 +3,11 @@
 Copied whole from ``spark_rapids_tpu/obs/accounting.py``, its imports
 retargeted.  The port charges ``kernel.dispatches`` (exec/kernel_cache),
 ``kernel.compile.wallNs`` (obs/compile), ``scan.bytesWalked``
-(io/parquet_meta) and ``scan.bytesUploaded`` (io/parquet_fused); the
-shuffle wire bytes, result-cache and queue-wait charges come with the
-modules that own them.  Until ``sched/service.py`` and
-``plan/digest.py`` are ported, ``TpuSparkSession._execute`` registers
-every query under the tenant ``("(in-process)", "(ad-hoc)")``.
+(io/parquet_meta), ``scan.bytesUploaded`` (io/parquet_fused), and the
+queue wait and ``hbm.byteSeconds`` (sched/service); the query service
+registers each query under ``("(in-process)", "digest:<16 hex>")``.
+The shuffle wire bytes and the result-cache charges come with the
+modules that own them.
 
 ROADMAP item 1's per-tenant quotas and item 2's elastic executors both
 need a trustworthy answer to "who is consuming the chip".  The ledger

@@ -8,15 +8,15 @@ grouped into sections (scan / shuffle / semaphore / spill / pyworker),
 spill and arena high-water marks, the plan-time ``explain`` fallback
 report, and the query's span window (exportable as a Chrome trace).
 
-Assembly: :class:`QueryRun` is opened by ``TpuSparkSession._execute``
-before planning; ``finish()`` carves the registry delta and span window
-and walks the executed plan.  Surfaces:
-``session.last_query_profile()``, ``DataFrame.explain("profile")``,
+Assembly: :class:`QueryRun` is opened by
+``TpuSparkSession._execute_attributed`` before planning; ``finish()``
+carves the registry delta and span window and walks the executed plan.
+Surfaces: ``session.last_query_profile()``, ``DataFrame.explain("profile")``,
 ``profile.to_json()`` and ``profile.dump_chrome_trace(path)``.
 
 Copied from ``spark_rapids_tpu/obs/profile.py``, its imports
-retargeted.  ``plan_digest`` stays None until ``plan/digest.py`` is
-ported.  The per-exec times and the wall breakdown are
+retargeted.  ``plan_digest`` is the query service's
+(``plan/digest.py``).  The per-exec times and the wall breakdown are
 host timers, as in the reference: CUDA launches return before the card
 finishes, so the exec that waits on the card (the packed download, a
 host read of a count) carries the device time of the execs before it.

@@ -4,8 +4,9 @@ self-contained diagnostic bundles on query failure.
 Copied from ``spark_rapids_tpu/obs/recorder.py``, its imports
 retargeted.  The port records the spill catalog's traffic and OOM
 retries (``mem/spill.py``), the grace join's activations, recursions
-and fallbacks (``exec/join_partition.py``), slow queries and bundles;
-the scheduler's admission events come with ``sched/service.py``.
+and fallbacks (``exec/join_partition.py``), the scheduler's
+submission, admission, dedup and finish events (``sched/admission.py``,
+``sched/service.py``), slow queries, sentinel breaches and bundles.
 
 A long-lived serving engine is undebuggable post-hoc: when a query
 dies, the context that explains it (what admission decided, what

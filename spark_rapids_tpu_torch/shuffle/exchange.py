@@ -31,10 +31,11 @@ first; one host read per map batch fetches its per-partition counts
 
 from __future__ import annotations
 
+import functools
 import itertools
 import threading
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -80,6 +81,13 @@ class Partitioning:
     def exprs(self) -> List[ir.Expression]:
         return []
 
+    def cache_sig(self) -> Any:
+        """Kernel-cache signature: everything the target step closes
+        over.  Subclasses with extra state (sort direction, null
+        ordering) extend it."""
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
+        return kc.exprs_sig(self.exprs())
+
 
 @dataclass
 class SinglePartitioning(Partitioning):
@@ -105,6 +113,13 @@ class RangePartitioning(Partitioning):
 
     def exprs(self) -> List[ir.Expression]:
         return [o.expr for o in self.orders]
+
+    def cache_sig(self) -> Any:
+        # the direction and null order shape the encoded keys: an ASC step
+        # must not serve a DESC order of the same expression
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
+        return tuple((kc.expr_sig(o.expr), o.ascending,
+                      o.nulls_first_resolved) for o in self.orders)
 
 
 # ---------------------------------------------------------------------------
@@ -165,13 +180,65 @@ def round_robin_targets(batch: DeviceBatch, n_parts: int,
     return torch.remainder(i + st, n_parts).to(torch.int32)
 
 
+def _partition_counts(targets: torch.Tensor, n_parts: int) -> torch.Tensor:
+    """Rows per partition; targets equal to ``n_parts`` (padding) are
+    not counted."""
+    return torch.bincount(targets.long(), minlength=n_parts + 1)[:n_parts]
+
+
 def partition_order(targets: torch.Tensor, n_parts: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(stable order grouping rows by target, per-partition counts);
     targets equal to ``n_parts`` (padding) park after every span and are
     not counted."""
-    counts = torch.bincount(targets.long(), minlength=n_parts + 1)
-    return sortkeys.shared_partition_order(targets), counts[:n_parts]
+    return (sortkeys.shared_partition_order(targets),
+            _partition_counts(targets, n_parts))
+
+
+def _range_sort_words(orders: Sequence[SortOrder],
+                      batch: DeviceBatch) -> torch.Tensor:
+    """The range exchange's sort words (the ``exch_rkeys`` step)."""
+    groups = [sortkeys.encode_keys(eval_tpu.evaluate(o.expr, batch),
+                                   o.ascending, o.nulls_first_resolved)
+              for o in orders]
+    return sortkeys.stack_sort_words(groups, batch.row_mask())
+
+
+def _range_span_targets(orders: Sequence[SortOrder], n_parts: int,
+                        batch: DeviceBatch,
+                        order: torch.Tensor) -> torch.Tensor:
+    """Range targets from the sorted order (the ``exch_rspan`` step)."""
+    t = range_targets_from_order(batch, orders, order, n_parts)
+    return torch.where(batch.row_mask(), t, n_parts)
+
+
+def _adj_targets(p: Partitioning, batch: DeviceBatch,
+                 rows_seen: int) -> torch.Tensor:
+    """Per-row targets of a single, round-robin or hash exchange, padding
+    rows at ``n_parts`` (the ``exch_target`` step)."""
+    n_parts = p.num_partitions
+    if isinstance(p, SinglePartitioning):
+        t = torch.zeros(batch.capacity, dtype=torch.int32,
+                        device=batch.device)
+    elif isinstance(p, RoundRobinPartitioning):
+        t = round_robin_targets(batch, n_parts, rows_seen)
+    elif isinstance(p, HashPartitioning):
+        t = hash_targets(batch, p.keys, n_parts)
+    else:
+        raise NotImplementedError(type(p).__name__)
+    return torch.where(batch.row_mask(), t, n_parts)
+
+
+def _apply_order(n_parts: int, batch: DeviceBatch, targets: torch.Tensor,
+                 order: torch.Tensor) -> Tuple[DeviceBatch, torch.Tensor]:
+    """(the batch gathered into partition order, per-partition counts);
+    targets equal to ``n_parts`` (padding) are not counted (the
+    ``exch_apply`` step)."""
+    counts = _partition_counts(targets, n_parts)
+    exists = batch.row_mask()[order]
+    cols = [c.gather(order, exists) for c in batch.columns]
+    return DeviceBatch(batch.names, cols, batch.num_rows,
+                       batch.device), counts
 
 
 def slice_span(batch: DeviceBatch, offset: int, count: int,
@@ -358,6 +425,8 @@ class TpuShuffleExchangeExec(TpuExec):
         # the session's columnar/transfer.CopyStream (the local
         # transport's uploads and downloads); None makes fresh ones
         self.copy_stream = None
+        # this exec's kernel-cache steps by key (one lookup per key)
+        self._kernels: Dict[Any, Any] = {}
 
     @property
     def schema(self) -> Schema:
@@ -369,46 +438,61 @@ class TpuShuffleExchangeExec(TpuExec):
 
     def _compute_targets(self, batch: DeviceBatch,
                          rows_seen: int) -> torch.Tensor:
-        """Per-row target partition ids; padding rows target n_parts."""
+        """Per-row target partition ids; padding rows target n_parts.
+        Each step is a kernel-cache dispatch at the reference's key,
+        looked up once per exec and key; a range exchange's sort goes
+        through the shared sort (``sortkeys.shared_lexsort``)."""
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
         p = self.partitioning
         n_parts = p.num_partitions
         if isinstance(p, RangePartitioning):
-            groups = [sortkeys.encode_keys(
-                eval_tpu.evaluate(o.expr, batch), o.ascending,
-                o.nulls_first_resolved) for o in p.orders]
-            order = sortkeys.shared_lexsort(
-                sortkeys.stack_sort_words(groups, batch.row_mask()))
-            t = range_targets_from_order(batch, p.orders, order, n_parts)
-        elif isinstance(p, SinglePartitioning):
-            t = torch.zeros(batch.capacity, dtype=torch.int32,
-                            device=batch.device)
-        elif isinstance(p, RoundRobinPartitioning):
-            t = round_robin_targets(batch, n_parts, rows_seen)
-        elif isinstance(p, HashPartitioning):
-            t = hash_targets(batch, p.keys, n_parts)
-        else:
-            raise NotImplementedError(type(p).__name__)
-        return torch.where(batch.row_mask(), t, n_parts)
+            orders = p.orders
+            rkey = ("exch_rkeys", p.cache_sig(), batch.schema_key())
+            if rkey not in self._kernels:
+                self._kernels[rkey] = kc.get_kernel(
+                    rkey, lambda: functools.partial(_range_sort_words,
+                                                    orders))
+            order = sortkeys.shared_lexsort(self._kernels[rkey](batch))
+            skey = ("exch_rspan", p.cache_sig(), n_parts,
+                    batch.schema_key())
+            if skey not in self._kernels:
+                self._kernels[skey] = kc.get_kernel(
+                    skey, lambda: functools.partial(_range_span_targets,
+                                                    orders, n_parts))
+            return self._kernels[skey](batch, order)
+        key = ("exch_target", type(p).__name__, n_parts, p.cache_sig(),
+               batch.schema_key())
+        if key not in self._kernels:
+            self._kernels[key] = kc.get_kernel(
+                key, lambda: functools.partial(_adj_targets, p))
+        return self._kernels[key](batch, rows_seen)
 
     def _partition_one(self, batch: DeviceBatch, rows_seen: int
                        ) -> Tuple[DeviceBatch, List[int]]:
         """(batch reordered so each partition is one span, its counts,
         read to the host: the one sync of a map batch)."""
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
+        n_parts = self.partitioning.num_partitions
+        akey = ("exch_apply", n_parts, batch.schema_key())
+        if akey not in self._kernels:
+            self._kernels[akey] = kc.get_kernel(
+                akey, lambda: functools.partial(_apply_order, n_parts))
         with timed(self.metrics, "exchange.partition"):
             t = self._compute_targets(batch, rows_seen)
-            order, counts = partition_order(
-                t, self.partitioning.num_partitions)
-            exists = batch.row_mask()[order]
-            cols = [c.gather(order, exists) for c in batch.columns]
-            reordered = DeviceBatch(batch.names, cols, batch.num_rows,
-                                    batch.device)
+            order = sortkeys.shared_partition_order(t)
+            reordered, counts = self._kernels[akey](batch, t, order)
             counts = counts.tolist()
         return reordered, counts
 
     def _slice(self, reordered: DeviceBatch, offset: int, count: int
                ) -> DeviceBatch:
-        return slice_span(reordered, offset, count,
-                          bucket_rows(count, self.min_bucket))
+        from spark_rapids_tpu_torch.exec import kernel_cache as kc
+        out_cap = bucket_rows(count, self.min_bucket)
+        key = ("exch_slice", out_cap, reordered.schema_key())
+        if key not in self._kernels:
+            self._kernels[key] = kc.get_kernel(
+                key, lambda: functools.partial(slice_span, out_cap=out_cap))
+        return self._kernels[key](reordered, offset, count)
 
     def _input_batches(self):
         """Device input batches of the map side; range partitioning needs

@@ -29,6 +29,7 @@ from spark_rapids_tpu_torch.kernels import _build
 from spark_rapids_tpu_torch.obs import compile as obscompile
 from spark_rapids_tpu_torch.obs import recorder as obsrec
 from spark_rapids_tpu_torch.obs import registry as obsreg
+from spark_rapids_tpu_torch.plan.digest import plan_digest
 from spark_rapids_tpu_torch.sched import cancel as sched_cancel
 
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -165,8 +166,9 @@ def test_storm_fires_once_per_query(side, tmp_path):
 def test_corpus_jsonl_roundtrip(tmp_path):
     """A registered digest's first completion appends one record whose
     programs carry ``replay: null``; a repeat of the digest appends
-    nothing.  A session query has no digest yet (no plan/digest.py), so
-    it writes no record."""
+    nothing.  A session query carries its plan digest (the query
+    service's, plan/digest.py), so its first run writes one record under
+    that digest and a repeat writes none."""
     corpus = tmp_path / "corpus.jsonl"
     obscompile.configure(True, corpus_path=str(corpus))
     for qid in (41, 42):
@@ -186,9 +188,15 @@ def test_corpus_jsonl_roundtrip(tmp_path):
     kc.clear()
     s = _session({"spark.rapids.tpu.obs.compile.corpusPath":
                   str(tmp_path / "session.jsonl")})
-    _df(s).group_by("k").agg(F.sum("x").alias("sx")).collect()
+    q = _df(s).group_by("k").agg(F.sum("x").alias("sx"))
+    q.collect()
     assert obscompile.totals()["events"] > 1
-    assert not (tmp_path / "session.jsonl").exists()
+    q.collect()
+    lines = [json.loads(x) for x in
+             (tmp_path / "session.jsonl").read_text().splitlines()]
+    assert [r["plan_digest"] for r in lines] == [plan_digest(q.plan)]
+    assert lines[0]["programs"] and all(
+        p["replay"] is None for p in lines[0]["programs"])
 
 
 def test_threaded_ledger_consistency():

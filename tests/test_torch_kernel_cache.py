@@ -3,9 +3,10 @@
 - ``expr_sig`` of the same DataFrame expressions, planned by a reference
   session and a port session, are equal (``plan/digest`` builds on it);
 - the per-family ``kernel.cache.misses`` / ``kernel.dispatches`` deltas
-  of a q6-class aggregate, a broadcast join and a sort, after clearing
-  both caches, are the reference's but for the families the port has
-  not routed yet (pinned in their own test);
+  of a q6-class aggregate, a broadcast join, a sort, q6 over Parquet
+  files and a hash repartition, after clearing both caches, are the
+  reference's, the download pack, the partial concat, the fused
+  reader's decode and the exchange's steps included;
 - the OOM retry: ``tests/test_memory.py::test_hbm_oom_recover_spills_
   and_retries`` with a constructed ``torch.cuda.OutOfMemoryError`` as
   well as the reference's ``RESOURCE_EXHAUSTED`` message, a non-OOM
@@ -22,6 +23,7 @@ import weakref
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.parquet as papq
 import pytest
 import torch
 
@@ -51,10 +53,6 @@ SIDES = {"ref": (JSession, jcol, JF, jkc, jreg),
 LITS = {JF: jlit, TF: tlit}
 EXPR_ATTRS = ("exprs", "out_exprs", "condition", "fused_condition",
               "groupings", "aggregates")
-# reference families the port does not route through its kernel cache
-# yet: the terminal download's pack (columnar/batch.py) and the
-# aggregate's concat of partials (batch.py concat_nosync)
-UNROUTED = {"pack_batch", "concat_nosync"}
 
 
 def _table(n: int = 400, seed: int = 3) -> pa.Table:
@@ -155,7 +153,7 @@ def test_expr_sig_equals_reference(build):
 # per-family counts against the reference
 # ---------------------------------------------------------------------------
 
-def _q6(s, col, F, t, dim):
+def _q6(s, col, F, t, dim, root=None):
     return (s.create_dataframe(t, num_partitions=2)
             .filter(col("ss_sales_price") > 150.0).group_by("ss_item_sk")
             .agg(F.count("*").alias("cnt"),
@@ -163,39 +161,60 @@ def _q6(s, col, F, t, dim):
                  F.avg("ss_ext_sales_price").alias("aesp")))
 
 
-def _join(s, col, F, t, dim):
+def _join(s, col, F, t, dim, root=None):
     return (s.create_dataframe(t, num_partitions=2)
             .join(s.create_dataframe(dim), on="ss_item_sk")
             .select("ss_item_sk", "name", "ss_quantity"))
 
 
-def _sort(s, col, F, t, dim):
+def _sort(s, col, F, t, dim, root=None):
     return (s.create_dataframe(t, num_partitions=2)
             .sort(col("ss_quantity").desc(), col("ss_item_sk"))
             .select("ss_item_sk", "ss_quantity"))
 
 
-COUNT_QUERIES = {"q6": _q6, "join": _join, "sort": _sort}
+def _q6_parquet(s, col, F, t, dim, root=None):
+    """q6 over Parquet files: the fused reader's decode step."""
+    return (s.read.parquet(root)
+            .filter(col("ss_sales_price") > 150.0).group_by("ss_item_sk")
+            .agg(F.count("*").alias("cnt"),
+                 F.sum("ss_quantity").alias("qty")))
+
+
+def _repartition(s, col, F, t, dim, root=None):
+    """A hash exchange (the exchange's target, apply and slice steps)."""
+    return (s.create_dataframe(t, num_partitions=2)
+            .repartition(3, "ss_item_sk").group_by("ss_item_sk")
+            .agg(F.sum("ss_quantity").alias("qty")))
+
+
+COUNT_QUERIES = {"q6": _q6, "join": _join, "sort": _sort,
+                 "q6_parquet": _q6_parquet, "repartition": _repartition}
 COUNT_PREFIXES = ("kernel.cache.misses.", "kernel.dispatches.")
 
 
 @pytest.fixture(scope="module")
-def family_counts():
+def family_counts(tmp_path_factory):
     """Per side and query: the kernel.cache.misses.* / kernel.dispatches.*
     deltas of one collect after clearing the side's kernel cache, and
     the rows.  The xla backend keeps the reference's compiles short; one
     task thread keeps two partitions from racing to build one key (a
     race both caches allow: the build runs outside the lock)."""
     t, dim = _table(), _dim()
+    root = tmp_path_factory.mktemp("kc_parquet")
+    for i in range(2):
+        papq.write_table(t.slice(200 * i, 200),
+                         str(root / f"part-{i}.parquet"))
     conf = dict(CONF, **{"spark.rapids.tpu.kernel.backend": "xla",
-                         "spark.rapids.tpu.sql.concurrentTpuTasks": 1})
+                         "spark.rapids.tpu.sql.concurrentTpuTasks": 1,
+                         "spark.rapids.tpu.sql.adaptive.enabled": False})
     out = {}
     for side, (Session, col, F, kc, reg) in SIDES.items():
         s = Session(conf, **({"device": "cpu"} if side == "port" else {}))
         for name, q in COUNT_QUERIES.items():
             kc.clear()
             view = reg.get_registry().view()
-            rows = q(s, col, F, t, dim).collect()
+            rows = q(s, col, F, t, dim, root=str(root)).collect()
             d = view.delta()["counters"]
             out[side, name] = ({k: v for k, v in d.items()
                                 if k.startswith(COUNT_PREFIXES)}, rows)
@@ -212,25 +231,36 @@ def test_family_counts_equal_reference(family_counts, name):
     (ref, ref_rows), (port, port_rows) = family_counts["ref", name], \
         family_counts["port", name]
     assert_tables_equal(ref_rows, port_rows, ignore_order=True)
-    ref = {k: v for k, v in ref.items() if _family_of(k) not in UNROUTED}
     assert port == ref
     assert port, "the query dispatched nothing"
 
 
+ROUTED = ("pack_batch", "concat_nosync", "pq_fused6", "exch_target",
+          "exch_apply", "exch_slice")
+
+
 def test_unrouted_families_pinned(family_counts):
-    """The reference's download pack and partial concat are kernel-cache
-    dispatches there and plain torch in the port (ROADMAP Queue C)."""
-    seen = {_family_of(k) for (side, _q), (d, _r) in family_counts.items()
-            for k in d if side == "ref"} & UNROUTED
-    assert seen == UNROUTED
-    ref_q6 = family_counts["ref", "q6"][0]
-    assert ref_q6["kernel.dispatches.pack_batch"] == 1
-    assert ref_q6["kernel.dispatches.concat_nosync"] == 1
-    assert not any(_family_of(k) in UNROUTED
-                   for (side, _q), (d, _r) in family_counts.items()
-                   for k in d if side == "port")
-    # the aggregate's steps carry the plan's backend tag
+    """The families the port once left as plain torch (the terminal
+    download's pack and the aggregate's concat of partials,
+    columnar/batch.py; the fused reader's decode; the exchange's steps)
+    are kernel-cache dispatches with the reference's counts on every
+    query; none is left unrouted."""
+    for q in COUNT_QUERIES:
+        ref, port = family_counts["ref", q][0], family_counts["port", q][0]
+        for fam in ROUTED:
+            for prefix in COUNT_PREFIXES:
+                assert port.get(prefix + fam) == ref.get(prefix + fam), \
+                    (q, prefix + fam)
+        assert port["kernel.dispatches.pack_batch"] >= 1, q
     port_q6 = family_counts["port", "q6"][0]
+    assert port_q6["kernel.dispatches.concat_nosync"] == 1
+    assert port_q6["kernel.cache.misses.pack_batch"] == 1
+    assert family_counts["port", "q6_parquet"][0][
+        "kernel.dispatches.pq_fused6.xla"] >= 1
+    part = family_counts["port", "repartition"][0]
+    for fam in ("exch_target", "exch_apply", "exch_slice"):
+        assert part[f"kernel.dispatches.{fam}"] >= 1, fam
+    # the aggregate's steps carry the plan's backend tag
     assert port_q6["kernel.dispatches.agg_update.xla"] == 2
     assert port_q6["kernel.dispatches.agg_merge.xla"] == 1
 
@@ -316,7 +346,11 @@ def test_session_query_oom_retries_agg_update(monkeypatch):
     ref = _q6(JSession(dict(CONF, **{
         "spark.rapids.tpu.sql.enabled": False})), jcol, JF, t,
         dim).collect()
-    s = TSession(CONF, device="cpu")
+    # a budget far above the query's estimate, as on the card: at the
+    # CPU's 8 GiB the admission's pressure hook spills the held batch
+    # before the query starts, and the OOM would find nothing to free
+    s = TSession(dict(CONF, **{"spark.rapids.tpu.sched.memoryBudget":
+                               64 << 30}), device="cpu")
     held = tspill.get_catalog().register(
         from_arrow(pa.table({"v": list(range(512))}), device="cpu"))
     real = tagg.update_aggregate

@@ -127,8 +127,8 @@ def test_profile_status_rows_and_keys(runs):
     ref, port = runs["ref"][1].to_dict(), runs["port"][1].to_dict()
     assert sorted(port) == sorted(ref)
     assert isinstance(ref["plan_digest"], str)
-    # the port has no plan/digest.py yet: no digest to stamp
-    assert port["plan_digest"] is None
+    # the query service stamps the same digest as the reference's
+    assert port["plan_digest"] == ref["plan_digest"]
     assert json.loads(runs["port"][1].to_json())["status"] == "success"
 
 
