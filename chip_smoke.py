@@ -303,6 +303,40 @@ Phases (any failure exits non-zero):
                calls per family (none in the warm run) and the
                attribution identity; the warm q6 with the observatory
                and the ledger on and off, ``COMPILE_TURNS`` in turns;
+  8n. skew  — the skew join under ``sql.join.skew.enabled``
+               (tests/test_join_oocore.py:273-280's shape at 2^26 fact
+               rows made from a seed: 60% on one key, a 500-key tail,
+               joined to its 500-row dimension and aggregated per key)
+               on port sessions on cuda with broadcasts off and 16
+               shuffle partitions: TpuSkewJoinReaderExec on both sides,
+               ``shuffle.skew.detected`` >= 1, ``splits`` >= 2, a
+               broadcast or replication; the rows equal numpy's and the
+               unsplit run's (skew and adaptive off) and, alone, the
+               default adaptive reader's; each wall, the gather_seg_scan
+               launches and peak memory;
+  8o. adaptive — TPC-H q3 and q10 over the tpch phase's files (SF10
+               alone, SF 2 in the whole smoke) at the reference's
+               defaults and with ``sql.adaptive.enabled`` off: every
+               shuffled join reads its exchanges through
+               TpuAdaptiveJoinReaderExec (none when off), both forms'
+               rows equal pyarrow's and each other's; the spec lists,
+               cold walls, spill and peak memory of each;
+  8p. share  — over the SF10 q6 files, q6 and a second aggregate over
+               the same filtered scan (same columns, same pushed filter)
+               submitted at once under two slots, with
+               ``sql.scan.shared.enabled`` on and off: on, the
+               ``scan.shared.*`` counters are >= 1 and the unpack_bits and
+               decode launches equal one query's; off, twice that; each
+               result equals its serial run bit for bit (q6 also
+               pyarrow); each pair's wall, spill and peak memory; an
+               empty spill catalog after;
+  8q. precompile — a child process runs q6 over the SF10 files with
+               ``obs.compile.corpusPath``; a second child with an empty
+               build directory and ``sched.precompile.enabled`` replays
+               that corpus (nvcc runs in the replay), then runs q6: it
+               builds nothing, every first call that launches a kernel
+               library is ``persistent``, and both children's rows equal
+               pyarrow's;
   9. perfile-modes — 2 files of 2^21 rows with about 4% nulls, a boolean,
                a dictionary that overflows into PLAIN pages, a 16-character
                string dictionary and a list<int32>, through the PERFILE
@@ -370,14 +404,17 @@ Phases (any failure exits non-zero):
                tests/parity.py's tolerance (listed); untimed;
  10. timing  — per kernel at the shapes and on the inputs the q6 paths
                and the star, window, shuffle, strings, customer-etl,
-               mortgage and TPC-H queries' cold runs gave it (segreduce
-               from every run; later runs' entries are named
+               mortgage, skew and TPC-H queries' cold runs and the shared
+               pair gave it (segreduce from every run; later runs'
+               entries are named
                ``name@q6-parquet``, ``name@q6-perfile``, ``name@star``,
                ``name@window``, ``name@shuffle`` (from q97's run on the
                local transport), ``name@strings``, ``name@customer-etl``,
-               ``name@mortgage``, ``name@tpch``, ``name@cache`` (the
-               cached q1/q6 runs), ``name@oocore`` (the grace runs) and
-               ``name@csv-orc``): a check
+               ``name@mortgage``, ``name@skew`` (the split run),
+               ``name@tpch``, ``name@cache`` (the
+               cached q1/q6 runs), ``name@oocore`` (the grace runs),
+               ``name@csv-orc`` and ``name@share`` (the shared pair): a
+               check
                against the plain version, its time (CUDA events, L2
                flushed), its bytes bound, the plain version's time and a
                library call's where one computes the same function.
@@ -385,7 +422,8 @@ Phases (any failure exits non-zero):
 Before each q6 path and each star, window, shuffle, strings,
 customer-etl, mortgage, TPC-H, cached, out-of-core, ORC and CSV query
 (and before the obs phase's warm q6 runs) the kernel launch counts are
-set to 0,
+set to 0
+(and the shared-scan window emptied, so the run decodes its own scans),
 and they are read just after it: every kernel of the path must have
 launched, with no fallback but the PERFILE path's predicted mixed-width
 ones and the later queries' pinned filterDecode ones.  The line
@@ -394,13 +432,14 @@ card's name and power limit; the last line is the result JSON.  Long
 output goes to chiprun_out/chip_smoke.log.  ``python3 chip_smoke.py
 build,parity`` (or any comma-separated subset of build, parity, entry, q6,
 q6p, q6pf, session, pipeline, q6s, star, window, shuffle, strings,
-customer-etl, mortgage, tpch, oocore, obs, sched, csv-orc, compile,
-modes, window-modes, shuffle-modes, string-modes, tail-modes, io-modes)
+customer-etl, mortgage, skew, tpch, oocore, adaptive, obs, sched,
+csv-orc, compile, share, precompile, modes, window-modes, shuffle-modes,
+string-modes, tail-modes, io-modes)
 runs only those phases and prints no kernel table; ``tpch``, ``oocore``,
-``obs``, ``sched`` and ``csv-orc`` generate, write and remove their own
-files (sharing them when run together; ``obs`` and ``sched`` also write
-the SF10 q6 files, and alone run TPC-H at SF 2; ``compile`` writes the
-SF10 q6 files);
+``adaptive``, ``obs``, ``sched`` and ``csv-orc`` generate, write and
+remove their own files (sharing them when run together; ``obs`` and
+``sched`` also write the SF10 q6 files, and alone run TPC-H at SF 2;
+``compile``, ``share`` and ``precompile`` write the SF10 q6 files);
 ``customer-etl`` alone writes the star files and the census tables
 itself; ``session`` alone writes the files and counts the
 q6p and q6pf forms once itself, ``pipeline`` alone writes the files and
@@ -1253,7 +1292,7 @@ def phase_q6():
     from spark_rapids_tpu_torch.entry import collect, q6_plan
     table, ref = q6_table()
     torch.cuda.reset_peak_memory_stats()
-    kb.reset_counts()
+    _reset_counts()
     with ShapeRecorder() as shapes:
         out = collect(q6_plan(table, partitions=Q6_PARTS, device="cuda",
                               conf=SCAN_CONF))
@@ -1333,6 +1372,16 @@ def _parquet_dir(tag: str) -> str:
     return tempfile.mkdtemp(prefix=f"{tag}-", dir=OUT_DIR)
 
 
+def _reset_counts() -> None:
+    """Set the launch and fallback counts to 0 before a run that is read
+    against its pins, and empty the shared-scan window
+    (io/scan_share.py, on by default): a batch an earlier query left
+    there would serve this run's scan with no decode, and every pin was
+    taken from a run that decodes its own scans."""
+    _clear_share()
+    kb.reset_counts()
+
+
 def _check_launches(tag: str, launches, fallbacks, want) -> None:
     for name in want:
         if launches.get(name, 0) <= 0:
@@ -1400,7 +1449,7 @@ def phase_q6_parquet(root: str, ref: pa.Table):
     sc.clear()
     torch.cuda.reset_peak_memory_stats()
     walks0 = pm.walk_count()
-    kb.reset_counts()
+    _reset_counts()
     with ShapeRecorder() as shapes:
         out, plan, wall, ev = _timed_run(
             lambda: q6_parquet_plan(root, device="cuda", conf=SCAN_CONF))
@@ -1576,7 +1625,7 @@ def phase_q6_perfile(root: str, ref: pa.Table):
     sc.configure(True, 8 << 30)
     torch.cuda.reset_peak_memory_stats()
     walks0 = pm.walk_count()
-    kb.reset_counts()
+    _reset_counts()
     with ShapeRecorder() as shapes:
         out, plan, wall, ev = _timed_run(
             lambda: q6_perfile_plan(root, device="cuda", conf=SCAN_CONF))
@@ -1608,7 +1657,7 @@ def phase_q6_perfile(root: str, ref: pa.Table):
     walls, events, sections, hosts = [], [], [], []
     walks0 = pm.walk_count()
     for i in range(5):
-        kb.reset_counts()
+        _reset_counts()
         with FnTimer(HOST_FNS["perfile"]) as ht:
             o, plan, wall, ev = _timed_run(
                 lambda: q6_perfile_plan(root, device="cuda", conf=SCAN_CONF))
@@ -1706,7 +1755,7 @@ def _session_query(tag, df, ref, want, perfile: bool, entry_plan) -> None:
         fail(f"{tag}: the planner pushed no filter into the scan")
     if scan.allow_fused == perfile:
         fail(f"{tag}: scan allow_fused is {scan.allow_fused}")
-    kb.reset_counts()
+    _reset_counts()
     out, wall, ev = _timed_collect(df)
     launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
     rel = check_q6(out, ref)
@@ -1757,7 +1806,7 @@ def phase_session(root: str, ref: pa.Table, counts: dict) -> None:
     want = dict(counts)
     for key, make in (("q6p", q6_parquet_plan), ("q6pf", q6_perfile_plan)):
         if key not in want:  # the phase runs alone: count that form once
-            kb.reset_counts()
+            _reset_counts()
             collect(make(root, device="cuda", conf=SCAN_CONF))
             want[key] = dict(kb.launches), dict(kb.fallbacks)
     conf = dict(SCAN_CONF, **{
@@ -1789,7 +1838,7 @@ def phase_q6s_parquet():
         ref = f.group_by("ss_item_id").aggregate(
             [("ss_item_id", "count"), ("ss_quantity", "sum")]
         ).sort_by("ss_item_id")
-        kb.reset_counts()
+        _reset_counts()
         with ShapeRecorder() as shapes:
             out, _plan, wall, ev = _timed_run(
                 lambda: q6s_parquet_plan(root, device="cuda",
@@ -1902,7 +1951,7 @@ def phase_perfile_modes() -> None:
             FileScan("parquet", paths, schema, {}),
             RapidsTpuConf({"spark.rapids.tpu.sql.format.parquet.fusedDecode"
                            ".enabled": False}), device="cuda")
-        kb.reset_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         n_rg = 0
         for part, path in zip(scan.execute(), paths):
@@ -2168,7 +2217,7 @@ def phase_pipeline(root: str, table: pa.Table, ref: pa.Table,
             conf = {DEPTH_KEY: depth}
             view = obsreg.get_registry().view()
             torch.cuda.reset_peak_memory_stats()
-            kb.reset_counts()
+            _reset_counts()
             got, plan = run(conf)
             launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
             torch.cuda.synchronize()
@@ -2461,7 +2510,7 @@ def phase_star(root: str, tables: dict):
         run = query_run(q, root, STAR_TABLES, STAR_CONF)
         view = obsreg.get_registry().view()
         torch.cuda.reset_peak_memory_stats()
-        kb.reset_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         with shapes, DownloadCounter() as dl:
             out, plan = run({})
@@ -2724,7 +2773,7 @@ def phase_window(root: str, tables: dict):
     for q in WINDOW_QUERIES:
         run = query_run(q, root, WINDOW_TABLES, STAR_CONF)
         torch.cuda.reset_peak_memory_stats()
-        kb.reset_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         with shapes:
             out, plan = run({})
@@ -2944,7 +2993,8 @@ SHUFFLE_TABLES = STAR_TABLES + ("catalog_sales",)
 TRANSPORT_KEY = "spark.rapids.tpu.shuffle.transport"
 SHUFFLE_TRANSPORTS = ("local", "device")
 # the default broadcast threshold (10 MiB) and the default
-# sql.adaptive.enabled (accepted, unread by the port)
+# sql.adaptive.enabled (on: each shuffled join reads its exchanges
+# through TpuAdaptiveJoinReaderExec)
 SHUFFLE_CONF = dict(SCAN_CONF, **{
     "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
     "spark.rapids.tpu.sql.test.enabled": True})
@@ -2953,21 +3003,25 @@ SHUFFLE_CONF = dict(SCAN_CONF, **{
 # transport): the fused scans' unpack, date_dim's deferred dictionary
 # gathers (and item's where it is filtered), and the aggregates' gathered
 # segmented scans (q97: the two distinct aggregates and its three sums;
-# a star query's aggregate now runs over the 8 joined partitions, not the
-# 16 store_sales batches).  The exchange launches no kernel: the
-# reference does its work with XLA ops, the port with torch ops.
+# a star query's aggregate runs over the joined partitions, not the 16
+# store_sales batches).  The exchange launches no kernel: the
+# reference does its work with XLA ops, the port with torch ops.  The
+# aggregates' counts were re-pinned in PR 21: the adaptive readers (on by
+# default) coalesce the join's 8 partitions into fewer specs (the plan
+# prints ``specs=``; q97's full outer join 2, a star query's item join 2,
+# q55's 1), and each aggregate runs once per joined spec.
 _Q97_COUNTS = {"decode.unpack_bits": 26, "filter_decode.decode": 2,
-               "segreduce.gather_seg_scan": 54}
+               "segreduce.gather_seg_scan": 18}
 SHUFFLE_COUNTS = {
     "q97/local": _Q97_COUNTS, "q97/device": _Q97_COUNTS,
     "q3": {"decode.unpack_bits": 18, "filter_decode.decode": 4,
-           "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 18},
+           "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 6},
     "q42": {"decode.unpack_bits": 18, "filter_decode.decode": 1,
-            "segreduce.gather_seg_scan": 18},
+            "segreduce.gather_seg_scan": 6},
     "q52": {"decode.unpack_bits": 18, "filter_decode.decode": 1,
-            "segreduce.gather_seg_scan": 18},
+            "segreduce.gather_seg_scan": 6},
     "q55": {"decode.unpack_bits": 19, "filter_decode.decode": 3,
-            "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 18},
+            "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 2},
 }
 # the pushed filters' own dictionary columns, as in the star phase
 SHUFFLE_FALLBACKS = {
@@ -2979,12 +3033,15 @@ SHUFFLE_FALLBACKS = {
 # catalog_sales batch (a filtered date_dim carries no hints), and the full
 # outer join's 8 partition pairs (the probe route serves inner and left
 # only).  A star query: the date join, one pair per store_sales batch,
-# and the item join's 8 partition pairs (the exchange's upload hints
-# i_item_sk at 33 bits with the null flag, past the direct table's 22).
+# and the item join's partition pairs (the exchange's upload hints
+# i_item_sk at 33 bits with the null flag, past the direct table's 22):
+# since PR 21 one pair per adaptive spec (q97 24 + 2, a star query 16 +
+# 2, q55 16 + 1) where each exchange partition was one (24 + 8, 16 + 8).
 _SORT = {"join.route.probe": 0}
-SHUFFLE_ROUTES = dict({"q97/local": dict(_SORT, **{"join.route.sort": 32}),
-                       "q97/device": dict(_SORT, **{"join.route.sort": 32})},
-                      **{q: dict(_SORT, **{"join.route.sort": 24})
+SHUFFLE_ROUTES = dict({"q97/local": dict(_SORT, **{"join.route.sort": 26}),
+                       "q97/device": dict(_SORT, **{"join.route.sort": 26})},
+                      **{q: dict(_SORT, **{"join.route.sort":
+                                           17 if q == "q55" else 18})
                          for q in STAR_QUERIES})
 SHUFFLE_SECTIONS = ("scan.hostPrepTime", "scan.uploadTime", "scan.dispatch",
                     "exchange.partition", "exchange.upload",
@@ -3058,9 +3115,14 @@ def _check_shuffle_plan(tag: str, plan, shuffled_how: str,
     if len(joins) != 1 or joins[0].how != shuffled_how:
         fail(f"{tag}: not one {shuffled_how} TpuShuffledHashJoinExec: "
              f"{names}")
+    # at the default sql.adaptive.enabled each side reads its exchange
+    # through the coordinated adaptive reader
     kids = [type(c).__name__ for c in joins[0].children]
-    if kids != ["TpuShuffleExchangeExec"] * 2:
-        fail(f"{tag}: the shuffled join's children are {kids}")
+    grand = [type(c.children[0]).__name__ for c in joins[0].children]
+    if kids != ["TpuAdaptiveJoinReaderExec"] * 2 or \
+            grand != ["TpuShuffleExchangeExec"] * 2:
+        fail(f"{tag}: the shuffled join's children are {kids} over "
+             f"{grand}")
     if names.count("TpuBroadcastHashJoinExec") != broadcasts:
         fail(f"{tag}: not {broadcasts} TpuBroadcastHashJoinExec: {names}")
     host = [n for n in names if n not in HOST_OK and
@@ -3100,7 +3162,7 @@ def _shuffle_query(tag: str, run, ref, shuffled_how: str, broadcasts: int,
     from spark_rapids_tpu_torch.obs import registry as obsreg
     view = obsreg.get_registry().view()
     torch.cuda.reset_peak_memory_stats()
-    kb.reset_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     if shapes is not None:
         with shapes:
@@ -3384,15 +3446,15 @@ STRINGS_WARM = 1
 # q84 has no aggregate.  The string expressions launch no hand kernel:
 # the reference computes them with XLA ops, the port with torch ops.
 STRINGS_COUNTS = {
-    "q8": {"decode.unpack_bits": 186, "segreduce.seg_scan_sorted": 8,
-           "segreduce.gather_seg_scan": 19, "filter_decode.decode": 9,
+    "q8": {"decode.unpack_bits": 186, "segreduce.seg_scan_sorted": 3,
+           "segreduce.gather_seg_scan": 15, "filter_decode.decode": 9,
            "filter_decode.decode_str": 2},
     "q15": {"decode.unpack_bits": 37, "filter_decode.decode": 1,
             "segreduce.gather_seg_scan": 18},
     "q19": {"decode.unpack_bits": 45, "filter_decode.decode": 4,
-            "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 18},
+            "filter_decode.decode_str": 1, "segreduce.gather_seg_scan": 8},
     "q45": {"decode.unpack_bits": 25, "filter_decode.decode": 1,
-            "segreduce.gather_seg_scan": 18},
+            "segreduce.gather_seg_scan": 6},
     "q84": {"decode.unpack_bits": 17, "filter_decode.decode": 1},
     "q93": {"decode.unpack_bits": 53, "filter_decode.decode": 1,
             "segreduce.gather_seg_scan": 18},
@@ -3412,13 +3474,16 @@ STRINGS_FALLBACKS = {
 }
 # the join routes, pinned from the first run on the H100: the probe route
 # where both sides keep their value-range hints (unfiltered dimension
-# scans and the exchanges' uploads of narrow keys), else the sort route
+# scans and the exchanges' uploads of narrow keys), else the sort route.
+# Re-pinned in PR 21 with the counts above: a shuffled join now makes one
+# pair (and its aggregate one batch) per spec of its adaptive readers,
+# where it made one per exchange partition (q8, q19, q45, q84 move)
 STRINGS_ROUTES = {
-    "q8": {"join.route.probe": 16, "join.route.sort": 32},
+    "q8": {"join.route.probe": 16, "join.route.sort": 25},
     "q15": {"join.route.probe": 0, "join.route.sort": 24},
-    "q19": {"join.route.probe": 8, "join.route.sort": 40},
-    "q45": {"join.route.probe": 0, "join.route.sort": 32},
-    "q84": {"join.route.probe": 24, "join.route.sort": 16},
+    "q19": {"join.route.probe": 3, "join.route.sort": 24},
+    "q45": {"join.route.probe": 0, "join.route.sort": 22},
+    "q84": {"join.route.probe": 20, "join.route.sort": 16},
     "q93": {"join.route.probe": 0, "join.route.sort": 10},
 }
 STRINGS_EVAL = ("filter.eval", "project.eval", "fused.eval")
@@ -3684,7 +3749,7 @@ def phase_strings(root: str, tables: dict):
         run = query_run(q, root, STRINGS_READS[q], STRINGS_CONF)
         view = obsreg.get_registry().view()
         torch.cuda.reset_peak_memory_stats()
-        kb.reset_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         with shapes:
             out, plan = run({})
@@ -4002,7 +4067,9 @@ MORT_CONF = dict(STRINGS_CONF, **{
 # scans (the ETL's per-loan max/min and the exploded rows' max/min) and
 # sorted scans (the COUNT(*)s); no pushed filter, so no dictionary
 # gather; every shuffled join on the sort route (the keys are a string
-# and a long)
+# and a long).  The routes were re-pinned in PR 21: one pair per spec of
+# the joins' adaptive readers (the ETL's joins 8, 4 and 1; the simple
+# aggregates' 1) where each exchange partition was one
 MORT_COUNTS = {
     "etl": {"decode.unpack_bits": 102, "segreduce.gather_seg_scan": 104},
     "simple_aggregates": {"decode.unpack_bits": 64,
@@ -4014,8 +4081,8 @@ MORT_COUNTS = {
 }
 MORT_FALLBACKS = {p: {} for p in MORT_PIECES}
 MORT_ROUTES = {
-    "etl": {"join.route.probe": 0, "join.route.sort": 17},
-    "simple_aggregates": {"join.route.probe": 0, "join.route.sort": 6},
+    "etl": {"join.route.probe": 0, "join.route.sort": 13},
+    "simple_aggregates": {"join.route.probe": 0, "join.route.sort": 1},
     "delinquency_rate": {"join.route.probe": 0, "join.route.sort": 0},
 }
 GENERATE_SECTIONS = ("generate.count", "generate.emit")
@@ -4240,7 +4307,7 @@ def _etl_query(tag: str, run, check, pins, shapes, errors, total, names,
     counts, falls, route_pins = pins
     view = obsreg.get_registry().view()
     torch.cuda.reset_peak_memory_stats()
-    kb.reset_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     with shapes:
         out, plan = run({})
@@ -4680,7 +4747,7 @@ def phase_tail_modes() -> None:
                          row_group_size=1 << 18)
         pconf = {"spark.rapids.tpu.sql.format.parquet.fusedDecode.enabled":
                  False}
-        kb.reset_counts()
+        _reset_counts()
         pout = {}
         for d in ("cuda", "cpu"):
             s = TpuSparkSession(dict(conf, **pconf), device=d)
@@ -4770,7 +4837,9 @@ TPCH_CONF = MORT_CONF
 # are pushed into it (the dictionary gathers decode / decode_str and the
 # condition columns' filterDecode fallbacks); the SQL front end, like the
 # reference's, keeps the other queries' WHERE clauses above their joins.
-# q5's nation/region joins take the probe route, the rest the sort route
+# q5's nation/region joins take the probe route, the rest the sort route.
+# PR 21 re-pinned q14 at SF 2: its join's adaptive readers coalesce the 8
+# partitions into 4 specs, and the aggregate above runs once per spec
 TPCH_COUNTS = {
     10.0: {"q1": {"decode.unpack_bits": 256, "filter_decode.decode": 192,
                   "filter_decode.decode_str": 64,
@@ -4797,7 +4866,7 @@ TPCH_COUNTS = {
                  "segreduce.gather_seg_scan": 18},
           "q10": {"decode.unpack_bits": 44, "segreduce.gather_seg_scan": 16},
           "q12": {"decode.unpack_bits": 18, "segreduce.gather_seg_scan": 8},
-          "q14": {"decode.unpack_bits": 41, "segreduce.gather_seg_scan": 36},
+          "q14": {"decode.unpack_bits": 41, "segreduce.gather_seg_scan": 20},
           "q19": {"decode.unpack_bits": 58,
                   "segreduce.gather_seg_scan": 18}}}
 TPCH_FALLBACKS = {
@@ -4806,16 +4875,19 @@ TPCH_FALLBACKS = {
              q6={"scan.filterDecode.condition_column": 96 // per})
     for sf, per in ((10.0, 1), (2.0, 4))}
 _NO_JOIN = {"join.route.probe": 0, "join.route.sort": 0}
-# the same at both scales: one pair per exchange partition
+# one pair per spec of the shuffled join's adaptive readers (the plan
+# prints ``specs=``): partitions under the 64 MiB advisory size coalesce,
+# more of them at SF 2
 TPCH_ROUTES = {sf: {
     "q1": _NO_JOIN, "q6": _NO_JOIN,
-    "q3": {"join.route.probe": 0, "join.route.sort": 16},
-    "q5": {"join.route.probe": 16, "join.route.sort": 24},
-    "q10": {"join.route.probe": 8, "join.route.sort": 16},
+    "q3": {"join.route.probe": 0, "join.route.sort": q3},
+    "q5": {"join.route.probe": 16, "join.route.sort": q5},
+    "q10": {"join.route.probe": 8, "join.route.sort": q10},
     "q12": {"join.route.probe": 0, "join.route.sort": 8},
-    "q14": {"join.route.probe": 0, "join.route.sort": 8},
+    "q14": {"join.route.probe": 0, "join.route.sort": q14},
     "q19": {"join.route.probe": 0, "join.route.sort": 8}}
-    for sf in (10.0, 2.0)}
+    for sf, q3, q5, q10, q14 in ((10.0, 12, 20, 16, 8), (2.0, 10, 17, 10,
+                                                         4))}
 TPCH_SECTIONS = SHUFFLE_SECTIONS + STRINGS_EVAL
 # the lineitem columns q1 and q6 read: the cached relation's projection
 CACHE_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
@@ -5098,7 +5170,7 @@ def _tpch_sql_queries(root: str, t: dict, sf: float, shapes, errors, total,
         log(f"{tag}: join host syncs "
             f"{int(counters.get('join.hostSyncs', 0))}, hash rounds "
             f"{int(counters.get('join.hashRounds', 0))} (cold and warm runs)")
-        kb.reset_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         df_out, _plan = tpch_run(q, root, sql=False)({})
         rel = check_rows(f"{tag} DataFrame form", df_out, outs[q])
@@ -5134,7 +5206,7 @@ def _tpch_cache(root: str, outs: dict, sf: float, shapes, errors):
         for rnd in (1, 2):
             for q in CACHE_QUERIES:
                 tag = f"cache {q} #{rnd}"
-                kb.reset_counts()
+                _reset_counts()
                 t0 = time.perf_counter()
                 with shapes:
                     out = s.sql(tpch.SQL_QUERIES[q]).collect()
@@ -5325,27 +5397,34 @@ CSV_ORC_SECTIONS = TPCH_SECTIONS + ("scan.decode", "scan.orcHost",
 _GSS, _SSS = "segreduce.gather_seg_scan", "segreduce.seg_scan_sorted"
 # only the aggregates launch: the ORC and CSV decodes are torch ops.  q6's
 # count follows its batches (32 stripes at SF10, 8 at SF 2); the CSV scans
-# give one batch per file, 8 files at both scales
+# give one batch per file, 8 files at both scales.  Since PR 21 a shuffled
+# join makes one pair, and the aggregate above it one batch, per spec of
+# its adaptive readers (partitions under the 64 MiB advisory size
+# coalesce, more of them at SF 2): the routes of q3, q5, q10 and q14 from
+# ORC and q2, q11 and q16 from text, and q14's (SF 2) and q11's (SF10)
+# counts, were re-pinned
 ORC_COUNTS = {sf: {"q1": {_GSS: 56, _SSS: 4}, "q3": {_GSS: 16},
                    "q5": {_GSS: 8}, "q6": {_GSS: q6}, "q10": {_GSS: 16},
-                   "q12": {_GSS: 8}, "q14": {_GSS: 36}, "q19": {_GSS: 18}}
-              for sf, q6 in ((10.0, 66), (2.0, 18))}
+                   "q12": {_GSS: 8}, "q14": {_GSS: q14}, "q19": {_GSS: 18}}
+              for sf, q6, q14 in ((10.0, 66, 36), (2.0, 18, 20))}
 ORC_FALLBACKS = {sf: {q: {} for q in TPCH_SQL} for sf in (10.0, 2.0)}
 ORC_ROUTES = {sf: {"q1": _NO_JOIN, "q6": _NO_JOIN,
-                   "q3": {"join.route.probe": 0, "join.route.sort": 16},
-                   "q5": {"join.route.probe": 0, "join.route.sort": 40},
-                   "q10": {"join.route.probe": 0, "join.route.sort": 24},
+                   "q3": {"join.route.probe": 0, "join.route.sort": q3},
+                   "q5": {"join.route.probe": 0, "join.route.sort": q5},
+                   "q10": {"join.route.probe": 0, "join.route.sort": q10},
                    "q12": {"join.route.probe": 0, "join.route.sort": 8},
-                   "q14": {"join.route.probe": 0, "join.route.sort": 8},
+                   "q14": {"join.route.probe": 0, "join.route.sort": q14},
                    "q19": {"join.route.probe": 0, "join.route.sort": 8}}
-              for sf in (10.0, 2.0)}
-CSV_COUNTS = {sf: {"q2": {_GSS: 24}, "q11": {_GSS: 34}, "q16": {_SSS: 8},
-                   "q6": {_GSS: 18}} for sf in (10.0, 2.0)}
+              for sf, q3, q5, q10, q14 in ((10.0, 12, 36, 24, 8),
+                                           (2.0, 10, 33, 18, 4))}
+CSV_COUNTS = {sf: {"q2": {_GSS: 24}, "q11": {_GSS: q11}, "q16": {_SSS: 8},
+                   "q6": {_GSS: 18}} for sf, q11 in ((10.0, 24), (2.0, 34))}
 CSV_FALLBACKS = {sf: {q: {} for q in CSV_QUERIES} for sf in (10.0, 2.0)}
-CSV_ROUTES = {sf: {"q2": {"join.route.probe": 0, "join.route.sort": 64},
-                   "q11": {"join.route.probe": 0, "join.route.sort": 32},
-                   "q16": {"join.route.probe": 0, "join.route.sort": 16},
-                   "q6": _NO_JOIN} for sf in (10.0, 2.0)}
+CSV_ROUTES = {sf: {"q2": {"join.route.probe": 0, "join.route.sort": q2},
+                   "q11": {"join.route.probe": 0, "join.route.sort": q11},
+                   "q16": {"join.route.probe": 0, "join.route.sort": q16},
+                   "q6": _NO_JOIN}
+              for sf, q2, q11, q16 in ((10.0, 27, 14, 10), (2.0, 52, 32, 9))}
 # the scans' fallbackColumns / fallbackFiles of each query (ORC: the
 # columns of each stripe the device decode does not cover: at SF10
 # o_orderkey passes 2^24 and its DIRECT runs go to Arrow, in each of the
@@ -5692,7 +5771,7 @@ def phase_oocore(root: str, t: dict, sf: float):
                                     spill_dir}))):
                 tag = f"oocore {q} {form}"
                 view = reg.view()
-                kb.reset_counts()
+                _reset_counts()
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 with shapes if form == "grace" else contextlib.nullcontext():
@@ -5800,7 +5879,7 @@ def _obs_q6(root: str, ref: pa.Table, card: str) -> None:
         check_q6(dfs[form].collect(), ref)      # cold: the plan cache
     walls = {"profiled": [], "unprofiled": []}
     outs = {}
-    kb.reset_counts()
+    _reset_counts()
     for i in range(OBS_RUNS):
         order = ("profiled", "unprofiled") if i % 2 == 0 else \
             ("unprofiled", "profiled")
@@ -6108,7 +6187,7 @@ def _sched_concurrency(s, root: str, card: str):
     watcher = threading.Thread(target=watch, name="sched-watch")
     watcher.start()
     try:
-        kb.reset_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         futs = [df.collect_async() for df in dfs]
         outs = [f.result(timeout=300) for f in futs]
@@ -6195,6 +6274,7 @@ def _sched_deadline(tpch_root: str, q6_root: str, ref: pa.Table,
     for _ in range(2):
         # twice: what the first run leaves allocated beyond the query
         # (first-call state) shows as a difference between the two
+        _clear_share()
         gc.collect()
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
@@ -6209,6 +6289,9 @@ def _sched_deadline(tpch_root: str, q6_root: str, ref: pa.Table,
         started = fut.profile is not None and fut.profile.plan is not None
         state = fut.state
         del fut
+        # the shared-scan window may keep up to its 64 MiB of q10's scan
+        # batches by design: drop them, so what is left is the query's
+        _clear_share()
         gc.collect()
         torch.cuda.synchronize()
         mem1 = torch.cuda.memory_allocated()
@@ -6421,7 +6504,7 @@ def _compile_oom(card: str) -> None:
                                    dtype=torch.uint8, device=COMPILE_DEVICE))
         free_fill = torch.cuda.mem_get_info()[0]
         view = reg.view()
-        kb.reset_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         out = df.collect().sort_by("ss_item_sk")     # must not raise
         wall = time.perf_counter() - t0
@@ -6484,7 +6567,7 @@ def _compile_counts(root: str, ref: pa.Table, card: str):
     deltas = {}
     for run in ("cold", "warm"):
         view = reg.view()
-        kb.reset_counts()
+        _reset_counts()
         out, _wall, ev = _timed_collect(df)
         check_q6(out, ref)
         _check_launches(f"compile q6 {run}", kb.launches, kb.fallbacks,
@@ -6811,6 +6894,450 @@ def phase_io_modes() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 8n. adaptive reads, the skew split, shared scans and the precompile service
+# ---------------------------------------------------------------------------
+
+ADAPTIVE_QUERIES = ("q3", "q10")
+ADAPTIVE_OFF = {"spark.rapids.tpu.sql.adaptive.enabled": False}
+
+
+def _readers(plan, name: str) -> list:
+    return [n for n in _plan_nodes(plan) if type(n).__name__ == name]
+
+
+def _spec_summary(readers) -> str:
+    """Per coordinated join (side 0's reader): its spec count against the
+    exchange's partitions, and how many specs coalesce or split."""
+    from spark_rapids_tpu_torch.exec import adaptive
+    out = []
+    for r in readers:
+        if r.side:
+            continue
+        specs = [sp[0] for sp in r.state.specs or ()]
+        split = sum(isinstance(sp, adaptive.SkewSplitSpec) for sp in specs)
+        merged = sum(isinstance(sp, adaptive.CoalescedSpec)
+                     and sp.end - sp.start > 1 for sp in specs)
+        out.append(f"{len(specs)} specs over "
+                   f"{r.children[0].partitioning.num_partitions} "
+                   f"partitions ({merged} coalesced, {split} split)")
+    return "; ".join(out)
+
+
+def phase_adaptive(root: str, t: dict, sf: float):
+    """q3 and q10 over the tpch phase's Parquet files at the reference's
+    defaults (adaptive reads on) and with ``sql.adaptive.enabled`` off:
+    the default plan reads every shuffled join's two exchanges through
+    ``TpuAdaptiveJoinReaderExec`` (the off plan through none), both
+    forms' rows equal pyarrow's and each other's, and each form's cold
+    wall, spill, peak memory, launches and spec lists are printed."""
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    card = _card()
+    reg = obsreg.get_registry()
+    for q in ADAPTIVE_QUERIES:
+        ref = tpch_reference(q, t)
+        run = tpch_run(q, root)
+        outs, walls = {}, {}
+        for form, conf in (("adaptive", {}), ("off", ADAPTIVE_OFF)):
+            tag = f"adaptive {q} {form} (SF {sf:g})"
+            view = reg.view()
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out, plan = run(conf)
+            torch.cuda.synchronize()
+            walls[form] = time.perf_counter() - t0
+            launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+            c = view.delta()["counters"]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            readers = _readers(plan, "TpuAdaptiveJoinReaderExec")
+            joins = _readers(plan, "TpuShuffledHashJoinExec")
+            if form == "adaptive":
+                kids = [[type(k).__name__ for k in j.children]
+                        for j in joins]
+                if not joins or any(k != ["TpuAdaptiveJoinReaderExec"] * 2
+                                    for k in kids) or any(
+                        type(r.children[0]).__name__ !=
+                        "TpuShuffleExchangeExec" for r in readers):
+                    fail(f"{tag}: the shuffled joins read {kids}")
+            elif readers:
+                fail(f"{tag}: adaptive readers with the key off")
+            rel = check_rows(tag, out, ref)
+            _check_launches(tag, launches, fallbacks,
+                            ["decode.unpack_bits",
+                             "segreduce.gather_seg_scan"])
+            _catalog_empty(tag)
+            outs[form] = out
+            log(f"{tag}: {out.num_rows} rows match pyarrow (float max rel "
+                f"{rel:.3g}); cold wall {walls[form] * 1e3:.1f} ms; "
+                f"{len(joins)} shuffled joins"
+                + (f", {_spec_summary(readers)}" if readers else "")
+                + f"; spilled device->host "
+                f"{int(c.get('spill.deviceToHostBytes', 0))} B; peak "
+                f"device memory {peak:.2f} GiB; launches {launches} "
+                f"[{card}]")
+        rel = check_rows(f"adaptive {q} on vs off", outs["adaptive"],
+                         outs["off"])
+        log(f"adaptive {q}: the adaptive rows equal the bare exchanges' "
+            f"(float max rel {rel:.3g}); cold wall "
+            f"{walls['adaptive'] * 1e3:.1f} ms against "
+            f"{walls['off'] * 1e3:.1f} ms ({walls['adaptive'] / walls['off']:.2f}x)"
+            f" [{card}]")
+
+
+# tests/test_join_oocore.py:273-280's shape at 2^26 fact rows: 60% of the
+# rows on key 7, the rest uniform over 500 keys; the dimension holds
+# every key once
+SKEW_FACT_ROWS = 1 << 26
+SKEW_KEYS = 500
+SKEW_SEED = 3
+SKEW_CONF = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+             "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1,
+             "spark.rapids.tpu.sql.shuffle.partitions": 16}
+SKEW_FORMS = {
+    "split": {"spark.rapids.tpu.sql.join.skew.enabled": True},
+    # the unsplit run: no skew split and no adaptive split either
+    "unsplit": ADAPTIVE_OFF,
+    "adaptive": {}}
+SKEW_COUNTERS = ("shuffle.skew.detected", "shuffle.skew.splits",
+                 "shuffle.skew.broadcasts", "shuffle.skew.replications")
+
+
+def skew_tables():
+    rng = np.random.default_rng(SKEW_SEED)
+    n = SKEW_FACT_ROWS
+    keys = np.where(rng.random(n) < 0.6, 7,
+                    rng.integers(0, SKEW_KEYS, n)).astype(np.int64)
+    fact = pa.table({"k": keys, "lv": rng.integers(0, 1000, n)})
+    dim = pa.table({"k2": np.arange(SKEW_KEYS, dtype=np.int64),
+                    "rv": rng.integers(0, 1000, SKEW_KEYS)})
+    return fact, dim
+
+
+def skew_reference(fact: pa.Table, dim: pa.Table) -> pa.Table:
+    k = fact["k"].to_numpy()
+    prod = fact["lv"].to_numpy() * dim["rv"].to_numpy()[k]
+    cnt = np.bincount(k, minlength=SKEW_KEYS)
+    s = np.zeros(SKEW_KEYS, dtype=np.int64)
+    np.add.at(s, k, prod)
+    keep = cnt > 0
+    return pa.table({"k": np.arange(SKEW_KEYS, dtype=np.int64)[keep],
+                     "s": s[keep], "c": cnt[keep]})
+
+
+def phase_skew():
+    """The skew join under ``sql.join.skew.enabled``: the 2^26-row fact
+    table joined to its 500-row dimension and aggregated per key, on port
+    sessions on cuda with broadcasts off and 16 shuffle partitions.  The
+    split plan reads both exchanges through TpuSkewJoinReaderExec and
+    counts a detected bucket, at least two splits and a broadcast or a
+    replication; its rows equal the unsplit run's (and, alone, the
+    default adaptive reader's) and numpy's; each wall and the
+    gather_seg_scan launches are printed.  Returns (launches, classes,
+    names) of the split run."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession, col, functions as F
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    card = _card()
+    t0 = time.perf_counter()
+    fact, dim = skew_tables()
+    ref = skew_reference(fact, dim)
+    log(f"skew: {fact.num_rows} fact rows ({fact.nbytes} B) and the numpy "
+        f"reference in {time.perf_counter() - t0:.1f} s")
+    reg = obsreg.get_registry()
+    shapes = ShapeRecorder()
+    outs, split_launches = {}, None
+    forms = ("split", "unsplit") if WHOLE_SMOKE else tuple(SKEW_FORMS)
+    for form in forms:
+        tag = f"skew {form}"
+        s = TpuSparkSession(dict(SKEW_CONF, **SKEW_FORMS[form]),
+                            device="cuda")
+        plans = []
+        s.add_plan_listener(lambda r: plans.append(r.plan))
+        df = (s.create_dataframe(fact, num_partitions=8)
+              .join(s.create_dataframe(dim), col("k") == col("k2"))
+              .group_by("k").agg(F.sum(col("lv") * col("rv")).alias("s"),
+                                 F.count("*").alias("c")))
+        view = reg.view()
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with shapes if form == "split" else contextlib.nullcontext():
+            out = df.collect()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+        c = view.delta()["counters"]
+        skew = {k: int(c.get(k, 0)) for k in SKEW_COUNTERS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out = out.sort_by("k")
+        if not out.equals(ref):
+            fail(f"{tag}: the rows differ from numpy's")
+        _check_launches(tag, launches, fallbacks,
+                        ["segreduce.gather_seg_scan"])
+        _catalog_empty(tag)
+        names = [type(n).__name__ for n in _plan_nodes(plans[-1])]
+        if form == "split":
+            if names.count("TpuSkewJoinReaderExec") != 2:
+                fail(f"{tag}: the plan holds {names}")
+            if skew["shuffle.skew.detected"] < 1 or \
+                    skew["shuffle.skew.splits"] < 2 or \
+                    skew["shuffle.skew.broadcasts"] + \
+                    skew["shuffle.skew.replications"] < 1:
+                fail(f"{tag}: the skew counters are {skew}")
+            split_launches = launches
+        elif any(skew.values()) or "TpuSkewJoinReaderExec" in names:
+            fail(f"{tag}: the skew plane ran ({skew})")
+        readers = _readers(plans[-1], "TpuAdaptiveJoinReaderExec")
+        outs[form] = out
+        log(f"{tag}: {out.num_rows} groups equal numpy's; wall "
+            f"{wall * 1e3:.1f} ms; skew counters {skew}"
+            + (f"; {_spec_summary(readers)}" if readers else "")
+            + f"; gather_seg_scan launches "
+            f"{launches.get('segreduce.gather_seg_scan', 0)}; launches "
+            f"{launches}; peak device memory {peak:.2f} GiB [{card}]")
+    for form in forms[1:]:
+        if not outs[form].equals(outs["split"]):
+            fail(f"skew: the {form} rows differ from the split run's")
+    log(f"skew: the split rows equal the {', '.join(forms[1:])} runs' "
+        f"[{card}]")
+    return split_launches, shapes.classes, sorted(split_launches)
+
+
+# q6's filtered scan read by a second aggregate: the same columns and the
+# same pushed filter, so the two plans' scans have one share key
+def share_query(session, path, price: float = 150.0):
+    from spark_rapids_tpu_torch.api import col, functions as F
+    return (session.read.parquet(path)
+            .filter(col("ss_sales_price") > price)
+            .group_by("ss_item_sk")
+            .agg(F.max("ss_quantity").alias("mq"),
+                 F.sum("ss_ext_sales_price").alias("sesp")))
+
+
+# two query slots; a retention window that holds every decoded batch of
+# the SF10 files, so a subscriber a batch behind still shares it
+SHARE_CONF = dict(SCAN_CONF, **{
+    "spark.rapids.tpu.sql.variableFloatAgg.enabled": True,
+    "spark.rapids.tpu.sched.maxConcurrent": 2,
+    "spark.rapids.tpu.sql.scan.shared.windowBytes": 16 << 30})
+SHARE_COUNTERS = ("scan.shared.subscribers", "scan.shared.dedupedDecodes",
+                  "scan.shared.multicastBatches")
+SHARE_DECODES = ("decode.unpack_bits", "filter_decode.decode")
+
+
+def _clear_share() -> None:
+    from spark_rapids_tpu_torch.io import scan_share
+    share = scan_share.peek_share()
+    if share is not None:
+        share.clear()
+
+
+def phase_share(root: str, ref: pa.Table):
+    """Two different aggregates over q6's filtered scan of the SF10
+    files (q6 and ``share_query``) submitted at once on one port session
+    on cuda with two query slots: with sharing on, the ``scan.shared.*``
+    counters are at least 1 and the decode launches equal one query's;
+    with it off, twice that.  Each result equals its serial run bit for
+    bit (q6 also pyarrow); each pair's wall, spilled bytes and peak device
+    memory; an empty spill catalog after.  Returns (launches, classes,
+    names) of the shared pair."""
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.obs import registry as obsreg
+    card = _card()
+    reg = obsreg.get_registry()
+    shapes = ShapeRecorder()
+    shared_launches = None
+    for shared in (True, False):
+        tag = f"share {'on' if shared else 'off'}"
+        s = TpuSparkSession(dict(SHARE_CONF, **{
+            "spark.rapids.tpu.sql.scan.shared.enabled": shared}),
+            device="cuda")
+        dfs = (bench_query(s, root), share_query(s, root))
+        serial, one = [], None
+        for i, df in enumerate(dfs):
+            _clear_share()
+            _reset_counts()
+            out = df.collect()
+            torch.cuda.synchronize()
+            if i == 0:
+                check_q6(out, ref)
+                one = {k: kb.launches.get(k, 0) for k in SHARE_DECODES}
+            serial.append(out.sort_by("ss_item_sk"))
+        _clear_share()
+        view = reg.view()
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with shapes if shared else contextlib.nullcontext():
+            futs = [df.collect_async() for df in dfs]
+            outs = [f.result(timeout=300) for f in futs]
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, fallbacks = dict(kb.launches), dict(kb.fallbacks)
+        c = view.delta()["counters"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _clear_share()
+        counters = {k: int(c.get(k, 0)) for k in SHARE_COUNTERS}
+        decodes = {k: launches.get(k, 0) for k in SHARE_DECODES}
+        for a, b in zip(serial, outs):
+            if not a.equals(b.sort_by("ss_item_sk")):
+                fail(f"{tag}: a concurrent result differs from its serial "
+                     f"run")
+        waits = [f.queue_wait_ns for f in futs]
+        if any(waits):
+            fail(f"{tag}: a query waited for a slot ({waits} ns)")
+        if shared:
+            if min(counters.values()) < 1:
+                fail(f"{tag}: the sharing counters are {counters}")
+            if decodes != one:
+                fail(f"{tag}: decode launches {decodes} != one query's "
+                     f"{one}")
+            shared_launches = launches
+        elif any(counters.values()) or \
+                decodes != {k: 2 * v for k, v in one.items()}:
+            fail(f"{tag}: counters {counters}, decode launches {decodes} "
+                 f"(one query's {one})")
+        _check_launches(tag, launches, fallbacks, Q6P_KERNELS)
+        _catalog_empty(tag)
+        log(f"{tag}: q6 and a second aggregate over its scan at once in "
+            f"{wall * 1e3:.1f} ms, each equal to its serial run bit for "
+            f"bit; {counters}; decode launches {decodes} (one query "
+            f"{one}); launches {launches}; spilled device->host "
+            f"{int(c.get('spill.deviceToHostBytes', 0))} B, host->disk "
+            f"{int(c.get('spill.hostToDiskBytes', 0))} B; peak device "
+            f"memory {peak:.2f} GiB [{card}]")
+    return shared_launches, shapes.classes, sorted(shared_launches)
+
+
+PRECOMPILE_CHILD = "precompile-child"
+
+
+def _precompile_child(mode: str, root: str, corpus: str, out_path: str,
+                      build_dir: str = "") -> int:
+    """One process of the precompile phase.  ``write``: q6 over ``root``
+    on a session that appends the compile corpus to ``corpus``.
+    ``replay``: the kernel libraries build into the empty ``build_dir``;
+    a session with ``sched.precompile.enabled`` replays ``corpus`` and
+    waits for it, then runs q6 and reports its first calls.  Writes q6's
+    rows to ``out_path`` and prints one JSON line."""
+    from pathlib import Path
+    from spark_rapids_tpu_torch.api import TpuSparkSession
+    from spark_rapids_tpu_torch.obs import compile as obscompile
+    rec = {"mode": mode}
+    conf = dict(SCAN_CONF, **{
+        "spark.rapids.tpu.sql.variableFloatAgg.enabled": True})
+    if mode == "write":
+        conf["spark.rapids.tpu.obs.compile.corpusPath"] = corpus
+    else:
+        _build.BUILD_DIR = Path(build_dir)
+        conf.update({"spark.rapids.tpu.sched.precompile.enabled": True,
+                     "spark.rapids.tpu.sched.precompile.corpusPath": corpus,
+                     "spark.rapids.tpu.sched.precompile.idleWaitMs": 0,
+                     # the q6's own corpus, to name its programs' libraries
+                     "spark.rapids.tpu.obs.compile.corpusPath":
+                         corpus + ".replayed"})
+    t0 = time.perf_counter()
+    s = TpuSparkSession(conf, device="cuda")
+    if mode == "replay":
+        svc = s.precompile_service
+        if not svc.wait(timeout=900):
+            print(json.dumps({"error": "the replay did not finish"}))
+            return 1
+        rec["replay"] = svc.stats()
+        rec["built_by_replay"] = sorted(_build.compiler_output)
+        rec["replay_s"] = time.perf_counter() - t0
+    obscompile.reset()
+    _reset_counts()
+    t1 = time.perf_counter()
+    out = bench_query(s, root).collect()
+    torch.cuda.synchronize()
+    rec["q6_ms"] = (time.perf_counter() - t1) * 1e3
+    rec["launches"] = dict(kb.launches)
+    rec["built_after_q6"] = sorted(_build.compiler_output)
+    rec["events"] = [{k: e[k] for k in ("family", "key", "signature",
+                                         "tier", "wall_ms")}
+                     for e in obscompile.events()]
+    papq.write_table(out, out_path)
+    print(json.dumps(rec))
+    return 0
+
+
+def _run_child(*args) -> dict:
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), PRECOMPILE_CHILD,
+         *args], capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"precompile {args[0]}: exit {proc.returncode}\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_precompile(root: str, ref: pa.Table):
+    """A process runs q6 over the SF10 files and writes the compile
+    corpus; a fresh process with an empty build directory and
+    ``sched.precompile.enabled`` replays it, so ``nvcc`` runs in the
+    replay; that process's first q6 then builds nothing, every first call
+    that launches a kernel library is ``persistent`` (none ``fresh``),
+    and both processes' rows equal pyarrow's."""
+    card = _card()
+    d = _parquet_dir("precompile")
+    try:
+        corpus = os.path.join(d, "corpus.jsonl")
+        build_dir = os.path.join(d, "build")
+        os.makedirs(build_dir)
+        t0 = time.perf_counter()
+        w = _run_child("write", root, corpus, os.path.join(d, "w.parquet"))
+        write_s = time.perf_counter() - t0
+        check_q6(papq.read_table(os.path.join(d, "w.parquet")), ref)
+        programs = [p for line in open(corpus)
+                    for p in json.loads(line)["programs"]]
+        payloads = [p for p in programs if p["replay"]]
+        libs = sorted({n for p in payloads
+                       for n in json.loads(p["replay"])["libraries"]})
+        if not payloads or set(libs) != {"decode", "filter_decode",
+                                         "segreduce"}:
+            fail(f"precompile: the corpus's payloads name {libs} "
+                 f"({len(payloads)} of {len(programs)} programs)")
+        t0 = time.perf_counter()
+        r = _run_child("replay", root, corpus, os.path.join(d, "r.parquet"),
+                       build_dir)
+        replay_s = time.perf_counter() - t0
+        check_q6(papq.read_table(os.path.join(d, "r.parquet")), ref)
+        st = r["replay"]
+        if st["warmed"] < 1 or st["failed"] or st["built"] < 1 or \
+                st["warmed"] + st["skipped"] != st["programs"]:
+            fail(f"precompile: the replay counted {st}")
+        if r["built_after_q6"] != r["built_by_replay"] or \
+                set(r["built_by_replay"]) != set(libs):
+            fail(f"precompile: nvcc built {r['built_by_replay']} in the "
+                 f"replay and {r['built_after_q6']} after q6")
+        replayed = [p for line in open(corpus + ".replayed")
+                    for p in json.loads(line)["programs"]]
+        kernel_progs = {(p["key"], p["signature"]) for p in replayed
+                        if p["replay"]}
+        tiers = {(e["key"], e["signature"]): e["tier"] for e in r["events"]}
+        fresh_kernel = [k for k in kernel_progs if tiers.get(k) != "persistent"]
+        if not kernel_progs or fresh_kernel:
+            fail(f"precompile: first calls over kernel libraries not "
+                 f"persistent: {fresh_kernel} of {sorted(kernel_progs)}")
+        _check_launches("precompile q6", r["launches"], {}, Q6P_KERNELS)
+        fresh = sorted({e["family"] for e in r["events"]
+                        if e["tier"] == "fresh"})
+        log(f"precompile: the corpus of q6 holds {len(programs)} programs, "
+            f"{len(payloads)} with a payload naming {libs} (written in "
+            f"{write_s:.1f} s); the replay process ({replay_s:.1f} s) "
+            f"built {r['built_by_replay']} into an empty build directory "
+            f"in {r['replay_s']:.1f} s, counting {st}; its first q6 "
+            f"({r['q6_ms']:.1f} ms) built nothing, its "
+            f"{len(kernel_progs)} first calls over kernel libraries all "
+            f"persistent, {len(r['events']) - len(kernel_progs)} other "
+            f"first calls (families {fresh} fresh: no kernel library); "
+            f"both processes' rows equal pyarrow's; write process q6 "
+            f"{w['q6_ms']:.1f} ms [{card}]")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # 9. kernel timings at the q6 shapes
 # ---------------------------------------------------------------------------
 
@@ -6995,9 +7522,12 @@ def phase_timing(paths):
 
 ALL_PHASES = ["build", "parity", "entry", "q6", "q6p", "q6pf", "session",
               "pipeline", "q6s", "star", "window", "shuffle", "strings",
-              "customer-etl", "mortgage", "tpch", "oocore", "obs", "sched",
-              "csv-orc", "compile", "modes", "window-modes", "shuffle-modes",
+              "customer-etl", "mortgage", "skew", "tpch", "oocore",
+              "adaptive", "obs", "sched", "csv-orc", "compile", "share",
+              "precompile", "modes", "window-modes", "shuffle-modes",
               "string-modes", "tail-modes", "io-modes"]
+# the phases that read the SF10 q6 files after oocore (kept until then)
+Q6_FILE_PHASES = {"obs", "sched", "compile", "share", "precompile"}
 
 
 def main() -> int:
@@ -7006,6 +7536,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     global WHOLE_SMOKE
+    if len(sys.argv) > 1 and sys.argv[1] == PRECOMPILE_CHILD:
+        return _precompile_child(*sys.argv[2:])
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else ALL_PHASES
     WHOLE_SMOKE = set(ALL_PHASES) <= set(phases)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} pyarrow "
@@ -7039,13 +7571,14 @@ def main() -> int:
         runs["q6"] = ("q6", *phase_q6(), SEGREDUCE)
         done("q6")
     q6_files = None
-    if {"q6p", "q6pf", "session", "pipeline", "obs", "sched",
-            "compile"} & set(phases):
+    if {"q6p", "q6pf", "session", "pipeline"} & set(phases) or \
+            Q6_FILE_PHASES & set(phases):
         root = _parquet_dir("q6-parquet")
         try:
             ref = write_q6_files(root)
-            if {"obs", "sched", "compile"} & set(phases):
-                # the obs, sched and compile phases read them after oocore
+            if Q6_FILE_PHASES & set(phases):
+                # the obs, sched, compile, share and precompile phases
+                # read them after oocore
                 _KEPT_DIRS.append(root)
                 q6_files = (root, ref)
             for key, tag, fn, names in (
@@ -7111,15 +7644,21 @@ def main() -> int:
     if "mortgage" in phases:
         runs["mortgage"] = ("mortgage", *phase_mortgage())
         done("mortgage")
-    if {"tpch", "csv-orc", "oocore", "obs", "sched"} & set(phases):
-        # the five share the generated tables; tpch, oocore, obs and sched
-        # read the Parquet files, csv-orc writes its own ORC and CSV
-        # files; obs and sched alone run at the whole smoke's scale
+    if "skew" in phases:
+        runs["skew"] = ("skew", *phase_skew())
+        done("skew")
+    if {"tpch", "csv-orc", "oocore", "adaptive", "obs", "sched"} & \
+            set(phases):
+        # the six share the generated tables; tpch, oocore, adaptive, obs
+        # and sched read the Parquet files, csv-orc writes its own ORC and
+        # CSV files; obs and sched alone run at the whole smoke's scale
         sf = TPCH_SF_WHOLE if WHOLE_SMOKE or not (
-            {"tpch", "csv-orc", "oocore"} & set(phases)) else TPCH_SF
+            {"tpch", "csv-orc", "oocore", "adaptive"} & set(phases)) \
+            else TPCH_SF
         root = _parquet_dir("tpch")
         try:
-            if {"tpch", "oocore", "obs", "sched"} & set(phases):
+            if {"tpch", "oocore", "adaptive", "obs", "sched"} & \
+                    set(phases):
                 t = write_tpch_files(root, sf)
             else:
                 from spark_rapids_tpu_torch.bench import tpch
@@ -7132,6 +7671,9 @@ def main() -> int:
             if "oocore" in phases:
                 runs["oocore"] = ("oocore", *phase_oocore(root, t, sf))
                 done("oocore")
+            if "adaptive" in phases:
+                phase_adaptive(root, t, sf)
+                done("adaptive")
             if "obs" in phases:
                 phase_obs(*q6_files, root, t)
                 done("obs")
@@ -7148,6 +7690,12 @@ def main() -> int:
     if "compile" in phases:
         phase_compile(*q6_files)
         done("compile")
+    if "share" in phases:
+        runs["share"] = ("share", *phase_share(*q6_files))
+        done("share")
+    if "precompile" in phases:
+        phase_precompile(*q6_files)
+        done("precompile")
     if q6_files is not None:
         shutil.rmtree(q6_files[0], ignore_errors=True)
     if "modes" in phases:
@@ -7172,8 +7720,8 @@ def main() -> int:
     if set(ALL_PHASES) <= set(phases):
         kernels = phase_timing([runs[k] for k in (
             "q6", "q6p", "q6s", "q6pf", "star", "window", "shuffle",
-            "strings", "customer-etl", "mortgage", "tpch", "cache",
-            "oocore", "csv-orc")])
+            "strings", "customer-etl", "mortgage", "skew", "tpch",
+            "cache", "oocore", "csv-orc", "share")])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     card = _card()
     _write_log()

@@ -44,8 +44,11 @@ is one) and the slow-query log (``obs.slowQueryMs``).  A query rejected
 before admission, or a single-flight follower, gets a stub profile
 through the same ring, listeners and log.  ``obs.http.enabled`` starts
 the telemetry endpoint (``obs_server``) and ``obs.sentinel.enabled`` the
-drift sentinel (``sentinel``).  Not ported yet: serving, precompile and
-the fleet.
+drift sentinel (``sentinel``).  ``sched.precompile.enabled`` starts the
+precompile service (``precompile_service``, sched/precompile.py) on the
+corpus of ``sched.precompile.corpusPath`` or ``obs.compile.corpusPath``.
+Not ported yet: serving and the fleet (so the reference's replay of a
+fleet store's shared corpus directory waits for them).
 """
 
 from __future__ import annotations
@@ -112,7 +115,9 @@ class TpuSparkSession:
             storm_threshold=int(self.conf.get(
                 cfg.OBS_COMPILE_STORM_THRESHOLD)),
             corpus_path=str(self.conf.get(
-                cfg.OBS_COMPILE_CORPUS_PATH) or ""))
+                cfg.OBS_COMPILE_CORPUS_PATH) or ""),
+            corpus_replay=bool(self.conf.get(
+                cfg.OBS_COMPILE_CORPUS_REPLAY)))
         from spark_rapids_tpu_torch.obs import accounting as obs_accounting
         obs_accounting.configure(
             bool(self.conf.get(cfg.OBS_ACCOUNTING_ENABLED)))
@@ -174,6 +179,20 @@ class TpuSparkSession:
                 jsonl_max_bytes=int(self.conf.get(
                     cfg.OBS_SLOW_QUERY_MAX_BYTES)))
             self._sentinel.start()
+        # the precompile service: off by default; replays the corpus on
+        # a daemon thread, yielding to live queries
+        self._precompile_service = None
+        if self.conf.get(cfg.SCHED_PRECOMPILE_ENABLED):
+            from spark_rapids_tpu_torch.sched.precompile import \
+                PrecompileService
+            corpus = (str(self.conf.get(
+                cfg.SCHED_PRECOMPILE_CORPUS_PATH) or "") or
+                str(self.conf.get(cfg.OBS_COMPILE_CORPUS_PATH) or ""))
+            self._precompile_service = PrecompileService(
+                self, corpus,
+                idle_wait_ms=int(self.conf.get(
+                    cfg.SCHED_PRECOMPILE_IDLE_WAIT_MS)))
+            self._precompile_service.start()
 
     # -- conf --------------------------------------------------------------
     def set_conf(self, key: str, value: Any) -> None:
@@ -582,6 +601,15 @@ class TpuSparkSession:
         ``sentinel.stats()`` reports ticks/breaches/episodes;
         ``sentinel.stop()`` halts the watcher thread."""
         return self._sentinel
+
+    @property
+    def precompile_service(self):
+        """The background precompile service
+        (sched/precompile.PrecompileService) when this session was
+        created with ``sched.precompile.enabled=true``; None otherwise.
+        ``precompile_service.wait()`` blocks until the initial corpus
+        replay finishes; ``precompile_service.stop()`` ends it early."""
+        return self._precompile_service
 
     @property
     def flight_recorder(self):

@@ -177,6 +177,34 @@ SHUFFLE_PARTITIONS = conf(
     "spark.rapids.tpu.sql.shuffle.partitions", 8,
     "Default number of shuffle partitions.", int)
 
+ADAPTIVE_ENABLED = conf(
+    "spark.rapids.tpu.sql.adaptive.enabled", True,
+    "Adaptive shuffle reads: after a join's exchanges materialize, "
+    "coalesce undersized reduce partitions and split skewed ones using "
+    "the measured per-partition sizes (exec/adaptive.py; the AQE "
+    "CustomShuffleReaderExec analog).", bool)
+
+ADAPTIVE_ADVISORY_PARTITION_SIZE = conf(
+    "spark.rapids.tpu.sql.adaptive.advisoryPartitionSizeInBytes",
+    64 << 20,
+    "Target output partition size for adaptive coalescing and skew "
+    "splitting.", int)
+
+ADAPTIVE_MIN_PARTITION_NUM = conf(
+    "spark.rapids.tpu.sql.adaptive.coalescePartitions.minPartitionNum", 1,
+    "Lower bound on the post-coalesce partition count.", int)
+
+ADAPTIVE_SKEW_FACTOR = conf(
+    "spark.rapids.tpu.sql.adaptive.skewJoin.skewedPartitionFactor", 5,
+    "A partition is skewed if its bytes exceed this multiple of the "
+    "median partition size (and the absolute threshold).", int)
+
+ADAPTIVE_SKEW_THRESHOLD = conf(
+    "spark.rapids.tpu.sql.adaptive.skewJoin."
+    "skewedPartitionThresholdInBytes", 256 << 20,
+    "Absolute minimum bytes for a partition to be considered skewed.",
+    int)
+
 AUTO_BROADCAST_THRESHOLD = conf(
     "spark.rapids.tpu.sql.autoBroadcastJoinThreshold", 10 << 20,
     "Max estimated byte size of a join side to broadcast it (-1 "
@@ -314,6 +342,23 @@ SCAN_PREFETCH_DEPTH = conf(
     "k+1 overlaps decode of batch k; no device->host read happens "
     "before the terminal barrier). 0 disables pipelining.", int)
 
+SCAN_SHARED_ENABLED = conf(
+    "spark.rapids.tpu.sql.scan.shared.enabled", True,
+    "Multicast decoded scan batches across concurrent queries: when "
+    "two plans decode the same (file, row-group, column-set, stamp) "
+    "key at the same time, one decodes and every subscriber receives "
+    "the decoded batch (refcounted retention window; eviction is "
+    "always correctness-safe: a miss just re-decodes). Off reverts to "
+    "per-query decoding (io/scan_share.py).", bool)
+
+SCAN_SHARED_WINDOW_BYTES = conf(
+    "spark.rapids.tpu.sql.scan.shared.windowBytes", 64 << 20,
+    "Byte budget for the shared-scan multicast retention window "
+    "(decoded batches kept briefly so a slightly-behind subscriber "
+    "still shares the decode). LRU eviction; the window also registers "
+    "as a pressure spiller so memory pressure drops retained batches "
+    "first.", int)
+
 # ---------------------------------------------------------------------------
 # Memory, out-of-core join and admission keys (reference config.py:282-298,
 # :483-516, :739-753)
@@ -372,6 +417,40 @@ JOIN_OOCORE_MAX_RECURSION = conf(
     "a level fails to shrink the partition (a single hot key cannot "
     "hash-split), the join streams the probe side in chunks against "
     "the oversized build partition.", int)
+
+JOIN_SKEW_ENABLED = conf(
+    "spark.rapids.tpu.sql.join.skew.enabled", False,
+    "Runtime hot-bucket splitting at the shuffle boundary: the "
+    "map-output tracker aggregates per-(map, reduce-bucket) sizes as "
+    "map tasks complete; a probe-side bucket over "
+    "join.skew.bucketFactor x the median splits into sub-readers "
+    "BEFORE the reduce fetch, each joined against a replica (or "
+    "broadcast, when small) of the matching build bucket. Takes over "
+    "the skew half of the adaptive reader for eligible joins; off "
+    "(default) keeps the plan shape exactly.", bool)
+
+JOIN_SKEW_FACTOR = conf(
+    "spark.rapids.tpu.sql.join.skew.bucketFactor", 4.0,
+    "A reduce bucket is hot when its projected probe-side bytes exceed "
+    "this multiple of the median nonzero bucket size (and the "
+    "join.skew.minBucketBytes floor).", float)
+
+JOIN_SKEW_MIN_BUCKET_BYTES = conf(
+    "spark.rapids.tpu.sql.join.skew.minBucketBytes", 4 << 20,
+    "Absolute floor for hot-bucket detection: buckets under this many "
+    "bytes are never split regardless of the factor.", int)
+
+JOIN_SKEW_MAX_SPLITS = conf(
+    "spark.rapids.tpu.sql.join.skew.maxSplits", 8,
+    "Upper bound on the sub-readers one hot bucket splits into (the "
+    "split count otherwise targets the median bucket size).", int)
+
+JOIN_SKEW_BROADCAST_THRESHOLD = conf(
+    "spark.rapids.tpu.sql.join.skew.broadcastThresholdBytes", 8 << 20,
+    "When the hot bucket's matching build-side bucket is under this "
+    "many bytes it is broadcast (one shared device batch reused by "
+    "every sub-join); over it the bucket is still shared by reference "
+    "but counted as a replication.", int)
 
 SCHED_MEMORY_BUDGET = conf(
     "spark.rapids.tpu.sched.memoryBudget", 0,
@@ -600,6 +679,37 @@ OBS_COMPILE_CORPUS_PATH = conf(
     "one program, one record {plan_digest, query_id, programs: "
     "[{family, key, signature, backend, replay}]} is appended. Empty "
     "(default) disables corpus emission.")
+
+OBS_COMPILE_CORPUS_REPLAY = conf(
+    "spark.rapids.tpu.obs.compile.corpusReplay", True,
+    "Attach a replay payload to each corpus program record so the "
+    "precompile service (sched/precompile.py) can warm a fresh "
+    "process. The port's payload names the csrc libraries the program's "
+    "step loaded (kernels/_build.py), with the program's key and "
+    "signature; a program that loads none carries null and counts as "
+    "skipped at replay.", bool)
+
+SCHED_PRECOMPILE_ENABLED = conf(
+    "spark.rapids.tpu.sched.precompile.enabled", False,
+    "Start the background precompile service at session init "
+    "(sched/precompile.py): replays the precompile corpus "
+    "(sched.precompile.corpusPath, falling back to "
+    "obs.compile.corpusPath) at low priority, pausing whenever the "
+    "scheduler has live queries, so a restarted process builds or "
+    "reopens its kernel libraries off the serving path.", bool)
+
+SCHED_PRECOMPILE_CORPUS_PATH = conf(
+    "spark.rapids.tpu.sched.precompile.corpusPath", "",
+    "Corpus JSONL the precompile service replays (a file written by a "
+    "previous process via obs.compile.corpusPath). A DIRECTORY "
+    "replays every *.jsonl inside it. Empty: falls back to this "
+    "session's obs.compile.corpusPath.")
+
+SCHED_PRECOMPILE_IDLE_WAIT_MS = conf(
+    "spark.rapids.tpu.sched.precompile.idleWaitMs", 25,
+    "How long the precompile service sleeps between corpus programs, "
+    "and while waiting for the scheduler to drain live queries before "
+    "replaying the next one.", int)
 
 
 class RapidsTpuConf:

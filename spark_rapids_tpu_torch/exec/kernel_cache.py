@@ -32,10 +32,13 @@ A host scalar is a 0-d leaf: its value forms no new program.  Strings
 and other opaque values are structure, as the reference's static
 arguments are.
 
-The reference's JAX-only parts have no counterpart: ``jax.jit`` and its
-keyword arguments, ``_no_persistent_cache`` (a jax 0.4.37 donation
-bug), ``tile_plan`` (the Pallas tiler's VMEM plans), the replay payload
-of the precompile corpus and the legacy ``SRT_COMPILE_LOG`` ledger.
+The replay payload of the precompile corpus (``_replay_payload``) names
+the ``csrc`` libraries a program's first call launched kernels from
+(``kernels/backend.capture_begin``), in place of the reference's
+pickled jax traceable.  The reference's JAX-only parts have no
+counterpart: ``jax.jit`` and its keyword arguments,
+``_no_persistent_cache`` (a jax 0.4.37 donation bug), ``tile_plan`` (the
+Pallas tiler's VMEM plans) and the legacy ``SRT_COMPILE_LOG`` ledger.
 """
 
 from __future__ import annotations
@@ -214,6 +217,33 @@ class _ShapeSeen:
             return True
 
 
+def _replay_payload(libraries, key: Any, leaves) -> "str | None":
+    """The precompile corpus's replay payload of one program: a JSON
+    string naming the ``csrc`` libraries its step launched kernels from,
+    with the program's key and signature; None when it launched none
+    (replay counts it as skipped)."""
+    if not libraries:
+        return None
+    import json
+    from spark_rapids_tpu_torch.obs import compile as obscompile
+    return json.dumps({"libraries": sorted(libraries),
+                       "key": repr(key)[:200],
+                       "signature": obscompile.canonical_signature(leaves)},
+                      sort_keys=True)
+
+
+def load_replay_payload(payload: str) -> dict:
+    """Inverse of :func:`_replay_payload` (the precompile service's
+    decode half; lives here so the payload format has one owner).
+    Raises ValueError on a payload that names no library."""
+    import json
+    spec = json.loads(payload)
+    libs = spec.get("libraries") if isinstance(spec, dict) else None
+    if not libs or not all(isinstance(n, str) for n in libs):
+        raise ValueError(f"replay payload names no library: {payload!r}")
+    return spec
+
+
 def _observe_compiles(key: Any, fn: Callable,
                       backend: str = None) -> Callable:
     """Compile-observatory wrapper (obs/compile.py): the first call of
@@ -230,6 +260,7 @@ def _observe_compiles(key: Any, fn: Callable,
     then), so a later re-enable cannot report an already-seen shape's
     next dispatch as a first call.  Kernels BUILT while disabled stay
     unobserved for their lifetime."""
+    from spark_rapids_tpu_torch.kernels import backend as kb
     from spark_rapids_tpu_torch.obs import compile as obscompile
     fam = _family(key)
     bk = backend or ("pallas" if "pallas" in str(key) else "xla")
@@ -240,6 +271,7 @@ def _observe_compiles(key: Any, fn: Callable,
         if not seen.claim(sig):
             return fn(*args, **kwargs)
         probe = obscompile.probe_begin()
+        cap = kb.capture_begin()
         t0 = _time.perf_counter_ns()
         try:
             return fn(*args, **kwargs)
@@ -248,10 +280,17 @@ def _observe_compiles(key: Any, fn: Callable,
             # still paid its first-call cost, and the retry is no first
             # call
             dur = _time.perf_counter_ns() - t0
+            libs = sorted({n.split(".", 1)[0]
+                           for n in kb.capture_end(cap)})
+            replay = None
+            if obscompile.corpus_path() and \
+                    obscompile.corpus_replay_enabled():
+                replay = _replay_payload(libs, key, sig[1])
             obscompile.record_compile(
                 key=key, family=fam, backend=bk, leaves=sig[1],
                 t0_ns=t0, dur_ns=dur,
-                tier=obscompile.classify_tier(probe))
+                tier=obscompile.classify_tier(probe, libs),
+                replay=replay)
     return wrapped
 
 

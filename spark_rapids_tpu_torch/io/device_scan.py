@@ -35,9 +35,22 @@ not cover, counting it in ``fallbackFiles``.
 
 Hive partition-value columns are appended as constant columns (not by
 the CSV scan: the planner keeps a partitioned CSV scan on the host, as
-the reference does).  Not ported yet: scan sharing (io/scan_share.py),
-which acts across concurrent queries and waits for the query scheduler
-(``sched/``).
+the reference does).
+
+Shared scans (reference :232-370, ``sql.scan.shared.enabled``, on by
+default): each fused batch claims its content key in the process-wide
+``io/scan_share.ScanShare`` (file stamps, row groups, output columns,
+the pushed filter's signature, partition values, backend and device).
+The first claimant leads: it prepares and decodes as above and
+publishes the batch.  A query that claims the key while the flight is
+open, or while the batch is in the retention window, subscribes: it
+skips the host prep (and so the page walks) and the decode, and waits
+for the leader's batch outside the device semaphore.  When the leader
+fails or is cancelled, the subscriber decodes under a fresh claim, so a
+third query can still share its decode.  The reference also bars input
+donation for shared batches (its ``exec/fused_stage.py:155-170``); the
+port never donates an input buffer (port ``exec/fused_stage.py``), so
+nothing more is needed there.
 """
 
 from __future__ import annotations
@@ -272,6 +285,24 @@ class TpuParquetScanExec(TpuExec):
             self.copy_stream = CopyStream(self.device)
         copy_stream = self.copy_stream
 
+        # shared-scan multicast (io/scan_share): concurrent queries
+        # decoding the same (stamps, row groups, columns, filter) group
+        # share ONE host prep + device decode
+        share = None
+        share_keys: List = []
+        if bool(self.conf.get(cfg.SCAN_SHARED_ENABLED)):
+            from spark_rapids_tpu_torch.exec import kernel_cache as kc
+            from spark_rapids_tpu_torch.io import scan_share
+            share = scan_share.get_share(
+                int(self.conf.get(cfg.SCAN_SHARED_WINDOW_BYTES)))
+            schema_sig = tuple((f.name, f.dtype.name)
+                               for f in self._schema.fields)
+            pushed_sig = kc.expr_sig(pushed)
+            share_keys = [scan_share.share_key(srcs, pv, schema_sig,
+                                               pushed_sig, backend,
+                                               self.device)
+                          for srcs, pv in groups]
+
         def prepare(path_rgs):
             """Host prep + packed-page upload for one batch (no device
             read: safe on the prefetch thread)."""
@@ -318,25 +349,81 @@ class TpuParquetScanExec(TpuExec):
                 for h in handles.values():
                     h.close()
 
-        # Scan sharing is left out (reference :232-247 and the "lead" and
-        # "join" markers of :295-368): it multicasts a batch across
-        # concurrent queries, and waits for the query scheduler.  Every
-        # prepared batch is the reference's "solo" marker.
-        def _prep(path_rgs):
-            return ("solo", None, prepare(path_rgs))
+        def _prep(idx, path_rgs):
+            """Prepare with a sharing claim: markers are ("solo"/"lead"/
+            "join", entry, prepared).  A joined claim skips the host
+            prep (and so the page walks) entirely."""
+            if share is None or share_keys[idx] is None:
+                return ("solo", None, prepare(path_rgs))
+            role, entry = share.claim(share_keys[idx])
+            if role == "join":
+                return ("join", entry, None)
+            try:
+                return ("lead", entry, prepare(path_rgs))
+            except BaseException as e:
+                share.fail(entry, e)
+                share.release(entry)
+                raise
+
+        def _finish_marker(marker, pv) -> DeviceBatch:
+            """Dispatch one marker's decode that is not a join (the
+            caller holds the device semaphore); a lead marker settles
+            its flight."""
+            kind, entry, prepared = marker
+            if kind == "solo":
+                return finish(prepared, pv)
+            try:
+                out = finish(prepared, pv)
+            except BaseException as e:
+                share.fail(entry, e)
+                share.release(entry)
+                raise
+            share.publish(entry, out)
+            share.release(entry)
+            return out
+
+        def _resolve(marker, idx, path_rgs, pv) -> DeviceBatch:
+            """Marker -> decoded batch.  Takes the semaphore only for
+            real decode work, never while waiting on another query's
+            flight (the leader's decode needs a slot)."""
+            while True:
+                kind, entry, _prepared = marker
+                if kind != "join":
+                    with tpu_semaphore(self.metrics):
+                        return _finish_marker(marker, pv)
+                try:
+                    out = share.wait(entry)
+                finally:
+                    share.release(entry)
+                if out is not None:
+                    # decode skipped: account this exec's output so the
+                    # query profile still shows the rows it consumed
+                    self.metrics.add_rows(int(out.num_rows))
+                    self.metrics.add_batches()
+                    return out
+                # the leader failed or abandoned its flight: decode
+                # locally under a FRESH claim, so a later subscriber
+                # can still share this decode
+                marker = _prep(idx, path_rgs)
 
         def _cleanup(marker) -> None:
-            _kind, _entry, prepared = marker
+            kind, entry, prepared = marker
             if prepared is not None:
                 for h in prepared[1].values():
                     h.close()
+            if kind == "lead":
+                share.fail(entry, RuntimeError("scan flight abandoned"))
+                share.release(entry)
+            elif kind == "join":
+                share.release(entry)
 
         prefetcher = None
         if depth > 0 and len(groups) > 1:
             # bounded look-ahead: host prep + upload of batch k+1
             # overlaps the dispatch-only decode of batch k
             prefetcher = ScanPrefetcher(
-                [(lambda prgs=srcs: _prep(prgs)) for srcs, _pv in groups],
+                [(lambda i=i, prgs=srcs: _prep(i, prgs))
+                 for i, (srcs, _pv) in enumerate(groups)],
                 depth=depth, metrics=self.metrics, cleanup=_cleanup,
                 labels=[_group_label(srcs) for srcs, _pv in groups])
 
@@ -344,14 +431,18 @@ class TpuParquetScanExec(TpuExec):
             from spark_rapids_tpu_torch.exec.context import set_input_file
             try:
                 if prefetcher is not None:
-                    marker = prefetcher.get(idx)
-                    with tpu_semaphore(self.metrics):
-                        out = finish(marker[2], pv)
+                    out = _resolve(prefetcher.get(idx), idx, path_rgs, pv)
                 else:
                     # no pipelining: the whole prep + upload + dispatch
-                    # runs under the semaphore
+                    # runs under the semaphore (a joined claim waits
+                    # OUTSIDE it instead)
+                    out = None
                     with tpu_semaphore(self.metrics):
-                        out = finish(_prep(path_rgs)[2], pv)
+                        marker = _prep(idx, path_rgs)
+                        if marker[0] != "join":
+                            out = _finish_marker(marker, pv)
+                    if out is None:
+                        out = _resolve(marker, idx, path_rgs, pv)
                 paths = {p for p, _ in path_rgs}
                 # set right before the yield so the consumer evaluates
                 # input_file_name() against THIS batch's file

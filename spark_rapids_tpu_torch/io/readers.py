@@ -6,9 +6,10 @@ expansion and Hive partition values), ``infer_schema``,
 planner emits and the overrides convert to ``TpuParquetScanExec`` (or keep
 on the host, as the CPU fallback).  The reader strategies are the
 reference's: PERFILE (one partition per file), COALESCING and
-MULTITHREADED.  Not ported: the shared-scan multicast
-(``io/scan_share.py``), which acts only across concurrent queries and
-waits for the query scheduler.
+MULTITHREADED.  Each file decode goes through ``_read_one``, which
+multicasts it through the shared-scan window (``io/scan_share.py``)
+under ``sql.scan.shared.enabled``: concurrent queries reading the same
+stamped file with the same projection and options share one decode.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import pyarrow.parquet as papq
 from spark_rapids_tpu_torch import config as cfg
 from spark_rapids_tpu_torch.config import RapidsTpuConf
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan
+from spark_rapids_tpu_torch.obs import registry as obsreg
 from spark_rapids_tpu_torch.plan.logical import FileScan, Schema
 
 
@@ -231,6 +233,60 @@ class CpuFileScanExec(PhysicalPlan):
     def schema(self) -> Schema:
         return self._schema
 
+    def _read_one(self, file_index: int) -> pa.Table:
+        """Decode one file, multicast through the shared-scan window
+        when enabled: concurrent queries decoding the same stampable
+        file (same projection/options) share one decode, the host
+        analog of device_scan's fused-scan sharing.  A file that can't
+        be stamped (vanished between plan and decode, non-local path) is
+        never shared and counts ``scan.shared.ineligible.legacy``."""
+        key = self._share_key(file_index)
+        if key is None:
+            return self._decode_one(file_index)
+        from spark_rapids_tpu_torch.io import scan_share
+        share = scan_share.get_share(
+            int(self.conf.get(cfg.SCAN_SHARED_WINDOW_BYTES)))
+        role, entry = share.claim(key)
+        if role == "join":
+            try:
+                t = share.wait(entry)
+            finally:
+                share.release(entry)
+            if t is not None:   # wait() counted the deduped decode
+                return t
+            # the leader failed or was cancelled: decode locally
+            return self._decode_one(file_index)
+        try:
+            t = self._decode_one(file_index)
+        except BaseException as e:
+            share.fail(entry, e)
+            share.release(entry)
+            raise
+        share.publish(entry, t)
+        share.release(entry)
+        return t
+
+    def _share_key(self, file_index: int):
+        """Content identity of one host-scan file decode, or None when
+        sharing is off or the file can't be stamped."""
+        if not bool(self.conf.get(cfg.SCAN_SHARED_ENABLED)):
+            return None
+        from spark_rapids_tpu_torch.io import scan_cache as sc
+        path = self.scan.paths[file_index]
+        stamp = sc.file_key(path)
+        if stamp is None:
+            obsreg.get_registry().inc("scan.shared.ineligible.legacy")
+            return None
+        pv_list = self.scan.options.get("part_values") or []
+        pv = pv_list[file_index] if file_index < len(pv_list) else {}
+        opts = {k: v for k, v in self.scan.options.items()
+                if k not in ("part_values",)}
+        return ("cpu", stamp, self.scan.fmt,
+                tuple(self.columns or ()),
+                tuple(sorted((str(k), str(v)) for k, v in pv.items())),
+                repr(sorted(opts.items(), key=lambda kv: str(kv[0]))),
+                repr(self._schema))
+
     def _decode_one(self, file_index: int) -> pa.Table:
         path = self.scan.paths[file_index]
         fmt = self.scan.fmt
@@ -295,7 +351,7 @@ class CpuFileScanExec(PhysicalPlan):
                 pending: List[pa.Table] = []
                 pending_rows = 0
                 for i in indices:
-                    t = self._decode_one(i)
+                    t = self._read_one(i)
                     pending.append(t)
                     pending_rows += t.num_rows
                     if pending_rows >= self.max_rows:
@@ -311,7 +367,7 @@ class CpuFileScanExec(PhysicalPlan):
             from spark_rapids_tpu_torch.exec.context import set_input_file
             path = self.scan.paths[i]
             try:
-                for b in self._batches(self._decode_one(i)):
+                for b in self._batches(self._read_one(i)):
                     # set right before the yield so the consumer
                     # evaluates input_file_name() against THIS batch's
                     # file even when two scans are drained interleaved

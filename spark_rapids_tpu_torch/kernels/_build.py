@@ -8,7 +8,9 @@ compiler's output: there is no fallback.
 Each thread counts the builds it ran and the libraries it opened that an
 earlier process built (:func:`thread_counts`); the compile observatory
 (obs/compile.py) reads the pair around a kernel's first call to tell a
-fresh build from a reload.
+fresh build from a reload.  :func:`warm` is the precompile service's
+(sched/precompile.py) build-or-reopen of one library ahead of its first
+use.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ compiler_output: Dict[str, str] = {}
 # per thread: [nvcc builds run, libraries opened that this process did
 # not build]
 _tls = threading.local()
+# libraries the precompile service made ready (sched/precompile.py)
+_warmed: set = set()
 
 
 def _thread_tally() -> List[int]:
@@ -114,3 +118,22 @@ def load(name: str) -> ctypes.CDLL:
             if name not in compiler_output:
                 _thread_tally()[1] += 1
     return lib
+
+
+def warm(name: str) -> str:
+    """Make ``csrc/<name>.cu``'s library ready ahead of its first use:
+    the precompile service's replay step.  Returns ``fresh`` when this
+    call ran ``nvcc`` (the library is written to the build directory),
+    else ``persistent`` (an earlier process built it, or this process
+    already had it open).  The library then counts as warmed for the
+    compile observatory's tier (obs/compile.classify_tier)."""
+    builds = _thread_tally()[0]
+    load(name)
+    _warmed.add(name)
+    return "fresh" if _thread_tally()[0] > builds else "persistent"
+
+
+def warmed() -> frozenset:
+    """Names of the libraries :func:`warm` made ready in this process."""
+    return frozenset(_warmed)
+

@@ -17,13 +17,15 @@ with its reason by :func:`choose` exactly where the reference falls back
 to XLA (for example a 2-D string payload in the segmented reduction).
 Every kernel launch is counted by name.  Both counters are plain ints
 behind one lock (partitions may drain on several threads), so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels.  A thread may also
+capture the names it launches (:func:`capture_begin`): the compile
+observatory names the kernel libraries a program's step loads that way.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Set
 
 XLA = "xla"
 PALLAS = "pallas"
@@ -34,6 +36,9 @@ _default_backend = PALLAS
 launches: Dict[str, int] = {}
 # "family.reason" -> call sites that took the plain composition
 fallbacks: Dict[str, int] = {}
+# per thread: the set of kernel names launched inside an open capture
+# (capture_begin / capture_end), None when no capture is open
+_tls = threading.local()
 
 
 def configure(conf) -> None:
@@ -95,6 +100,28 @@ def choose(family: str, supported: bool, reason: str = "unsupported"
 def record_launch(name: str) -> None:
     with _lock:
         launches[name] = launches.get(name, 0) + 1
+    names = getattr(_tls, "names", None)
+    if names is not None:
+        names.add(name)
+
+
+def capture_begin() -> Optional[Set[str]]:
+    """Start collecting the kernels this thread launches; pass the
+    result to :func:`capture_end`.  Captures nest: an inner capture's
+    launches also count in the enclosing one."""
+    prev = getattr(_tls, "names", None)
+    _tls.names = set()
+    return prev
+
+
+def capture_end(prev: Optional[Set[str]]) -> Set[str]:
+    """The kernel names launched on this thread since the matching
+    :func:`capture_begin` (``<library>.<kernel>``)."""
+    names = _tls.names
+    _tls.names = prev
+    if prev is not None:
+        prev |= names
+    return names
 
 
 def record_fallback(family: str, reason: str) -> None:

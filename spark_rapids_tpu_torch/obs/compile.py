@@ -19,7 +19,10 @@ monitoring events the same way, per thread):
 
   * ``fresh`` when ``build()`` ran ``nvcc`` inside the window;
   * ``persistent`` when ``load()`` opened a library that an earlier
-    process built;
+    process built, or when every library the step launched was made
+    ready by the precompile service (``kernels/_build.warm``) before the
+    call: the serving path pays no build, as the reference's first call
+    after a replay reads the persistent XLA cache;
   * otherwise ``fresh``, the reference's conservative reading.
 
 Events land in a bounded ring plus process-lifetime aggregates:
@@ -32,10 +35,18 @@ the profile's "compile" section and ``compile_s``, flight-recorder
 ``compile.storm`` events when one query records more than
 ``obs.compile.stormThreshold`` programs (once per query), and the
 precompile corpus (``obs.compile.corpusPath``: one JSONL record per
-distinct plan digest).  A corpus program carries no replay payload
-(the reference's jax lowering payload has no counterpart until the
-precompile service is ported); until ``plan/digest.py`` is ported no
-query has a digest, so no corpus record is written.
+distinct plan digest).
+
+The replay payload of a corpus program (``obs.compile.corpusReplay``,
+default on) is the port's reading of the reference's pickled jax
+traceable: the port's persistent compile cache is the ``build/``
+directory of ``kernels/_build.py``, so the payload is a JSON string
+naming the ``csrc`` libraries the program's step launched kernels from,
+with the program's key and signature
+(``exec/kernel_cache._replay_payload``).  A program that launched no
+kernel (every step on the CPU, and the steps without a hand kernel on
+the card) carries ``null``; the precompile service counts it as
+``skipped``.
 
 Disabled path (``obs.compile.enabled=false``): the get_kernel wrapper
 is not installed on kernels built while it is off, and
@@ -75,6 +86,7 @@ TIER_PERSISTENT = "persistent"
 _enabled = True                       # obs.compile.enabled default
 _storm_threshold = DEFAULT_STORM_THRESHOLD
 _corpus_path = ""
+_corpus_replay = True                 # obs.compile.corpusReplay default
 
 _LOCK = threading.Lock()
 _ring: deque = deque(maxlen=DEFAULT_RING_EVENTS)
@@ -99,11 +111,13 @@ _corpus_lock = threading.Lock()
 def configure(enabled: bool,
               ring_events: int = DEFAULT_RING_EVENTS,
               storm_threshold: int = DEFAULT_STORM_THRESHOLD,
-              corpus_path: str = "") -> None:
+              corpus_path: str = "",
+              corpus_replay: bool = True) -> None:
     """Session-init hook (``obs.compile.*`` knobs; last session wins).
     Resizing the ring preserves its newest events; process-lifetime
     aggregates are never reset by reconfiguration."""
-    global _enabled, _storm_threshold, _corpus_path, _ring
+    global _enabled, _storm_threshold, _corpus_path, _ring, \
+        _corpus_replay
     with _LOCK:
         ring_events = max(16, int(ring_events))
         if ring_events != (_ring.maxlen or 0):
@@ -111,6 +125,11 @@ def configure(enabled: bool,
         _enabled = bool(enabled)
         _storm_threshold = max(1, int(storm_threshold))
         _corpus_path = str(corpus_path or "")
+        _corpus_replay = bool(corpus_replay)
+
+
+def corpus_replay_enabled() -> bool:
+    return _corpus_replay
 
 
 def is_enabled() -> bool:
@@ -148,18 +167,22 @@ def probe_begin() -> Tuple[int, int]:
     return _build.thread_counts()
 
 
-def classify_tier(probe: Tuple[int, int]) -> str:
+def classify_tier(probe: Tuple[int, int],
+                  libraries: Sequence[str] = ()) -> str:
     """``fresh`` when ``nvcc`` ran in the window, ``persistent`` when the
-    window only opened libraries an earlier process built.  A window
-    with neither (every library already loaded, or no CUDA kernel on
-    the path) reports ``fresh``: the reference's conservative
-    reading."""
+    window only opened libraries an earlier process built, or when the
+    step launched kernels (from ``libraries``) whose libraries the
+    precompile service had all made ready.  Any other window (every
+    library already loaded, or no CUDA kernel on the path) reports
+    ``fresh``: the reference's conservative reading."""
     from spark_rapids_tpu_torch.kernels import _build
     f0, p0 = probe
     f1, p1 = _build.thread_counts()
     if f1 - f0 > 0:
         return TIER_FRESH
     if p1 - p0 > 0:
+        return TIER_PERSISTENT
+    if libraries and set(libraries) <= _build.warmed():
         return TIER_PERSISTENT
     return TIER_FRESH
 
@@ -354,8 +377,8 @@ def record_compile(key: Any, family: str, backend: str,
                    tier: str, replay: Optional[str] = None) -> None:
     """Record one CompileEvent (called by the kernel-cache observe
     wrapper on the first call of each (key, shape) program).
-    ``replay`` is the reference's AOT replay payload, which rides the
-    program's corpus record only; the port passes None."""
+    ``replay`` is the program's replay payload (see the module
+    docstring), which rides the program's corpus record only."""
     if not _enabled:
         return
     global _seq
@@ -410,8 +433,7 @@ def record_compile(key: Any, family: str, backend: str,
                 q["compiled"] += 1
             q["wall_ns"] += int(dur_ns)
             if len(q["programs"]) < _MAX_PROGRAMS_PER_QUERY:
-                # replay stays None in the port (no precompile
-                # service yet): the record says so as null
+                # a program without a payload says so as null
                 prog = {"family": family, "key": key_repr,
                         "signature": sig, "backend": backend,
                         "replay": replay}

@@ -31,15 +31,17 @@ HostToDevice transition).  The file-scan rule is the reference's
 their ``deviceDecode.enabled`` kill switches, as does a CSV scan with
 Hive partition columns.
 
-The shuffled-join rule stamps the grace-join budget on the join
-(``_oocore``, exec/join_partition.resolve_oocore; None under
-``sql.join.oocore.enabled=false`` or ``buildSideBudgetBytes=-1``).  The
-reference's rule also wraps the join's exchanges in adaptive readers
-(``exec/adaptive.py``, ``sql.adaptive.enabled``); the port has no such
-module yet: it builds the join over the bare exchanges, the reference's
-plan with that key false, and accepts the key unread.  The port's
-planner never builds the reference's plain ``CpuJoinExec``, so it has no
-rule for one.
+The shuffled-join rule wraps the join's two exchanges in coordinated
+adaptive readers (``exec/adaptive.wrap_join_children``:
+``TpuAdaptiveJoinReaderExec`` under ``sql.adaptive.enabled``, on by
+default, or ``TpuSkewJoinReaderExec`` under ``sql.join.skew.enabled``),
+as the reference's does; a user's ``repartition`` stays a bare exchange.
+It also stamps the grace-join budget on the join (``_oocore``,
+exec/join_partition.resolve_oocore; None under
+``sql.join.oocore.enabled=false`` or ``buildSideBudgetBytes=-1``), so
+the skew split composes with the grace join.  The port's planner never
+builds the reference's plain ``CpuJoinExec``, so it has no rule for
+one.
 """
 
 from __future__ import annotations
@@ -376,9 +378,13 @@ def _register_join_strategy_rules():
         TpuCartesianProductExec, TpuShuffledHashJoinExec)
 
     def _convert_shuffled_join(n, ch, conf, device):
+        # AQE analog: both exchange children share one coordinated spec
+        # list (coalesce + skew split) so co-partitioning survives
+        from spark_rapids_tpu_torch.exec.adaptive import wrap_join_children
         from spark_rapids_tpu_torch.exec.join_partition import \
             resolve_oocore
-        j = TpuShuffledHashJoinExec(ch[0], ch[1], n.left_keys,
+        left, right = wrap_join_children(ch[0], ch[1], n.how, conf)
+        j = TpuShuffledHashJoinExec(left, right, n.left_keys,
                                     n.right_keys, n.how, n.condition,
                                     n.schema)
         # the out-of-core budget is resolved at conversion time (None:

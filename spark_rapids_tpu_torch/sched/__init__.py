@@ -1,8 +1,7 @@
 """Concurrent query scheduler: async submission, memory-aware
 admission control, cooperative cancellation.
 
-The port's copy of ``spark_rapids_tpu/sched/__init__.py`` (precompile is
-not ported yet).
+The port's copy of ``spark_rapids_tpu/sched/__init__.py``.
 
 Layers (each its own module):
 
@@ -17,6 +16,8 @@ Layers (each its own module):
 * :mod:`~spark_rapids_tpu_torch.sched.service` — per-session
   :class:`QueryService`: ``submit() -> QueryFuture``, deadlines,
   profile attachment; ``DataFrame.collect()`` == ``submit().result()``.
+* :mod:`~spark_rapids_tpu_torch.sched.precompile` — the background
+  replay of the compile corpus (``sched.precompile.enabled``).
 """
 
 from spark_rapids_tpu_torch.sched.admission import (  # noqa

@@ -25,8 +25,13 @@ first; one host read per map batch fetches its per-partition counts
 ``NotImplementedError`` naming the reference module that serves them:
 ``manager`` (``shuffle/manager.py``), ``process``
 (``shuffle/executor_proc.py``) and ``ici``/``ici_ring``
-(``shuffle/ici.py``); so does the adaptive skew read
-(``exec/adaptive.py``).
+(``shuffle/ici.py``).
+
+``skew_map_side`` (reference :765) runs the same map side without the
+reduce concat for the skew join reader of ``exec/adaptive.py``: blocks
+stay per (map, reduce bucket) and each map's per-bucket sizes aggregate
+at a ``_MapOutputTracker`` as the map completes.  Each bucket's total
+lands in the ``shuffle.exchange.bucketBytes`` histogram.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import functools
 import itertools
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -283,6 +288,79 @@ class ShuffleBlockStore:
 
 
 # ---------------------------------------------------------------------------
+# Map-output tracking for the skew join (reference :283-483)
+# ---------------------------------------------------------------------------
+
+class _MapOutputTracker:
+    """Per-reduce-bucket byte totals of one exchange's map side, summed
+    as each map task completes (the MapOutputStatistics role): what the
+    skew join reader consults before any reducer fetches.  The
+    reference's tracker also keeps the per-map completion book that its
+    pipelined ``process`` transport's readers wait on; the port has no
+    such transport (ROADMAP Queue A), so nothing here waits."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._bucket_bytes: Optional[List[int]] = None
+
+    def record_sizes(self, map_id: int, sizes: Sequence[int]) -> None:
+        """Aggregate one map task's per-reduce-bucket output sizes."""
+        with self._lock:
+            if self._bucket_bytes is None:
+                self._bucket_bytes = [0] * len(sizes)
+            for i, s in enumerate(sizes):
+                self._bucket_bytes[i] += int(s)
+
+    def bucket_totals(self) -> Optional[List[int]]:
+        """Aggregated per-reduce-bucket bytes across all completed maps
+        (None until the first map reports)."""
+        with self._lock:
+            return None if self._bucket_bytes is None \
+                else list(self._bucket_bytes)
+
+
+# per-exchange reduce-bucket size distribution (bytes): byte-scaled
+# bounds, not the registry's default ms bounds
+_BUCKET_BYTE_BOUNDS = (1 << 10, 16 << 10, 64 << 10, 256 << 10, 1 << 20,
+                       4 << 20, 16 << 20, 64 << 20, 256 << 20)
+
+class SkewMapOutput:
+    """Map output held back at per-(map, reduce-bucket) granularity.
+
+    The default reduce path concatenates every bucket before the join
+    sees it; this keeps blocks separate so a hot bucket can be
+    re-planned (split / replicated) BEFORE the reduce concat.
+    ``totals`` / ``row_counts`` come from the tracker's aggregation, not
+    a second pass over the blocks."""
+
+    def __init__(self, exchange: "TpuShuffleExchangeExec", host: bool,
+                 store: Optional["ShuffleBlockStore"],
+                 dev: Optional[List[List[DeviceBatch]]],
+                 totals: List[int], row_counts: List[int], device=None):
+        self.exchange = exchange
+        self.host = host
+        self.store = store
+        self.dev = dev
+        self.totals = totals
+        self.row_counts = row_counts
+        self.device = device
+
+    def fetch(self, pidx: int) -> List[DeviceBatch]:
+        """All of reduce bucket ``pidx`` as device batches (one uploaded
+        batch for the host plane, the raw slices for the device plane)."""
+        ex = self.exchange
+        if self.host:
+            tables = [t for t in self.store.fetch(pidx) if t.num_rows]
+            if not tables:
+                return []
+            t = concat_tables(tables, ex.schema)
+            with timed(ex.metrics, "exchange.upload"):
+                return [from_arrow(t, ex.min_bucket, device=self.device,
+                                   copy_stream=ex.copy_stream)]
+        return [s for s in self.dev[pidx] if int(s.num_rows)]
+
+
+# ---------------------------------------------------------------------------
 # Host exchange
 # ---------------------------------------------------------------------------
 
@@ -427,6 +505,12 @@ class TpuShuffleExchangeExec(TpuExec):
         self.copy_stream = None
         # this exec's kernel-cache steps by key (one lookup per key)
         self._kernels: Dict[Any, Any] = {}
+        # the skew join's held-back map output (skew_map_side), once run,
+        # under this exec's own lock: the reference's module-wide lock
+        # is held while the map side drains its child, so a skew join
+        # below this exchange would wait on it forever
+        self._skew_out: Optional[SkewMapOutput] = None
+        self._skew_lock = threading.Lock()
 
     @property
     def schema(self) -> Schema:
@@ -508,10 +592,60 @@ class TpuShuffleExchangeExec(TpuExec):
         for it in self.children[0].execute():
             yield from it
 
-    def skew_map_side(self):
-        """The adaptive skew join's per-(map, reducer) map output."""
-        raise _not_ported("the adaptive skew join's map output",
-                          "exec/adaptive.py")
+    def skew_map_side(self) -> SkewMapOutput:
+        """Run this exchange's map side WITHOUT the reduce-side concat:
+        the same partition/slice pipeline as :meth:`execute`, but blocks
+        stay per (map, reduce bucket) and every map's per-bucket sizes
+        aggregate at a map-output tracker as it completes.  The skew
+        join reader consults the totals to split hot buckets before any
+        reduce fetch.  Runs on the in-process planes ('local',
+        'device')."""
+        with self._skew_lock:
+            if self._skew_out is not None:
+                return self._skew_out
+            n_parts = self.partitioning.num_partitions
+            host = self.transport == "local"
+            store = ShuffleBlockStore(self.codec_name) if host else None
+            dev: List[List[DeviceBatch]] = [[] for _ in range(n_parts)]
+            tracker = _MapOutputTracker()
+            rows = [0] * n_parts
+            rows_seen = 0
+            device = None
+            for m, batch in enumerate(self._input_batches()):
+                _cancel.check_current()  # per-batch map-side checkpoint
+                device = batch.device
+                reordered, counts = self._partition_one(batch, rows_seen)
+                rows_seen += sum(counts)
+                offs = np.concatenate([[0], np.cumsum(counts)[:-1]])
+                parts = [(p, self._slice(reordered, int(offs[p]), c))
+                         for p, c in enumerate(counts) if c]
+                sizes = [0] * n_parts
+                if host:
+                    tables = to_arrow_all([s for _, s in parts],
+                                          self.copy_stream)
+                    for (pidx, _), t in zip(parts, tables):
+                        store.put(m, pidx, t)
+                        sizes[pidx] = int(t.nbytes)
+                else:
+                    for pidx, s in parts:
+                        dev[pidx].append(s)
+                        # occupancy-scaled: bucket padding must not
+                        # mask (or fake) a size skew
+                        sizes[pidx] = int(s.nbytes() * (
+                            counts[pidx] / max(int(s.capacity), 1)))
+                for pidx, c in enumerate(counts):
+                    rows[pidx] += c
+                tracker.record_sizes(m, sizes)
+            totals = tracker.bucket_totals() or [0] * n_parts
+            reg = obsreg.get_registry()
+            for tb in totals:
+                reg.observe_bucket("shuffle.exchange.bucketBytes",
+                                   float(tb), bounds=_BUCKET_BYTE_BOUNDS)
+            if store is not None:
+                self.metrics.extra["bytes_written"] = store.bytes_written
+            self._skew_out = SkewMapOutput(self, host, store, dev, totals,
+                                           rows, device)
+            return self._skew_out
 
     def execute(self):
         module = UNPORTED_TRANSPORTS.get(self.transport)

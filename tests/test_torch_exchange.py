@@ -10,9 +10,9 @@ outer cases of ``tests/test_joins.py`` run on a port session
 and on a reference session: each partition's rows and their order for
 the repartitions, the joins row for row (and route for route where the
 reference's rule decides one).  ``sql.adaptive.enabled`` is false on
-both sessions wherever partitions or row order are compared: the port
-has no adaptive reader, and the reference's would regroup the tiny
-partitions (``tests/test_exchange.py`` sets it so too).
+both sessions wherever partitions or row order are compared, as
+``tests/test_exchange.py`` sets it; the shuffled joins also run at the
+default, where both packages' adaptive readers regroup the partitions.
 """
 
 import threading
@@ -484,6 +484,28 @@ def test_shuffled_join_parity(how, transport):
         assert troutes == jroutes
 
 
+@pytest.mark.parametrize("transport", TRANSPORTS)
+@pytest.mark.parametrize("how", ["inner", "left", "full", "semi"])
+def test_shuffled_join_parity_at_default_adaptive(how, transport):
+    """No adaptive key: both packages wrap the join's two exchanges in
+    adaptive readers; the rows equal the reference's and so do the
+    routes (full outer takes the sort route)."""
+    def q(s, api):
+        left, right = _join_sides(s, api)
+        return left.join(right, on="k", how=how)
+    conf = {k: v for k, v in _conf(NO_BCAST, transport).items()
+            if k != "spark.rapids.tpu.sql.adaptive.enabled"}
+    ref, jroutes = _ref_rows_and_routes(q, conf)
+    got, troutes, names = _port_rows_and_routes(q, conf)
+    assert names.count("TpuAdaptiveJoinReaderExec") == 2, names
+    assert names.count("TpuShuffleExchangeExec") == 2, names
+    assert_tables_equal(ref, got, ignore_order=True)
+    if how == "full":
+        assert set(troutes) == {"sort"}, troutes
+    else:
+        assert sorted(troutes) == sorted(jroutes)
+
+
 @pytest.mark.parametrize("how", ["inner", "left", "full", "anti"])
 def test_shuffled_join_over_string_keys(how):
     def q(s, api):
@@ -635,13 +657,38 @@ def test_unported_transport_raises_naming_its_module(transport, module):
         df.collect()
 
 
-def test_skew_map_side_raises_naming_adaptive():
-    s = TSession(SHUF, device="cpu")
-    df = s.create_dataframe(pa.table({"k": [1, 2, 3]})).repartition(2, "k")
-    (ex,) = [n for n in _nodes(s, df)
-             if isinstance(n, tex.TpuShuffleExchangeExec)]
-    with pytest.raises(NotImplementedError, match="exec/adaptive.py"):
-        ex.skew_map_side()
+@pytest.mark.parametrize("transport", TRANSPORTS)
+def test_skew_map_side_raises_naming_adaptive(transport):
+    """``skew_map_side`` once raised naming exec/adaptive.py; it is
+    ported now.  The held-back map output of a hash exchange has the
+    reference's per-bucket row counts (and, on the host plane, its
+    per-bucket Arrow bytes), each bucket's rows, and one
+    ``shuffle.exchange.bucketBytes`` observation per bucket."""
+    rng = np.random.default_rng(11)
+    t = pa.table({"k": rng.integers(0, 9, 300), "v": rng.normal(size=300)})
+    conf = _conf(SHUF, transport)
+    outs = {}
+    for side, S, kw, cls in (("ref", JSession, {}, jex),
+                             ("port", TSession, {"device": "cpu"}, tex)):
+        s = S(conf, **kw)
+        df = s.create_dataframe(t, num_partitions=3).repartition(4, "k")
+        (ex,) = [n for n in _nodes(s, df)
+                 if isinstance(n, cls.TpuShuffleExchangeExec)]
+        out = ex.skew_map_side()
+        assert ex.skew_map_side() is out
+        rows = [sum(int(b.num_rows) for b in out.fetch(p))
+                for p in range(4)]
+        outs[side] = out, rows
+    (ref, ref_rows), (port, port_rows) = outs["ref"], outs["port"]
+    assert port.row_counts == ref.row_counts == port_rows == ref_rows
+    assert sum(port.row_counts) == 300
+    assert all((tb > 0) == (r > 0)
+               for tb, r in zip(port.totals, port.row_counts))
+    if transport == "local":
+        assert port.totals == ref.totals
+    hist = obsreg.get_registry().snapshot()["bucket_histograms"][
+        "shuffle.exchange.bucketBytes"]
+    assert hist["count"] >= 4
 
 
 # ---------------------------------------------------------------------------

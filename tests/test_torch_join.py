@@ -107,7 +107,7 @@ def test_join_parity(how, hinted):
 
 
 # the shuffled joins' partitions and row order are compared with the
-# reference's, whose adaptive reader (not ported) would regroup them
+# reference's with the adaptive readers off (they regroup partitions)
 NO_ADAPTIVE = {"spark.rapids.tpu.sql.adaptive.enabled": False}
 
 
@@ -140,6 +140,28 @@ def test_shuffled_join_raises_naming_the_exchange():
     plan = q(ts, api).explain_string("physical")
     assert "TpuShuffledHashJoinExec" in plan, plan
     assert_port_matches(q, conf, route="probe")
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "full"])
+def test_shuffled_join_at_default_adaptive(how):
+    """With broadcasts off and no adaptive key, both packages read the
+    join's exchanges through the adaptive readers, which regroup the
+    partitions the same way; the rows and the routes equal the
+    reference's."""
+    def q(s, api):
+        left, right = _sides(s, api, True)
+        return left.join(right, on="k", how=how)
+    conf = {"spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1}
+    (js, japi), (ts, tapi_) = _sessions(conf)
+    plan = q(ts, tapi_).explain_string("physical")
+    assert plan.count("TpuAdaptiveJoinReaderExec") == 2, plan
+    ref, jroutes = _ref_run(q, js, japi)
+    got, troutes = _port_run(q, ts, tapi_)
+    assert_tables_equal(ref, got, ignore_order=True)
+    if how == "full":
+        assert set(troutes) == {"sort"}, troutes
+    else:
+        assert troutes == jroutes
 
 
 @pytest.mark.parametrize("hinted", [True, False], ids=["probe", "sort"])

@@ -221,6 +221,34 @@ def family_counts(tmp_path_factory):
     return out
 
 
+def test_family_counts_equal_reference_at_default_adaptive():
+    """A shuffled join with no adaptive key: both packages read its
+    exchanges through the adaptive readers, and each family's misses and
+    dispatches (the exchange's ``exch_*`` steps and the readers'
+    ``exch_slice``) equal the reference's."""
+    t, dim = _table(), _dim()
+    conf = dict(CONF, **{"spark.rapids.tpu.kernel.backend": "xla",
+                         "spark.rapids.tpu.sql.concurrentTpuTasks": 1,
+                         "spark.rapids.tpu.sql.autoBroadcastJoinThreshold":
+                             -1})
+    out = {}
+    for side, (Session, col, F, kc, reg) in SIDES.items():
+        s = Session(conf, **({"device": "cpu"} if side == "port" else {}))
+        df = _join(s, col, F, t, dim)
+        names = [type(n).__name__
+                 for n in _nodes(s._plan_physical(df.plan).plan)]
+        assert names.count("TpuAdaptiveJoinReaderExec") == 2, (side, names)
+        kc.clear()
+        view = reg.get_registry().view()
+        rows = df.collect()
+        d = view.delta()["counters"]
+        out[side] = ({k: v for k, v in d.items()
+                      if k.startswith(COUNT_PREFIXES)}, rows)
+    assert_tables_equal(out["ref"][1], out["port"][1], ignore_order=True)
+    assert out["port"][0] == out["ref"][0]
+    assert out["port"][0].get("kernel.dispatches.exch_apply", 0) >= 2
+
+
 def _family_of(counter: str) -> str:
     return counter.split(".")[3 if counter.startswith("kernel.cache")
                               else 2]

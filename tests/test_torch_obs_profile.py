@@ -93,7 +93,15 @@ def root(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def runs(root):
-    """side -> (result, profile, explain_string('profile'))."""
+    """side -> (result, profile, explain_string('profile')).
+
+    Both registries start empty: a view's delta carries every gauge the
+    process holds at its current value, so a gauge an earlier file on
+    this worker left in one package's registry (``test.hwm`` of
+    tests/test_observability.py, say) would be a profile section on
+    that side only."""
+    jreg.reset_registry()
+    treg.reset_registry()
     out = {}
     for side in SIDES:
         s = _session(side)

@@ -150,6 +150,22 @@ def test_unported_exec_raises_naming_its_module(roots):
     assert_tables_equal(outs["ref"], outs["port"])
 
 
+def test_two_stage_aggregate_at_default_adaptive(roots):
+    """The two-stage aggregate's hash exchange is not a join exchange:
+    with adaptive reads on (the default) it stays bare in both packages,
+    node for node, and gives the reference's rows."""
+    conf = dict(CONF, **{"spark.rapids.tpu.sql.agg.exchange.enabled": True})
+    names, outs = {}, {}
+    for side, (_, col, F, W, _lp, _p) in SIDES.items():
+        s = session(side, conf)
+        agg = _count_star(s, col, F, W, *roots)
+        names[side] = [type(n).__name__ for n in _nodes(s, agg)]
+        outs[side] = agg.collect()
+    assert names["port"] == names["ref"]
+    assert "TpuAdaptiveJoinReaderExec" not in names["port"]
+    assert_tables_equal(outs["ref"], outs["port"])
+
+
 def _nodes(s, df):
     out = []
     s._plan_physical(df.plan).plan.foreach(out.append)

@@ -179,6 +179,12 @@ class _Spiller:
 
 def test_handle_memory_pressure_reaches_a_registered_spiller():
     obsreg.reset_registry()
+    # the process-wide shared-scan window is a registered spiller too
+    # (io/scan_share.py): empty, it frees nothing and the pressure
+    # reaches this test's spiller
+    from spark_rapids_tpu_torch.io import scan_share
+    if scan_share.peek_share() is not None:
+        scan_share.peek_share().clear()
     cat = spill.init_catalog(1 << 30, 1 << 30, device="cpu")
     _, b = _batch(100)
     h = cat.register(b)

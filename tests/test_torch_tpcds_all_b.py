@@ -1,7 +1,8 @@
 """The second half of the TPC-DS queries no other port module runs, each
 against the reference's CPU session at SF 0.002 (``tests/tpcds_parity.py``
 says how), and q97's plan: the full outer join of its two channels is a
-shuffled hash join over two exchanges."""
+shuffled hash join over two exchanges, each read through the adaptive
+reader (``sql.adaptive.enabled``, on by default in both packages)."""
 
 import pytest
 
@@ -26,6 +27,8 @@ def test_q97_plans_a_full_shuffled_join(port_tables):
                "TpuShuffledHashJoinExec"]
     assert join.how == "full"
     assert [type(c).__name__ for c in join.children] == \
+        ["TpuAdaptiveJoinReaderExec"] * 2
+    assert [type(c.children[0]).__name__ for c in join.children] == \
         ["TpuShuffleExchangeExec"] * 2
     assert not [n for n in names if n.startswith("Cpu") and
                 n not in ("CpuScanExec", "CpuFileScanExec")], names

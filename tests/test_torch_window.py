@@ -368,6 +368,20 @@ def test_partitionwise_window_raises_naming_exchange(conf):
     assert no_partition_window(s, *PORT).collect().num_rows == 100
 
 
+def test_partitionwise_window_at_default_adaptive():
+    """``window.exchange.enabled`` with adaptive reads on in both
+    packages (the default): the window's exchange is no join exchange,
+    so neither wraps it, and the rows equal the reference's."""
+    conf = dict(CONF, **{"spark.rapids.tpu.sql.window.exchange.enabled":
+                         True})
+    df = row_number_rank(TSession(conf, device="cpu"), *PORT)
+    plan = df.explain_string("physical")
+    assert "TpuShuffleExchangeExec" in plan
+    assert "TpuAdaptiveJoinReaderExec" not in plan
+    ref = row_number_rank(JSession(conf), *REF).collect()
+    assert_tables_equal(ref, df.collect())
+
+
 # -- the sort-space helpers against the reference's, on the same arrays --
 
 def _flags(rng, n, density, huge_tail=0):
